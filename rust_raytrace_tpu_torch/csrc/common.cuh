@@ -1,0 +1,252 @@
+// Device functions shared by the port's kernels: the packed-triangle hit
+// predicate (the JAX package's ops/intersect_pallas.py:packed_hit_predicate),
+// the ray/page slab test (ops/cull_pallas.py:_slab_rows and
+// ops/intersect_perlane.py:_slab), and one wave of shading with its scatter
+// hash (ops/shade.py:_shade_state_rows, scatter_rv, _unit3).
+//
+// Every expression keeps the association order of the plain torch versions
+// (rust_raytrace_tpu_torch/ops/*.py).  The library is compiled with
+// -fmad=false --prec-div=true --prec-sqrt=true, so each * + - / sqrt rounds
+// once, as a torch elementwise op does; multiply-adds are fused only by the
+// explicit fmaf calls below, at the places where XLA fuses them when it
+// compiles the JAX package (ROADMAP C2) and the plain versions call
+// ops.shade.fma.  A kernel thus agrees with its plain version on the card.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+
+// packed page lanes (rust_raytrace_tpu/ops/pages.py)
+constexpr int LANE_N = 0;
+constexpr int LANE_S0 = 3;
+constexpr int LANE_S1 = 6;
+constexpr int LANE_S2 = 9;
+constexpr int LANE_NC = 12;
+constexpr int LANE_S0C = 13;
+constexpr int LANE_S1C = 14;
+constexpr int LANE_S2C = 15;
+constexpr int LANE_ID = 16;
+constexpr int LANE_ET = 17;
+constexpr int LANE_KIND = 18;
+constexpr int LANE_COLOR = 19;
+constexpr int LANE_ALPHA = 22;
+constexpr int LANE_SCAT = 23;
+constexpr int PACK_LANES = 128;
+constexpr int USED_LANES = 24;     // lanes 24..127 of a page are zero
+
+// ray state rows (rust_raytrace_tpu_torch/ops/state.py)
+constexpr int ROW_W = 6;
+constexpr int ROW_ALIVE = 7;
+constexpr int ROW_ACC = 8;
+constexpr int ROW_DEAD = 11;
+constexpr int STATE_ROWS = 16;
+
+constexpr float BIG = 1e30f;       // slab reciprocal for a zero direction
+constexpr float KIND_MATTE = 1.0f;
+constexpr float KIND_REFLECTIVE = 2.0f;
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// Reciprocal direction for slab tests: +-BIG where a component is zero.
+__device__ __forceinline__ float slab_inv(float d) {
+  return d != 0.0f ? 1.0f / d : (d >= 0.0f ? BIG : -BIG);
+}
+
+// Slab interval of one AABB for one ray: t1/t2 per axis, min/max folded
+// across axes in x, y, z order.
+__device__ __forceinline__ void slab(const float lo[3], const float hi[3],
+                                     const float o[3], const float inv[3],
+                                     float& tlo, float& thi) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float t1 = (lo[k] - o[k]) * inv[k];
+    float t2 = (hi[k] - o[k]) * inv[k];
+    float alo = fminf(t1, t2);
+    float ahi = fmaxf(t1, t2);
+    tlo = k == 0 ? alo : fmaxf(tlo, alo);
+    thi = k == 0 ? ahi : fminf(thi, ahi);
+  }
+}
+
+struct HitTerms {
+  float t;
+  float md_n;
+  float dv0, dv1, dv2;
+  bool ok;
+};
+
+// XLA's contraction of a*x + b*y + c*z: fma(c, z, fma(a, x, b*y)).
+template <class Col>
+__device__ __forceinline__ float dot3(const Col& col, int f, float r0,
+                                      float r1, float r2) {
+  return fmaf(col(f + 2), r2, fmaf(col(f), r0, col(f + 1) * r1));
+}
+
+// B0a: plane hit t = (n.c - n.o)/(n.d) and the three incenter half-plane
+// distances dv_k <= 1 of one packed triangle.  ZERO_ORIGIN: the caller folded
+// the o-dot terms into the NC/S*C lanes (fold_pages_origin).
+template <bool ZERO_ORIGIN, class Col>
+__device__ __forceinline__ HitTerms hit_predicate(const Col& col,
+                                                  const float o[3],
+                                                  const float d[3]) {
+  HitTerms h;
+  h.md_n = dot3(col, LANE_N, d[0], d[1], d[2]);
+  float sd0 = dot3(col, LANE_S0, d[0], d[1], d[2]);
+  float sd1 = dot3(col, LANE_S1, d[0], d[1], d[2]);
+  float sd2 = dot3(col, LANE_S2, d[0], d[1], d[2]);
+  if (ZERO_ORIGIN) {
+    h.t = col(LANE_NC) / h.md_n;
+    h.dv0 = fmaf(h.t, sd0, -col(LANE_S0C));
+    h.dv1 = fmaf(h.t, sd1, -col(LANE_S1C));
+    h.dv2 = fmaf(h.t, sd2, -col(LANE_S2C));
+  } else {
+    h.t = (col(LANE_NC) - dot3(col, LANE_N, o[0], o[1], o[2])) / h.md_n;
+    h.dv0 = fmaf(h.t, sd0, dot3(col, LANE_S0, o[0], o[1], o[2]))
+        - col(LANE_S0C);
+    h.dv1 = fmaf(h.t, sd1, dot3(col, LANE_S1, o[0], o[1], o[2]))
+        - col(LANE_S1C);
+    h.dv2 = fmaf(h.t, sd2, dot3(col, LANE_S2, o[0], o[1], o[2]))
+        - col(LANE_S2C);
+  }
+  h.ok = (h.t >= 0.0f) & (h.dv0 <= 1.0f) & (h.dv1 <= 1.0f) & (h.dv2 <= 1.0f);
+  return h;
+}
+
+// The running winner of one ray and the payload the shade reads.
+struct Winner {
+  float t, id;
+  float n0, n1, n2, enc, c0, c1, c2, alpha, scat;
+};
+
+// Invalid lanes start at -inf so that they never hold an early exit back.
+__device__ __forceinline__ Winner winner_init(bool valid) {
+  Winner w;
+  w.t = valid ? inf_f() : -inf_f();
+  w.id = w.n0 = w.n1 = w.n2 = w.enc = 0.0f;
+  w.c0 = w.c1 = w.c2 = w.alpha = w.scat = 0.0f;
+  return w;
+}
+
+// Lexicographic (t, id) order: ties break to the smallest triangle id, and
+// an infinite t never wins a tie, so visit order cannot change the winner.
+__device__ __forceinline__ bool lex_better(float t, float id, const Winner& w) {
+  return (t < w.t) | ((t == w.t) & !isinf(t) & (id < w.id));
+}
+
+// enc = kind + 4*edge + 8*back of a winning triangle.
+__device__ __forceinline__ float encode_face(const HitTerms& h, float et,
+                                             float kind) {
+  float inv_et = 1.0f - et;
+  bool edge = (h.dv0 > inv_et) | (h.dv1 > inv_et) | (h.dv2 > inv_et);
+  bool back = h.md_n > 0.0f;
+  return kind + 4.0f * (edge ? 1.0f : 0.0f) + 8.0f * (back ? 1.0f : 0.0f);
+}
+
+__device__ __forceinline__ void unit3(float& v0, float& v1, float& v2) {
+  float inv = 1.0f / sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
+  v0 = v0 * inv;
+  v1 = v1 * inv;
+  v2 = v2 * inv;
+}
+
+__device__ __forceinline__ uint32_t lowbias32(uint32_t word, uint32_t s0,
+                                              uint32_t s1, uint32_t chunk) {
+  uint32_t x = word ^ s1;
+  x = x * 747796405u + s0 + chunk * 2654435761u;
+  x ^= x >> 17;
+  x *= 0xED5AD4BBu;
+  x ^= x >> 11;
+  x *= 0xAC4C1B51u;
+  x ^= x >> 15;
+  x *= 0x31848BABu;
+  x ^= x >> 14;
+  return x;
+}
+
+// Scatter vector of the ray at (chunk, lane) of a ray_chunk-wide chunk.
+__device__ __forceinline__ void scatter_rv(uint32_t s0, uint32_t s1,
+                                           uint32_t chunk, uint32_t lane,
+                                           uint32_t ray_chunk, bool fixed_rng,
+                                           float rv[3]) {
+  if (fixed_rng) {
+    rv[0] = 0.36f;
+    rv[1] = 0.48f;
+    rv[2] = 0.8f;
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    uint32_t x = lowbias32(c * ray_chunk + lane, s0, s1, chunk);
+    float u = __uint_as_float((x >> 9) | 0x3F800000u) - 1.0f;
+    rv[c] = u - 0.5f;
+  }
+  unit3(rv[0], rv[1], rv[2]);
+}
+
+// B0b: one wave's shade + scatter + state update of one ray, in place on
+// its 16 state values.
+__device__ __forceinline__ void shade_ray(float s[STATE_ROWS], const Winner& w,
+                                          const float rv[3],
+                                          float weight_cutoff) {
+  const float sky[3] = {128.0f / 255.0f, 180.0f / 255.0f, 255.0f / 255.0f};
+  float weight = s[ROW_W];
+  bool valid = s[ROW_ALIVE] != 0.0f;
+  bool miss = w.id == 0.0f;
+  bool back = w.enc >= 8.0f;
+  float e2 = w.enc - (back ? 8.0f : 0.0f);
+  bool edge = e2 >= 4.0f;
+  float kind = e2 - (edge ? 4.0f : 0.0f);
+  const float c[3] = {w.c0, w.c1, w.c2};
+  float nf[3] = {back ? -w.n0 : w.n0, back ? -w.n1 : w.n1,
+                 back ? -w.n2 : w.n2};
+  bool is_scatter = !miss & !edge & ((kind == KIND_MATTE) |
+                                     (kind == KIND_REFLECTIVE));
+  bool is_terminal = valid & !is_scatter;
+  bool scatter_live = valid & is_scatter;
+
+  float one_m_a = 1.0f - w.alpha;
+  float contrib[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float tc = miss ? sky[k] : (edge ? 0.0f : c[k]);
+    contrib[k] = (is_terminal ? weight * tc : 0.0f)
+        + (scatter_live ? weight * c[k] * one_m_a : 0.0f);
+  }
+  float new_w = scatter_live ? weight * w.alpha : weight;
+
+  const float* o = s;
+  const float* d = s + 3;
+  float p[3], m[3], r[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) p[k] = fmaf(w.t, d[k], o[k]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) m[k] = nf[k] + rv[k];
+  unit3(m[0], m[1], m[2]);
+  float ddot = fabsf(d[0] * nf[0] + d[1] * nf[1] + d[2] * nf[2]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r[k] = d[k] + 2.0f * nf[k] * ddot + rv[k] * w.scat;
+  unit3(r[0], r[1], r[2]);
+  bool is_matte = kind == KIND_MATTE;
+
+  bool alive2 = scatter_live;
+  if (weight_cutoff > 0.0f) alive2 = alive2 & (new_w > weight_cutoff);
+  bool died = valid & !alive2;
+
+  if (alive2) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float no = is_matte ? p[k] + rv[k] * 0.001f : p[k] + r[k] * 0.001f;
+      s[3 + k] = is_matte ? m[k] : r[k];
+      s[k] = no;
+    }
+  }
+  s[ROW_W] = new_w;
+  s[ROW_ALIVE] = alive2 ? 1.0f : 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s[ROW_ACC + k] = s[ROW_ACC + k] + contrib[k];
+  s[ROW_DEAD] = fmaxf(s[ROW_DEAD], died ? 1.0f : 0.0f);
+}
+
+}  // namespace rt

@@ -1,0 +1,293 @@
+"""The production render path on torch: `Engine` and its host helpers.
+
+Counterpart: `rust_raytrace_tpu/engine.py` — `Engine.__init__` (resident
+regime), `Engine.render` with `_pinhole_fold`, and the wave loop of
+`_render_device_compact` with no compaction boundary (`ncompact=0`); plus
+`_camera_rays_tiled` (spp 1) with `_unit_rows`, `_quantize_u8`, `pick_tile`,
+`tile_permutation`, `auto_page_size` and `_assemble_host_image`, copied
+because the JAX module imports jax.
+
+One render: tile-order camera rays -> pinhole fold of the page scalars ->
+wave 0 = cull (B1) -> stable sort of the page lists -> union trace + shade
+(B2) -> waves 1.. = per-lane trace + shade (B4) -> u8 quantization on the
+device -> un-permute on the host.  The kernels run on CUDA tensors and their
+plain torch versions on CPU tensors (`device=`).
+
+What this engine does not run yet raises NotImplementedError naming the
+ROADMAP item that brings it: compaction (ncompact != 0), lights, spp > 1,
+debug buffers, bounce_chunk and the streamed regime.
+"""
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from rust_raytrace_tpu.camera import Viewport
+from rust_raytrace_tpu.ops.pages import build_pages_kd
+from rust_raytrace_tpu.scene import Scene
+
+from .ops.cull import cull_mask_exact
+from .ops.intersect import fold_pages_origin, trace_shade_chunks
+from .ops.intersect_perlane import (GROUP, MAX_BANKS, trace_shade_perlane,
+                                    upload_perlane_tables)
+from .ops.shade import fma, rsqrt
+from .ops.state import ROW_ACC, ROW_ALIVE, STATE_ROWS
+from .render import RenderResult
+from .utils.rng import fold_in, prng_key
+
+F32 = np.float32
+
+#: rays whose throughput falls below this retire (0.0 under fixed_rng)
+WEIGHT_CUTOFF = 1 / 512
+#: page-table slots (pages x page size) the resident regime holds; a scene
+#: past it needs the streamed regime
+TABLE_SLOT_CAP = 262144
+
+
+def pick_tile(width: int, height: int) -> int:
+    for t in (32, 16, 8):
+        if width % t == 0 and height % t == 0:
+            return t
+    return 1
+
+
+def tile_permutation(height: int, width: int, spp: int, tile: int) -> np.ndarray:
+    """perm[q] = row-major ray index of tile-major position q (host side)."""
+    rows = np.arange(height)
+    cols = np.arange(width)
+    order = []
+    for tr in range(0, height, tile):
+        for tc in range(0, width, tile):
+            rr, cc = np.meshgrid(rows[tr:tr + tile], cols[tc:tc + tile],
+                                 indexing="ij")
+            order.append((rr * width + cc).reshape(-1))
+    order = np.concatenate(order)
+    if spp > 1:
+        order = (order[:, None] * spp + np.arange(spp)[None, :]).reshape(-1)
+    return order.astype(np.int64)
+
+
+def auto_page_size(n_tris: int, page_size: int = 56) -> int:
+    """Scene-adaptive page size: grow the page past the 1-bank default only
+    when the scene would need more than 8 banks of 128 pages (target 7), and
+    as far as needed to stay within MAX_BANKS banks."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    if cdiv(cdiv(n_tris, page_size), GROUP) > 8:
+        target = min(7, MAX_BANKS)
+        page_size = cdiv(cdiv(n_tris, target * GROUP), 8) * 8
+    while cdiv(n_tris, page_size) > MAX_BANKS * GROUP:
+        page_size += 8
+    return page_size
+
+
+def _assemble_host_image(img_dev, v: Viewport, perm: np.ndarray, spp: int,
+                         dev_quant: bool) -> np.ndarray:
+    """Un-permute a tile-order framebuffer ([3, R] or [3, R//spp] numpy)
+    into the [height, width, 3] image.  dev_quant: the input is u8,
+    already quantized (and box-filtered) on the device."""
+    if dev_quant:
+        P0 = v.height * v.width
+        data = np.asarray(img_dev).T[:P0]            # [P0, 3] u8
+        pixperm = perm[::spp] // spp if spp > 1 else perm
+        img = np.empty((P0, 3), dtype=np.uint8)
+        img[pixperm] = data
+        return img.reshape(v.height, v.width, 3)
+    R0 = v.height * v.width * spp
+    data = np.asarray(img_dev, dtype=np.float32).T[:R0]
+    img = np.empty((R0, 3), dtype=np.float32)
+    img[perm] = data
+    if spp > 1:
+        img = img.reshape(v.height, v.width, spp, 3).mean(axis=2)
+    else:
+        img = img.reshape(v.height, v.width, 3)
+    return img
+
+
+def unit_rows(v: torch.Tensor) -> torch.Tensor:
+    """Normalize [3, R] column vectors."""
+    return v * rsqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])[None]
+
+
+def camera_rays_tiled(v: Viewport, tile: int, n_pad: int, device):
+    """Primary rays in tile-major order (`pixel_ray` at the pixel centre):
+    (o, d) as [3, n_pad] float32 on `device`; positions past the image have
+    o = d = 0 (invalid lanes).
+
+    The image-plane point is orig + vu*(col + 0.5) + vv*(row + 0.5) with
+    both multiply-adds fused, as XLA on the CPU compiles the JAX version
+    (ROADMAP C2): unfused, a ray 1 ulp off flips a pixel of the 48x27
+    circles render.  The normalization's rsqrt stays `1/sqrt` (C1)."""
+    if v.samples_per_pixel != 1:
+        raise NotImplementedError("spp > 1 camera jitter (ROADMAP A6)")
+    R0 = v.height * v.width
+    q = torch.arange(n_pad, device=device)
+    T = tile
+    tpr = v.width // T
+    tile_id = q // (T * T)
+    within = q % (T * T)
+    row = ((tile_id // tpr) * T + within // T).to(torch.float32)
+    col = ((tile_id % tpr) * T + within % T).to(torch.float32)
+
+    def column(a):
+        return torch.from_numpy(np.asarray(a, F32).copy()).to(device)[:, None]
+
+    vu_delta = column(np.asarray(v.vu, F32) * (F32(1.0) / F32(v.width)))
+    vv_delta = column(np.asarray(v.vv, F32) * (F32(1.0) / F32(v.height)))
+    px_u = fma(vv_delta, (row + 0.5)[None],
+               fma(vu_delta, (col + 0.5)[None], column(v.orig)))
+    d = unit_rows(px_u - column(v.cam))
+    live = (q < R0)[None]
+    return torch.where(live, px_u, 0.0), torch.where(live, d, 0.0)
+
+
+def page_lists(mask: torch.Tensor, tmin: torch.Tensor):
+    """Cull output -> (counts [NC], plist [NC, NP], ptmin [NC, NP]): each
+    chunk's hit pages first, nearest entry first; +inf ties keep page
+    order (a stable sort, as jnp.argsort(stable=True))."""
+    counts = mask.sum(dim=1, dtype=torch.int32)
+    ptmin, plist = torch.sort(tmin, dim=1, stable=True)
+    return counts, plist.to(torch.int32).contiguous(), ptmin.contiguous()
+
+
+def quantize_u8(img: torch.Tensor) -> torch.Tensor:
+    """PNG writer's exact `(c*255) as u8` semantics (raytrace.rs:1470-1472)."""
+    x = torch.nan_to_num(img * 255.0, nan=0.0, posinf=255.0, neginf=0.0)
+    return torch.clamp(torch.trunc(x), 0.0, 255.0).to(torch.uint8)
+
+
+class Engine:
+    """Culled wavefront renderer, resident regime, no compaction boundary.
+
+    scene: a `rust_raytrace_tpu.scene.Scene`; device: where the scene and
+    the rays live ("cuda" runs the kernels; "cpu" their plain versions).
+    The other arguments mean what they mean for the JAX Engine, whose
+    defaults the port fixes: the page size adapts to the scene
+    (auto_pages) and primary rays start at the pinhole (pinhole_origin).
+    ncompact defaults to 0 here (no compaction) because compaction is not
+    ported; any other value raises.
+    """
+
+    def __init__(self, scene: Scene, page_size: int = 56,
+                 ray_chunk: int = 1024, bounce_chunk: int = 0,
+                 ncompact: Optional[int] = 0, device="cuda"):
+        if ncompact != 0:
+            raise NotImplementedError(
+                "compaction boundaries (ncompact != 0): ROADMAP B3/B5")
+        if bounce_chunk != 0:
+            raise NotImplementedError(
+                "bounce_chunk != 0: ROADMAP 'Engine knobs'")
+        if scene.lights is not None:
+            raise NotImplementedError("lights: ROADMAP A5")
+        n_tris = max(len(scene.tris) - 1, 1)
+        if n_tris <= TABLE_SLOT_CAP:
+            page_size = auto_page_size(n_tris, page_size)
+        self.pages = build_pages_kd(scene.tris, page_size=page_size)
+        slots = self.pages.num_pages * self.pages.page_size
+        fits_resident = (self.pages.num_pages <= MAX_BANKS * GROUP
+                         and slots <= TABLE_SLOT_CAP)
+        if not fits_resident:
+            raise NotImplementedError(
+                f"streamed regime ({self.pages.num_pages} pages x "
+                f"{page_size}): ROADMAP A8 (B9/B10)")
+        self.device = torch.device(device)
+        dev = self.device
+        self.PK = torch.from_numpy(self.pages.PK).to(dev)
+        self.aabb_lo = torch.from_numpy(self.pages.aabb_lo).to(dev)
+        self.aabb_hi = torch.from_numpy(self.pages.aabb_hi).to(dev)
+        self.plt_i, self.plt_s, self.ab = upload_perlane_tables(self.pages,
+                                                                dev)
+        self.scene = scene
+        self.page_size = page_size
+        self.ray_chunk = ray_chunk
+        self._perm_cache = {}
+        self._pk0_cache = {}
+
+    def _perm(self, v: Viewport, tile: int) -> np.ndarray:
+        key = (v.height, v.width, v.samples_per_pixel, tile)
+        if key not in self._perm_cache:
+            self._perm_cache[key] = tile_permutation(
+                v.height, v.width, v.samples_per_pixel, tile)
+        return self._perm_cache[key]
+
+    def _pinhole_fold(self, v: Viewport, o: torch.Tensor):
+        """Re-anchor primary rays at the pinhole and fold it into the page
+        scalars (cached per camera).  Returns (o, pk0)."""
+        cam = torch.from_numpy(np.asarray(v.cam, F32).copy()).to(self.device)
+        o = cam[:, None].expand(o.shape).contiguous()
+        cam_key = tuple(np.asarray(v.cam, dtype=np.float32).tolist())
+        if cam_key not in self._pk0_cache:
+            self._pk0_cache[cam_key] = fold_pages_origin(self.PK, cam_key)
+        return o, self._pk0_cache[cam_key]
+
+    def _render_waves(self, state, key, maxdepth: int, fixed_rng: bool, pk0):
+        """The wave loop of _render_device_compact at ncompact=0.  Returns
+        (accumulated color [3, R], per-wave live counts as tensors)."""
+        R = state.shape[1]
+        RB = self.ray_chunk
+        P = self.page_size
+        wc = 0.0 if fixed_rng else WEIGHT_CUTOFF
+        wave_counts = []
+        for wave in range(maxdepth):
+            alive = state[ROW_ALIVE] != 0.0
+            wave_counts.append(alive.sum())
+            seed = fold_in(key, wave)
+            if wave == 0:
+                mask, tmin = cull_mask_exact(state[0:3], state[3:6], alive,
+                                             self.aabb_lo, self.aabb_hi, RB)
+                counts, plist, ptmin = page_lists(mask, tmin)
+                state = trace_shade_chunks(state, pk0, counts, plist, ptmin,
+                                           seed, P, RB, fixed_rng, wc,
+                                           zero_origin=True)
+            else:
+                # chunks whose rays have all retired pass through
+                chunk_live = alive.reshape(R // RB, RB).any(dim=1)
+                state = trace_shade_perlane(
+                    state, self.plt_i, self.plt_s, self.ab, seed, P, RB,
+                    fixed_rng, wc, chunk_live.to(torch.int32))
+        return state[ROW_ACC:ROW_ACC + 3], wave_counts
+
+    def render(self, v: Viewport, key=None, fixed_rng: bool = False,
+               progress=None, debug: bool = False,
+               quantize: bool = True) -> RenderResult:
+        """Render `v`.  key: a `utils.rng.prng_key` (default key 0);
+        quantize=True returns u8 quantized on the device, False float."""
+        if debug:
+            raise NotImplementedError("debug buffers: ROADMAP A7")
+        if v.samples_per_pixel != 1:
+            raise NotImplementedError("spp > 1: ROADMAP A6")
+        key = prng_key(0) if key is None else np.asarray(key, np.uint32)
+        RB = self.ray_chunk
+        dev = self.device
+        t0 = time.perf_counter()
+
+        tile = pick_tile(v.width, v.height)
+        R0 = v.height * v.width
+        quantum = max(RB, 128)
+        R = -(-R0 // quantum) * quantum
+        o, d = camera_rays_tiled(v, tile, R, dev)
+        o, pk0 = self._pinhole_fold(v, o)
+        alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
+        state = torch.cat(
+            [o, d, alive0, alive0,
+             torch.zeros((STATE_ROWS - ROW_ACC, R), dtype=torch.float32,
+                         device=dev)], dim=0)
+
+        img, wave_counts = self._render_waves(state, key, v.maxdepth,
+                                              fixed_rng, pk0)
+        if quantize:
+            img = quantize_u8(img)
+        img_h = img.cpu().numpy()
+        wave_counts = torch.stack(wave_counts).cpu().numpy()
+        img = _assemble_host_image(img_h, v, self._perm(v, tile), 1, quantize)
+
+        seconds = time.perf_counter() - t0
+        result = RenderResult(image=img, rays_traced=int(wave_counts.sum()),
+                              wave_rays=wave_counts, primary_t=None,
+                              primary_id=None, seconds=seconds)
+        if progress is not None:
+            progress.update_wavefront(result)
+        return result

@@ -1,0 +1,210 @@
+"""The packed-triangle hit predicate and B2, the wave-0 union trace + shade.
+
+Counterparts in `rust_raytrace_tpu/ops/intersect_pallas.py`:
+`packed_hit_predicate`, `fold_pages_origin` and `trace_shade_chunks_pallas`
+(inner `_kernel_trace_shade`, `_trace_pages`).  `trace_shade_chunks` runs the
+CUDA kernel `csrc/trace_shade_union.cu` on CUDA tensors and
+`trace_shade_chunks_plain` on CPU tensors.
+
+The plain version computes what the TPU kernel computes, page by page: the
+per-page (t, id) minimum, the lexicographic update of each ray's winner, the
+winner payload as a one-hot masked sum over the page, and the chunk-wide
+early exit on the next page's entry bound.  The CUDA kernel folds the same
+lexicographic order one triangle at a time, which selects the same winner.
+"""
+
+import torch
+
+from rust_raytrace_tpu.ops.pages import (LANE_ALPHA, LANE_COLOR, LANE_ET,
+                                         LANE_ID, LANE_KIND, LANE_N, LANE_NC,
+                                         LANE_S0, LANE_S0C, LANE_S1, LANE_S1C,
+                                         LANE_S2, LANE_S2C, LANE_SCAT)
+
+from ..utils import native
+from .shade import fma, scatter_rv, shade_state_rows
+from .state import (ROW_ALPHA, ROW_COLOR, ROW_ENC, ROW_ID, ROW_NORM, ROW_SCAT,
+                    ROW_T, STATE_ROWS, TRACE_ROWS)
+
+#: lanes of a packed page that the kernels read (24..127 are zero)
+USED_LANES = 24
+
+#: winner payload rows and the page lanes they come from (ENC is computed)
+PAYLOAD_ROWS = (ROW_NORM, ROW_NORM + 1, ROW_NORM + 2, ROW_ENC, ROW_COLOR,
+                ROW_COLOR + 1, ROW_COLOR + 2, ROW_ALPHA, ROW_SCAT)
+
+
+def packed_hit_predicate(col, o3, d3, has=None, *, zero_origin: bool = False):
+    """Hit terms of packed triangles against rays (B0a).
+
+    col(f): feature f of the triangles, broadcastable against the ray rows.
+    o3/d3: (x, y, z) ray tensors.  has: optional mask AND-ed into ok.
+    zero_origin: the o-dot terms were folded into the NC/S*C lanes
+    (fold_pages_origin).  Returns (t, ok, ids, md_n, (dv0, dv1, dv2)).
+    The multiply-adds are fused where XLA fuses them (ROADMAP C2), exactly
+    as the CUDA `rt::hit_predicate` does.
+    """
+    o0, o1, o2 = o3
+    d0, d1, d2 = d3
+
+    def dot3(f, r0, r1, r2):
+        return fma(col(f + 2), r2, fma(col(f), r0, col(f + 1) * r1))
+
+    md_n = dot3(LANE_N, d0, d1, d2)
+    if zero_origin:
+        t = col(LANE_NC) / md_n
+        dv = tuple(fma(t, dot3(s, d0, d1, d2), -col(c))
+                   for s, c in ((LANE_S0, LANE_S0C), (LANE_S1, LANE_S1C),
+                                (LANE_S2, LANE_S2C)))
+    else:
+        t = (col(LANE_NC) - dot3(LANE_N, o0, o1, o2)) / md_n
+        dv = tuple(fma(t, dot3(s, d0, d1, d2), dot3(s, o0, o1, o2)) - col(c)
+                   for s, c in ((LANE_S0, LANE_S0C), (LANE_S1, LANE_S1C),
+                                (LANE_S2, LANE_S2C)))
+    ok = (t >= 0.0) & (dv[0] <= 1.0) & (dv[1] <= 1.0) & (dv[2] <= 1.0)
+    if has is not None:
+        ok = ok & has
+    return t, ok, col(LANE_ID), md_n, dv
+
+
+def encode_face(col, md_n, dv):
+    """enc = kind + 4*edge + 8*back of each candidate triangle."""
+    inv_et = 1.0 - col(LANE_ET)
+    edge = (dv[0] > inv_et) | (dv[1] > inv_et) | (dv[2] > inv_et)
+    back = md_n > 0.0
+    return col(LANE_KIND) + 4.0 * edge.float() + 8.0 * back.float()
+
+
+def payload_features(col, md_n, dv):
+    """The nine payload values of each candidate, in PAYLOAD_ROWS order."""
+    return (col(LANE_N), col(LANE_N + 1), col(LANE_N + 2),
+            encode_face(col, md_n, dv), col(LANE_COLOR), col(LANE_COLOR + 1),
+            col(LANE_COLOR + 2), col(LANE_ALPHA), col(LANE_SCAT))
+
+
+def lex_update(tt, ids, best_t, best_id, dim: int):
+    """Per-group (t, id) minimum of candidates tt/ids over `dim` and the
+    lexicographic update against the running best: returns (upd, gmin, gid,
+    onehot) where onehot marks the group winner among the candidates."""
+    gmin = tt.amin(dim=dim, keepdim=True)
+    gid = torch.where(tt == gmin, ids, torch.inf).amin(dim=dim, keepdim=True)
+    onehot = (tt == gmin) & (ids == gid)
+    gmin = gmin.squeeze(dim)
+    gid = gid.squeeze(dim)
+    upd = (gmin < best_t) | ((gmin == best_t) & ~torch.isinf(gmin)
+                             & (gid < best_id))
+    return upd, gmin, gid, onehot
+
+
+def fold_pages_origin(PK: torch.Tensor, origin) -> torch.Tensor:
+    """Fold a shared ray origin into the page plane/half-plane scalars.
+
+    With o fixed, t = (n.c - n.o)/(n.d) and dist_k = t (d.s'k) - (s'k.c -
+    s'k.o): the four o-dot terms become per-triangle constants.  Returns a
+    copy of PK [NP, P, 128] with lanes NC/S0C/S1C/S2C adjusted so the trace
+    can run with zero_origin=True and rays anchored at `origin`.
+    """
+    o = [float(x) for x in origin]
+    out = PK.clone()
+    for lane_c, lane_v in ((LANE_NC, LANE_N), (LANE_S0C, LANE_S0),
+                           (LANE_S1C, LANE_S1), (LANE_S2C, LANE_S2)):
+        adj = fma(PK[..., lane_v + 2], o[2],
+                  fma(PK[..., lane_v], o[0], PK[..., lane_v + 1] * o[1]))
+        out[..., lane_c] = PK[..., lane_c] - adj
+    return out
+
+
+def trace_chunks_plain(ot, dt, PK, counts, plist, ptmin, ray_chunk: int,
+                       zero_origin: bool = False):
+    """Winner rows [16, R] of the union trace (plain torch)."""
+    RB = ray_chunk
+    R = ot.shape[1]
+    NC = R // RB
+    dev = ot.device
+    o = ot.reshape(3, NC, 1, RB)
+    d = dt.reshape(3, NC, 1, RB)
+    valid = ((d[0] != 0.0) | (d[1] != 0.0) | (d[2] != 0.0))[:, 0]  # [NC, RB]
+    best_t = torch.where(valid, torch.inf, -torch.inf)
+    best_id = torch.zeros((NC, RB), dtype=torch.float32, device=dev)
+    payload = torch.zeros((len(PAYLOAD_ROWS), NC, RB), dtype=torch.float32,
+                          device=dev)
+    done = torch.zeros(NC, dtype=torch.bool, device=dev)
+    pk = PK[..., :USED_LANES]
+    n_max = int(counts.max()) if NC else 0
+    for k in range(n_max):
+        c = torch.nonzero((counts > k) & ~done).squeeze(1)
+        if c.numel() == 0:
+            break
+        page = pk[plist[c, k].long()]                     # [A, P, 24]
+
+        def col(f, page=page):
+            return page[:, :, f:f + 1]                    # [A, P, 1]
+
+        o3 = (o[0, c], o[1, c], o[2, c])                   # [A, 1, RB]
+        d3 = (d[0, c], d[1, c], d[2, c])
+        t, ok, ids, md_n, dv = packed_hit_predicate(
+            col, o3, d3, zero_origin=zero_origin)
+        tt = torch.where(ok, t, torch.inf)
+        bt, bi = best_t[c], best_id[c]
+        upd, gmin, gid, onehot = lex_update(tt, ids, bt, bi, dim=1)
+        w = onehot.float()
+        for i, v in enumerate(payload_features(col, md_n, dv)):
+            payload[i, c] = torch.where(upd, (w * v).sum(dim=1), payload[i, c])
+        best_t[c] = torch.where(upd, gmin, bt)
+        best_id[c] = torch.where(upd, gid, bi)
+        n = counts[c]
+        nxt = torch.minimum(torch.full_like(n, k + 1), n - 1).long()
+        done[c] = (k + 1 < n) & (best_t[c].amax(dim=1) < ptmin[c, nxt])
+    rows = torch.zeros((TRACE_ROWS, R), dtype=torch.float32, device=dev)
+    rows[ROW_T] = best_t.reshape(R)
+    rows[ROW_ID] = best_id.reshape(R)
+    for i, r in enumerate(PAYLOAD_ROWS):
+        rows[r] = payload[i].reshape(R)
+    return rows
+
+
+def trace_shade_chunks_plain(state, PK, counts, plist, ptmin, seed,
+                             page_size: int, ray_chunk: int, fixed_rng: bool,
+                             weight_cutoff: float, zero_origin: bool = False):
+    """Plain torch version of `trace_shade_chunks`."""
+    rows = trace_chunks_plain(state[0:3], state[3:6], PK, counts, plist,
+                              ptmin, ray_chunk, zero_origin)
+    rays = torch.arange(state.shape[1], device=state.device)
+    rv = scatter_rv(seed, rays, ray_chunk, fixed_rng)
+    return shade_state_rows(state, rows, *rv, weight_cutoff)
+
+
+def trace_shade_chunks(state, PK, counts, plist, ptmin, seed,
+                       page_size: int, ray_chunk: int, fixed_rng: bool,
+                       weight_cutoff: float, zero_origin: bool = False):
+    """One wave over culled page lists: trace, shade and state update.
+
+    state: [16, R] float32 ray state (ops/state.py; with zero_origin, rows
+    0..2 hold the true origin the shade needs, and PK is the folded copy);
+    PK: [NP, P, 128] packed pages; counts: [NC] int32; plist: [NC, NP]
+    int32, pages front to back; ptmin: [NC, NP] float32 matching entry
+    bounds; seed: the wave's two uint32 key words.  Returns the new state.
+    """
+    dev = state.device
+    if dev.type == "cpu":
+        return trace_shade_chunks_plain(state, PK, counts, plist, ptmin, seed,
+                                        page_size, ray_chunk, fixed_rng,
+                                        weight_cutoff, zero_origin)
+    native.require(dev.type == "cuda",
+                   f"trace_shade_chunks: no kernel for device {dev}")
+    R = state.shape[1]
+    NP = PK.shape[0]
+    NC = R // ray_chunk
+    native.check_ray_chunk(R, ray_chunk)
+    native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
+    native.check_tensor("PK", PK, dev, (NP, page_size, 128), torch.float32)
+    native.check_tensor("counts", counts, dev, (NC,), torch.int32)
+    native.check_tensor("plist", plist, dev, (NC, NP), torch.int32)
+    native.check_tensor("ptmin", ptmin, dev, (NC, NP), torch.float32)
+    out = torch.empty_like(state)
+    s0, s1 = (int(w) for w in seed)
+    native.TRACE_SHADE_UNION(
+        state.data_ptr(), out.data_ptr(), R, PK.data_ptr(), page_size, NP,
+        counts.data_ptr(), plist.data_ptr(), ptmin.data_ptr(), s0, s1,
+        int(fixed_rng), float(weight_cutoff), int(zero_origin), ray_chunk,
+        native.stream(dev))
+    return out

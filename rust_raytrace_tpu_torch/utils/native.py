@@ -1,0 +1,177 @@
+"""Build, load and launch the port's CUDA kernels (`csrc/*.cu`).
+
+Counterpart: `rust_raytrace_tpu/utils/native.py`, the on-demand g++ build of
+the host scene pipeline bound through ctypes.  Here nvcc compiles every
+source under `csrc/` into one shared library with a plain C interface, at
+first use, into `build/kernels/` at the repository root, named by a hash of
+the sources and flags so an edit forces a rebuild.  The JAX package has no
+build step of its own: Mosaic compiles each Pallas kernel inside
+`pl.pallas_call`.
+
+Each kernel is a `Kernel`: its C entry point, its argument types, the source
+it lives in, the TPU kernel it replaces, and a count of the launches made
+through it.  A C entry launches on the stream it is given and returns
+`cudaGetLastError()`; `Kernel.__call__` raises if that is not 0.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
+    "--prec-div=true", "--prec-sqrt=true", "-std=c++17", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+P = ctypes.c_void_p
+I32 = ctypes.c_int
+I64 = ctypes.c_longlong
+U32 = ctypes.c_uint
+F32 = ctypes.c_float
+
+
+def _sources() -> list:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libraytrace-{h.hexdigest()[:12]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return str(path)
+
+
+def build() -> dict:
+    """Compile the kernel library unless the hashed build exists.
+
+    Returns {"path", "seconds", "log"}: seconds is 0.0 and log empty when
+    the library was already built.  The compiler's `-Xptxas -v` report
+    (registers, shared memory and spills per kernel) is the log."""
+    so = library_path()
+    if so.exists():
+        return {"path": str(so), "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, so)
+    so.with_suffix(".log").write_text(log)
+    return {"path": str(so), "seconds": seconds, "log": log}
+
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _LIB
+    if _LIB is None:
+        _LIB = ctypes.CDLL(build()["path"])
+    return _LIB
+
+
+class Kernel:
+    """One C entry point of the kernel library and its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes: list, source: str,
+                 replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        fn = getattr(library(), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
+        self.launches += 1
+
+
+CULL = Kernel(
+    "cull_mask_exact", "rt_cull",
+    [P, P, I64, P, P, P, I32, I32, I32, P, P, P],
+    "rust_raytrace_tpu_torch/csrc/cull.cu",
+    "rust_raytrace_tpu/ops/cull_pallas.py:271")
+TRACE_SHADE_UNION = Kernel(
+    "trace_shade_chunks", "rt_trace_shade_union",
+    [P, P, I64, P, I32, I32, P, P, P, U32, U32, I32, F32, I32, I32, P],
+    "rust_raytrace_tpu_torch/csrc/trace_shade_union.cu",
+    "rust_raytrace_tpu/ops/intersect_pallas.py:520")
+TRACE_SHADE_PERLANE = Kernel(
+    "trace_shade_perlane", "rt_trace_shade_perlane",
+    [P, P, I64, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P],
+    "rust_raytrace_tpu_torch/csrc/trace_shade_perlane.cu",
+    "rust_raytrace_tpu/ops/intersect_perlane.py:772")
+
+KERNELS = (CULL, TRACE_SHADE_UNION, TRACE_SHADE_PERLANE)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def require(ok: bool, msg: str) -> None:
+    """Raise ValueError(msg) unless ok: wrappers validate what they pass."""
+    if not ok:
+        raise ValueError(msg)
+
+
+def check_ray_chunk(R: int, ray_chunk: int) -> None:
+    """The kernels run one chunk or one ray per thread: a chunk of at most
+    1024 threads, whole warps, dividing the ray count."""
+    require(R % ray_chunk == 0 and ray_chunk % 32 == 0
+            and 32 <= ray_chunk <= 1024,
+            f"ray_chunk {ray_chunk} must be a multiple of 32 in [32, 1024] "
+            f"dividing R = {R}")
+
+
+def check_tensor(name: str, x, device, shape: tuple, dtype,
+                 contiguous: bool = True) -> None:
+    """A kernel argument's device, shape, dtype and layout (with
+    contiguous=False only the last dim must be dense)."""
+    dense = x.is_contiguous() if contiguous else x.stride(-1) == 1
+    require(x.device == device and tuple(x.shape) == tuple(shape)
+            and x.dtype == dtype and dense,
+            f"{name}: want {dtype} {tuple(shape)} on {device} "
+            f"({'contiguous' if contiguous else 'last dim dense'}), got "
+            f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def stream(device) -> int:
+    """The current CUDA stream of `device`, as the C entries take it."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -36,6 +36,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: interpret-mode kernel / multi-program test "
         "(minutes); fast lane = pytest -m 'not slow' (~2 min)")
+    config.addinivalue_line(
+        "markers", "cuda: runs the torch port's CUDA kernels; skips where "
+        "torch sees no CUDA device")
 
 
 def pytest_collection_modifyitems(config, items):
