@@ -2,21 +2,25 @@
 
 The port of `rust_raytrace_tpu` (JAX/XLA with Pallas TPU kernels), which
 stays in the repository as the reference the port is tested against.  The
-port imports torch and never jax; it reuses the JAX package's jax-free host
-modules (scene, geometry, materials, camera, models, ops.pages, oracle,
-utils.png) instead of copying them.
+port imports torch, never jax and nothing of the JAX package: the numpy host
+modules it needs are copies under the same relative names.
 
 Layout (each module names its JAX counterpart):
   engine        Engine: the main render path and its host helpers
   render        RenderResult
+  scene, geometry, materials, camera, math3d, obj_parser, models,
+  ops/pages, utils/png
+                numpy host modules (copies)
   ops/state     row layout of the ray state and of the trace winner rows
-  ops/shade     the shade + scatter hash (plain torch; B0b)
+  ops/shade     the shade + scatter hash, fma and XLA-CPU's rsqrt (B0b)
   ops/cull      B1: packet cull of ray chunks against page AABBs
   ops/intersect B0a hit predicate, pinhole fold, B2: wave-0 union trace+shade
+  ops/compact   B3: compaction, B5: expansion
   ops/intersect_perlane  per-lane tables, B4: bounce trace+shade
   utils/rng     jax.random-equal threefry keys
+  utils/xla_rsqrt  the host CPU's rsqrtps table
   utils/native  nvcc build + ctypes binding + launch counts of csrc/*.cu
-  csrc/         the CUDA kernels (sm_90a)
+  csrc/         the CUDA kernels (sm_90a) and the rsqrt table capture (C)
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain torch version for CPU tensors.

@@ -144,8 +144,41 @@ __device__ __forceinline__ float encode_face(const HitTerms& h, float et,
   return kind + 4.0f * (edge ? 1.0f : 0.0f) + 8.0f * (back ? 1.0f : 0.0f);
 }
 
-__device__ __forceinline__ void unit3(float& v0, float& v1, float& v2) {
-  float inv = 1.0f / sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
+// XLA-CPU's float32 rsqrt (ROADMAP C1; utils/xla_rsqrt.py): the host CPU's
+// rsqrtps estimate from the captured table `rsq` (2,048 entries over
+// exponent parity and the top 10 mantissa bits, then the estimates of +0,
+// -0, +inf, -inf, +subnormal, -subnormal, -normal), refined by two Newton
+// steps on positive normal inputs only.
+constexpr int RSQ_TABLE = 2048;
+
+__device__ __forceinline__ float rsqrt_xla(float x,
+                                           const uint32_t* __restrict__ rsq) {
+  const uint32_t b = __float_as_uint(x);
+  const uint32_t mag = b & 0x7FFFFFFFu;
+  const bool neg = (b >> 31) != 0;
+  if (mag > 0x7F800000u) return __uint_as_float(b | 0x00400000u);  // NaN
+  if (mag < 0x00800000u)                   // zero or subnormal
+    return __uint_as_float(rsq[RSQ_TABLE + (mag == 0 ? 0 : 4) + neg]);
+  if (mag == 0x7F800000u) return __uint_as_float(rsq[RSQ_TABLE + 2 + neg]);
+  if (neg) return __uint_as_float(rsq[RSQ_TABLE + 6]);
+  const int e = (int)(b >> 23) - 127;
+  const uint32_t key = ((uint32_t)(e & 1) << 10) | ((b >> 13) & 0x3FFu);
+  const int k = (e - (e & 1)) / 2;
+  float y = __uint_as_float(__ldg(rsq + key) - (uint32_t)(k * (1 << 23)));
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    y = fmaf(-0.5f * y, fmaf(x * y, y, -1.0f), y);
+  return y;
+}
+
+// v0*v0 + v1*v1 + v2*v2 as XLA contracts it: fma(v2, v2, fma(v0, v0, v1*v1)).
+__device__ __forceinline__ float norm2(float v0, float v1, float v2) {
+  return fmaf(v2, v2, fmaf(v0, v0, v1 * v1));
+}
+
+__device__ __forceinline__ void unit3(float& v0, float& v1, float& v2,
+                                      const uint32_t* __restrict__ rsq) {
+  float inv = rsqrt_xla(norm2(v0, v1, v2), rsq);
   v0 = v0 * inv;
   v1 = v1 * inv;
   v2 = v2 * inv;
@@ -165,31 +198,46 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t word, uint32_t s0,
   return x;
 }
 
-// Scatter vector of the ray at (chunk, lane) of a ray_chunk-wide chunk.
+// Scatter source of the ray at (chunk, lane) of a ray_chunk-wide chunk:
+// v = u - 0.5 and inv = rsqrt(|v|^2), the scatter vector being v * inv
+// (ops/shade.py:scatter_rv).  fixed_rng: the fixed vector, inv unused.
 __device__ __forceinline__ void scatter_rv(uint32_t s0, uint32_t s1,
                                            uint32_t chunk, uint32_t lane,
                                            uint32_t ray_chunk, bool fixed_rng,
-                                           float rv[3]) {
+                                           const uint32_t* __restrict__ rsq,
+                                           float v[3], float& inv) {
   if (fixed_rng) {
-    rv[0] = 0.36f;
-    rv[1] = 0.48f;
-    rv[2] = 0.8f;
+    v[0] = 0.36f;
+    v[1] = 0.48f;
+    v[2] = 0.8f;
+    inv = 1.0f;
     return;
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     uint32_t x = lowbias32(c * ray_chunk + lane, s0, s1, chunk);
     float u = __uint_as_float((x >> 9) | 0x3F800000u) - 1.0f;
-    rv[c] = u - 0.5f;
+    v[c] = u - 0.5f;
   }
-  unit3(rv[0], rv[1], rv[2]);
+  inv = rsqrt_xla(norm2(v[0], v[1], v[2]), rsq);
+}
+
+// |d . nf| for reflected component k: fma(d2, nf2, fma(d_i, nf_i,
+// d_j*nf_j)), (i, j) = (1, 0) for k = 0 and (0, 1) otherwise
+// (ops/shade.py:REFLECT_DOT).
+__device__ __forceinline__ float reflect_dot(const float d[3],
+                                             const float nf[3], int k) {
+  const int i = k == 0 ? 1 : 0;
+  const int j = 1 - i;
+  return fabsf(fmaf(d[2], nf[2], fmaf(d[i], nf[i], d[j] * nf[j])));
 }
 
 // B0b: one wave's shade + scatter + state update of one ray, in place on
-// its 16 state values.
+// its 16 state values.  v/inv: the scatter source (scatter_rv).
 __device__ __forceinline__ void shade_ray(float s[STATE_ROWS], const Winner& w,
-                                          const float rv[3],
-                                          float weight_cutoff) {
+                                          const float v[3], float inv,
+                                          bool fixed_rng, float weight_cutoff,
+                                          const uint32_t* __restrict__ rsq) {
   const float sky[3] = {128.0f / 255.0f, 180.0f / 255.0f, 255.0f / 255.0f};
   float weight = s[ROW_W];
   bool valid = s[ROW_ALIVE] != 0.0f;
@@ -218,16 +266,21 @@ __device__ __forceinline__ void shade_ray(float s[STATE_ROWS], const Winner& w,
 
   const float* o = s;
   const float* d = s + 3;
-  float p[3], m[3], r[3];
+  float p[3], rv[3], m[3], r[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) p[k] = fmaf(w.t, d[k], o[k]);
+  // fixed_rng: a constant vector, nothing to fuse
 #pragma unroll
-  for (int k = 0; k < 3; ++k) m[k] = nf[k] + rv[k];
-  unit3(m[0], m[1], m[2]);
-  float ddot = fabsf(d[0] * nf[0] + d[1] * nf[1] + d[2] * nf[2]);
+  for (int k = 0; k < 3; ++k) {
+    rv[k] = fixed_rng ? v[k] : v[k] * inv;
+    m[k] = fixed_rng ? nf[k] + v[k] : fmaf(v[k], inv, nf[k]);
+  }
+  unit3(m[0], m[1], m[2], rsq);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) r[k] = d[k] + 2.0f * nf[k] * ddot + rv[k] * w.scat;
-  unit3(r[0], r[1], r[2]);
+  for (int k = 0; k < 3; ++k)
+    r[k] = fmaf(rv[k], w.scat,
+                fmaf(2.0f * nf[k], reflect_dot(d, nf, k), d[k]));
+  unit3(r[0], r[1], r[2], rsq);
   bool is_matte = kind == KIND_MATTE;
 
   bool alive2 = scatter_live;
@@ -237,7 +290,10 @@ __device__ __forceinline__ void shade_ray(float s[STATE_ROWS], const Winner& w,
   if (alive2) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      float no = is_matte ? p[k] + rv[k] * 0.001f : p[k] + r[k] * 0.001f;
+      // p + 0.001*(matte ? rv : r), fused with live RNG only (shade.py)
+      float no = fixed_rng
+          ? p[k] + (is_matte ? rv[k] * 0.001f : r[k] * 0.001f)
+          : fmaf(is_matte ? rv[k] : r[k], 0.001f, p[k]);
       s[3 + k] = is_matte ? m[k] : r[k];
       s[k] = no;
     }

@@ -53,7 +53,8 @@ trace_shade_perlane_kernel(const float* __restrict__ st,
                            const float* __restrict__ ab, int P, int NB,
                            int ray_chunk, const int* __restrict__ chunk_live,
                            uint32_t s0, uint32_t s1, bool fixed_rng,
-                           float weight_cutoff) {
+                           float weight_cutoff,
+                           const uint32_t* __restrict__ rsq) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const long long chunk = r / ray_chunk;
@@ -144,10 +145,10 @@ trace_shade_perlane_kernel(const float* __restrict__ st,
     }
   }
 
-  float rv[3];
+  float rv[3], rv_inv;
   rt::scatter_rv(s0, s1, (uint32_t)chunk, (uint32_t)(r - chunk * ray_chunk),
-                 ray_chunk, fixed_rng, rv);
-  rt::shade_ray(s, w, rv, weight_cutoff);
+                 ray_chunk, fixed_rng, rsq, rv, rv_inv);
+  rt::shade_ray(s, w, rv, rv_inv, fixed_rng, weight_cutoff, rsq);
 #pragma unroll
   for (int i = 0; i < rt::STATE_ROWS; ++i) out[i * R + r] = s[i];
 }
@@ -160,12 +161,13 @@ extern "C" int rt_trace_shade_perlane(const float* st, float* out,
                                       int P, int NB, int ray_chunk,
                                       const int* chunk_live, unsigned s0,
                                       unsigned s1, int fixed_rng,
-                                      float weight_cutoff, void* stream) {
+                                      float weight_cutoff, const unsigned* rsq,
+                                      void* stream) {
   const int threads = 128;
   const long long blocks = (R + threads - 1) / threads;
   trace_shade_perlane_kernel<<<(unsigned)blocks, threads, 0,
                                (cudaStream_t)stream>>>(
       st, out, R, plt_i, plt_s, ab, P, NB, ray_chunk, chunk_live, s0, s1,
-      fixed_rng != 0, weight_cutoff);
+      fixed_rng != 0, weight_cutoff, rsq);
   return (int)cudaGetLastError();
 }

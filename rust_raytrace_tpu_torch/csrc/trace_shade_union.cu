@@ -31,7 +31,8 @@ trace_shade_union_kernel(const float* __restrict__ st, float* __restrict__ out,
                          int NP, const int* __restrict__ counts,
                          const int* __restrict__ plist,
                          const float* __restrict__ ptmin, uint32_t s0,
-                         uint32_t s1, bool fixed_rng, float weight_cutoff) {
+                         uint32_t s1, bool fixed_rng, float weight_cutoff,
+                         const uint32_t* __restrict__ rsq) {
   extern __shared__ float s_page[];            // [P][USED_LANES]
   const int chunk = blockIdx.x;
   const int lane = threadIdx.x;
@@ -83,9 +84,9 @@ trace_shade_union_kernel(const float* __restrict__ st, float* __restrict__ out,
   float s[rt::STATE_ROWS];
 #pragma unroll
   for (int i = 0; i < rt::STATE_ROWS; ++i) s[i] = st[i * R + r];
-  float rv[3];
-  rt::scatter_rv(s0, s1, chunk, lane, rb, fixed_rng, rv);
-  rt::shade_ray(s, w, rv, weight_cutoff);
+  float v[3], inv;
+  rt::scatter_rv(s0, s1, chunk, lane, rb, fixed_rng, rsq, v, inv);
+  rt::shade_ray(s, w, v, inv, fixed_rng, weight_cutoff, rsq);
 #pragma unroll
   for (int i = 0; i < rt::STATE_ROWS; ++i) out[i * R + r] = s[i];
 }
@@ -94,7 +95,7 @@ template <bool ZERO_ORIGIN>
 int launch(const float* st, float* out, long long R, const float* pk, int P,
            int NP, const int* counts, const int* plist, const float* ptmin,
            uint32_t s0, uint32_t s1, int fixed_rng, float weight_cutoff,
-           int ray_chunk, cudaStream_t stream) {
+           int ray_chunk, const uint32_t* rsq, cudaStream_t stream) {
   const size_t smem = (size_t)P * rt::USED_LANES * sizeof(float);
   auto kernel = trace_shade_union_kernel<ZERO_ORIGIN>;
   if (smem > 48 * 1024) {
@@ -105,7 +106,7 @@ int launch(const float* st, float* out, long long R, const float* pk, int P,
   const int nc = (int)(R / ray_chunk);
   kernel<<<nc, ray_chunk, smem, stream>>>(st, out, R, pk, P, NP, counts,
                                           plist, ptmin, s0, s1,
-                                          fixed_rng != 0, weight_cutoff);
+                                          fixed_rng != 0, weight_cutoff, rsq);
   return (int)cudaGetLastError();
 }
 
@@ -117,8 +118,9 @@ extern "C" int rt_trace_shade_union(const float* st, float* out, long long R,
                                     const float* ptmin, unsigned s0,
                                     unsigned s1, int fixed_rng,
                                     float weight_cutoff, int zero_origin,
-                                    int ray_chunk, void* stream) {
+                                    int ray_chunk, const unsigned* rsq,
+                                    void* stream) {
   auto fn = zero_origin ? launch<true> : launch<false>;
   return fn(st, out, R, pk, P, NP, counts, plist, ptmin, s0, s1, fixed_rng,
-            weight_cutoff, ray_chunk, (cudaStream_t)stream);
+            weight_cutoff, ray_chunk, rsq, (cudaStream_t)stream);
 }

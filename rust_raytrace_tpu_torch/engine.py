@@ -1,40 +1,42 @@
 """The production render path on torch: `Engine` and its host helpers.
 
 Counterpart: `rust_raytrace_tpu/engine.py` — `Engine.__init__` (resident
-regime), `Engine.render` with `_pinhole_fold`, and the wave loop of
-`_render_device_compact` with no compaction boundary (`ncompact=0`); plus
+regime), `Engine.render` with `_pinhole_fold` and the autotune of the
+compaction schedule, and the wave loop of `_render_device_compact`; plus
 `_camera_rays_tiled` (spp 1) with `_unit_rows`, `_quantize_u8`, `pick_tile`,
-`tile_permutation`, `auto_page_size` and `_assemble_host_image`, copied
-because the JAX module imports jax.
+`tile_permutation`, `plan_boundaries`, `auto_page_size` and
+`_assemble_host_image`, copied because the JAX module imports jax.
 
 One render: tile-order camera rays -> pinhole fold of the page scalars ->
 wave 0 = cull (B1) -> stable sort of the page lists -> union trace + shade
-(B2) -> waves 1.. = per-lane trace + shade (B4) -> u8 quantization on the
-device -> un-permute on the host.  The kernels run on CUDA tensors and their
-plain torch versions on CPU tensors (`device=`).
+(B2) -> at each compaction boundary: `compact_meta` and compaction (B3) ->
+waves 1.. = per-lane trace + shade (B4) -> expansion (B5) backward over the
+boundaries -> u8 quantization on the device -> un-permute on the host.  The
+kernels run on CUDA tensors and their plain torch versions on CPU tensors
+(`device=`).
 
 What this engine does not run yet raises NotImplementedError naming the
-ROADMAP item that brings it: compaction (ncompact != 0), lights, spp > 1,
-debug buffers, bounce_chunk and the streamed regime.
+ROADMAP item that brings it: lights, spp > 1, debug buffers, bounce_chunk
+and the streamed regime.
 """
 
 import time
-from typing import Optional
 
 import numpy as np
 import torch
 
-from rust_raytrace_tpu.camera import Viewport
-from rust_raytrace_tpu.ops.pages import build_pages_kd
-from rust_raytrace_tpu.scene import Scene
-
+from .camera import Viewport
+from .ops.compact import (compact, compact_meta, expand, make_dead_array,
+                          pick_cb)
 from .ops.cull import cull_mask_exact
 from .ops.intersect import fold_pages_origin, trace_shade_chunks
 from .ops.intersect_perlane import (GROUP, MAX_BANKS, trace_shade_perlane,
                                     upload_perlane_tables)
+from .ops.pages import build_pages_kd
 from .ops.shade import fma, rsqrt
-from .ops.state import ROW_ACC, ROW_ALIVE, STATE_ROWS
+from .ops.state import ROW_ACC, ROW_ALIVE, ROW_DEAD, STATE_ROWS
 from .render import RenderResult
+from .scene import Scene
 from .utils.rng import fold_in, prng_key
 
 F32 = np.float32
@@ -84,6 +86,30 @@ def auto_page_size(n_tris: int, page_size: int = 56) -> int:
     return page_size
 
 
+def plan_boundaries(wave_rays, tau_mid: float = 0.65,
+                    tau_last: float = 0.0):
+    """Static compaction-boundary schedule from a render's wave decay.
+
+    wave_rays: live rays at the start of each wave.  Boundary b (after wave
+    b) compacts iff its survivors are at most tau_mid of the current
+    content prefix while two or more waves remain, tau_last (never, by
+    default) before the last wave.  The thresholds are the JAX package's,
+    fitted to its TPU sweeps.  Returns a per-boundary bool tuple for
+    Engine's ncompact."""
+    n = len(wave_rays)
+    sched = []
+    prefix = max(float(wave_rays[0]), 1.0)
+    for b in range(1, n):
+        surv = float(wave_rays[b])
+        tau = tau_last if n - b == 1 else tau_mid
+        if tau > 0.0 and surv <= tau * prefix:
+            sched.append(True)
+            prefix = max(surv, 1.0)
+        else:
+            sched.append(False)
+    return tuple(sched)
+
+
 def _assemble_host_image(img_dev, v: Viewport, perm: np.ndarray, spp: int,
                          dev_quant: bool) -> np.ndarray:
     """Un-permute a tile-order framebuffer ([3, R] or [3, R//spp] numpy)
@@ -108,8 +134,10 @@ def _assemble_host_image(img_dev, v: Viewport, perm: np.ndarray, spp: int,
 
 
 def unit_rows(v: torch.Tensor) -> torch.Tensor:
-    """Normalize [3, R] column vectors."""
-    return v * rsqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])[None]
+    """Normalize [3, R] column vectors.  XLA reduces `jnp.sum(v * v,
+    axis=0)` in row order with each product fused into the running sum:
+    fma(v2, v2, fma(v1, v1, v0*v0)) (measured against the jitted camera)."""
+    return v * rsqrt(fma(v[2], v[2], fma(v[1], v[1], v[0] * v[0])))[None]
 
 
 def camera_rays_tiled(v: Viewport, tile: int, n_pad: int, device):
@@ -120,7 +148,8 @@ def camera_rays_tiled(v: Viewport, tile: int, n_pad: int, device):
     The image-plane point is orig + vu*(col + 0.5) + vv*(row + 0.5) with
     both multiply-adds fused, as XLA on the CPU compiles the JAX version
     (ROADMAP C2): unfused, a ray 1 ulp off flips a pixel of the 48x27
-    circles render.  The normalization's rsqrt stays `1/sqrt` (C1)."""
+    circles render.  The normalization is `unit_rows`, with XLA-CPU's rsqrt
+    (C1)."""
     if v.samples_per_pixel != 1:
         raise NotImplementedError("spp > 1 camera jitter (ROADMAP A6)")
     R0 = v.height * v.width
@@ -160,28 +189,36 @@ def quantize_u8(img: torch.Tensor) -> torch.Tensor:
 
 
 class Engine:
-    """Culled wavefront renderer, resident regime, no compaction boundary.
+    """Culled, compacted wavefront renderer, resident regime.
 
-    scene: a `rust_raytrace_tpu.scene.Scene`; device: where the scene and
-    the rays live ("cuda" runs the kernels; "cpu" their plain versions).
-    The other arguments mean what they mean for the JAX Engine, whose
-    defaults the port fixes: the page size adapts to the scene
-    (auto_pages) and primary rays start at the pinhole (pinhole_origin).
-    ncompact defaults to 0 here (no compaction) because compaction is not
-    ported; any other value raises.
+    scene: a `scene.Scene`; device: where the scene and the rays live
+    ("cuda" runs the kernels; "cpu" their plain versions).  The other
+    arguments mean what they mean for the JAX Engine, whose defaults the
+    port fixes: the page size adapts to the scene (auto_pages) and primary
+    rays start at the pinhole (pinhole_origin).
+
+    ncompact: None (the default) compacts after waves 0 and 1 and, on a
+    CUDA device, replans the schedule once from the first render's wave
+    decay (`plan_boundaries`), as the JAX Engine does on the TPU; an int n
+    compacts after the first n waves (negative: after every wave but the
+    last); a sequence of bools says per boundary.  Every schedule renders
+    the same image bits.
     """
 
     def __init__(self, scene: Scene, page_size: int = 56,
                  ray_chunk: int = 1024, bounce_chunk: int = 0,
-                 ncompact: Optional[int] = 0, device="cuda"):
-        if ncompact != 0:
-            raise NotImplementedError(
-                "compaction boundaries (ncompact != 0): ROADMAP B3/B5")
+                 ncompact=None, device="cuda"):
         if bounce_chunk != 0:
             raise NotImplementedError(
                 "bounce_chunk != 0: ROADMAP 'Engine knobs'")
         if scene.lights is not None:
             raise NotImplementedError("lights: ROADMAP A5")
+        self._auto_schedule = ncompact is None
+        if ncompact is None:
+            ncompact = 2
+        elif isinstance(ncompact, (list, tuple)):
+            ncompact = tuple(bool(b) for b in ncompact)
+        self.ncompact = ncompact
         n_tris = max(len(scene.tris) - 1, 1)
         if n_tris <= TABLE_SLOT_CAP:
             page_size = auto_page_size(n_tris, page_size)
@@ -206,6 +243,13 @@ class Engine:
         self._perm_cache = {}
         self._pk0_cache = {}
 
+    def _compacts_after(self, wave: int, maxdepth: int) -> bool:
+        """Whether boundary `wave` (after that wave) compacts."""
+        if isinstance(self.ncompact, tuple):
+            return wave < len(self.ncompact) and self.ncompact[wave]
+        limit = maxdepth - 1 if self.ncompact < 0 else self.ncompact
+        return wave < min(limit, maxdepth - 1)
+
     def _perm(self, v: Viewport, tile: int) -> np.ndarray:
         key = (v.height, v.width, v.samples_per_pixel, tile)
         if key not in self._perm_cache:
@@ -224,16 +268,23 @@ class Engine:
         return o, self._pk0_cache[cam_key]
 
     def _render_waves(self, state, key, maxdepth: int, fixed_rng: bool, pk0):
-        """The wave loop of _render_device_compact at ncompact=0.  Returns
-        (accumulated color [3, R], per-wave live counts as tensors)."""
+        """The wave loop of _render_device_compact.  Returns (accumulated
+        color [3, R] in the original lane order, per-wave live counts as
+        tensors).  No host sync: counts, offsets and prefixes stay on the
+        device."""
         R = state.shape[1]
         RB = self.ray_chunk
         P = self.page_size
+        cb = pick_cb(R)
         wc = 0.0 if fixed_rng else WEIGHT_CUTOFF
+        dev = state.device
+        dead_arr = dead_base = None
+        prefix = None          # lane extent of the state's content (None: R)
+        boundaries = []        # (meta, masks, prefix before the boundary)
         wave_counts = []
         for wave in range(maxdepth):
             alive = state[ROW_ALIVE] != 0.0
-            wave_counts.append(alive.sum())
+            wave_counts.append(alive.sum(dtype=torch.int32))
             seed = fold_in(key, wave)
             if wave == 0:
                 mask, tmin = cull_mask_exact(state[0:3], state[3:6], alive,
@@ -248,7 +299,29 @@ class Engine:
                 state = trace_shade_perlane(
                     state, self.plt_i, self.plt_s, self.ab, seed, P, RB,
                     fixed_rng, wc, chunk_live.to(torch.int32))
-        return state[ROW_ACC:ROW_ACC + 3], wave_counts
+            if not self._compacts_after(wave, maxdepth):
+                continue
+            if dead_arr is None:
+                n_bound = sum(self._compacts_after(w, maxdepth)
+                              for w in range(maxdepth))
+                dead_arr = make_dead_array(R, dev, n_bound, cb)
+                dead_base = torch.zeros((), dtype=torch.int32, device=dev)
+            meta, total_a, skip, dead_end = compact_meta(
+                state[ROW_ALIVE], state[ROW_DEAD], cb, dead_base, R)
+            masks = torch.stack([state[ROW_ALIVE], state[ROW_DEAD]])
+            state, dead_arr = compact(state, dead_arr, meta, cb,
+                                      grid_live=prefix)
+            boundaries.append((meta, masks, prefix))
+            old = (torch.full((), R, dtype=torch.int32, device=dev)
+                   if prefix is None else prefix)
+            prefix = torch.where(skip, old, total_a)
+            dead_base = torch.where(skip, dead_base, dead_end)
+        # rows 8..11 (accum + retired flag) back to the original lanes; each
+        # step writes only the prefix the next one reads, the last all lanes
+        y = state[ROW_ACC:ROW_ACC + 4]
+        for meta, masks, before in reversed(boundaries):
+            y = expand(y, dead_arr, masks, meta, cb, grid_live=before)
+        return y[0:3], wave_counts
 
     def render(self, v: Viewport, key=None, fixed_rng: bool = False,
                progress=None, debug: bool = False,
@@ -283,6 +356,11 @@ class Engine:
         img_h = img.cpu().numpy()
         wave_counts = torch.stack(wave_counts).cpu().numpy()
         img = _assemble_host_image(img_h, v, self._perm(v, tile), 1, quantize)
+        if self._auto_schedule and dev.type == "cuda":
+            # one shot, as the JAX Engine on the TPU: the schedule changes
+            # speed only, never bits
+            self._auto_schedule = False
+            self.ncompact = plan_boundaries(wave_counts.tolist())
 
         seconds = time.perf_counter() - t0
         result = RenderResult(image=img, rays_traced=int(wave_counts.sum()),

@@ -15,12 +15,10 @@ lexicographic order one triangle at a time, which selects the same winner.
 
 import torch
 
-from rust_raytrace_tpu.ops.pages import (LANE_ALPHA, LANE_COLOR, LANE_ET,
-                                         LANE_ID, LANE_KIND, LANE_N, LANE_NC,
-                                         LANE_S0, LANE_S0C, LANE_S1, LANE_S1C,
-                                         LANE_S2, LANE_S2C, LANE_SCAT)
-
-from ..utils import native
+from ..utils import native, xla_rsqrt
+from .pages import (LANE_ALPHA, LANE_COLOR, LANE_ET, LANE_ID, LANE_KIND,
+                    LANE_N, LANE_NC, LANE_S0, LANE_S0C, LANE_S1, LANE_S1C,
+                    LANE_S2, LANE_S2C, LANE_SCAT)
 from .shade import fma, scatter_rv, shade_state_rows
 from .state import (ROW_ALPHA, ROW_COLOR, ROW_ENC, ROW_ID, ROW_NORM, ROW_SCAT,
                     ROW_T, STATE_ROWS, TRACE_ROWS)
@@ -170,7 +168,7 @@ def trace_shade_chunks_plain(state, PK, counts, plist, ptmin, seed,
                               ptmin, ray_chunk, zero_origin)
     rays = torch.arange(state.shape[1], device=state.device)
     rv = scatter_rv(seed, rays, ray_chunk, fixed_rng)
-    return shade_state_rows(state, rows, *rv, weight_cutoff)
+    return shade_state_rows(state, rows, rv, weight_cutoff)
 
 
 def trace_shade_chunks(state, PK, counts, plist, ptmin, seed,
@@ -206,5 +204,5 @@ def trace_shade_chunks(state, PK, counts, plist, ptmin, seed,
         state.data_ptr(), out.data_ptr(), R, PK.data_ptr(), page_size, NP,
         counts.data_ptr(), plist.data_ptr(), ptmin.data_ptr(), s0, s1,
         int(fixed_rng), float(weight_cutoff), int(zero_origin), ray_chunk,
-        native.stream(dev))
+        xla_rsqrt.device_table(dev).data_ptr(), native.stream(dev))
     return out

@@ -17,10 +17,9 @@ to which its two-pages-per-step form is equal.
 import numpy as np
 import torch
 
-from rust_raytrace_tpu.ops.pages import PACK_LANES, PageTables
-
-from ..utils import native
+from ..utils import native, xla_rsqrt
 from .cull import slab, slab_inv
+from .pages import PACK_LANES, PageTables
 from .intersect import (PAYLOAD_ROWS, lex_update, packed_hit_predicate,
                         payload_features)
 from .shade import scatter_rv, shade_state_rows
@@ -153,7 +152,7 @@ def trace_shade_perlane_plain(state, plt_i, plt_s, ab, seed, page_size: int,
         rows = trace_perlane_plain(st[0:3], st[3:6], st[ROW_ALIVE], plt_i,
                                  plt_s, ab, page_size)
         rv = scatter_rv(seed, idx, ray_chunk, fixed_rng)
-        out[:, idx] = shade_state_rows(st, rows, *rv, weight_cutoff)
+        out[:, idx] = shade_state_rows(st, rows, rv, weight_cutoff)
     return out
 
 
@@ -194,5 +193,5 @@ def trace_shade_perlane(state, plt_i, plt_s, ab, seed, page_size: int,
         state.data_ptr(), out.data_ptr(), R, plt_i.data_ptr(),
         plt_s.data_ptr(), ab.data_ptr(), P, NB, ray_chunk,
         chunk_live.data_ptr(), s0, s1, int(fixed_rng), float(weight_cutoff),
-        native.stream(dev))
+        xla_rsqrt.device_table(dev).data_ptr(), native.stream(dev))
     return out

@@ -10,25 +10,30 @@ agree bit for bit on the card.
 Three choices of the port:
 
 - `fma(a, b, c)` fuses a multiply-add where XLA on the CPU fuses it when it
-  compiles the JAX version (ROADMAP C2, measured against the interpret-mode
-  kernels): in the hit predicate's dot products and plane distances, in the
-  hit point o + t*d, and in the camera.  Everywhere else each op rounds.
-  The CUDA sources call `fmaf` at the same places and are otherwise built
-  with -fmad=false.
-- `rsqrt(x)` is `1 / sqrt(x)`, two correctly rounded steps that torch on the
-  CPU, torch on the card and `1.0f / sqrtf(x)` under nvcc's `--prec-div=true
-  --prec-sqrt=true` all compute alike.  XLA on the CPU uses an AVX estimate
-  refined by Newton steps, which differs from it by at most one ulp (C1), so
-  new directions match the JAX package within ulps, not bitwise.
+  compiles the JAX version (ROADMAP C2), and nowhere else; the CUDA sources
+  call `fmaf` at the same places and are otherwise built with -fmad=false.
+  The sites were read off the machine code XLA emits for the interpret-mode
+  kernels (LLVM contracts a multiply into the add that consumes it, inside
+  one fusion): the hit predicate's dot products and plane distances, the
+  hit point o + t*d, the camera, and in the shade every sum of squares
+  (`norm2`), the new origin p + 0.001*dir, the reflection
+  d + 2*nf*|d.nf| + rv*scat and the matte direction nf + v*inv (the scatter
+  vector's product is re-formed inside that fusion, so it fuses unrounded).
+  XLA evaluates |d.nf| once per reflected component, in separate fusions,
+  and the first one associates differently (`REFLECT_DOT`).
+- `rsqrt(x)` is XLA-CPU's: this host's `rsqrtps` estimate followed by two
+  Newton steps (ROADMAP C1, utils/xla_rsqrt.py), bitwise equal to
+  `jax.lax.rsqrt` under jit on the same CPU.
 - The scatter hash runs in int64 masked to 32 bits (torch has no wrapping
   uint32 multiply); products are split into 16-bit halves so that no
   intermediate leaves the int64 range.
 """
 
+import numpy as np
 import torch
 
-from rust_raytrace_tpu.materials import KIND_MATTE, KIND_REFLECTIVE
-
+from ..materials import KIND_MATTE, KIND_REFLECTIVE
+from ..utils import xla_rsqrt
 from .state import (ROW_ACC, ROW_ALIVE, ROW_ALPHA, ROW_COLOR, ROW_DEAD,
                     ROW_ENC, ROW_ID, ROW_NORM, ROW_SCAT, ROW_T, ROW_W,
                     STATE_ROWS)
@@ -43,22 +48,52 @@ _M32 = 0xFFFFFFFF
 
 
 def fma(a, b, c) -> torch.Tensor:
-    """float32 a*b + c with the product unrounded: a*b is exact in float64,
-    and the float64 sum rounded to float32 differs from a true fused
-    multiply-add (CUDA's fmaf) only where the first rounding lands on a
-    float32 tie."""
-    a, b, c = (x.double() if torch.is_tensor(x) else x for x in (a, b, c))
-    return (a * b + c).to(torch.float32)
+    """float32 fused multiply-add a*b + c, rounded once (CUDA's fmaf).
+
+    Operands are float32 tensors or Python floats, which are rounded to
+    float32 first, as a float32 constant in the CUDA source is.  a*b is
+    exact in float64; the float64 sum is rounded to odd (its exact error
+    from TwoSum decides the last bit), and then to float32, which rounds the
+    exact value correctly because float64 carries more than 24 + 1 bits."""
+    a, b, c = (x.double() if torch.is_tensor(x)
+               else float(np.float32(x)) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    pv = s - c                      # TwoSum: the part of s that is p's
+    err = (p - pv) + (c - (s - pv))
+    bits = s.view(torch.int64)
+    inexact = (err != 0) & torch.isfinite(s) & ((bits & 1) == 0)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(inexact, bits + step, bits).view(
+        torch.float64).to(torch.float32)
 
 
 def rsqrt(x: torch.Tensor) -> torch.Tensor:
-    return torch.reciprocal(torch.sqrt(x))
+    """XLA-CPU's float32 rsqrt: this host's rsqrtps estimate, then two
+    Newton steps on positive normal inputs (utils/xla_rsqrt.py)."""
+    est = xla_rsqrt.estimate(x)
+    y = est
+    for _ in range(2):
+        y = fma(-0.5 * y, fma(x * y, y, -1.0), y)
+    pos_normal = (x > 0.0) & (x < torch.inf) & (x.abs() >= 2.0 ** -126)
+    return torch.where(pos_normal, y, est)
+
+
+def norm2(v0, v1, v2):
+    """v0*v0 + v1*v1 + v2*v2 as XLA contracts it inside a fusion:
+    fma(v2, v2, fma(v0, v0, v1*v1))."""
+    return fma(v2, v2, fma(v0, v0, v1 * v1))
 
 
 def unit3(v0, v1, v2):
     """Normalize a 3-vector given as three equal-shape tensors."""
-    inv = rsqrt(v0 * v0 + v1 * v1 + v2 * v2)
+    inv = rsqrt(norm2(v0, v1, v2))
     return v0 * inv, v1 * inv, v2 * inv
+
+
+#: |d . nf| per reflected component k: fma(d2, nf2, fma(d_i, nf_i, d_j*nf_j))
+#: with (i, j) = REFLECT_DOT[k]
+REFLECT_DOT = ((1, 0), (0, 1), (0, 1))
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -97,22 +132,29 @@ def scatter_uniforms(seed, rays: torch.Tensor, ray_chunk: int):
 
 
 def scatter_rv(seed, rays: torch.Tensor, ray_chunk: int, fixed_rng: bool):
-    """Scatter vectors (`random_vec`) for the rays at global positions
-    `rays`: unit(u - 0.5) of `scatter_uniforms`, or the fixed vector.
-    Returns three [n] float32 tensors."""
+    """Scatter vector source (`random_vec`) for the rays at global
+    positions `rays`: ((v0, v1, v2), inv) with the scatter vector
+    rv = v * inv, v = u - 0.5 of `scatter_uniforms` and inv its rsqrt norm;
+    under fixed_rng (FIXED_RV, None).  The shade takes both factors: the
+    matte direction fuses nf + v*inv into one fma, and XLA folds the fixed
+    vector's products into constants."""
     if fixed_rng:
-        return tuple(torch.full((rays.shape[0],), v, dtype=torch.float32,
-                                device=rays.device) for v in FIXED_RV)
-    return unit3(*(u - 0.5 for u in scatter_uniforms(seed, rays, ray_chunk)))
+        return (tuple(torch.full((rays.shape[0],), v, dtype=torch.float32,
+                                 device=rays.device) for v in FIXED_RV),
+                None)
+    v = tuple(u - 0.5 for u in scatter_uniforms(seed, rays, ray_chunk))
+    return v, rsqrt(norm2(*v))
 
 
-def shade_state_rows(st, rows, rv0, rv1, rv2, weight_cutoff: float):
+def shade_state_rows(st, rows, rv, weight_cutoff: float):
     """One wave's shade + scatter + state update.
 
-    st: [16, n] ray state; rows: [16, n] trace winner rows; rv*: [n] scatter
-    source.  Returns the new [16, n] state.  Mirrors the JAX
-    `_shade_state_rows` op for op.
+    st: [16, n] ray state; rows: [16, n] trace winner rows; rv: the scatter
+    source ((v0, v1, v2), inv) of `scatter_rv`, each [n].  Returns the new
+    [16, n] state.  Mirrors the JAX `_shade_state_rows` op for op, with
+    XLA's contractions.
     """
+    v, inv_v = rv
     weight = st[ROW_W]
     valid = st[ROW_ALIVE] != 0.0
     o0, o1, o2 = st[0], st[1], st[2]
@@ -145,19 +187,33 @@ def shade_state_rows(st, rows, rv0, rv1, rv2, weight_cutoff: float):
                        + torch.where(scatter_live, weight * c * one_m_a, 0.0))
     new_w = torch.where(scatter_live, weight * alpha, weight)
 
-    p0 = fma(t, d0, o0)
-    p1 = fma(t, d1, o1)
-    p2 = fma(t, d2, o2)
-    m0, m1, m2 = unit3(nf0 + rv0, nf1 + rv1, nf2 + rv2)
-    ddot = torch.abs(d0 * nf0 + d1 * nf1 + d2 * nf2)
-    r0, r1, r2 = unit3(d0 + 2.0 * nf0 * ddot + rv0 * scat,
-                       d1 + 2.0 * nf1 * ddot + rv1 * scat,
-                       d2 + 2.0 * nf2 * ddot + rv2 * scat)
+    d = (d0, d1, d2)
+    nf = (nf0, nf1, nf2)
+    p = [fma(t, dk, ok) for dk, ok in zip(d, (o0, o1, o2))]
+    fixed = inv_v is None
+    if fixed:                       # a constant vector: nothing to fuse
+        rvs = list(v)
+        m = unit3(*(nk + vk for vk, nk in zip(v, nf)))
+    else:
+        rvs = [vk * inv_v for vk in v]
+        m = unit3(*(fma(vk, inv_v, nk) for vk, nk in zip(v, nf)))
+    rx = []
+    for k in range(3):
+        i, j = REFLECT_DOT[k]
+        ddot = torch.abs(fma(d2, nf2, fma(d[i], nf[i], d[j] * nf[j])))
+        rx.append(fma(rvs[k], scat, fma(2.0 * nf[k], ddot, d[k])))
+    r = unit3(*rx)
     is_matte = kind == KIND_MATTE
-    no = [torch.where(is_matte, p + rv * 0.001, p + r * 0.001)
-          for p, rv, r in ((p0, rv0, r0), (p1, rv1, r1), (p2, rv2, r2))]
-    nd = [torch.where(is_matte, m, r)
-          for m, r in ((m0, r0), (m1, r1), (m2, r2))]
+    nd = [torch.where(is_matte, mk, rk) for mk, rk in zip(m, r)]
+    # the new origin p + 0.001*(matte ? rv : r): XLA hoists p out of the
+    # select; with live RNG the product then fuses into the add, while under
+    # fixed_rng the matte side is a folded constant and nothing fuses
+    if fixed:
+        no = [pk + torch.where(is_matte, rvk * 0.001, rk * 0.001)
+              for rvk, rk, pk in zip(rvs, r, p)]
+    else:
+        no = [fma(torch.where(is_matte, rvk, rk), 0.001, pk)
+              for rvk, rk, pk in zip(rvs, r, p)]
 
     alive2 = scatter_live
     if weight_cutoff > 0.0:

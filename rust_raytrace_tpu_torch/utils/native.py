@@ -2,9 +2,10 @@
 
 Counterpart: `rust_raytrace_tpu/utils/native.py`, the on-demand g++ build of
 the host scene pipeline bound through ctypes.  Here nvcc compiles every
-source under `csrc/` into one shared library with a plain C interface, at
-first use, into `build/kernels/` at the repository root, named by a hash of
-the sources and flags so an edit forces a rebuild.  The JAX package has no
+CUDA source under `csrc/` (one process per source, in parallel) and links
+them into one shared library with a plain C interface, at first use, into
+`build/kernels/` at the repository root, named by a hash of the sources and
+flags so an edit forces a rebuild.  The JAX package has no
 build step of its own: Mosaic compiles each Pallas kernel inside
 `pl.pallas_call`.
 
@@ -29,7 +30,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-fmad=false",
-    "--prec-div=true", "--prec-sqrt=true", "-std=c++17", "-shared",
+    "--prec-div=true", "--prec-sqrt=true", "-std=c++17",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -64,7 +65,8 @@ def _nvcc() -> str:
 
 
 def build() -> dict:
-    """Compile the kernel library unless the hashed build exists.
+    """Compile the kernel library unless the hashed build exists: one nvcc
+    per source, all started together, then one link.
 
     Returns {"path", "seconds", "log"}: seconds is 0.0 and log empty when
     the library was already built.  The compiler's `-Xptxas -v` report
@@ -73,15 +75,35 @@ def build() -> dict:
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        procs.append((obj, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for obj, proc in procs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(obj.name)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [_nvcc(), "-shared", "-o", str(tmp), *(str(o) for o, _ in procs)],
+            capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append("link")
+    for obj, _ in procs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, so)
     so.with_suffix(".log").write_text(log)
     return {"path": str(so), "seconds": seconds, "log": log}
@@ -127,16 +149,27 @@ CULL = Kernel(
     "rust_raytrace_tpu/ops/cull_pallas.py:271")
 TRACE_SHADE_UNION = Kernel(
     "trace_shade_chunks", "rt_trace_shade_union",
-    [P, P, I64, P, I32, I32, P, P, P, U32, U32, I32, F32, I32, I32, P],
+    [P, P, I64, P, I32, I32, P, P, P, U32, U32, I32, F32, I32, I32, P, P],
     "rust_raytrace_tpu_torch/csrc/trace_shade_union.cu",
     "rust_raytrace_tpu/ops/intersect_pallas.py:520")
 TRACE_SHADE_PERLANE = Kernel(
     "trace_shade_perlane", "rt_trace_shade_perlane",
-    [P, P, I64, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P],
+    [P, P, I64, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P, P],
     "rust_raytrace_tpu_torch/csrc/trace_shade_perlane.cu",
     "rust_raytrace_tpu/ops/intersect_perlane.py:772")
 
-KERNELS = (CULL, TRACE_SHADE_UNION, TRACE_SHADE_PERLANE)
+COMPACT = Kernel(
+    "compact", "rt_compact",
+    [P, P, P, I64, I64, P, I32, P, P],
+    "rust_raytrace_tpu_torch/csrc/compact.cu",
+    "rust_raytrace_tpu/ops/compact.py:485")
+EXPAND = Kernel(
+    "expand", "rt_expand",
+    [P, P, P, P, I32, I64, I64, P, I32, P, P],
+    "rust_raytrace_tpu_torch/csrc/compact.cu",
+    "rust_raytrace_tpu/ops/compact.py:640")
+
+KERNELS = (CULL, TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND)
 
 
 def reset_launch_counts() -> None:
