@@ -3,29 +3,38 @@
 
     python3 chip_smoke.py
 
+Two main paths run: the unlit circles_2k render (B1, B2, B3, B4, B5) and
+the lit one, circles_2k with the teapot preset's light (B1 twice at wave 0,
+B6 twice, B8, B3, B4 with its fused shadow feeler, B5).
+
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc compiles csrc/*.cu into build/kernels/ (hash-cached, one
      nvcc per source, all started together);
   3. kernels against their plain torch versions on the card, at the main
-     path's shapes (ray_chunk 1024, page size 56, 37 pages), bitwise: B1,
-     B2 and B4 on 64 chunks of a real circles_2k wave, B3 and B5 on the
-     whole circles_2k state after wave 0 (3,686,400 rays, cb 512, 7,200
-     chunks) and again at the second boundary (after wave 1 on the survivor
-     prefix: grid_live and dead_base > 0, B5 compared within the prefix);
-     times of kernel and plain version, and of each kernel on the
-     full wave, beside the least time the card could take (bound);
+     paths' shapes (ray_chunk 1024, page size 56, 37 pages), bitwise: B1,
+     B2 and B4 on 64 chunks of a real circles_2k wave, then the lights
+     path's B6 on those camera rays (folded pages), B6 on their shadow rays
+     with self-exclusion, B8 with the shadow mask and B4 with the feeler on
+     the lit wave-1 state; B3 and B5 on the whole circles_2k state after
+     wave 0 (3,686,400 rays, cb 512, 7,200 chunks) and again at the second
+     boundary (after wave 1 on the survivor prefix: grid_live and
+     dead_base > 0, B5 compared within the prefix); times of kernel and
+     plain version, and of each kernel on the full wave, beside the least
+     time the card could take (bound), and the time of the shadow pass's
+     bulk random draw (threefry glue);
   4. golden: the default (compacted) Engine's 96x54 circles render under
      fixed_rng is byte-equal to tests/goldens/circles_96x54.png;
   5. kernel path vs plain path of the default Engine at 640x360 under
-     fixed_rng: at most 0.01% of u8 pixels may differ;
+     fixed_rng, unlit and lit: at most 0.01% of u8 pixels may differ;
   6. circles_2k (2560x1440, maxdepth 5, live RNG): the default Engine after
      its autotune (the planned schedule printed) and Engine(ncompact=0),
-     three timed renders each, in turns; every kernel of the default path
-     must have launched in its renders;
-  7. profile: one default and one ncompact=0 circles_2k render under
-     torch.profiler (the card's time per kernel and copy, its busy share)
-     and the host un-permute timed alone.
+     three timed renders each, in turns; then the lit default Engine, three
+     timed renders after a warm-up; every kernel of each path must have
+     launched in its renders (counts set to 0 just before each render);
+  7. profile: one default, one ncompact=0 and one lit circles_2k render
+     under torch.profiler (the card's time per kernel and copy, its busy
+     share) and the host un-permute timed alone.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, with no such line, when
 CUDA is missing or any phase fails.
@@ -44,9 +53,10 @@ from rust_raytrace_tpu_torch import engine as eng_mod
 from rust_raytrace_tpu_torch.engine import Engine, page_lists
 from rust_raytrace_tpu_torch.models import circles
 from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
-                                        intersect_perlane)
+                                        intersect_perlane, shade)
+from rust_raytrace_tpu_torch.scene import LightSource
 from rust_raytrace_tpu_torch.utils import native, png
-from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key
+from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key, uniform
 
 DEVICE = "cuda"
 RB = 1024
@@ -62,6 +72,24 @@ FP32_FLOP_PER_S = 67e12
 #: lexicographic update)
 SLAB_FLOPS = 26
 HIT_FLOPS = 34
+#: float32 operations of one ray's shade (B0b: contributions, two
+#: normalizations with their Newton steps, reflection, selects)
+SHADE_FLOPS = 120
+#: the teapot preset's light (models/teapot.py, with_light=True):
+#: (ox, oy, oz, len2)
+LIGHT = (-4.0, 8.0, 0.0, 0.2)
+#: the kernels each main path runs
+UNLIT_PATH = ("cull_mask_exact", "trace_shade_chunks", "compact",
+              "trace_shade_perlane", "expand")
+LIT_PATH = ("cull_mask_exact", "trace_chunks", "shade", "compact",
+            "trace_shade_perlane", "expand")
+
+
+def lit(scene):
+    """`scene` with the teapot preset's light."""
+    scene.lights = LightSource(orig=np.asarray(LIGHT[:3], np.float32),
+                               len2=LIGHT[3])
+    return scene
 
 
 def _card() -> str:
@@ -137,6 +165,32 @@ def _profile_render(eng, vp):
 
 def _counts():
     return {k.name: k.launches for k in native.KERNELS}
+
+
+#: the kernels' function names in csrc/*.cu
+PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
+                "trace_shade_perlane_kernel", "expand_kernel",
+                "shade_kernel")
+
+
+def _groups(per_name) -> dict:
+    """Device ms of a profiled render by kind: the port's kernels, torch's
+    int64 and float64 elementwise kernels (the threefry draw and the
+    emulated fma), copies, the rest."""
+    out = {"port kernels": 0.0, "torch int64 ops": 0.0,
+           "torch float64 ops": 0.0, "copies": 0.0, "other": 0.0}
+    for name, ms in per_name.items():
+        if any(f"::{k}{c}" in name for k in PORT_KERNELS for c in "(<"):
+            out["port kernels"] += ms
+        elif "Memcpy" in name or "Memset" in name:
+            out["copies"] += ms
+        elif "<long" in name:
+            out["torch int64 ops"] += ms
+        elif "double" in name:
+            out["torch float64 ops"] += ms
+        else:
+            out["other"] += ms
+    return out
 
 
 def main() -> int:
@@ -250,6 +304,93 @@ def main() -> int:
     print(f"B4 on {N_CHECK_CHUNKS} chunks: max |diff| {err}; "
           f"{int((st2_k[7] != 0).sum())} rays live after wave 1")
 
+    # the lights path's kernels on the same chunks, lit by the teapot
+    # preset's light (live RNG, as the circles_2k renders)
+    def b6_bound(n, counts, valid, with_excl):
+        # as B2's: the first page of every chunk that has one
+        live = (counts > 0).repeat_interleave(RB) & valid
+        return _bound(n * (88 + 4 * with_excl)
+                      + int((counts > 0).sum()) * P * 96,
+                      int(live.sum()) * P * HIT_FLOPS)
+
+    def b8_bound(n, live):
+        return _bound(n * (64 + 44 + 64 + 4), int(live.sum()) * SHADE_FLOPS)
+
+    def b4_lit_bound(n, state, hits):
+        # b4_bound's slab tests, and those of every hit's shadow ray
+        return _bound(n * 128 + table_bytes,
+                      (int((state[7] != 0).sum()) + hits) * NP * SLAB_FLOPS)
+
+    def rows_plain(ot, dt, PK, c, pl, pt, zero_origin=False, excl=None):
+        return intersect.trace_chunks_plain(ot, dt, PK, c, pl, pt, RB,
+                                            zero_origin, excl)
+
+    def shadow_inputs(state, rows):
+        so, sd, hit, excl = eng_mod.shadow_rays(state, rows, key, 0, False,
+                                                LIGHT)
+        sm, stm = cull.cull_mask_exact(so, sd, hit, eng.aabb_lo,
+                                       eng.aabb_hi, RB)
+        return (so, sd, eng.PK, *page_lists(sm, stm)), hit, excl
+
+    cam = (st0[0:3], st0[3:6], pk0, counts, plist, ptmin)
+    rows_k = intersect.trace_chunks(*cam, P, RB, zero_origin=True)
+    err6 = _require_bitwise("B6 camera rays", rows_k,
+                            rows_plain(*cam, zero_origin=True))
+    sargs, hit, excl = shadow_inputs(st0, rows_k)
+    srows_k = intersect.trace_chunks(*sargs, P, RB, excl=excl)
+    err6s = _require_bitwise("B6 shadow rays", srows_k,
+                             rows_plain(*sargs, excl=excl))
+    shd = (hit & (srows_k[1] != 0)).float()
+    results[native.TRACE_UNION_ROWS.name] = dict(
+        rays=int(st0.shape[1]), max_abs_err=max(err6, err6s),
+        ms=_time_ms(lambda: intersect.trace_chunks(*cam, P, RB,
+                                                   zero_origin=True)),
+        plain_ms=_time_ms(lambda: rows_plain(*cam, zero_origin=True),
+                          reps=2),
+        **b6_bound(st0.shape[1], counts, st0[7] != 0, False),
+        shadow=dict(
+            ms=_time_ms(lambda: intersect.trace_chunks(*sargs, P, RB,
+                                                       excl=excl)),
+            plain_ms=_time_ms(lambda: rows_plain(*sargs, excl=excl),
+                              reps=2),
+            **b6_bound(st0.shape[1], sargs[3], hit, True)))
+    print(f"B6 on {N_CHECK_CHUNKS} chunks: camera rays and shadow rays "
+          f"bitwise equal; {int(hit.sum())} hits, {int(shd.sum())} shadowed")
+    ones = torch.ones(st0.shape[1] // RB, dtype=torch.int32, device=dev)
+    args8 = (st0, rows_k, fold_in(key, 0), RB, False, 1 / 512, ones, shd)
+    st1l_k = shade.shade(*args8)
+    err8 = _require_bitwise("B8", st1l_k, shade.shade_plain(*args8))
+    results[native.SHADE.name] = dict(
+        rays=int(st0.shape[1]), max_abs_err=err8,
+        ms=_time_ms(lambda: shade.shade(*args8)),
+        plain_ms=_time_ms(lambda: shade.shade_plain(*args8), reps=2),
+        **b8_bound(st0.shape[1], st0[7] != 0))
+    print(f"B8 on {N_CHECK_CHUNKS} chunks: bitwise equal; "
+          f"{int((st1l_k[7] != 0).sum())} rays live after wave 0")
+    livel = (st1l_k[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+    args4l = (st1l_k, eng.plt_i, eng.plt_s, eng.ab, fold_in(key, 1), P, RB,
+              False, 1 / 512, livel, LIGHT)
+    st2l_k = intersect_perlane.trace_shade_perlane(*args4l)
+    err4l = _require_bitwise(
+        "B4 with light", st2l_k,
+        intersect_perlane.trace_shade_perlane_plain(*args4l))
+    rows1 = intersect_perlane.trace_perlane_plain(
+        st1l_k[0:3], st1l_k[3:6], st1l_k[7], eng.plt_i, eng.plt_s, eng.ab, P)
+    hits1 = int(((st1l_k[7] != 0) & (rows1[1] != 0)).sum())
+    unlit4 = {k: results[native.TRACE_SHADE_PERLANE.name][k]
+              for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    results[native.TRACE_SHADE_PERLANE.name].update(
+        max_abs_err=max(err4l, results[native.TRACE_SHADE_PERLANE.name][
+            "max_abs_err"]),
+        ms=_time_ms(lambda: intersect_perlane.trace_shade_perlane(*args4l)),
+        plain_ms=_time_ms(
+            lambda: intersect_perlane.trace_shade_perlane_plain(*args4l),
+            reps=2),
+        **b4_lit_bound(st0.shape[1], st1l_k, hits1),
+        feeler=True, unlit=unlit4)
+    print(f"B4 with the shadow feeler on {N_CHECK_CHUNKS} chunks: bitwise "
+          f"equal; {hits1} hit rays ran the feeler")
+
     # the kernels alone at full 2k size (3,600 chunks)
     alive_f = full0[7] != 0.0
     fm, ft = cull.cull_mask_exact(full0[0:3], full0[3:6], alive_f,
@@ -277,6 +418,55 @@ def main() -> int:
         print(f"time {name} (full 2k wave, {R // RB} chunks): kernel "
               f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']}) [{card}]")
+
+    # the lights path's kernels on the full lit wave 0 and wave 1
+    unlit4 = results[native.TRACE_SHADE_PERLANE.name]["unlit"]
+    unlit4.update(ms_full=results[native.TRACE_SHADE_PERLANE.name].pop(
+        "ms_full"), bound_ms_full=results[native.TRACE_SHADE_PERLANE.name]
+        .pop("bound_ms_full"))
+    fcam = (full0[0:3], full0[3:6], pk0, fc, fpl, fpt)
+    frows = intersect.trace_chunks(*fcam, P, RB, zero_origin=True)
+    fsargs, fhit, fexcl = shadow_inputs(full0, frows)
+    fsrows = intersect.trace_chunks(*fsargs, P, RB, excl=fexcl)
+    fshd = (fhit & (fsrows[1] != 0)).float()
+    fones = torch.ones(R // RB, dtype=torch.int32, device=dev)
+    full1l = shade.shade(full0, frows, fold_in(key, 0), RB, False, 1 / 512,
+                         fones, fshd)
+    flivel = (full1l[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+    lit_full = {
+        "B6 camera rays": (results[native.TRACE_UNION_ROWS.name],
+                           _time_ms(lambda: intersect.trace_chunks(
+                               *fcam, P, RB, zero_origin=True)),
+                           b6_bound(R, fc, full0[7] != 0, False)),
+        "B6 shadow rays": (results[native.TRACE_UNION_ROWS.name]["shadow"],
+                           _time_ms(lambda: intersect.trace_chunks(
+                               *fsargs, P, RB, excl=fexcl)),
+                           b6_bound(R, fsargs[3], fhit, True)),
+        "B8": (results[native.SHADE.name],
+               _time_ms(lambda: shade.shade(full0, frows, fold_in(key, 0),
+                                            RB, False, 1 / 512, fones, fshd)),
+               b8_bound(R, full0[7] != 0)),
+        # lower bound: the feeler's slab tests are not counted at full size
+        "B4 with light": (results[native.TRACE_SHADE_PERLANE.name],
+                          _time_ms(lambda: intersect_perlane
+                                   .trace_shade_perlane(
+                                       full1l, eng.plt_i, eng.plt_s, eng.ab,
+                                       fold_in(key, 1), P, RB, False,
+                                       1 / 512, flivel, LIGHT)),
+                          b4_lit_bound(R, full1l, 0)),
+    }
+    for name, (res, ms, bound) in lit_full.items():
+        res.update(ms_full=ms, bound_ms_full=bound["bound_ms"])
+        print(f"time {name} (full lit 2k wave, {R // RB} chunks): kernel "
+              f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) [{card}]")
+    skey = fold_in(key, 7_000_000)
+    t_rng = _time_ms(lambda: (uniform(fold_in(skey, 0), (3, R), dev),
+                              uniform(fold_in(skey, 1), (1, R), dev)))
+    print(f"time threefry glue (jax.random.uniform of [3, {R}] and [1, {R}]"
+          f", torch ops): {t_rng:.4f} ms per wave-0 shadow pass [{card}]; "
+          f"{int(fhit.sum())} hits, {int(fshd.sum())} shadowed")
+    del frows, fsargs, fhit, fexcl, fsrows, fshd, full1l
 
     # B3 and B5 on the whole state after wave 0: the first boundary
     cb = compact.pick_cb(R)
@@ -373,32 +563,44 @@ def main() -> int:
     print("golden: circles 96x54 fixed_rng byte-equal on the card "
           "(default Engine, compacted after waves 0 and 1)")
 
-    # 5. kernel path vs plain path on the card, default Engine
-    m_scene, m_vp = circles.build(resolution=(640, 360), maxdepth=5)
-    img_k = Engine(m_scene, device=dev).render(m_vp, fixed_rng=True).image
+    # 5. kernel path vs plain path on the card, default Engine, unlit and lit
+    def plain_rows(ot, dt, PK, c, pl, pt, page_size, ray_chunk,
+                   zero_origin=False, excl=None):
+        return intersect.trace_chunks_plain(ot, dt, PK, c, pl, pt, ray_chunk,
+                                            zero_origin, excl)
+
     swaps = {"cull_mask_exact": cull.cull_mask_exact_plain,
              "trace_shade_chunks": intersect.trace_shade_chunks_plain,
              "trace_shade_perlane":
                  intersect_perlane.trace_shade_perlane_plain,
              "compact": compact.compact_plain,
-             "expand": compact.expand_plain}
-    saved = {n: getattr(eng_mod, n) for n in swaps}
-    before = _counts()
-    for n, fn in swaps.items():
-        setattr(eng_mod, n, fn)
-    try:
-        img_p = Engine(m_scene, device=dev).render(m_vp, fixed_rng=True).image
-    finally:
-        for n, fn in saved.items():
+             "expand": compact.expand_plain,
+             "trace_chunks": plain_rows,
+             "shade": shade.shade_plain}
+    for label, make in (("unlit", lambda s: s), ("lit", lit)):
+        m_scene, m_vp = circles.build(resolution=(640, 360), maxdepth=5)
+        m_scene = make(m_scene)
+        img_k = Engine(m_scene, device=dev).render(m_vp,
+                                                   fixed_rng=True).image
+        saved = {n: getattr(eng_mod, n) for n in swaps}
+        before = _counts()
+        for n, fn in swaps.items():
             setattr(eng_mod, n, fn)
-    if _counts() != before:
-        raise AssertionError("plain path launched a kernel")
-    n_px = img_k.shape[0] * img_k.shape[1]
-    n_diff = int((img_k != img_p).any(axis=-1).sum())
-    print(f"kernel vs plain path 640x360 fixed_rng: {n_diff} of {n_px} "
-          f"pixels differ")
-    if n_diff > 1e-4 * n_px:
-        raise AssertionError("kernel and plain paths differ beyond 0.01%")
+        try:
+            img_p = Engine(m_scene, device=dev).render(m_vp,
+                                                       fixed_rng=True).image
+        finally:
+            for n, fn in saved.items():
+                setattr(eng_mod, n, fn)
+        if _counts() != before:
+            raise AssertionError("plain path launched a kernel")
+        n_px = img_k.shape[0] * img_k.shape[1]
+        n_diff = int((img_k != img_p).any(axis=-1).sum())
+        print(f"kernel vs plain path 640x360 fixed_rng, {label}: {n_diff} "
+              f"of {n_px} pixels differ")
+        if n_diff > 1e-4 * n_px:
+            raise AssertionError(f"{label}: kernel and plain paths differ "
+                                 f"beyond 0.01%")
 
     # 6. circles_2k end to end: the autotuned default Engine and ncompact=0
     eng.render(vp)                       # the autotune plans on this render
@@ -435,19 +637,58 @@ def main() -> int:
     print(f"default and ncompact=0 images equal: {same} (live RNG: the "
           f"scatter hash keys on the compacted layout, so they may differ)")
     print(f"launches in the 3 default renders: {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in UNLIT_PATH if launches[n] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the unlit path: "
                              f"{missing}")
 
+    # 6b. circles_2k lit: the default Engine, three renders after a warm-up
+    # (the autotune plans on it)
+    eng_l = Engine(lit(circles.build(resolution="2k", maxdepth=5)[0]),
+                   device=dev)
+    eng_l.render(vp)
+    torch.cuda.synchronize()
+    print(f"lit autotune: planned schedule {eng_l.ncompact}")
+    lit_runs = []
+    lit_launches = {k.name: 0 for k in native.KERNELS}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        lit_runs.append(eng_l.render(vp))
+        torch.cuda.synchronize()
+        for k, c in _counts().items():
+            lit_launches[k] += c
+    best_l = min(lit_runs, key=lambda r: r.seconds)
+    img_l = best_l.image
+    if img_l.shape != (vp.height, vp.width, 3) or img_l.dtype != np.uint8:
+        raise AssertionError(f"lit circles_2k image {img_l.shape}")
+    if int(best_l.wave_rays[0]) != R0 or not (img_l.max() > 0):
+        raise AssertionError(f"lit circles_2k wave_rays {best_l.wave_rays}")
+    unlit_img = min(runs["default"], key=lambda r: r.seconds).image
+    darker = float(((unlit_img.astype(int) - img_l) > 1).any(-1).mean())
+    print(f"circles_2k lit: best {best_l.seconds:.6f} s of "
+          f"{[round(r.seconds, 6) for r in lit_runs]}, rays_traced "
+          f"{best_l.rays_traced}, {best_l.mrays_per_sec:.3f} Mrays/s, "
+          f"wave_rays {best_l.wave_rays.tolist()} [{card}]; {darker:.4f} of "
+          f"pixels darker than unlit")
+    if not 0.05 < darker < 0.95:
+        raise AssertionError("the light cast no shadow, or shadowed all")
+    print(f"launches in the 3 lit renders: {lit_launches}")
+    missing = [n for n in LIT_PATH if lit_launches[n] == 0]
+    if missing or lit_launches["trace_shade_chunks"]:
+        raise AssertionError(f"lit path: kernels never launched {missing}, "
+                             f"or B2 launched")
+
     # 7. where the time of one circles_2k render goes
-    for name, e in (("default", eng), ("ncompact=0", eng0)):
+    for name, e in (("default", eng), ("ncompact=0", eng0), ("lit", eng_l)):
         wall_ms, per_name, busy_ms = _profile_render(e, vp)
         print(f"profile {name}: render {wall_ms:.3f} ms under the profiler, "
               f"device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%) [{card}]")
-        for n, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:16]:
+        for n, ms in sorted(per_name.items(), key=lambda kv: -kv[1])[:24]:
             print(f"  device {ms:9.3f} ms  {n[:90]}")
+        print(f"  by kind: " + ", ".join(f"{g} {ms:.3f} ms" for g, ms in
+                                         _groups(per_name).items()))
     img_u8 = np.zeros((3, R), np.uint8)
     perm = eng._perm(vp, tile)
     t_host = []
@@ -458,9 +699,14 @@ def main() -> int:
     print(f"profile: host un-permute alone {min(t_host):.3f} ms (best of "
           f"{[round(t, 3) for t in t_host]})")
 
+    # launches: of the lit path for its kernels, else of the unlit path
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
+         "replaces": k.replaces,
+         "launches": lit_launches[k.name] if k.name in LIT_PATH
+         else launches[k.name],
+         "launches_by_path": {"unlit": launches[k.name],
+                              "lit": lit_launches[k.name]},
          "library_ms": None, **results[k.name]} for k in native.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 // predicate (the JAX package's ops/intersect_pallas.py:packed_hit_predicate),
 // the ray/page slab test (ops/cull_pallas.py:_slab_rows and
 // ops/intersect_perlane.py:_slab), and one wave of shading with its scatter
-// hash (ops/shade.py:_shade_state_rows, scatter_rv, _unit3).
+// hash and the shadow feeler's jitter (ops/shade.py:_shade_state_rows,
+// scatter_rv, shadow_uvs, _unit3).
 //
 // Every expression keeps the association order of the plain torch versions
 // (rust_raytrace_tpu_torch/ops/*.py).  The library is compiled with
@@ -36,7 +37,15 @@ constexpr int LANE_SCAT = 23;
 constexpr int PACK_LANES = 128;
 constexpr int USED_LANES = 24;     // lanes 24..127 of a page are zero
 
-// ray state rows (rust_raytrace_tpu_torch/ops/state.py)
+// trace winner rows and ray state rows (rust_raytrace_tpu_torch/ops/state.py)
+constexpr int ROW_T = 0;
+constexpr int ROW_ID = 1;
+constexpr int ROW_NORM = 2;
+constexpr int ROW_ENC = 5;
+constexpr int ROW_COLOR = 6;
+constexpr int ROW_ALPHA = 9;
+constexpr int ROW_SCAT = 10;
+constexpr int TRACE_ROWS = 16;
 constexpr int ROW_W = 6;
 constexpr int ROW_ALIVE = 7;
 constexpr int ROW_ACC = 8;
@@ -129,6 +138,40 @@ __device__ __forceinline__ Winner winner_init(bool valid) {
   return w;
 }
 
+// Winner rows [16, R] of ray r: t, id, the payload; rows 11..15 are 0.
+// The TPU kernel extracts the payload as a one-hot masked sum over the
+// page, which turns a -0 into +0; so does this store.
+__device__ __forceinline__ void store_winner(const Winner& w,
+                                             float* __restrict__ out,
+                                             long long R, long long r) {
+  const float v[11] = {w.t, w.id, w.n0, w.n1, w.n2, w.enc,
+                       w.c0, w.c1, w.c2, w.alpha, w.scat};
+  out[ROW_T * R + r] = v[0];
+  out[ROW_ID * R + r] = v[1];
+#pragma unroll
+  for (int i = 2; i < 11; ++i) out[i * R + r] = v[i] == 0.0f ? 0.0f : v[i];
+#pragma unroll
+  for (int i = 11; i < TRACE_ROWS; ++i) out[i * R + r] = 0.0f;
+}
+
+// The winner of ray r from [16, R] winner rows.
+__device__ __forceinline__ Winner load_winner(const float* __restrict__ rows,
+                                              long long R, long long r) {
+  Winner w;
+  w.t = rows[ROW_T * R + r];
+  w.id = rows[ROW_ID * R + r];
+  w.n0 = rows[ROW_NORM * R + r];
+  w.n1 = rows[(ROW_NORM + 1) * R + r];
+  w.n2 = rows[(ROW_NORM + 2) * R + r];
+  w.enc = rows[ROW_ENC * R + r];
+  w.c0 = rows[ROW_COLOR * R + r];
+  w.c1 = rows[(ROW_COLOR + 1) * R + r];
+  w.c2 = rows[(ROW_COLOR + 2) * R + r];
+  w.alpha = rows[ROW_ALPHA * R + r];
+  w.scat = rows[ROW_SCAT * R + r];
+  return w;
+}
+
 // Lexicographic (t, id) order: ties break to the smallest triangle id, and
 // an infinite t never wins a tie, so visit order cannot change the winner.
 __device__ __forceinline__ bool lex_better(float t, float id, const Winner& w) {
@@ -151,6 +194,13 @@ __device__ __forceinline__ float encode_face(const HitTerms& h, float et,
 // steps on positive normal inputs only.
 constexpr int RSQ_TABLE = 2048;
 
+__device__ __forceinline__ float rsqrt_newton(float x, float y) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    y = fmaf(-0.5f * y, fmaf(x * y, y, -1.0f), y);
+  return y;
+}
+
 __device__ __forceinline__ float rsqrt_xla(float x,
                                            const uint32_t* __restrict__ rsq) {
   const uint32_t b = __float_as_uint(x);
@@ -164,11 +214,39 @@ __device__ __forceinline__ float rsqrt_xla(float x,
   const int e = (int)(b >> 23) - 127;
   const uint32_t key = ((uint32_t)(e & 1) << 10) | ((b >> 13) & 0x3FFu);
   const int k = (e - (e & 1)) / 2;
-  float y = __uint_as_float(__ldg(rsq + key) - (uint32_t)(k * (1 << 23)));
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    y = fmaf(-0.5f * y, fmaf(x * y, y, -1.0f), y);
-  return y;
+  return rsqrt_newton(
+      x, __uint_as_float(__ldg(rsq + key) - (uint32_t)(k * (1 << 23))));
+}
+
+// The same where XLA vectorizes the fusion 16 floats wide (ROADMAP C7): the
+// vrsqrt14ps estimate from its captured table `rsq14` (2^24 entries over
+// exponent parity and the whole mantissa, then the estimates of +0, -0,
+// +inf, -inf, -subnormal, -normal); a positive subnormal is estimated at
+// x * 2^64 and scaled by 2^32.  rsq14 null (a host CPU without AVX-512F):
+// the rsqrtps sequence.
+constexpr int RSQ14_TABLE = 1 << 24;
+
+__device__ __forceinline__ float rsqrt_xla_wide(
+    float x, const uint32_t* __restrict__ rsq14,
+    const uint32_t* __restrict__ rsq) {
+  if (rsq14 == nullptr) return rsqrt_xla(x, rsq);
+  uint32_t b = __float_as_uint(x);
+  const uint32_t mag = b & 0x7FFFFFFFu;
+  const bool neg = (b >> 31) != 0;
+  if (mag > 0x7F800000u) return __uint_as_float(b | 0x00400000u);  // NaN
+  if (mag == 0) return __uint_as_float(rsq14[RSQ14_TABLE + neg]);
+  if (mag == 0x7F800000u) return __uint_as_float(rsq14[RSQ14_TABLE + 2 + neg]);
+  if (neg)
+    return __uint_as_float(
+        rsq14[RSQ14_TABLE + (mag < 0x00800000u ? 4 : 5)]);
+  const bool sub = mag < 0x00800000u;
+  if (sub) b = __float_as_uint(x * 18446744073709551616.0f);
+  const int e = (int)(b >> 23) - 127;
+  const uint32_t idx = ((uint32_t)(e & 1) << 23) | (b & 0x7FFFFFu);
+  const int k = (e - (e & 1)) / 2;
+  const uint32_t est = __ldg(rsq14 + idx) - (uint32_t)(k * (1 << 23))
+      + (sub ? (32u << 23) : 0u);
+  return sub ? __uint_as_float(est) : rsqrt_newton(x, __uint_as_float(est));
 }
 
 // v0*v0 + v1*v1 + v2*v2 as XLA contracts it: fma(v2, v2, fma(v0, v0, v1*v1)).
@@ -185,9 +263,10 @@ __device__ __forceinline__ void unit3(float& v0, float& v1, float& v2,
 }
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t word, uint32_t s0,
-                                              uint32_t s1, uint32_t chunk) {
+                                              uint32_t s1, uint32_t chunk,
+                                              uint32_t salt = 0u) {
   uint32_t x = word ^ s1;
-  x = x * 747796405u + s0 + chunk * 2654435761u;
+  x = x * 747796405u + s0 + chunk * 2654435761u + salt;
   x ^= x >> 17;
   x *= 0xED5AD4BBu;
   x ^= x >> 11;
@@ -196,6 +275,11 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t word, uint32_t s0,
   x *= 0x31848BABu;
   x ^= x >> 14;
   return x;
+}
+
+// [0, 1) from the top 23 bits of a hash word
+__device__ __forceinline__ float unit_float(uint32_t x) {
+  return __uint_as_float((x >> 9) | 0x3F800000u) - 1.0f;
 }
 
 // Scatter source of the ray at (chunk, lane) of a ray_chunk-wide chunk:
@@ -215,11 +299,30 @@ __device__ __forceinline__ void scatter_rv(uint32_t s0, uint32_t s1,
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    uint32_t x = lowbias32(c * ray_chunk + lane, s0, s1, chunk);
-    float u = __uint_as_float((x >> 9) | 0x3F800000u) - 1.0f;
-    v[c] = u - 0.5f;
+    v[c] = unit_float(lowbias32(c * ray_chunk + lane, s0, s1, chunk)) - 0.5f;
   }
   inv = rsqrt_xla(norm2(v[0], v[1], v[2]), rsq);
+}
+
+// The shadow feeler's jitter of the ray at (chunk, lane)
+// (ops/shade.py:shadow_uvs): u3 offsets the point on the light, u1 the
+// origin; 0.5 each under fixed_rng.
+constexpr uint32_t SALT_U3 = 0x7EE3D0B1u;
+constexpr uint32_t SALT_U1 = 0x51AB7F03u;
+
+__device__ __forceinline__ void shadow_uvs(uint32_t s0, uint32_t s1,
+                                           uint32_t chunk, uint32_t lane,
+                                           uint32_t ray_chunk, bool fixed_rng,
+                                           float u3[3], float& u1) {
+  if (fixed_rng) {
+    u3[0] = u3[1] = u3[2] = u1 = 0.5f;
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    u3[c] = unit_float(lowbias32(c * ray_chunk + lane, s0, s1, chunk,
+                                 SALT_U3));
+  u1 = unit_float(lowbias32(lane, s0, s1, chunk, SALT_U1));
 }
 
 // |d . nf| for reflected component k: fma(d2, nf2, fma(d_i, nf_i,
@@ -233,10 +336,12 @@ __device__ __forceinline__ float reflect_dot(const float d[3],
 }
 
 // B0b: one wave's shade + scatter + state update of one ray, in place on
-// its 16 state values.  v/inv: the scatter source (scatter_rv).
+// its 16 state values.  v/inv: the scatter source (scatter_rv); shadowed:
+// the hit point sees no light, so its color counts as black.
 __device__ __forceinline__ void shade_ray(float s[STATE_ROWS], const Winner& w,
                                           const float v[3], float inv,
                                           bool fixed_rng, float weight_cutoff,
+                                          bool shadowed,
                                           const uint32_t* __restrict__ rsq) {
   const float sky[3] = {128.0f / 255.0f, 180.0f / 255.0f, 255.0f / 255.0f};
   float weight = s[ROW_W];
@@ -246,7 +351,8 @@ __device__ __forceinline__ void shade_ray(float s[STATE_ROWS], const Winner& w,
   float e2 = w.enc - (back ? 8.0f : 0.0f);
   bool edge = e2 >= 4.0f;
   float kind = e2 - (edge ? 4.0f : 0.0f);
-  const float c[3] = {w.c0, w.c1, w.c2};
+  const float c[3] = {shadowed ? 0.0f : w.c0, shadowed ? 0.0f : w.c1,
+                      shadowed ? 0.0f : w.c2};
   float nf[3] = {back ? -w.n0 : w.n0, back ? -w.n1 : w.n1,
                  back ? -w.n2 : w.n2};
   bool is_scatter = !miss & !edge & ((kind == KIND_MATTE) |

@@ -2,22 +2,26 @@
 
 Counterpart: `rust_raytrace_tpu/engine.py` — `Engine.__init__` (resident
 regime), `Engine.render` with `_pinhole_fold` and the autotune of the
-compaction schedule, and the wave loop of `_render_device_compact`; plus
-`_camera_rays_tiled` (spp 1) with `_unit_rows`, `_quantize_u8`, `pick_tile`,
-`tile_permutation`, `plan_boundaries`, `auto_page_size` and
-`_assemble_host_image`, copied because the JAX module imports jax.
+compaction schedule, the wave loop of `_render_device_compact` and its
+shadow pass `_shadow_mask`; plus `_camera_rays_tiled` (spp 1) with
+`_unit_rows`, `_quantize_u8`, `pick_tile`, `tile_permutation`,
+`plan_boundaries`, `auto_page_size` and `_assemble_host_image`, copied
+because the JAX module imports jax.
 
 One render: tile-order camera rays -> pinhole fold of the page scalars ->
 wave 0 = cull (B1) -> stable sort of the page lists -> union trace + shade
 (B2) -> at each compaction boundary: `compact_meta` and compaction (B3) ->
 waves 1.. = per-lane trace + shade (B4) -> expansion (B5) backward over the
-boundaries -> u8 quantization on the device -> un-permute on the host.  The
-kernels run on CUDA tensors and their plain torch versions on CPU tensors
-(`device=`).
+boundaries -> u8 quantization on the device -> un-permute on the host.  A
+scene with a light (`scene.lights`) runs wave 0 unfused: cull (B1) -> sort
+-> union trace to winner rows (B6) -> `shadow_mask` (the shadow rays
+through B1, a sort and B6 with self-exclusion) -> shade with the mask (B8);
+its bounce waves run B4 with the shadow feeler fused.  The kernels run on
+CUDA tensors and their plain torch versions on CPU tensors (`device=`).
 
 What this engine does not run yet raises NotImplementedError naming the
-ROADMAP item that brings it: lights, spp > 1, debug buffers, bounce_chunk
-and the streamed regime.
+ROADMAP item that brings it: spp > 1, debug buffers, bounce_chunk and the
+streamed regime.
 """
 
 import time
@@ -29,15 +33,17 @@ from .camera import Viewport
 from .ops.compact import (compact, compact_meta, expand, make_dead_array,
                           pick_cb)
 from .ops.cull import cull_mask_exact
-from .ops.intersect import fold_pages_origin, trace_shade_chunks
+from .ops.intersect import (fold_pages_origin, trace_chunks,
+                            trace_shade_chunks)
 from .ops.intersect_perlane import (GROUP, MAX_BANKS, trace_shade_perlane,
                                     upload_perlane_tables)
 from .ops.pages import build_pages_kd
-from .ops.shade import fma, rsqrt
-from .ops.state import ROW_ACC, ROW_ALIVE, ROW_DEAD, STATE_ROWS
+from .ops.shade import fma, rsqrt, shade
+from .ops.state import (ROW_ACC, ROW_ALIVE, ROW_DEAD, ROW_ENC, ROW_ID,
+                        ROW_NORM, ROW_T, STATE_ROWS)
 from .render import RenderResult
 from .scene import Scene
-from .utils.rng import fold_in, prng_key
+from .utils.rng import fold_in, prng_key, uniform
 
 F32 = np.float32
 
@@ -133,11 +139,13 @@ def _assemble_host_image(img_dev, v: Viewport, perm: np.ndarray, spp: int,
     return img
 
 
-def unit_rows(v: torch.Tensor) -> torch.Tensor:
+def unit_rows(v: torch.Tensor, wide: bool = False) -> torch.Tensor:
     """Normalize [3, R] column vectors.  XLA reduces `jnp.sum(v * v,
     axis=0)` in row order with each product fused into the running sum:
-    fma(v2, v2, fma(v1, v1, v0*v0)) (measured against the jitted camera)."""
-    return v * rsqrt(fma(v[2], v[2], fma(v[1], v[1], v[0] * v[0])))[None]
+    fma(v2, v2, fma(v1, v1, v0*v0)) (measured against the jitted camera).
+    wide: the rsqrt of a fusion XLA vectorizes 16 floats wide (C7)."""
+    return v * rsqrt(fma(v[2], v[2], fma(v[1], v[1], v[0] * v[0])),
+                     wide)[None]
 
 
 def camera_rays_tiled(v: Viewport, tile: int, n_pad: int, device):
@@ -182,6 +190,60 @@ def page_lists(mask: torch.Tensor, tmin: torch.Tensor):
     return counts, plist.to(torch.int32).contiguous(), ptmin.contiguous()
 
 
+def shadow_rays(state, rows, key, wave: int, fixed_rng: bool, light):
+    """The shadow rays of a wave (JAX: the first half of `_shadow_mask`):
+    from each hit, a jittered ray to a point of the light.
+
+    state: [16, R] ray state (rows 0..2 the true origins); rows: the wave's
+    [16, R] winner rows; key: the render's key (the jitter draws from
+    fold_in(key, 7_000_000 + wave), as `jax.random.uniform`); light:
+    (ox, oy, oz, len2).  Returns (so, sd, hit, excl): [3, R] origins and
+    directions, zero off the [R] bool hit mask, and the [R] float32 id of
+    each ray's own triangle (0 off the mask).
+
+    The multiply-adds are XLA's (ROADMAP C7): point = fma(t, d, o), the
+    light point fma(u3, len2, l), the camera's sum of squares, and
+    so = fma(nf, 0.005*(u1 + 1), point); under fixed_rng XLA vectorizes the
+    normalization 16 floats wide."""
+    R = state.shape[1]
+    dev = state.device
+    o, d = state[0:3], state[3:6]
+    hid = rows[ROW_ID]
+    hit = (state[ROW_ALIVE] != 0.0) & (hid != 0.0)
+    point = fma(torch.where(hit, rows[ROW_T], 0.0)[None], d, o)
+    nrm = rows[ROW_NORM:ROW_NORM + 3]
+    norm_f = torch.where((rows[ROW_ENC] >= 8.0)[None], -nrm, nrm)
+    if fixed_rng:
+        u3 = torch.full((3, R), 0.5, dtype=torch.float32, device=dev)
+        u1 = torch.full((1, R), 0.5, dtype=torch.float32, device=dev)
+    else:
+        skey = fold_in(key, 7_000_000 + wave)
+        u3 = uniform(fold_in(skey, 0), (3, R), dev)
+        u1 = uniform(fold_in(skey, 1), (1, R), dev)
+    lo = torch.tensor([float(x) for x in light[:3]], dtype=torch.float32,
+                      device=dev)[:, None]
+    adj = fma(u3, float(light[3]), lo)
+    sd = unit_rows(adj - point, wide=fixed_rng)
+    so = fma(norm_f, 0.005 * (u1 + 1.0), point)
+    return (torch.where(hit[None], so, 0.0), torch.where(hit[None], sd, 0.0),
+            hit, torch.where(hit, hid, 0.0))
+
+
+def shadow_mask(state, rows, key, wave: int, fixed_rng: bool, light,
+                aabb_lo, aabb_hi, PK, page_size: int, ray_chunk: int):
+    """The unfused shadow pass of a wave (JAX: `_shadow_mask`, the resident
+    regime's packet-culled branch): `shadow_rays`, then B1, a stable sort
+    and B6 with each ray's own triangle excluded; shadowed if another
+    triangle intersects the ray.  PK: the unfolded pages.  Returns the [R]
+    float32 mask."""
+    so, sd, hit, excl = shadow_rays(state, rows, key, wave, fixed_rng, light)
+    smask, stmin = cull_mask_exact(so, sd, hit, aabb_lo, aabb_hi, ray_chunk)
+    counts, plist, ptmin = page_lists(smask, stmin)
+    srows = trace_chunks(so, sd, PK, counts, plist, ptmin, page_size,
+                         ray_chunk, excl=excl)
+    return (hit & (srows[ROW_ID] != 0.0)).float()
+
+
 def quantize_u8(img: torch.Tensor) -> torch.Tensor:
     """PNG writer's exact `(c*255) as u8` semantics (raytrace.rs:1470-1472)."""
     x = torch.nan_to_num(img * 255.0, nan=0.0, posinf=255.0, neginf=0.0)
@@ -191,11 +253,12 @@ def quantize_u8(img: torch.Tensor) -> torch.Tensor:
 class Engine:
     """Culled, compacted wavefront renderer, resident regime.
 
-    scene: a `scene.Scene`; device: where the scene and the rays live
-    ("cuda" runs the kernels; "cpu" their plain versions).  The other
-    arguments mean what they mean for the JAX Engine, whose defaults the
-    port fixes: the page size adapts to the scene (auto_pages) and primary
-    rays start at the pinhole (pinhole_origin).
+    scene: a `scene.Scene`, lit when `scene.lights` is set (a shadow ray
+    from every hit; see `shadow_mask`); device: where the scene and the
+    rays live ("cuda" runs the kernels; "cpu" their plain versions).  The
+    other arguments mean what they mean for the JAX Engine, whose defaults
+    the port fixes: the page size adapts to the scene (auto_pages) and
+    primary rays start at the pinhole (pinhole_origin).
 
     ncompact: None (the default) compacts after waves 0 and 1 and, on a
     CUDA device, replans the schedule once from the first render's wave
@@ -211,8 +274,6 @@ class Engine:
         if bounce_chunk != 0:
             raise NotImplementedError(
                 "bounce_chunk != 0: ROADMAP 'Engine knobs'")
-        if scene.lights is not None:
-            raise NotImplementedError("lights: ROADMAP A5")
         self._auto_schedule = ncompact is None
         if ncompact is None:
             ncompact = 2
@@ -238,6 +299,11 @@ class Engine:
         self.plt_i, self.plt_s, self.ab = upload_perlane_tables(self.pages,
                                                                 dev)
         self.scene = scene
+        lights = scene.lights
+        #: (ox, oy, oz, len2) as float32 values, or None: an unlit scene
+        self.light = None if lights is None else tuple(
+            float(np.float32(x)) for x in (*np.asarray(lights.orig).reshape(3),
+                                           lights.len2))
         self.page_size = page_size
         self.ray_chunk = ray_chunk
         self._perm_cache = {}
@@ -271,7 +337,7 @@ class Engine:
         """The wave loop of _render_device_compact.  Returns (accumulated
         color [3, R] in the original lane order, per-wave live counts as
         tensors).  No host sync: counts, offsets and prefixes stay on the
-        device."""
+        device (the plain versions on the CPU do sync)."""
         R = state.shape[1]
         RB = self.ray_chunk
         P = self.page_size
@@ -290,15 +356,26 @@ class Engine:
                 mask, tmin = cull_mask_exact(state[0:3], state[3:6], alive,
                                              self.aabb_lo, self.aabb_hi, RB)
                 counts, plist, ptmin = page_lists(mask, tmin)
-                state = trace_shade_chunks(state, pk0, counts, plist, ptmin,
-                                           seed, P, RB, fixed_rng, wc,
-                                           zero_origin=True)
+                if self.light is None:
+                    state = trace_shade_chunks(state, pk0, counts, plist,
+                                               ptmin, seed, P, RB, fixed_rng,
+                                               wc, zero_origin=True)
+                else:
+                    # the shadow pass runs between trace and shade
+                    rows = trace_chunks(state[0:3], state[3:6], pk0, counts,
+                                        plist, ptmin, P, RB, zero_origin=True)
+                    shd = shadow_mask(state, rows, key, wave, fixed_rng,
+                                      self.light, self.aabb_lo, self.aabb_hi,
+                                      self.PK, P, RB)
+                    live0 = torch.ones(R // RB, dtype=torch.int32, device=dev)
+                    state = shade(state, rows, seed, RB, fixed_rng, wc, live0,
+                                  shd)
             else:
                 # chunks whose rays have all retired pass through
                 chunk_live = alive.reshape(R // RB, RB).any(dim=1)
                 state = trace_shade_perlane(
                     state, self.plt_i, self.plt_s, self.ab, seed, P, RB,
-                    fixed_rng, wc, chunk_live.to(torch.int32))
+                    fixed_rng, wc, chunk_live.to(torch.int32), self.light)
             if not self._compacts_after(wave, maxdepth):
                 continue
             if dead_arr is None:

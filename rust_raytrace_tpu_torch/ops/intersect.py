@@ -1,10 +1,12 @@
-"""The packed-triangle hit predicate and B2, the wave-0 union trace + shade.
+"""The packed-triangle hit predicate and the union trace over culled page
+lists: B2, the wave-0 trace + shade, and B6, the trace alone (winner rows).
 
 Counterparts in `rust_raytrace_tpu/ops/intersect_pallas.py`:
-`packed_hit_predicate`, `fold_pages_origin` and `trace_shade_chunks_pallas`
-(inner `_kernel_trace_shade`, `_trace_pages`).  `trace_shade_chunks` runs the
+`packed_hit_predicate`, `fold_pages_origin`, `trace_shade_chunks_pallas`
+(inner `_kernel_trace_shade`, `_trace_pages`) and `trace_chunks_pallas`
+(inner `_kernel_trace`).  `trace_shade_chunks` and `trace_chunks` run the
 CUDA kernel `csrc/trace_shade_union.cu` on CUDA tensors and
-`trace_shade_chunks_plain` on CPU tensors.
+`trace_shade_chunks_plain` and `trace_chunks_plain` on CPU tensors.
 
 The plain version computes what the TPU kernel computes, page by page: the
 per-page (t, id) minimum, the lexicographic update of each ray's winner, the
@@ -31,11 +33,14 @@ PAYLOAD_ROWS = (ROW_NORM, ROW_NORM + 1, ROW_NORM + 2, ROW_ENC, ROW_COLOR,
                 ROW_COLOR + 1, ROW_COLOR + 2, ROW_ALPHA, ROW_SCAT)
 
 
-def packed_hit_predicate(col, o3, d3, has=None, *, zero_origin: bool = False):
+def packed_hit_predicate(col, o3, d3, has=None, excl=None, *,
+                         zero_origin: bool = False):
     """Hit terms of packed triangles against rays (B0a).
 
     col(f): feature f of the triangles, broadcastable against the ray rows.
     o3/d3: (x, y, z) ray tensors.  has: optional mask AND-ed into ok.
+    excl: optional per-ray triangle id that may not hit (a shadow ray's own
+    triangle; 0 excludes nothing, since padding slots never hit).
     zero_origin: the o-dot terms were folded into the NC/S*C lanes
     (fold_pages_origin).  Returns (t, ok, ids, md_n, (dv0, dv1, dv2)).
     The multiply-adds are fused where XLA fuses them (ROADMAP C2), exactly
@@ -61,6 +66,8 @@ def packed_hit_predicate(col, o3, d3, has=None, *, zero_origin: bool = False):
     ok = (t >= 0.0) & (dv[0] <= 1.0) & (dv[1] <= 1.0) & (dv[2] <= 1.0)
     if has is not None:
         ok = ok & has
+    if excl is not None:
+        ok = ok & (col(LANE_ID) != excl)
     return t, ok, col(LANE_ID), md_n, dv
 
 
@@ -112,14 +119,15 @@ def fold_pages_origin(PK: torch.Tensor, origin) -> torch.Tensor:
 
 
 def trace_chunks_plain(ot, dt, PK, counts, plist, ptmin, ray_chunk: int,
-                       zero_origin: bool = False):
-    """Winner rows [16, R] of the union trace (plain torch)."""
+                       zero_origin: bool = False, excl=None):
+    """Plain torch version of `trace_chunks`."""
     RB = ray_chunk
     R = ot.shape[1]
     NC = R // RB
     dev = ot.device
     o = ot.reshape(3, NC, 1, RB)
     d = dt.reshape(3, NC, 1, RB)
+    ex = None if excl is None else excl.reshape(NC, 1, RB)
     valid = ((d[0] != 0.0) | (d[1] != 0.0) | (d[2] != 0.0))[:, 0]  # [NC, RB]
     best_t = torch.where(valid, torch.inf, -torch.inf)
     best_id = torch.zeros((NC, RB), dtype=torch.float32, device=dev)
@@ -140,7 +148,8 @@ def trace_chunks_plain(ot, dt, PK, counts, plist, ptmin, ray_chunk: int,
         o3 = (o[0, c], o[1, c], o[2, c])                   # [A, 1, RB]
         d3 = (d[0, c], d[1, c], d[2, c])
         t, ok, ids, md_n, dv = packed_hit_predicate(
-            col, o3, d3, zero_origin=zero_origin)
+            col, o3, d3, excl=None if ex is None else ex[c],
+            zero_origin=zero_origin)
         tt = torch.where(ok, t, torch.inf)
         bt, bi = best_t[c], best_id[c]
         upd, gmin, gid, onehot = lex_update(tt, ids, bt, bi, dim=1)
@@ -205,4 +214,44 @@ def trace_shade_chunks(state, PK, counts, plist, ptmin, seed,
         counts.data_ptr(), plist.data_ptr(), ptmin.data_ptr(), s0, s1,
         int(fixed_rng), float(weight_cutoff), int(zero_origin), ray_chunk,
         xla_rsqrt.device_table(dev).data_ptr(), native.stream(dev))
+    return out
+
+
+def trace_chunks(ot, dt, PK, counts, plist, ptmin, page_size: int,
+                 ray_chunk: int, zero_origin: bool = False, excl=None):
+    """Winner rows [16, R] (ops/state.py ROW_* layout) of the union trace
+    over culled page lists, with no shade.
+
+    ot/dt: [3, R] float32 ray origins and directions (rows of a larger
+    tensor are fine: the last dim must be dense, one row stride for both);
+    lanes with d = 0 are invalid (ROW_T -inf, the rest 0).  PK, counts,
+    plist, ptmin: as `trace_shade_chunks`.  excl: optional [R] float32
+    triangle id each ray may not hit (0: none).  Rows 11..15 are 0.
+    """
+    dev = ot.device
+    if dev.type == "cpu":
+        return trace_chunks_plain(ot, dt, PK, counts, plist, ptmin,
+                                  ray_chunk, zero_origin, excl)
+    native.require(dev.type == "cuda",
+                   f"trace_chunks: no kernel for device {dev}")
+    R = ot.shape[1]
+    NP = PK.shape[0]
+    NC = R // ray_chunk
+    native.check_ray_chunk(R, ray_chunk)
+    native.check_tensor("ot", ot, dev, (3, R), torch.float32, False)
+    native.check_tensor("dt", dt, dev, (3, R), torch.float32, False)
+    native.require(ot.stride(0) == dt.stride(0),
+                   "ot and dt need one row stride")
+    native.check_tensor("PK", PK, dev, (NP, page_size, 128), torch.float32)
+    native.check_tensor("counts", counts, dev, (NC,), torch.int32)
+    native.check_tensor("plist", plist, dev, (NC, NP), torch.int32)
+    native.check_tensor("ptmin", ptmin, dev, (NC, NP), torch.float32)
+    if excl is not None:
+        native.check_tensor("excl", excl, dev, (R,), torch.float32)
+    out = torch.empty((TRACE_ROWS, R), dtype=torch.float32, device=dev)
+    native.TRACE_UNION_ROWS(
+        ot.data_ptr(), dt.data_ptr(), ot.stride(0), R,
+        0 if excl is None else excl.data_ptr(), PK.data_ptr(), page_size, NP,
+        counts.data_ptr(), plist.data_ptr(), ptmin.data_ptr(),
+        int(zero_origin), ray_chunk, out.data_ptr(), native.stream(dev))
     return out

@@ -1,11 +1,15 @@
-"""One wave of shading from the trace winner rows, in plain torch.
+"""One wave of shading from the trace winner rows, and B8, the standalone
+shade.
 
-Counterpart: `rust_raytrace_tpu/ops/shade.py` — `_unit3`, `scatter_rv` and
-`_shade_state_rows` (the fused shade both JAX trace kernels inline).  The CUDA
-kernels carry the same arithmetic as `__device__` functions in
-`csrc/common.cuh` (`unit3`, `scatter_rv`, `shade_ray`); every expression here
-keeps the association order written there, so a kernel and its plain version
-agree bit for bit on the card.
+Counterpart: `rust_raytrace_tpu/ops/shade.py` — `_unit3`, `scatter_rv`,
+`shadow_uvs`, `_shade_state_rows` (the fused shade both JAX trace kernels
+inline) and `shade_pallas` (B8, after an unfused trace: the lights path's
+wave 0).  The CUDA kernels carry the same arithmetic as `__device__`
+functions in `csrc/common.cuh` (`unit3`, `scatter_rv`, `shadow_uvs`,
+`shade_ray`); every expression here keeps the association order written
+there, so a kernel and its plain version agree bit for bit on the card.
+`shade` runs the CUDA kernel `csrc/shade.cu` on CUDA tensors and
+`shade_plain` on CPU tensors.
 
 Three choices of the port:
 
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from ..materials import KIND_MATTE, KIND_REFLECTIVE
-from ..utils import xla_rsqrt
+from ..utils import native, xla_rsqrt
 from .state import (ROW_ACC, ROW_ALIVE, ROW_ALPHA, ROW_COLOR, ROW_DEAD,
                     ROW_ENC, ROW_ID, ROW_NORM, ROW_SCAT, ROW_T, ROW_W,
                     STATE_ROWS)
@@ -68,10 +72,11 @@ def fma(a, b, c) -> torch.Tensor:
         torch.float64).to(torch.float32)
 
 
-def rsqrt(x: torch.Tensor) -> torch.Tensor:
-    """XLA-CPU's float32 rsqrt: this host's rsqrtps estimate, then two
-    Newton steps on positive normal inputs (utils/xla_rsqrt.py)."""
-    est = xla_rsqrt.estimate(x)
+def rsqrt(x: torch.Tensor, wide: bool = False) -> torch.Tensor:
+    """XLA-CPU's float32 rsqrt: this host's rsqrtps estimate (wide: the
+    vrsqrt14ps estimate of a fusion XLA vectorizes 16 floats wide), then
+    two Newton steps on positive normal inputs (utils/xla_rsqrt.py)."""
+    est = xla_rsqrt.estimate_wide(x) if wide else xla_rsqrt.estimate(x)
     y = est
     for _ in range(2):
         y = fma(-0.5 * y, fma(x * y, y, -1.0), y)
@@ -103,6 +108,21 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
+def _mix32(word, seed, chunk, salt: int = 0) -> torch.Tensor:
+    """lowbias32 of (seed, chunk, word) plus `salt` (JAX: `_mix32`): a
+    uniform in [0, 1) per element of the int64 tensors word and chunk."""
+    s0, s1 = (int(w) & _M32 for w in seed)
+    x = word ^ s1
+    x = (_mul32(x, 747796405) + s0 + _mul32(chunk, 2654435761)
+         + salt) & _M32
+    for mul, sh in ((0xED5AD4BB, 17), (0xAC4C1B51, 11), (0x31848BAB, 15)):
+        x = x ^ (x >> sh)
+        x = _mul32(x, mul)
+    x = x ^ (x >> 14)
+    bits = ((x >> 9) | 0x3F800000).to(torch.int32)
+    return bits.view(torch.float32) - 1.0
+
+
 def scatter_uniforms(seed, rays: torch.Tensor, ray_chunk: int):
     """The three [0, 1) uniforms behind each ray's scatter vector.
 
@@ -112,23 +132,33 @@ def scatter_uniforms(seed, rays: torch.Tensor, ray_chunk: int):
     exactly as the JAX kernels key it, so the chunk width is part of the
     stream's definition.  Returns three [n] float32 tensors.
     """
-    s0, s1 = (int(w) & _M32 for w in seed)
     rays = rays.to(torch.int64)
     chunk = rays // ray_chunk
     lane = rays % ray_chunk
-    cterm = _mul32(chunk, 2654435761)
-    out = []
-    for comp in range(3):
-        x = (lane + comp * ray_chunk) ^ s1
-        x = (_mul32(x, 747796405) + s0 + cterm) & _M32
-        for mul, sh in ((0xED5AD4BB, 17), (0xAC4C1B51, 11),
-                        (0x31848BAB, 15)):
-            x = x ^ (x >> sh)
-            x = _mul32(x, mul)
-        x = x ^ (x >> 14)
-        bits = ((x >> 9) | 0x3F800000).to(torch.int32)
-        out.append(bits.view(torch.float32) - 1.0)
-    return tuple(out)
+    return tuple(_mix32(lane + comp * ray_chunk, seed, chunk)
+                 for comp in range(3))
+
+
+#: salts of the shadow feeler's jitter (JAX: `shadow_uvs`)
+SALT_U3 = 0x7EE3D0B1
+SALT_U1 = 0x51AB7F03
+
+
+def shadow_uvs(seed, rays: torch.Tensor, ray_chunk: int, fixed_rng: bool):
+    """The fused shadow feeler's jitter of the rays at global positions
+    `rays`: (u3, u1), three [n] light-point offsets and one [n] origin
+    offset, all in [0, 1).  Keyed as `scatter_uniforms`, with salts; u1's
+    word is the lane alone.  Under fixed_rng every value is 0.5."""
+    if fixed_rng:
+        half = torch.full((rays.shape[0],), 0.5, dtype=torch.float32,
+                          device=rays.device)
+        return (half, half, half), half
+    rays = rays.to(torch.int64)
+    chunk = rays // ray_chunk
+    lane = rays % ray_chunk
+    u3 = tuple(_mix32(lane + comp * ray_chunk, seed, chunk, SALT_U3)
+               for comp in range(3))
+    return u3, _mix32(lane, seed, chunk, SALT_U1)
 
 
 def scatter_rv(seed, rays: torch.Tensor, ray_chunk: int, fixed_rng: bool):
@@ -146,13 +176,15 @@ def scatter_rv(seed, rays: torch.Tensor, ray_chunk: int, fixed_rng: bool):
     return v, rsqrt(norm2(*v))
 
 
-def shade_state_rows(st, rows, rv, weight_cutoff: float):
+def shade_state_rows(st, rows, rv, weight_cutoff: float, shd=None):
     """One wave's shade + scatter + state update.
 
     st: [16, n] ray state; rows: [16, n] trace winner rows; rv: the scatter
-    source ((v0, v1, v2), inv) of `scatter_rv`, each [n].  Returns the new
-    [16, n] state.  Mirrors the JAX `_shade_state_rows` op for op, with
-    XLA's contractions.
+    source ((v0, v1, v2), inv) of `scatter_rv`, each [n]; shd: optional [n]
+    shadow mask (nonzero: the hit point sees no light, and its color counts
+    as black in both the terminal and the scatter contribution).  Returns
+    the new [16, n] state.  Mirrors the JAX `_shade_state_rows` op for op,
+    with XLA's contractions.
     """
     v, inv_v = rv
     weight = st[ROW_W]
@@ -168,6 +200,9 @@ def shade_state_rows(st, rows, rv, weight_cutoff: float):
     edge = e2 >= 4.0
     kind = e2 - torch.where(edge, 4.0, 0.0)
     c0, c1, c2 = rows[ROW_COLOR], rows[ROW_COLOR + 1], rows[ROW_COLOR + 2]
+    if shd is not None:
+        shadowed = shd != 0.0
+        c0, c1, c2 = (torch.where(shadowed, 0.0, c) for c in (c0, c1, c2))
     alpha = rows[ROW_ALPHA]
     scat = rows[ROW_SCAT]
 
@@ -230,4 +265,48 @@ def shade_state_rows(st, rows, rv, weight_cutoff: float):
         out[ROW_ACC + k] = st[ROW_ACC + k] + contrib[k]
     out[ROW_DEAD] = torch.maximum(st[ROW_DEAD], died.to(st.dtype))
     out[ROW_DEAD + 1:] = st[ROW_DEAD + 1:]
+    return out
+
+
+def shade_plain(state, rows, seed, ray_chunk: int, fixed_rng: bool,
+                weight_cutoff: float, chunk_live, shadowed=None):
+    """Plain torch version of `shade`."""
+    rays = torch.arange(state.shape[1], device=state.device)
+    rv = scatter_rv(seed, rays, ray_chunk, fixed_rng)
+    new = shade_state_rows(state, rows, rv, weight_cutoff, shadowed)
+    live = torch.repeat_interleave(chunk_live != 0, ray_chunk)
+    return torch.where(live[None], new, state)
+
+
+def shade(state, rows, seed, ray_chunk: int, fixed_rng: bool,
+          weight_cutoff: float, chunk_live, shadowed=None):
+    """One wave's shade + scatter + state update after an unfused trace.
+
+    state: [16, R] float32 ray state; rows: [16, R] winner rows of the
+    trace (`intersect.trace_chunks`); seed: the wave's two uint32 key
+    words; ray_chunk: the RNG chunk width (scatter_rv); chunk_live: [NC]
+    int32 flags, chunks flagged 0 pass their state through; shadowed:
+    optional [R] float32 shadow mask (nonzero: shadowed).  Returns the new
+    state.
+    """
+    dev = state.device
+    if dev.type == "cpu":
+        return shade_plain(state, rows, seed, ray_chunk, fixed_rng,
+                           weight_cutoff, chunk_live, shadowed)
+    native.require(dev.type == "cuda", f"shade: no kernel for device {dev}")
+    R = state.shape[1]
+    native.check_ray_chunk(R, ray_chunk)
+    native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
+    native.check_tensor("rows", rows, dev, (STATE_ROWS, R), torch.float32)
+    native.check_tensor("chunk_live", chunk_live, dev, (R // ray_chunk,),
+                        torch.int32)
+    if shadowed is not None:
+        native.check_tensor("shadowed", shadowed, dev, (R,), torch.float32)
+    out = torch.empty_like(state)
+    s0, s1 = (int(w) for w in seed)
+    native.SHADE(
+        state.data_ptr(), rows.data_ptr(), out.data_ptr(), R, ray_chunk,
+        chunk_live.data_ptr(), 0 if shadowed is None else shadowed.data_ptr(),
+        s0, s1, int(fixed_rng), float(weight_cutoff),
+        xla_rsqrt.device_table(dev).data_ptr(), native.stream(dev))
     return out

@@ -154,9 +154,20 @@ TRACE_SHADE_UNION = Kernel(
     "rust_raytrace_tpu/ops/intersect_pallas.py:520")
 TRACE_SHADE_PERLANE = Kernel(
     "trace_shade_perlane", "rt_trace_shade_perlane",
-    [P, P, I64, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P, P],
+    [P, P, I64, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, I32, F32, F32,
+     F32, F32, P, P, P],
     "rust_raytrace_tpu_torch/csrc/trace_shade_perlane.cu",
     "rust_raytrace_tpu/ops/intersect_perlane.py:772")
+TRACE_UNION_ROWS = Kernel(
+    "trace_chunks", "rt_trace_union_rows",
+    [P, P, I64, I64, P, P, I32, I32, P, P, P, I32, I32, P, P],
+    "rust_raytrace_tpu_torch/csrc/trace_shade_union.cu",
+    "rust_raytrace_tpu/ops/intersect_pallas.py:442")
+SHADE = Kernel(
+    "shade", "rt_shade",
+    [P, P, P, I64, I32, P, P, U32, U32, I32, F32, P, P],
+    "rust_raytrace_tpu_torch/csrc/shade.cu",
+    "rust_raytrace_tpu/ops/shade.py:259")
 
 COMPACT = Kernel(
     "compact", "rt_compact",
@@ -169,7 +180,8 @@ EXPAND = Kernel(
     "rust_raytrace_tpu_torch/csrc/compact.cu",
     "rust_raytrace_tpu/ops/compact.py:640")
 
-KERNELS = (CULL, TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND)
+KERNELS = (CULL, TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND,
+           TRACE_UNION_ROWS, SHADE)
 
 
 def reset_launch_counts() -> None:

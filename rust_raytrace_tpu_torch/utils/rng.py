@@ -8,26 +8,29 @@ two uint32 words).  JAX builds a key from a seed by splitting the integer into
 (0, data) under the key with 20-round Threefry-2x32 and keeps both output
 words (Salmon et al., SC'11).  Neither step depends on
 `jax_threefry_partitionable`, which only changes how bulk random bits are
-laid out.  Only the key derivation is ported: the shade kernels draw their
-scatter vectors from a counter hash of these words (`ops/shade.scatter_rv`),
-not from `jax.random` bit streams.
+laid out.  The shade kernels draw their scatter vectors from a counter hash
+of these words (`ops/shade.scatter_rv`), not from `jax.random` bit streams;
+the one bulk draw the render makes is the wave-0 shadow jitter
+(`engine.shadow_mask`), which `uniform` reproduces.
 
 Keys are host numpy `[2]` uint32 arrays: they seed kernels as two scalars and
 never need the device.
 """
 
 import numpy as np
+import torch
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(v: int, r: int) -> int:
+def _rotl(v, r: int):
     return ((v << r) | (v >> (32 - r))) & _MASK
 
 
-def threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple:
-    """Both output words of Threefry-2x32 for one counter pair."""
+def threefry2x32(k0: int, k1: int, x0, x1) -> tuple:
+    """Both output words of Threefry-2x32 for one counter pair: Python ints,
+    or int64 tensors of 32-bit words (the same expressions, elementwise)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -52,3 +55,21 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32))
     return np.asarray(threefry2x32(k0, k1, 0, int(data) & _MASK),
                       dtype=np.uint32)
+
+
+def uniform(key: np.ndarray, shape: tuple, device) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32)` with
+    `jax_threefry_partitionable` on: element i of the row-major flattening
+    hashes the counter (0, i) and keeps the xor of both output words; its
+    top 23 bits are the mantissa of a float in [1, 2), less 1.
+
+    Plain torch glue on `device` (the JAX package computes it in XLA, outside
+    any kernel): int64 tensors hold the 32-bit words."""
+    k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32))
+    n = int(np.prod(shape))
+    if n >= 2 ** 32:
+        raise ValueError(f"uniform: {n} draws; counters past 32 bits "
+                         f"need the high word")
+    a, b = threefry2x32(k0, k1, 0, torch.arange(n, device=device))
+    bits = (((a ^ b) >> 9) | 0x3F800000).to(torch.int32)
+    return (bits.view(torch.float32) - 1.0).reshape(shape)

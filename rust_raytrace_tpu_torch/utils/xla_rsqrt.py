@@ -15,9 +15,19 @@ model does not describe the CPU.  Nothing falls back to 1/sqrt.  The words
 are kept beside the binary, keyed by the CPU model, so the check runs once
 per host rather than once per process.
 
+The estimate instruction follows the width XLA vectorizes a fusion at: 4
+or 8 floats take `rsqrtps`, 16 floats (on a CPU with AVX-512F) `vrsqrt14ps`,
+an interpolated estimate that depends on every input bit
+(`csrc/rsqrt14_capture.c` checks its model: a 2^24-entry table over [1, 4),
+scaled by the exponent).  Which fusions XLA widens was read off the
+machine code of the JAX package's programs (ROADMAP C7): the callers pass
+`wide=True` at those sites.  On a CPU without AVX-512F no fusion is 16
+wide, and the wide sites take `rsqrtps` like the rest.
+
 `rsqrt` is the plain torch version; the CUDA kernels take `device_table`,
-the same 2,055 words uploaded once per device, and compute the same
-sequence in `csrc/common.cuh` (`rt::rsqrt_xla`).
+the same 2,055 words uploaded once per device (and `device_table(wide=True)`,
+2^24 + 6 words, or none), and compute the same sequence in
+`csrc/common.cuh` (`rt::rsqrt_xla`).
 """
 
 import functools
@@ -39,6 +49,10 @@ HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 TABLE_SIZE = 2048
 CLASSES = ("+0", "-0", "+inf", "-inf", "+subnormal", "-subnormal", "-normal")
 WORDS = TABLE_SIZE + len(CLASSES)
+WIDE_SOURCE = CSRC / "rsqrt14_capture.c"
+WIDE_TABLE_SIZE = 1 << 24
+WIDE_CLASSES = ("+0", "-0", "+inf", "-inf", "-subnormal", "-normal")
+WIDE_WORDS = WIDE_TABLE_SIZE + len(WIDE_CLASSES)
 
 
 def _compiler() -> str:
@@ -48,20 +62,21 @@ def _compiler() -> str:
     raise RuntimeError("rsqrt table capture: no C compiler (set CC)")
 
 
-def _binary() -> Path:
-    """The capture program, compiled unless the hashed build exists."""
+def _binary(source: Path = SOURCE, flags: tuple = ()) -> Path:
+    """A capture program, compiled unless the hashed build exists."""
     if platform.machine() not in ("x86_64", "AMD64", "i686", "i386"):
         raise RuntimeError(
             f"rsqrt table capture: XLA-CPU's estimate is an x86 instruction; "
             f"this host is {platform.machine()}")
     cc = _compiler()
-    h = hashlib.sha256(SOURCE.read_bytes() + cc.encode()).hexdigest()[:12]
-    exe = HOST_BUILD_DIR / f"rsqrt_capture-{h}"
+    h = hashlib.sha256(source.read_bytes() + cc.encode()
+                       + " ".join(flags).encode()).hexdigest()[:12]
+    exe = HOST_BUILD_DIR / f"{source.stem}-{h}"
     if exe.exists():
         return exe
     HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = exe.with_name(f"{exe.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([cc, "-O2", "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([cc, "-O2", *flags, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"rsqrt table capture: {cc} failed:\n"
@@ -84,13 +99,10 @@ def _cpu_id() -> str:
                     if line.split(":", 1)[0].strip() in fields)
 
 
-@functools.lru_cache(maxsize=None)
-def host_table() -> np.ndarray:
-    """The captured estimate words ([WORDS] uint32) of this host's CPU.
-
-    The capture runs once per binary and CPU model: its words are kept
-    beside the binary, keyed by both, and read back by later processes."""
-    exe = _binary()
+def _capture(exe: Path, n_words: int) -> np.ndarray:
+    """Run a capture program once per binary and CPU model: its words are
+    kept beside the binary, keyed by both, and read back by later
+    processes."""
     cpu = hashlib.sha256(_cpu_id().encode()).hexdigest()[:12]
     cached = exe.with_name(f"{exe.name}-table-{cpu}.bin")
     if cached.exists():
@@ -98,29 +110,59 @@ def host_table() -> np.ndarray:
     else:
         proc = subprocess.run([str(exe)], capture_output=True)
         if proc.returncode != 0:
-            raise RuntimeError("rsqrt table capture failed: "
+            raise RuntimeError(f"{exe.name} failed: "
                                + proc.stderr.decode(errors="replace"))
         words = np.frombuffer(proc.stdout, dtype="<u4")
-        if words.size == WORDS:
+        if words.size == n_words:
             tmp = cached.with_name(f"{cached.name}.{os.getpid()}.tmp")
             words.tofile(tmp)
             os.replace(tmp, cached)
-    if words.size != WORDS:
-        raise RuntimeError(f"rsqrt table capture: {words.size} words, "
-                           f"want {WORDS}")
+    if words.size != n_words:
+        raise RuntimeError(f"{exe.name}: {words.size} words, want {n_words}")
     return words.astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def host_table() -> np.ndarray:
+    """The captured rsqrtps estimate words ([WORDS] uint32) of this host's
+    CPU."""
+    return _capture(_binary(), WORDS)
+
+
+def has_avx512f() -> bool:
+    """Whether this host's CPU has AVX-512F (XLA's 16-wide vectors)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return "avx512f" in line.split()
+    except OSError:
+        pass
+    return False
+
+
+@functools.lru_cache(maxsize=None)
+def host_wide_table():
+    """The captured vrsqrt14ps estimate words ([WIDE_WORDS] uint32) of this
+    host's CPU, or None where it has no AVX-512F."""
+    if not has_avx512f():
+        return None
+    return _capture(_binary(WIDE_SOURCE, ("-mavx512f",)), WIDE_WORDS)
 
 
 _DEVICE_TABLES = {}
 
 
-def device_table(device) -> torch.Tensor:
-    """`host_table` as an int32 tensor on `device`, uploaded once."""
+def device_table(device, wide: bool = False):
+    """`host_table` (wide: `host_wide_table`) as an int32 tensor on
+    `device`, uploaded once; None for the wide table of a CPU without
+    AVX-512F."""
     device = torch.device(device)
-    if device not in _DEVICE_TABLES:
-        _DEVICE_TABLES[device] = torch.from_numpy(
-            host_table().view(np.int32).copy()).to(device)
-    return _DEVICE_TABLES[device]
+    if (device, wide) not in _DEVICE_TABLES:
+        words = host_wide_table() if wide else host_table()
+        _DEVICE_TABLES[device, wide] = None if words is None else \
+            torch.from_numpy(words.view(np.int32).copy()).to(device)
+    return _DEVICE_TABLES[device, wide]
 
 
 def estimate(x: torch.Tensor) -> torch.Tensor:
@@ -145,5 +187,38 @@ def estimate(x: torch.Tensor) -> torch.Tensor:
     out = torch.where(normal, torch.where(neg, words[TABLE_SIZE + 6], scaled),
                       special)
     # NaN: the estimate is the quieted input
+    out = torch.where(mag > 0x7F800000, b | 0x00400000, out)
+    return out.view(torch.float32)
+
+
+def estimate_wide(x: torch.Tensor) -> torch.Tensor:
+    """vrsqrt14ps(x) elementwise, from the captured table (float32); the
+    rsqrtps estimate where the CPU has no AVX-512F."""
+    words = device_table(x.device, wide=True)
+    if words is None:
+        return estimate(x)
+    b = x.contiguous().view(torch.int32)
+    mag = b & 0x7FFFFFFF
+    neg = b < 0
+    # a positive subnormal is estimated at x * 2^64, then scaled by 2^32
+    sub = (mag > 0) & (mag < 0x00800000) & ~neg
+    bs = torch.where(sub, (x * 2.0 ** 64).view(torch.int32), b)
+    e = ((bs >> 23) & 0xFF) - 127
+    idx = ((e & 1) << 23) | (bs & 0x7FFFFF)
+    k = (e - (e & 1)) >> 1
+    scaled = words[idx.clamp(0, WIDE_TABLE_SIZE - 1).long()] - (k << 23)
+    scaled = torch.where(sub, scaled + (32 << 23), scaled)
+
+    def cls(name: str):
+        return words[WIDE_TABLE_SIZE + WIDE_CLASSES.index(name)]
+
+    special = torch.where(
+        mag == 0, torch.where(neg, cls("-0"), cls("+0")),
+        torch.where(mag == 0x7F800000,
+                    torch.where(neg, cls("-inf"), cls("+inf")),
+                    torch.where(mag < 0x00800000, cls("-subnormal"),
+                                cls("-normal"))))
+    pos = ~neg & (mag > 0) & (mag < 0x7F800000)
+    out = torch.where(pos, scaled, special)
     out = torch.where(mag > 0x7F800000, b | 0x00400000, out)
     return out.view(torch.float32)

@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from rust_raytrace_tpu_torch.engine import (Engine, camera_rays_tiled,
-                                            page_lists, pick_tile)
+                                            page_lists, pick_tile,
+                                            shadow_rays)
 from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
-                                        intersect_perlane)
+                                        intersect_perlane, shade)
 from rust_raytrace_tpu_torch.models import circles
+from rust_raytrace_tpu_torch.scene import LightSource
 from rust_raytrace_tpu_torch.utils import native, png
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key
 
@@ -25,6 +27,8 @@ pytestmark = pytest.mark.cuda
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "circles_96x54.png")
 RB = 128
+#: the teapot preset's light, (ox, oy, oz, len2)
+LIGHT = (-4.0, 8.0, 0.0, 0.2)
 
 
 @pytest.fixture(scope="module")
@@ -159,4 +163,64 @@ def test_golden_on_card_launches_every_kernel(dev):
     launches = {k.name: k.launches for k in native.KERNELS}
     assert launches == {"cull_mask_exact": 1, "trace_shade_chunks": 1,
                         "compact": 2, "trace_shade_perlane": vp.maxdepth - 1,
-                        "expand": 2}
+                        "expand": 2, "trace_chunks": 0, "shade": 0}
+
+
+def _bitwise(got, want):
+    bad = got.view(torch.int32) != want.view(torch.int32)
+    where = torch.nonzero(bad)[:5].tolist()
+    assert not bad.any(), (f"{int(bad.sum())} words differ, e.g. at {where}: "
+                           f"{[float(got[tuple(i)]) for i in where]} vs "
+                           f"{[float(want[tuple(i)]) for i in where]}")
+
+
+@pytest.mark.parametrize("fixed", [True, False])
+def test_lights_kernels_match_plain(wave0, fixed):
+    """The lights path's kernels bitwise against their plain versions: B6
+    on camera rays (folded pages) and on the shadow rays with
+    self-exclusion, B8 with the shadow mask, B4 with the fused feeler."""
+    eng, st, pk0 = wave0
+    P = eng.page_size
+    key = prng_key(3)
+    mask, tmin = cull.cull_mask_exact(st[0:3], st[3:6], st[7] != 0,
+                                      eng.aabb_lo, eng.aabb_hi, RB)
+    lists = page_lists(mask, tmin)
+    rows = intersect.trace_chunks(st[0:3], st[3:6], pk0, *lists, P, RB,
+                                  zero_origin=True)
+    _bitwise(rows, intersect.trace_chunks_plain(st[0:3], st[3:6], pk0,
+                                                *lists, RB, True))
+    so, sd, hit, excl = shadow_rays(st, rows, key, 0, fixed, LIGHT)
+    smask, stmin = cull.cull_mask_exact(so, sd, hit, eng.aabb_lo,
+                                        eng.aabb_hi, RB)
+    slists = page_lists(smask, stmin)
+    srows = intersect.trace_chunks(so, sd, eng.PK, *slists, P, RB, excl=excl)
+    _bitwise(srows, intersect.trace_chunks_plain(so, sd, eng.PK, *slists, RB,
+                                                 excl=excl))
+    shd = (hit & (srows[1] != 0)).float()
+    assert 0 < int(shd.sum()) < int(hit.sum())
+    live = torch.ones(st.shape[1] // RB, dtype=torch.int32, device=st.device)
+    args = (st, rows, fold_in(key, 0), RB, fixed, 1 / 512, live, shd)
+    st1 = shade.shade(*args)
+    _bitwise(st1, shade.shade_plain(*args))
+    clive = (st1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+    args = (st1, eng.plt_i, eng.plt_s, eng.ab, fold_in(key, 1), P, RB, fixed,
+            1 / 512, clive, LIGHT)
+    _bitwise(intersect_perlane.trace_shade_perlane(*args),
+             intersect_perlane.trace_shade_perlane_plain(*args))
+
+
+def test_lit_render_on_card_equals_cpu(dev):
+    """circles 96x54 with the light, default Engine: the card's render
+    equals the CPU's (plain versions) bitwise, through the lights path's
+    kernels and not B2."""
+    scene, vp = circles.build(resolution=(96, 54), maxdepth=5)
+    scene.lights = LightSource(orig=np.asarray(LIGHT[:3], np.float32),
+                               len2=LIGHT[3])
+    native.reset_launch_counts()
+    img = Engine(scene, device=dev).render(vp, key=prng_key(1)).image
+    launches = {k.name: k.launches for k in native.KERNELS}
+    assert launches == {"cull_mask_exact": 2, "trace_shade_chunks": 0,
+                        "compact": 2, "trace_shade_perlane": vp.maxdepth - 1,
+                        "expand": 2, "trace_chunks": 2, "shade": 1}
+    ref = Engine(scene, device="cpu").render(vp, key=prng_key(1)).image
+    np.testing.assert_array_equal(img, ref)

@@ -8,6 +8,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 import rust_raytrace_tpu.engine as jeng
 from rust_raytrace_tpu import math3d as m3
@@ -29,6 +30,17 @@ GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 RB = 128
 F32 = np.float32
 SCHEDULES = [None, 0, (True, False)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain versions are many small torch ops: with several test
+    workers on one host, torch's intra-op threads contend for the cores
+    (one thread each ran this file several times faster under xdist)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def carry(jscene):
@@ -204,11 +216,19 @@ def test_engine_rejects_streamed_regime(small, monkeypatch):
 
 
 def test_engine_rejects_lights():
-    scene, _ = circles.build(resolution=(8, 8))
+    """A lit scene renders since the lights path (ROADMAP A5) was ported;
+    what that path still rejects is what every scene does: debug buffers
+    and spp > 1."""
+    scene, vp = circles.build(resolution=(8, 8))
     scene.lights = LightSource(orig=np.asarray([0.0, 5.0, 6.0], np.float32),
                                len2=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        Engine(scene, device="cpu")
+    eng = Engine(scene, device="cpu")
+    assert eng.light == (0.0, 5.0, 6.0, 0.5)
+    _, vp2 = circles.build(resolution=(8, 8), samples=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        eng.render(vp2, fixed_rng=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        eng.render(vp, fixed_rng=True, debug=True)
 
 
 def test_render_rejects_spp_and_debug(small):

@@ -1,4 +1,5 @@
-"""B2: the port's wave-0 union trace + shade against
+"""B2 and B6: the port's wave-0 union trace + shade and its union trace
+alone (with the shadow rays' self-exclusion) against
 trace_chunks_pallas / trace_shade_chunks_pallas in interpret mode.
 
 Bitwise: the port fuses multiply-adds where XLA on the CPU fuses them
@@ -19,6 +20,7 @@ from rust_raytrace_tpu.scene import assemble
 from rust_raytrace_tpu_torch.engine import page_lists
 from rust_raytrace_tpu_torch.ops.cull import cull_mask_exact
 from rust_raytrace_tpu_torch.ops.intersect import (fold_pages_origin,
+                                                   trace_chunks,
                                                    trace_chunks_plain,
                                                    trace_shade_chunks)
 from rust_raytrace_tpu_torch.utils import native
@@ -113,3 +115,37 @@ def test_trace_shade_matches_pallas(pages, zero_origin, fixed_rng):
         interpret=True, zero_origin=zero_origin))
     np.testing.assert_array_equal(mine[[7, 11]], ref[[7, 11]])
     np.testing.assert_array_equal(mine, ref)
+
+
+@pytest.mark.parametrize("zero_origin", [False, True])
+@pytest.mark.parametrize("with_excl", [False, True])
+def test_trace_chunks_matches_pallas(pages, zero_origin, with_excl):
+    """B6 through its wrapper, every winner row bitwise.  excl: most rays
+    may not hit their own nearest triangle (as a shadow ray may not hit the
+    triangle it leaves), so their winner moves to the next triangle."""
+    st, pk, (counts, plist, ptmin) = _inputs(pages, zero_origin)
+    ot, dt = torch.from_numpy(st[0:3]), torch.from_numpy(st[3:6])
+    excl = None
+    if with_excl:
+        first = trace_chunks_plain(ot, dt, pk, counts, plist, ptmin, RB,
+                                   zero_origin)[1]
+        drop = torch.from_numpy(np.random.default_rng(3).uniform(size=R)
+                                < 0.7)
+        excl = torch.where(drop, first, 0.0)
+    native.reset_launch_counts()
+    mine = trace_chunks(ot, dt, pk, counts, plist, ptmin, P, RB, zero_origin,
+                        excl).numpy()
+    assert native.TRACE_UNION_ROWS.launches == 0     # CPU: plain version
+    ref = np.asarray(trace_chunks_pallas(
+        jnp.asarray(st[0:3]), jnp.asarray(st[3:6]), jnp.asarray(pk.numpy()),
+        jnp.asarray(counts.numpy()), jnp.asarray(plist.numpy()),
+        jnp.asarray(ptmin.numpy()), P, RB, interpret=True,
+        zero_origin=zero_origin,
+        excl=None if excl is None else jnp.asarray(excl.numpy()[None])))
+    if with_excl:
+        # the exclusion changed winners, and some rays lost their only hit
+        assert (ref[1][excl.numpy() != 0] != excl.numpy()[excl.numpy() != 0]
+                ).all()
+        assert ((ref[1] == 0) & (excl.numpy() != 0)).any()
+    np.testing.assert_array_equal(mine[[0, 1]], ref[[0, 1]])
+    np.testing.assert_array_equal(mine.view(np.uint32), ref.view(np.uint32))

@@ -1,5 +1,5 @@
-"""The port's shade (B0b), scatter hash and rsqrt against the JAX
-functions."""
+"""The port's shade (B0b), the standalone shade (B8), the scatter hash, the
+shadow feeler's jitter and rsqrt against the JAX functions."""
 
 import functools
 from fractions import Fraction
@@ -13,9 +13,12 @@ import torch
 from rust_raytrace_tpu.ops.shade import _mix32 as j_mix32
 from rust_raytrace_tpu.ops.shade import _shade_state_rows as j_shade
 from rust_raytrace_tpu.ops.shade import scatter_rv as j_scatter_rv
+from rust_raytrace_tpu.ops.shade import shade_pallas
+from rust_raytrace_tpu.ops.shade import shadow_uvs as j_shadow_uvs
 from rust_raytrace_tpu_torch.ops.shade import (fma, rsqrt, scatter_rv,
-                                               scatter_uniforms,
-                                               shade_state_rows)
+                                               scatter_uniforms, shade,
+                                               shade_state_rows, shadow_uvs)
+from rust_raytrace_tpu_torch.utils import native
 
 F32 = np.float32
 
@@ -198,3 +201,50 @@ def test_shade_state_rows_matches_jax(fixed_rng, cutoff):
                             jnp.uint32(seed[0]), jnp.uint32(seed[1])))
     np.testing.assert_array_equal(mine[3:], ref[3:])
     np.testing.assert_allclose(mine, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rb", [128, 1024])
+@pytest.mark.parametrize("fixed_rng", [True, False])
+def test_shadow_uvs_bitwise(rb, fixed_rng):
+    """The feeler's jitter (salted lowbias32) against JAX's, per chunk."""
+    for chunk in CHUNKS:
+        rays = torch.arange(chunk * rb, (chunk + 1) * rb)
+        u3, u1 = shadow_uvs(SEED, rays, rb, fixed_rng)
+        ref3, ref1 = j_shadow_uvs(jnp.uint32(SEED[0]), jnp.uint32(SEED[1]),
+                                  jnp.int32(chunk), rb, fixed_rng)
+        np.testing.assert_array_equal(np.stack([u.numpy() for u in u3]),
+                                      np.asarray(ref3))
+        np.testing.assert_array_equal(u1.numpy(), np.asarray(ref1)[0])
+    if not fixed_rng:
+        assert 0.45 < float(u1.mean()) < 0.55
+
+
+@pytest.mark.parametrize("fixed_rng,cutoff", [(True, 0.0), (False, 1 / 512)])
+@pytest.mark.parametrize("with_shadow", [False, True])
+def test_shade_matches_pallas(fixed_rng, cutoff, with_shadow):
+    """B8 through its wrapper against shade_pallas in interpret mode, the
+    whole state bitwise: 8 chunks of 256, one of them dead, a third of the
+    lanes shadowed."""
+    st, rows = _state_and_rows(31)
+    rb = 256
+    n = st.shape[1]
+    seed = np.asarray([4242, 99], np.uint32)
+    live = np.ones(n // rb, np.int32)
+    live[3] = 0
+    shd = (np.random.default_rng(32).uniform(size=n) < 0.33).astype(F32) \
+        if with_shadow else None
+    native.reset_launch_counts()
+    mine = shade(torch.from_numpy(st), torch.from_numpy(rows), seed, rb,
+                 fixed_rng, cutoff, torch.from_numpy(live),
+                 None if shd is None else torch.from_numpy(shd)).numpy()
+    assert native.SHADE.launches == 0                # CPU: plain version
+    ref = np.asarray(shade_pallas(
+        jnp.asarray(st), jnp.asarray(rows), jnp.asarray(seed), rb=rb,
+        fixed_rng=fixed_rng, weight_cutoff=cutoff,
+        chunk_live=jnp.asarray(live),
+        shadowed=None if shd is None else jnp.asarray(shd[None]),
+        interpret=True))
+    np.testing.assert_array_equal(mine[:, 3 * rb:4 * rb], st[:, 3 * rb:4 * rb])
+    np.testing.assert_array_equal(mine[[7, 8, 9, 10, 11]],
+                                  ref[[7, 8, 9, 10, 11]])
+    np.testing.assert_array_equal(mine.view(np.uint32), ref.view(np.uint32))
