@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Two main paths run: the unlit circles_2k render (B1, B2, B3, B4, B5) and
-the lit one, circles_2k with the teapot preset's light (B1 twice at wave 0,
-B6 twice, B8, B3, B4 with its fused shadow feeler, B5).
+Four main paths run: the unlit circles_2k render (B1, B2, B3, B4, B5); the
+lit one, circles_2k with the teapot preset's light (B1 twice at wave 0, B6
+twice, B8, B3, B4 with its fused shadow feeler, B5); and the streamed
+regime's, synthetic_1m_2k (a 708x708 lat/lon sphere, 1,001,112 triangles,
+past the resident tables' cap) unlit (B9 every wave, B3, B5) and lit (B10
+twice and B8 every wave, B3, B5).
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -22,24 +25,38 @@ Phases, each fatal on failure:
      dead_base > 0, B5 compared within the prefix); times of kernel and
      plain version, and of each kernel on the full wave, beside the least
      time the card could take (bound), and the time of the shadow pass's
-     bulk random draw (threefry glue);
+     bulk random draw (threefry glue); then the streamed kernels on the
+     synthetic_1m_2k tables (page size 224, 35 banks in device memory) on
+     64 chunks of its camera rays, spread over the chunks that hit the
+     sphere: B10 nearest (all 16 rows), B10 any-hit
+     with self-exclusion on their shadow rays (the occlusion bit), B9 on
+     the wave-0 state with dead chunks and on the wave-1 state, under live
+     and fixed RNG, all bitwise, and each timed on the full wave;
   4. golden: the default (compacted) Engine's 96x54 circles render under
      fixed_rng is byte-equal to tests/goldens/circles_96x54.png;
   5. kernel path vs plain path of the default Engine at 640x360 under
-     fixed_rng, unlit and lit: at most 0.01% of u8 pixels may differ;
+     fixed_rng, unlit and lit, on circles and on the synthetic_1m sphere
+     (streamed regime; at STREAMED_CHECK_RES): at most 0.01% of u8 pixels
+     may differ;
   6. circles_2k (2560x1440, maxdepth 5, live RNG): the default Engine after
      its autotune (the planned schedule printed) and Engine(ncompact=0),
      three timed renders each, in turns; then the lit default Engine, three
-     timed renders after a warm-up; every kernel of each path must have
-     launched in its renders (counts set to 0 just before each render);
+     timed renders after a warm-up; then synthetic_1m_2k (2560x1440,
+     maxdepth 5, live RNG) through the default Engine, which must take the
+     streamed regime at page size 224: three timed renders after the
+     autotune's, then one lit render after a warm-up; every kernel of each
+     path must have launched in its renders and no kernel of another
+     regime (counts set to 0 just before each render);
   7. profile: one default, one ncompact=0 and one lit circles_2k render
-     under torch.profiler (the card's time per kernel and copy, its busy
-     share) and the host un-permute timed alone.
+     and one unlit and one lit synthetic_1m_2k render under torch.profiler
+     (the card's time per kernel and copy, its busy share) and the host
+     un-permute timed alone.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, with no such line, when
 CUDA is missing or any phase fails.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -50,11 +67,17 @@ import numpy as np
 import torch
 
 from rust_raytrace_tpu_torch import engine as eng_mod
+from rust_raytrace_tpu_torch import math3d as m3
+from rust_raytrace_tpu_torch.camera import create_viewport
 from rust_raytrace_tpu_torch.engine import Engine, page_lists
+from rust_raytrace_tpu_torch.geometry import make_sphere
+from rust_raytrace_tpu_torch.materials import matte
 from rust_raytrace_tpu_torch.models import circles
 from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
-                                        intersect_perlane, shade)
-from rust_raytrace_tpu_torch.scene import LightSource
+                                        intersect_perlane, intersect_streamed,
+                                        shade)
+from rust_raytrace_tpu_torch.ops.pages import LANE_ID
+from rust_raytrace_tpu_torch.scene import LightSource, assemble
 from rust_raytrace_tpu_torch.utils import native, png
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key, uniform
 
@@ -83,6 +106,28 @@ UNLIT_PATH = ("cull_mask_exact", "trace_shade_chunks", "compact",
               "trace_shade_perlane", "expand")
 LIT_PATH = ("cull_mask_exact", "trace_chunks", "shade", "compact",
             "trace_shade_perlane", "expand")
+STREAMED_PATH = ("trace_shade_streamed", "compact", "expand")
+STREAMED_LIT_PATH = ("trace_streamed", "shade", "compact", "expand")
+#: kernels of the resident regime, which the streamed renders never launch
+RESIDENT_ONLY = ("cull_mask_exact", "trace_shade_chunks",
+                 "trace_shade_perlane")
+#: the phase-5 resolution of the synthetic_1m sphere (the plain path walks
+#: the 35 banks with many small torch ops)
+STREAMED_CHECK_RES = (640, 360)
+
+
+def synthetic_1m_scene():
+    """synthetic_1m_2k's scene (bench.py): a 708x708 lat/lon sphere of
+    radius 4 at z = 10, 1,001,112 triangles."""
+    return assemble([make_sphere((0.0, 0.0, 10.0), 4.0, (708, 708),
+                                 matte(m3.make_color((252, 119, 0)), 0.2),
+                                 0.0)])
+
+
+def synthetic_view(resolution):
+    """synthetic_1m_2k's camera at `resolution`: maxdepth 5, spp 1."""
+    return create_viewport(resolution, (1.6, 0.9), (0.0, 0.0, 0.0),
+                           m3.unit(m3.vec(0.0, 0.0, 1.0)), 90.0, 0.0, 5, 1)
 
 
 def lit(scene):
@@ -167,10 +212,236 @@ def _counts():
     return {k.name: k.launches for k in native.KERNELS}
 
 
+def _plain_rows(ot, dt, PK, c, pl, pt, page_size, ray_chunk,
+                zero_origin=False, excl=None):
+    return intersect.trace_chunks_plain(ot, dt, PK, c, pl, pt, ray_chunk,
+                                        zero_origin, excl)
+
+
+#: the engine module's kernel wrappers and their plain versions
+PLAIN = {"cull_mask_exact": cull.cull_mask_exact_plain,
+         "trace_shade_chunks": intersect.trace_shade_chunks_plain,
+         "trace_shade_perlane": intersect_perlane.trace_shade_perlane_plain,
+         "compact": compact.compact_plain,
+         "expand": compact.expand_plain,
+         "trace_chunks": _plain_rows,
+         "shade": shade.shade_plain,
+         "trace_shade_streamed":
+             intersect_streamed.trace_shade_streamed_plain,
+         "trace_streamed": intersect_streamed.trace_streamed_plain}
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Engines render through the plain versions of every kernel inside;
+    fails if a kernel launched."""
+    saved = {n: getattr(eng_mod, n) for n in PLAIN}
+    before = _counts()
+    for n, fn in PLAIN.items():
+        setattr(eng_mod, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(eng_mod, n, fn)
+    if _counts() != before:
+        raise AssertionError("plain path launched a kernel")
+
+
+def _streamed_bound(eng, page_of, o, d, valid, ids, io_bytes: int,
+                    shade_flops: int = 0, any_hit: bool = False) -> dict:
+    """The least time the card could take for one streamed trace (B9 or
+    B10) of rays o/d [3, n] with `valid` [n] that found the triangles `ids`
+    [n] (0: none), counting what this run's data needs: bytes, io_bytes
+    per ray plus the bank AABBs, the page AABBs of every bank that holds a
+    found triangle and the features of every page that does (intersect
+    and shade; intersect only for any-hit); operations, every valid ray's
+    slab test of every bank, of the 128 pages of one bank for a ray that
+    enters a bank, the hit tests of its found triangle's page (one
+    triangle for any-hit), and shade_flops per valid ray."""
+    plt_i, _, _, bank_ab = eng.stables
+    NB, P = plt_i.shape[0], eng.page_size
+    bb = bank_ab[:NB]
+    enters = torch.zeros_like(valid)
+    step = 1 << 20
+    for i in range(0, o.shape[1], step):
+        sl = slice(i, i + step)
+        tlo, thi = cull.slab([bb[:, k:k + 1] for k in range(3)],
+                             [bb[:, k + 3:k + 4] for k in range(3)],
+                             [o[k, sl][None] for k in range(3)],
+                             [cull.slab_inv(d[k, sl])[None]
+                              for k in range(3)])
+        enters[sl] = (((tlo <= thi) & (thi >= 0.0) & (bb[:, 6:7] != 0.0))
+                      .any(dim=0) & valid[sl])
+    hits = valid & (ids != 0)
+    pages = torch.unique(page_of[ids[hits].long()])
+    banks = torch.unique(pages // 128)
+    feats = 17 if any_hit else 24
+    n_bytes = (o.shape[1] * io_bytes + NB * 7 * 4 + banks.numel() * 128 * 7 * 4
+               + pages.numel() * P * feats * 4)
+    flops = (int(valid.sum()) * (NB * SLAB_FLOPS + shade_flops)
+             + int(enters.sum()) * 128 * SLAB_FLOPS
+             + int(hits.sum()) * (1 if any_hit else P) * HIT_FLOPS)
+    return _bound(n_bytes, flops)
+
+
+def streamed_kernels(dev, card, key, results):
+    """Phase 3 for the streamed regime: B10 and B9 on synthetic_1m_2k, on
+    N_CHECK_CHUNKS chunks spread over those whose camera rays hit the
+    sphere, and on whole waves.  Returns (scene, its default Engine,
+    viewport)."""
+    t0 = time.perf_counter()
+    scene = synthetic_1m_scene()
+    t1 = time.perf_counter()
+    eng = Engine(scene, device=dev)
+    t2 = time.perf_counter()
+    tabs = eng.stables
+    P = eng.page_size
+    NB = tabs[0].shape[0]
+    if not (eng.streamed and P == 224):
+        raise AssertionError(f"synthetic_1m_2k: streamed {eng.streamed}, "
+                             f"page size {P}")
+    mb = sum(t.numel() for t in tabs) * 4 / 1e6
+    print(f"synthetic_1m_2k: {len(scene.tris) - 1} triangles, "
+          f"{eng.pages.num_pages} pages of {P}, {NB} banks, streamed tables "
+          f"{mb:.1f} MB on the card; host: scene {t1 - t0:.1f} s, Engine "
+          f"{t2 - t1:.1f} s")
+    ids = eng.pages.PK[:, :, LANE_ID].astype(np.int64)
+    page_of = np.zeros(len(scene.tris), np.int64)
+    page_of[ids.ravel()] = np.repeat(np.arange(ids.shape[0]), P)
+    page_of = torch.from_numpy(page_of).to(dev)
+    vp = synthetic_view((2560, 1440))
+    R0 = vp.width * vp.height
+    R = -(-R0 // RB) * RB
+    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
+                                                           vp.height), R, dev)
+    o, _ = eng._pinhole_fold(vp, o)
+    alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
+    full0 = torch.cat([o, d, alive0, alive0,
+                       torch.zeros((8, R), device=dev)], dim=0)
+    ts, tsp = intersect_streamed.trace_streamed, \
+        intersect_streamed.trace_streamed_plain
+    tss, tssp = intersect_streamed.trace_shade_streamed, \
+        intersect_streamed.trace_shade_streamed_plain
+    # the check chunks: spread over the chunks with a hit (the sphere
+    # covers a fifth of the image)
+    fcam = (full0[0:3], full0[3:6], full0[7], *tabs, P, RB)
+    frows = ts(*fcam)
+    hit_chunks = torch.nonzero((frows[1] != 0).reshape(-1, RB).any(dim=1))
+    pick = torch.linspace(0, hit_chunks.numel() - 1, N_CHECK_CHUNKS,
+                          device=dev).round().long()
+    chunks = hit_chunks[pick, 0]
+    rays = (chunks[:, None] * RB + torch.arange(RB, device=dev)).reshape(-1)
+    st0 = full0[:, rays].contiguous()
+    n = st0.shape[1]
+
+    # B10: nearest on the camera rays, any-hit on their shadow rays
+    cam = (st0[0:3], st0[3:6], st0[7], *tabs, P, RB)
+    rows_k = ts(*cam)
+    err10 = _require_bitwise("B10 camera rays", rows_k, tsp(*cam))
+    so, sd, hit, excl = eng_mod.shadow_rays(st0, rows_k, key, 0, False,
+                                            LIGHT)
+    sh = (so, sd, hit.float(), *tabs, P, RB)
+    occ_k = ts(*sh, excl=excl, any_hit=True)
+    occ_p = tsp(*sh, excl=excl, any_hit=True)
+    if not torch.equal(occ_k[1] != 0, occ_p[1] != 0):
+        raise AssertionError(f"B10 any-hit: {int(((occ_k[1] != 0) != (occ_p[1] != 0)).sum())} occlusion bits differ")
+    results[native.TRACE_STREAMED.name] = dict(
+        rays=n, max_abs_err=err10, ms=_time_ms(lambda: ts(*cam)),
+        plain_ms=_time_ms(lambda: tsp(*cam), reps=1),
+        **_streamed_bound(eng, page_of, st0[0:3], st0[3:6], st0[7] != 0,
+                          rows_k[1], 92),
+        any_hit=dict(
+            ms=_time_ms(lambda: ts(*sh, excl=excl, any_hit=True)),
+            plain_ms=_time_ms(lambda: tsp(*sh, excl=excl, any_hit=True),
+                              reps=1),
+            **_streamed_bound(eng, page_of, so, sd, hit, occ_k[1], 96,
+                              any_hit=True)))
+    print(f"B10 on {N_CHECK_CHUNKS} chunks of synthetic_1m_2k: camera rays "
+          f"bitwise equal ({int((rows_k[1] != 0).sum())} hits); any-hit "
+          f"occlusion bits equal ({int(hit.sum())} shadow rays, "
+          f"{int((occ_k[1] != 0).sum())} occluded)")
+
+    # B9: the wave-0 state with dead chunks, the wave-1 state
+    nc = n // RB
+    dead = torch.ones(nc, dtype=torch.int32, device=dev)
+    dead[1::4] = 0
+    ones = torch.ones(nc, dtype=torch.int32, device=dev)
+    errs = []
+    for fixed in (True, False):
+        wc = 0.0 if fixed else 1 / 512
+        a0 = (st0, *tabs, fold_in(key, 0), P, RB, fixed, wc, dead)
+        errs.append(_require_bitwise(f"B9 wave 0, fixed_rng {fixed}",
+                                     tss(*a0), tssp(*a0)))
+        st1 = tss(st0, *tabs, fold_in(key, 0), P, RB, fixed, wc, ones)
+        live1 = (st1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+        a1 = (st1, *tabs, fold_in(key, 1), P, RB, fixed, wc, live1)
+        errs.append(_require_bitwise(f"B9 wave 1, fixed_rng {fixed}",
+                                     tss(*a1), tssp(*a1)))
+    # a1: live RNG's wave 1
+    rows1 = ts(st1[0:3], st1[3:6], st1[7], *tabs, P, RB)
+    results[native.TRACE_SHADE_STREAMED.name] = dict(
+        rays=n, max_abs_err=max(errs), ms=_time_ms(lambda: tss(*a1)),
+        plain_ms=_time_ms(lambda: tssp(*a1), reps=1),
+        **_streamed_bound(eng, page_of, st1[0:3], st1[3:6], st1[7] != 0,
+                          rows1[1], 128, SHADE_FLOPS))
+    print(f"B9 on {N_CHECK_CHUNKS} chunks of synthetic_1m_2k: wave 0 ("
+          f"{int((dead == 0).sum())} chunks dead) and wave 1 bitwise equal "
+          f"under fixed and live RNG; {int((st1[7] != 0).sum())} rays live "
+          f"after wave 0, {int(live1.sum())} chunks live")
+
+    # the kernels on whole waves: B10 and its any-hit on the lit wave 0,
+    # B9 on the unlit waves 0 and 1
+    fso, fsd, fhit, fexcl = eng_mod.shadow_rays(full0, frows, key, 0, False,
+                                                LIGHT)
+    fsh = (fso, fsd, fhit.float(), *tabs, P, RB)
+    focc = ts(*fsh, excl=fexcl, any_hit=True)
+    fones = torch.ones(R // RB, dtype=torch.int32, device=dev)
+    fa0 = (full0, *tabs, fold_in(key, 0), P, RB, False, 1 / 512, fones)
+    full1 = tss(*fa0)
+    flive1 = (full1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+    fa1 = (full1, *tabs, fold_in(key, 1), P, RB, False, 1 / 512, flive1)
+    frows1 = ts(full1[0:3], full1[3:6], full1[7], *tabs, P, RB)
+    full = {
+        "B10 camera rays": (results[native.TRACE_STREAMED.name],
+                            _time_ms(lambda: ts(*fcam)),
+                            _streamed_bound(eng, page_of, full0[0:3],
+                                            full0[3:6], full0[7] != 0,
+                                            frows[1], 92)),
+        "B10 any-hit shadow rays": (
+            results[native.TRACE_STREAMED.name]["any_hit"],
+            _time_ms(lambda: ts(*fsh, excl=fexcl, any_hit=True)),
+            _streamed_bound(eng, page_of, fso, fsd, fhit, focc[1], 96,
+                            any_hit=True)),
+        "B9 wave 0": (results[native.TRACE_SHADE_STREAMED.name]
+                      .setdefault("wave0", {}),
+                      _time_ms(lambda: tss(*fa0)),
+                      _streamed_bound(eng, page_of, full0[0:3], full0[3:6],
+                                      full0[7] != 0, frows[1], 128,
+                                      SHADE_FLOPS)),
+        "B9 wave 1": (results[native.TRACE_SHADE_STREAMED.name],
+                      _time_ms(lambda: tss(*fa1)),
+                      _streamed_bound(eng, page_of, full1[0:3], full1[3:6],
+                                      full1[7] != 0, frows1[1], 128,
+                                      SHADE_FLOPS)),
+    }
+    for name, (res, ms, bound) in full.items():
+        res.update(ms_full=ms, bound_ms_full=bound["bound_ms"],
+                   bound_by_full=bound["bound_by"])
+        print(f"time {name} (full synthetic_1m_2k wave, {R // RB} chunks): "
+              f"kernel {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) [{card}]")
+    print(f"synthetic_1m_2k wave 0: {int((frows[1] != 0).sum())} hits of "
+          f"{R0} rays, {int((focc[1] != 0).sum())} shadowed; wave 1: "
+          f"{int((full1[7] != 0).sum())} live rays, "
+          f"{int((frows1[1] != 0).sum())} hits")
+    return scene, eng, vp
+
+
 #: the kernels' function names in csrc/*.cu
 PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
                 "trace_shade_perlane_kernel", "expand_kernel",
-                "shade_kernel")
+                "shade_kernel", "trace_streamed_kernel")
 
 
 def _groups(per_name) -> dict:
@@ -541,6 +812,7 @@ def main() -> int:
           f"{int(dead_end)}): bitwise equal; {n_a2} survivors in a prefix "
           f"of {int(total_a2)} lanes")
     del full2, out2_k, out2_p, dead2_k, dead2_p, y2, back2_k, back2_p, masks2
+    s_scene, eng_s, s_vp = streamed_kernels(dev, card, key, results)
     t_zero = _time_ms(lambda: torch.zeros_like(full1))
     for k in native.KERNELS:
         r = results[k.name]
@@ -563,44 +835,45 @@ def main() -> int:
     print("golden: circles 96x54 fixed_rng byte-equal on the card "
           "(default Engine, compacted after waves 0 and 1)")
 
-    # 5. kernel path vs plain path on the card, default Engine, unlit and lit
-    def plain_rows(ot, dt, PK, c, pl, pt, page_size, ray_chunk,
-                   zero_origin=False, excl=None):
-        return intersect.trace_chunks_plain(ot, dt, PK, c, pl, pt, ray_chunk,
-                                            zero_origin, excl)
-
-    swaps = {"cull_mask_exact": cull.cull_mask_exact_plain,
-             "trace_shade_chunks": intersect.trace_shade_chunks_plain,
-             "trace_shade_perlane":
-                 intersect_perlane.trace_shade_perlane_plain,
-             "compact": compact.compact_plain,
-             "expand": compact.expand_plain,
-             "trace_chunks": plain_rows,
-             "shade": shade.shade_plain}
-    for label, make in (("unlit", lambda s: s), ("lit", lit)):
-        m_scene, m_vp = circles.build(resolution=(640, 360), maxdepth=5)
-        m_scene = make(m_scene)
-        img_k = Engine(m_scene, device=dev).render(m_vp,
-                                                   fixed_rng=True).image
-        saved = {n: getattr(eng_mod, n) for n in swaps}
-        before = _counts()
-        for n, fn in swaps.items():
-            setattr(eng_mod, n, fn)
-        try:
-            img_p = Engine(m_scene, device=dev).render(m_vp,
-                                                       fixed_rng=True).image
-        finally:
-            for n, fn in saved.items():
-                setattr(eng_mod, n, fn)
-        if _counts() != before:
-            raise AssertionError("plain path launched a kernel")
+    # 5. kernel path vs plain path on the card, default Engine, unlit and
+    # lit, on circles and in the streamed regime on the synthetic_1m sphere
+    # (one Engine for both paths there, at a fixed schedule: the scene's
+    # host build takes seconds)
+    def check_paths(label, render_k, render_p):
+        t0 = time.perf_counter()
+        img_k = render_k()
+        t1 = time.perf_counter()
+        with plain_path():
+            img_p = render_p()
+        t2 = time.perf_counter()
         n_px = img_k.shape[0] * img_k.shape[1]
         n_diff = int((img_k != img_p).any(axis=-1).sum())
-        print(f"kernel vs plain path 640x360 fixed_rng, {label}: {n_diff} "
-              f"of {n_px} pixels differ")
+        print(f"kernel vs plain path {img_k.shape[1]}x{img_k.shape[0]} "
+              f"fixed_rng, {label}: {n_diff} of {n_px} pixels differ "
+              f"(kernel {t1 - t0:.1f} s, plain {t2 - t1:.1f} s)")
         if n_diff > 1e-4 * n_px:
             raise AssertionError(f"{label}: kernel and plain paths differ "
                                  f"beyond 0.01%")
+
+    for label, make in (("unlit", lambda s: s), ("lit", lit)):
+        m_scene, m_vp = circles.build(resolution=(640, 360), maxdepth=5)
+        m_scene = make(m_scene)
+        check_paths(f"circles {label}",
+                    lambda: Engine(m_scene, device=dev).render(
+                        m_vp, fixed_rng=True).image,
+                    lambda: Engine(m_scene, device=dev).render(
+                        m_vp, fixed_rng=True).image)
+    s_vp5 = synthetic_view(STREAMED_CHECK_RES)
+    for label in ("unlit", "lit"):
+        if label == "lit":
+            lit(s_scene)        # eng_s keeps the unlit scene it was made for
+        e5 = Engine(s_scene, ncompact=2, device=dev)
+        if not e5.streamed:
+            raise AssertionError("synthetic_1m: not the streamed regime")
+        check_paths(f"synthetic_1m streamed {label}",
+                    lambda: e5.render(s_vp5, fixed_rng=True).image,
+                    lambda: e5.render(s_vp5, fixed_rng=True).image)
+        del e5
 
     # 6. circles_2k end to end: the autotuned default Engine and ncompact=0
     eng.render(vp)                       # the autotune plans on this render
@@ -679,9 +952,70 @@ def main() -> int:
         raise AssertionError(f"lit path: kernels never launched {missing}, "
                              f"or B2 launched")
 
-    # 7. where the time of one circles_2k render goes
-    for name, e in (("default", eng), ("ncompact=0", eng0), ("lit", eng_l)):
-        wall_ms, per_name, busy_ms = _profile_render(e, vp)
+    # 6c. synthetic_1m_2k at full width: the default Engine takes the
+    # streamed regime; three timed renders after the autotune's, then the
+    # lit scene (lit since phase 5) once after a warm-up
+    R0s = s_vp.width * s_vp.height
+    eng_s.render(s_vp)                   # the autotune plans on this render
+    torch.cuda.synchronize()
+    print(f"synthetic_1m_2k autotune: planned schedule {eng_s.ncompact}")
+    s_runs = []
+    s_launches = {k.name: 0 for k in native.KERNELS}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        s_runs.append(eng_s.render(s_vp))
+        torch.cuda.synchronize()
+        for k, c in _counts().items():
+            s_launches[k] += c
+    best_s = min(s_runs, key=lambda r: r.seconds)
+    if best_s.image.shape != (s_vp.height, s_vp.width, 3) \
+            or int(best_s.wave_rays[0]) != R0s or not best_s.image.max() > 0:
+        raise AssertionError(f"synthetic_1m_2k image {best_s.image.shape}, "
+                             f"wave_rays {best_s.wave_rays}")
+    print(f"synthetic_1m_2k (streamed, page size {eng_s.page_size}, "
+          f"{eng_s.stables[0].shape[0]} banks): best {best_s.seconds:.6f} s "
+          f"of {[round(r.seconds, 6) for r in s_runs]}, rays_traced "
+          f"{best_s.rays_traced}, {best_s.mrays_per_sec:.3f} Mrays/s, "
+          f"wave_rays {best_s.wave_rays.tolist()} [{card}]")
+    print(f"launches in the 3 synthetic_1m_2k renders: {s_launches}")
+    missing = [n for n in STREAMED_PATH if s_launches[n] == 0]
+    other = [n for n in RESIDENT_ONLY + ("trace_streamed", "trace_chunks",
+                                         "shade") if s_launches[n]]
+    if missing or other:
+        raise AssertionError(f"streamed path: never launched {missing}, "
+                             f"launched {other}")
+    eng_sl = Engine(s_scene, device=dev)
+    if not (eng_sl.streamed and eng_sl.light is not None):
+        raise AssertionError("lit synthetic_1m: not streamed and lit")
+    eng_sl.render(s_vp)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    sl_run = eng_sl.render(s_vp)
+    torch.cuda.synchronize()
+    sl_launches = _counts()
+    darker = float(((best_s.image.astype(int) - sl_run.image) > 1)
+                   .any(-1).mean())
+    print(f"synthetic_1m_2k lit (schedule {eng_sl.ncompact}): "
+          f"{sl_run.seconds:.6f} s, rays_traced {sl_run.rays_traced}, "
+          f"{sl_run.mrays_per_sec:.3f} Mrays/s, wave_rays "
+          f"{sl_run.wave_rays.tolist()} [{card}]; {darker:.4f} of pixels "
+          f"darker than unlit")
+    print(f"launches in the lit synthetic_1m_2k render: {sl_launches}")
+    missing = [n for n in STREAMED_LIT_PATH if sl_launches[n] == 0]
+    other = [n for n in RESIDENT_ONLY + ("trace_shade_streamed",
+                                         "trace_chunks") if sl_launches[n]]
+    if missing or other or int(sl_run.wave_rays[0]) != R0s \
+            or not 0.01 < darker < 0.99:
+        raise AssertionError(f"lit streamed path: never launched {missing}, "
+                             f"launched {other}, or no shadow cast")
+
+    # 7. where the time of one circles_2k and one synthetic_1m_2k render goes
+    for name, e, pvp in (("default", eng, vp), ("ncompact=0", eng0, vp),
+                         ("lit", eng_l, vp),
+                         ("synthetic_1m_2k", eng_s, s_vp),
+                         ("synthetic_1m_2k lit", eng_sl, s_vp)):
+        wall_ms, per_name, busy_ms = _profile_render(e, pvp)
         print(f"profile {name}: render {wall_ms:.3f} ms under the profiler, "
               f"device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%) [{card}]")
@@ -699,14 +1033,21 @@ def main() -> int:
     print(f"profile: host un-permute alone {min(t_host):.3f} ms (best of "
           f"{[round(t, 3) for t in t_host]})")
 
-    # launches: of the lit path for its kernels, else of the unlit path
+    # launches: B9 of the streamed path, B10 of the lit streamed path; the
+    # others of the lit circles path for its kernels, else of the unlit one
+    paths = {"unlit": launches, "lit": lit_launches, "streamed": s_launches,
+             "streamed_lit": sl_launches}
+    main_path = {"trace_shade_streamed": "streamed",
+                 "trace_streamed": "streamed_lit"}
+
+    def path_of(name):
+        return main_path.get(name, "lit" if name in LIT_PATH else "unlit")
+
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
-         "launches": lit_launches[k.name] if k.name in LIT_PATH
-         else launches[k.name],
-         "launches_by_path": {"unlit": launches[k.name],
-                              "lit": lit_launches[k.name]},
+         "launches": paths[path_of(k.name)][k.name],
+         "launches_by_path": {p: c[k.name] for p, c in paths.items()},
          "library_ms": None, **results[k.name]} for k in native.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,8 @@
 // stay in global memory behind L1/L2: they do not fit the 227 KB of shared
 // memory a block may use, and the whole table fits the 50 MB L2.
 //
-// Design: one thread per ray, blocks of 128.  Per bank a thread keeps a
+// Design: one thread per ray, blocks of 128.  Per bank a thread runs
+// rt::bank_pass (perlane.cuh, shared with B9 and B10): it keeps a
 // 128-bit mask of slab-hit pages in registers; each step recomputes the
 // entry distance of the remaining pages, drops those beyond the best hit,
 // and tests the nearest (ties to the lower page index), which is the visit
@@ -32,25 +33,15 @@
 // order-free (ROADMAP C5), so this equals the TPU kernel's any-hit loop.  It
 // is a function of its own, so its traversal state is dead before the
 // shade.
-#include "common.cuh"
+#include "perlane.cuh"
 
 namespace {
 
-constexpr int GROUP = 128;   // pages per bank
-constexpr int N_INT = 17;    // intersect features per triangle (plt_i)
-constexpr int N_SHD = 7;     // shade features per triangle (plt_s)
-constexpr int AB_LANES = 128;
-
-__device__ __forceinline__ float page_tlo(const float* __restrict__ abb,
-                                          int p, const float o[3],
-                                          const float inv[3], float& thi) {
-  const float* a = abb + p * AB_LANES;
-  const float lo[3] = {a[0], a[1], a[2]};
-  const float hi[3] = {a[3], a[4], a[5]};
-  float tlo;
-  rt::slab(lo, hi, o, inv, tlo, thi);
-  return tlo;
-}
+using rt::AB_LANES;
+using rt::GROUP;
+using rt::N_INT;
+using rt::N_SHD;
+using rt::page_tlo;
 
 // Any-hit query of the shadow ray (so, sd): whether a triangle other than
 // `excl` hits it at a finite t (the nearest-hit update's condition from an
@@ -122,70 +113,7 @@ trace_shade_perlane_kernel(const float* __restrict__ st,
     const float* abb = ab + (long long)b * GROUP * AB_LANES;
     const float* ti = plt_i + (long long)b * N_INT * P * GROUP;
     const float* ts = plt_s + (long long)b * N_SHD * P * GROUP;
-    uint32_t hit[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t bits = 0;
-      for (int j = 0; j < 32; ++j) {
-        const int p = q * 32 + j;
-        if (abb[p * AB_LANES + 6] == 0.0f) continue;   // padding page
-        float thi;
-        const float tlo = page_tlo(abb, p, o, inv, thi);
-        if ((tlo <= thi) & (thi >= 0.0f)) bits |= 1u << j;
-      }
-      hit[q] = bits;
-    }
-
-    while (true) {
-      // drop pages entered beyond the best hit; pick the nearest of the rest
-      float kmin = rt::inf_f();
-      int pidx = GROUP;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t m = hit[q];
-        while (m) {
-          const int j = __ffs(m) - 1;
-          m &= m - 1;
-          const int p = q * 32 + j;
-          float thi;
-          const float tlo = page_tlo(abb, p, o, inv, thi);
-          if (tlo > w.t) {
-            hit[q] &= ~(1u << j);
-          } else if (tlo < kmin) {
-            kmin = tlo;
-            pidx = p;
-          }
-        }
-      }
-      if (pidx == GROUP) break;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (q == (pidx >> 5)) hit[q] &= ~(1u << (pidx & 31));
-
-      for (int j = 0; j < P; ++j) {
-        const float* f = ti + (long long)j * GROUP + pidx;
-        auto col = [f, P](int lane_f) {
-          return f[(long long)lane_f * P * GROUP];
-        };
-        const rt::HitTerms h = rt::hit_predicate<false>(col, o, d);
-        const float id = col(rt::LANE_ID);
-        if (h.ok && rt::lex_better(h.t, id, w)) {
-          const float* g = ts + (long long)j * GROUP + pidx;
-          const long long fs = (long long)P * GROUP;
-          w.t = h.t;
-          w.id = id;
-          w.n0 = col(rt::LANE_N);
-          w.n1 = col(rt::LANE_N + 1);
-          w.n2 = col(rt::LANE_N + 2);
-          w.enc = rt::encode_face(h, g[0], g[fs]);
-          w.c0 = g[2 * fs];
-          w.c1 = g[3 * fs];
-          w.c2 = g[4 * fs];
-          w.alpha = g[5 * fs];
-          w.scat = g[6 * fs];
-        }
-      }
-    }
+    rt::bank_pass<false, false>(abb, ti, ts, P, o, d, inv, 0.0f, w);
   }
 
   const uint32_t lane = (uint32_t)(r - chunk * ray_chunk);

@@ -1,9 +1,10 @@
 """The production render path on torch: `Engine` and its host helpers.
 
-Counterpart: `rust_raytrace_tpu/engine.py` — `Engine.__init__` (resident
-regime), `Engine.render` with `_pinhole_fold` and the autotune of the
-compaction schedule, the wave loop of `_render_device_compact` and its
-shadow pass `_shadow_mask`; plus `_camera_rays_tiled` (spp 1) with
+Counterpart: `rust_raytrace_tpu/engine.py` — `Engine.__init__` (its choice
+of regime and page size), `Engine.render` with `_pinhole_fold` and the
+autotune of the compaction schedule, the wave loop of
+`_render_device_compact` and its shadow pass `_shadow_mask` (the resident
+wave-0 and streamed branches); plus `_camera_rays_tiled` (spp 1) with
 `_unit_rows`, `_quantize_u8`, `pick_tile`, `tile_permutation`,
 `plan_boundaries`, `auto_page_size` and `_assemble_host_image`, copied
 because the JAX module imports jax.
@@ -16,12 +17,21 @@ boundaries -> u8 quantization on the device -> un-permute on the host.  A
 scene with a light (`scene.lights`) runs wave 0 unfused: cull (B1) -> sort
 -> union trace to winner rows (B6) -> `shadow_mask` (the shadow rays
 through B1, a sort and B6 with self-exclusion) -> shade with the mask (B8);
-its bounce waves run B4 with the shadow feeler fused.  The kernels run on
-CUDA tensors and their plain torch versions on CPU tensors (`device=`).
+its bounce waves run B4 with the shadow feeler fused.
+
+A scene past the resident tables' cap (`table_slot_cap` triangle slots)
+takes the streamed regime: no cull and no pinhole fold; every wave, wave 0
+included, runs the bank-worklist trace + shade (B9), or, with a light, the
+bank-worklist trace to winner rows (B10) -> the shadow rays through B10's
+any-hit mode with self-exclusion (`shadow_mask_streamed`) -> shade with the
+mask (B8); compaction (B3) and expansion (B5) as in the resident regime.
+The kernels run on CUDA tensors and their plain torch versions on CPU
+tensors (`device=`).
 
 What this engine does not run yet raises NotImplementedError naming the
-ROADMAP item that brings it: spp > 1, debug buffers, bounce_chunk and the
-streamed regime.
+ROADMAP item that brings it: spp > 1, debug buffers, bounce_chunk, the
+bank-major streamed sweep and the union-kernel bounce waves of a scene past
+the cap with streamed=False.
 """
 
 import time
@@ -37,6 +47,8 @@ from .ops.intersect import (fold_pages_origin, trace_chunks,
                             trace_shade_chunks)
 from .ops.intersect_perlane import (GROUP, MAX_BANKS, trace_shade_perlane,
                                     upload_perlane_tables)
+from .ops.intersect_streamed import (trace_shade_streamed, trace_streamed,
+                                     upload_streamed_tables)
 from .ops.pages import build_pages_kd
 from .ops.shade import fma, rsqrt, shade
 from .ops.state import (ROW_ACC, ROW_ALIVE, ROW_DEAD, ROW_ENC, ROW_ID,
@@ -50,8 +62,10 @@ F32 = np.float32
 #: rays whose throughput falls below this retire (0.0 under fixed_rng)
 WEIGHT_CUTOFF = 1 / 512
 #: page-table slots (pages x page size) the resident regime holds; a scene
-#: past it needs the streamed regime
+#: past it takes the streamed regime
 TABLE_SLOT_CAP = 262144
+#: the streamed regime's least page size (the JAX package's measured optimum)
+STREAMED_PAGE_SIZE = 224
 
 
 def pick_tile(width: int, height: int) -> int:
@@ -244,6 +258,19 @@ def shadow_mask(state, rows, key, wave: int, fixed_rng: bool, light,
     return (hit & (srows[ROW_ID] != 0.0)).float()
 
 
+def shadow_mask_streamed(state, rows, key, wave: int, fixed_rng: bool, light,
+                         tables, page_size: int, ray_chunk: int):
+    """The shadow pass of a wave in the streamed regime (JAX: the streamed
+    branch of `_shadow_mask`): `shadow_rays`, then B10's any-hit mode with
+    each ray's own triangle excluded (a ray stops demanding banks at its
+    first occluder).  tables: `upload_streamed_tables`.  Returns the [R]
+    float32 mask."""
+    so, sd, hit, excl = shadow_rays(state, rows, key, wave, fixed_rng, light)
+    srows = trace_streamed(so, sd, hit.float(), *tables, page_size,
+                           ray_chunk, excl=excl, any_hit=True)
+    return (hit & (srows[ROW_ID] != 0.0)).float()
+
+
 def quantize_u8(img: torch.Tensor) -> torch.Tensor:
     """PNG writer's exact `(c*255) as u8` semantics (raytrace.rs:1470-1472)."""
     x = torch.nan_to_num(img * 255.0, nan=0.0, posinf=255.0, neginf=0.0)
@@ -251,7 +278,7 @@ def quantize_u8(img: torch.Tensor) -> torch.Tensor:
 
 
 class Engine:
-    """Culled, compacted wavefront renderer, resident regime.
+    """Culled, compacted wavefront renderer.
 
     scene: a `scene.Scene`, lit when `scene.lights` is set (a shadow ray
     from every hit; see `shadow_mask`); device: where the scene and the
@@ -259,6 +286,12 @@ class Engine:
     other arguments mean what they mean for the JAX Engine, whose defaults
     the port fixes: the page size adapts to the scene (auto_pages) and
     primary rays start at the pinhole (pinhole_origin).
+
+    streamed: None (the default) takes the streamed regime exactly when the
+    scene's pages do not fit the resident tables (more than MAX_BANKS banks
+    or table_slot_cap slots); True forces it on any scene.  A scene of more
+    than table_slot_cap triangles gets pages of at least
+    STREAMED_PAGE_SIZE; a smaller one the adaptive size (auto_page_size).
 
     ncompact: None (the default) compacts after waves 0 and 1 and, on a
     CUDA device, replans the schedule once from the first render's wave
@@ -270,10 +303,15 @@ class Engine:
 
     def __init__(self, scene: Scene, page_size: int = 56,
                  ray_chunk: int = 1024, bounce_chunk: int = 0,
-                 ncompact=None, device="cuda"):
+                 ncompact=None, streamed=None,
+                 table_slot_cap: int = TABLE_SLOT_CAP,
+                 bank_major: bool = False, device="cuda"):
         if bounce_chunk != 0:
             raise NotImplementedError(
                 "bounce_chunk != 0: ROADMAP 'Engine knobs'")
+        if bank_major:
+            raise NotImplementedError(
+                "bank_major: the bank-major streamed sweep, ROADMAP B12")
         self._auto_schedule = ncompact is None
         if ncompact is None:
             ncompact = 2
@@ -281,23 +319,35 @@ class Engine:
             ncompact = tuple(bool(b) for b in ncompact)
         self.ncompact = ncompact
         n_tris = max(len(scene.tris) - 1, 1)
-        if n_tris <= TABLE_SLOT_CAP:
+        if n_tris <= table_slot_cap:
             page_size = auto_page_size(n_tris, page_size)
+        else:
+            # no page size fits such a scene in the resident tables
+            page_size = max(page_size, STREAMED_PAGE_SIZE)
         self.pages = build_pages_kd(scene.tris, page_size=page_size)
         slots = self.pages.num_pages * self.pages.page_size
         fits_resident = (self.pages.num_pages <= MAX_BANKS * GROUP
-                         and slots <= TABLE_SLOT_CAP)
-        if not fits_resident:
+                         and slots <= table_slot_cap)
+        self.streamed = (not fits_resident) if streamed is None \
+            else bool(streamed)
+        if not (self.streamed or fits_resident):
             raise NotImplementedError(
-                f"streamed regime ({self.pages.num_pages} pages x "
-                f"{page_size}): ROADMAP A8 (B9/B10)")
+                f"streamed=False with {self.pages.num_pages} pages x "
+                f"{page_size}: the union-kernel bounce waves, ROADMAP A8")
         self.device = torch.device(device)
         dev = self.device
-        self.PK = torch.from_numpy(self.pages.PK).to(dev)
-        self.aabb_lo = torch.from_numpy(self.pages.aabb_lo).to(dev)
-        self.aabb_hi = torch.from_numpy(self.pages.aabb_hi).to(dev)
-        self.plt_i, self.plt_s, self.ab = upload_perlane_tables(self.pages,
-                                                                dev)
+        self.PK = self.aabb_lo = self.aabb_hi = None
+        self.plt_i = self.plt_s = self.ab = None
+        #: (plt_i, plt_s, ab, bank_ab) of the streamed regime, else None
+        self.stables = None
+        if self.streamed:
+            self.stables = upload_streamed_tables(self.pages, dev)
+        else:
+            self.PK = torch.from_numpy(self.pages.PK).to(dev)
+            self.aabb_lo = torch.from_numpy(self.pages.aabb_lo).to(dev)
+            self.aabb_hi = torch.from_numpy(self.pages.aabb_hi).to(dev)
+            self.plt_i, self.plt_s, self.ab = upload_perlane_tables(
+                self.pages, dev)
         self.scene = scene
         lights = scene.lights
         #: (ox, oy, oz, len2) as float32 values, or None: an unlit scene
@@ -325,9 +375,12 @@ class Engine:
 
     def _pinhole_fold(self, v: Viewport, o: torch.Tensor):
         """Re-anchor primary rays at the pinhole and fold it into the page
-        scalars (cached per camera).  Returns (o, pk0)."""
+        scalars (cached per camera).  Returns (o, pk0); pk0 is None in the
+        streamed regime, whose kernels take the true origins."""
         cam = torch.from_numpy(np.asarray(v.cam, F32).copy()).to(self.device)
         o = cam[:, None].expand(o.shape).contiguous()
+        if self.streamed:
+            return o, None
         cam_key = tuple(np.asarray(v.cam, dtype=np.float32).tolist())
         if cam_key not in self._pk0_cache:
             self._pk0_cache[cam_key] = fold_pages_origin(self.PK, cam_key)
@@ -352,7 +405,14 @@ class Engine:
             alive = state[ROW_ALIVE] != 0.0
             wave_counts.append(alive.sum(dtype=torch.int32))
             seed = fold_in(key, wave)
-            if wave == 0:
+            # chunks whose rays have all retired pass through
+            chunk_live = (alive.reshape(R // RB, RB).any(dim=1)
+                          .to(torch.int32) if wave else
+                          torch.ones(R // RB, dtype=torch.int32, device=dev))
+            if self.streamed:
+                state = self._streamed_wave(state, key, wave, seed,
+                                            fixed_rng, wc, chunk_live)
+            elif wave == 0:
                 mask, tmin = cull_mask_exact(state[0:3], state[3:6], alive,
                                              self.aabb_lo, self.aabb_hi, RB)
                 counts, plist, ptmin = page_lists(mask, tmin)
@@ -367,15 +427,12 @@ class Engine:
                     shd = shadow_mask(state, rows, key, wave, fixed_rng,
                                       self.light, self.aabb_lo, self.aabb_hi,
                                       self.PK, P, RB)
-                    live0 = torch.ones(R // RB, dtype=torch.int32, device=dev)
-                    state = shade(state, rows, seed, RB, fixed_rng, wc, live0,
-                                  shd)
+                    state = shade(state, rows, seed, RB, fixed_rng, wc,
+                                  chunk_live, shd)
             else:
-                # chunks whose rays have all retired pass through
-                chunk_live = alive.reshape(R // RB, RB).any(dim=1)
                 state = trace_shade_perlane(
                     state, self.plt_i, self.plt_s, self.ab, seed, P, RB,
-                    fixed_rng, wc, chunk_live.to(torch.int32), self.light)
+                    fixed_rng, wc, chunk_live, self.light)
             if not self._compacts_after(wave, maxdepth):
                 continue
             if dead_arr is None:
@@ -399,6 +456,20 @@ class Engine:
         for meta, masks, before in reversed(boundaries):
             y = expand(y, dead_arr, masks, meta, cb, grid_live=before)
         return y[0:3], wave_counts
+
+    def _streamed_wave(self, state, key, wave: int, seed, fixed_rng: bool,
+                       wc: float, chunk_live):
+        """One wave of the streamed regime: B9, or with a light B10 to
+        winner rows, the streamed shadow pass and B8."""
+        P, RB = self.page_size, self.ray_chunk
+        if self.light is None:
+            return trace_shade_streamed(state, *self.stables, seed, P, RB,
+                                        fixed_rng, wc, chunk_live)
+        rows = trace_streamed(state[0:3], state[3:6], state[ROW_ALIVE],
+                              *self.stables, P, RB, chunk_live=chunk_live)
+        shd = shadow_mask_streamed(state, rows, key, wave, fixed_rng,
+                                   self.light, self.stables, P, RB)
+        return shade(state, rows, seed, RB, fixed_rng, wc, chunk_live, shd)
 
     def render(self, v: Viewport, key=None, fixed_rng: bool = False,
                progress=None, debug: bool = False,

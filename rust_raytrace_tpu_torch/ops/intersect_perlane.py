@@ -12,7 +12,9 @@ Each ray slab-tests the page AABBs of one bank (<= 128 pages) at a time,
 tests its nearest remaining page (ties to the lower page index), then drops
 every page whose entry lies beyond its best hit; the cut carries across
 banks.  That is the visit order of the TPU kernel's one-page-per-step loop,
-to which its two-pages-per-step form is equal.
+to which its two-pages-per-step form is equal.  The in-bank loop,
+`bank_pass`, is also the streamed regime's (ops/intersect_streamed.py),
+as `rt::bank_pass` (csrc/perlane.cuh) is in CUDA.
 """
 
 import numpy as np
@@ -37,20 +39,21 @@ MAX_BANKS = 16
 _PLAIN_RAYS = 8192
 
 
-def build_perlane_tables(pages: PageTables):
+def build_perlane_tables(pages: PageTables, max_banks: int = MAX_BANKS):
     """Rearrange PK [NP, P, 128] into pages-on-lanes tables.
 
-    Pages are grouped into NB = ceil(NP/128) banks of <= 128 pages.  Returns
-    numpy (PLT_I [NB*N_INT*P, 128], PLT_S [NB*N_SHD*P, 128], AB [NB*128,
-    128]): feature f of triangle j of bank-local page p sits at row
-    b*N*P + f*P + j, column p; AB rows b*128..b*128+127 hold bank b's page
-    AABBs (lanes 0..2 lo, 3..5 hi, 6 page-valid).
+    Pages are grouped into NB = ceil(NP/128) banks of <= 128 pages, at most
+    max_banks of them (the resident traversal's cap; the streamed regime
+    lifts it).  Returns numpy (PLT_I [NB*N_INT*P, 128], PLT_S [NB*N_SHD*P,
+    128], AB [NB*128, 128]): feature f of triangle j of bank-local page p
+    sits at row b*N*P + f*P + j, column p; AB rows b*128..b*128+127 hold
+    bank b's page AABBs (lanes 0..2 lo, 3..5 hi, 6 page-valid).
     """
     PK = pages.PK
     NP, P, _ = PK.shape
     NB = -(-NP // GROUP)
-    assert NB <= MAX_BANKS, \
-        f"per-lane traversal caps at {MAX_BANKS * GROUP} pages, got {NP}"
+    assert NB <= max_banks, \
+        f"per-lane traversal caps at {max_banks * GROUP} pages, got {NP}"
 
     plt_i = np.zeros((NB * N_INT * P, GROUP), np.float32)
     plt_s = np.zeros((NB * N_SHD * P, GROUP), np.float32)
@@ -81,84 +84,125 @@ def upload_perlane_tables(pages: PageTables, device):
                  for x in build_perlane_tables(pages))
 
 
-def trace_perlane_plain(o, d, alive, plt_i, plt_s, ab, P: int, excl=None,
-                        any_hit: bool = False):
-    """Winner rows [16, n] (ROW_* layout) of rays o/d [3, n] with alive [n]:
-    the per-lane trace alone, plain torch (JAX: trace_perlane_pallas).
+def bank_views(plt_i, plt_s, ab, P: int):
+    """The per-lane tables (either layout: [NB*17P, 128] or [NB, 17P, 128])
+    as [NB, 17, P, 128] and [NB, 7, P, 128] views, and the page boxes as
+    [NB, 128, 7] (lanes 0..2 lo, 3..5 hi, 6 page-valid)."""
+    NB = ab.shape[0] // GROUP
+    return (plt_i.reshape(NB, N_INT, P, GROUP),
+            plt_s.reshape(NB, N_SHD, P, GROUP),
+            ab.reshape(NB, GROUP, PACK_LANES)[..., :7])
 
-    excl: optional [n] triangle id each ray may not hit (0: none).
-    any_hit: the occlusion query — each ray tests its slab-hit pages in
-    index order and stops at its first page with a hit, so only
-    ROW_ID != 0 ("some triangle hits") is meaningful (ROADMAP C5)."""
-    n = o.shape[1]
-    dev = o.device
-    NB = plt_i.shape[0] // (N_INT * P)
-    valid = alive != 0.0
-    best_t = torch.where(valid, torch.inf, -torch.inf)
-    best_id = torch.zeros(n, dtype=torch.float32, device=dev)
-    payload = torch.zeros((len(PAYLOAD_ROWS), n), dtype=torch.float32,
-                          device=dev)
-    inv = [slab_inv(d[k]) for k in range(3)]
-    pages = torch.arange(GROUP, dtype=torch.float32, device=dev)[:, None]
-    for b in range(NB):
-        abb = ab[b * GROUP:(b + 1) * GROUP]
-        tlo, thi = slab([abb[:, k:k + 1] for k in range(3)],
-                        [abb[:, k + 3:k + 4] for k in range(3)],
-                        [o[k][None] for k in range(3)],
-                        [inv[k][None] for k in range(3)])   # [128, n]
-        hit = ((tlo <= thi) & (thi >= 0.0) & valid[None]
-               & (abb[:, 6:7] != 0.0))
-        if any_hit:
-            hit &= (best_id == 0.0)[None]
-        tab_i = plt_i[b * N_INT * P:(b + 1) * N_INT * P].reshape(N_INT, P,
-                                                                 GROUP)
-        tab_s = plt_s[b * N_SHD * P:(b + 1) * N_SHD * P].reshape(N_SHD, P,
-                                                                 GROUP)
-        while True:
-            if any_hit:
-                # occlusion: any order works; the lowest page index first
-                lanes = torch.nonzero(hit.any(dim=0)).squeeze(1)
-                if lanes.numel() == 0:
-                    break
-                pidx = torch.where(hit[:, lanes], pages,
-                                   float(GROUP)).amin(dim=0).long()
-            else:
-                hit &= tlo <= best_t[None]
-                tkey = torch.where(hit, tlo, torch.inf)
-                kmin = tkey.amin(dim=0)
-                lanes = torch.nonzero(kmin < torch.inf).squeeze(1)
-                if lanes.numel() == 0:
-                    break
-                pidx = torch.where(tkey[:, lanes] == kmin[lanes], pages,
-                                   float(GROUP)).amin(dim=0).long()
-            gi = tab_i[:, :, pidx]                       # [17, P, m]
-            gs = tab_s[:, :, pidx]                       # [7, P, m]
 
-            def col(f, gi=gi, gs=gs):
-                return gi[f] if f < N_INT else gs[f - N_INT]
+def winner_init(valid):
+    """(best_t, best_id, payload [9, n]) of rays with no hit yet: invalid
+    rays start at -inf, so that no page is ever entered for them."""
+    n = valid.shape[0]
+    return (torch.where(valid, torch.inf, -torch.inf),
+            torch.zeros(n, dtype=torch.float32, device=valid.device),
+            torch.zeros((len(PAYLOAD_ROWS), n), dtype=torch.float32,
+                        device=valid.device))
 
-            o3 = tuple(o[k, lanes][None] for k in range(3))
-            d3 = tuple(d[k, lanes][None] for k in range(3))
-            t, ok, ids, md_n, dv = packed_hit_predicate(
-                col, o3, d3, excl=None if excl is None else excl[lanes][None])
-            tt = torch.where(ok, t, torch.inf)
-            bt, bi = best_t[lanes], best_id[lanes]
-            upd, gmin, gid, onehot = lex_update(tt, ids, bt, bi, dim=0)
-            w = onehot.float()
-            for i, v in enumerate(payload_features(col, md_n, dv)):
-                payload[i, lanes] = torch.where(upd, (w * v).sum(dim=0),
-                                                payload[i, lanes])
-            best_t[lanes] = torch.where(upd, gmin, bt)
-            best_id[lanes] = torch.where(upd, gid, bi)
-            hit[pidx, lanes] = False
-            if any_hit:
-                hit[:, lanes[best_id[lanes] != 0.0]] = False
-    rows = torch.zeros((TRACE_ROWS, n), dtype=torch.float32, device=dev)
+
+def winner_rows(best_t, best_id, payload):
+    """[16, n] winner rows (ROW_* layout) of a winner; rows 11..15 are 0."""
+    rows = torch.zeros((TRACE_ROWS, best_t.shape[0]), dtype=torch.float32,
+                       device=best_t.device)
     rows[ROW_T] = best_t
     rows[ROW_ID] = best_id
     for i, r in enumerate(PAYLOAD_ROWS):
         rows[r] = payload[i]
     return rows
+
+
+def bank_pass(views, bank, rays, o, d, inv, win, excl=None,
+              any_hit: bool = False):
+    """One bank's per-lane traversal (JAX: `_group`) for the rays at index
+    `rays` of o/d/inv [3, n], in place on win = winner_init's triple.
+
+    views: bank_views; bank: the bank (an int, or a tensor holding each
+    ray's).  Each ray slab-tests the bank's pages, then tests its nearest
+    remaining page (ties to the lower index) and drops the pages entered
+    beyond its best hit, until none is left; any_hit: the lowest page
+    first, and a ray stops at its first page with a hit."""
+    if rays.numel() == 0:
+        return
+    tab_i, tab_s, boxes = views
+    best_t, best_id, payload = win
+    box = boxes[bank]
+    box = box[:, None] if box.dim() == 2 else box.transpose(0, 1)
+    tlo, thi = slab([box[..., k] for k in range(3)],
+                    [box[..., k + 3] for k in range(3)],
+                    [o[k, rays][None] for k in range(3)],
+                    [inv[k, rays][None] for k in range(3)])  # [128, m]
+    hit = (tlo <= thi) & (thi >= 0.0) & (box[..., 6] != 0.0)
+    if any_hit:
+        hit &= (best_id[rays] == 0.0)[None]
+    pages = torch.arange(GROUP, dtype=torch.float32, device=o.device)[:, None]
+    while True:
+        if any_hit:
+            # occlusion: any order works; the lowest page index first
+            cols = torch.nonzero(hit.any(dim=0)).squeeze(1)
+            if cols.numel() == 0:
+                break
+            pidx = torch.where(hit[:, cols], pages,
+                               float(GROUP)).amin(dim=0).long()
+        else:
+            hit &= tlo <= best_t[rays][None]
+            tkey = torch.where(hit, tlo, torch.inf)
+            kmin = tkey.amin(dim=0)
+            cols = torch.nonzero(kmin < torch.inf).squeeze(1)
+            if cols.numel() == 0:
+                break
+            pidx = torch.where(tkey[:, cols] == kmin[cols], pages,
+                               float(GROUP)).amin(dim=0).long()
+        lanes = rays[cols]
+        if isinstance(bank, int):
+            gi = tab_i[bank][:, :, pidx]                 # [17, P, m]
+            gs = tab_s[bank][:, :, pidx]                 # [7, P, m]
+        else:
+            gi = tab_i[bank[cols], :, :, pidx].permute(1, 2, 0)
+            gs = tab_s[bank[cols], :, :, pidx].permute(1, 2, 0)
+
+        def col(f, gi=gi, gs=gs):
+            return gi[f] if f < N_INT else gs[f - N_INT]
+
+        o3 = tuple(o[k, lanes][None] for k in range(3))
+        d3 = tuple(d[k, lanes][None] for k in range(3))
+        t, ok, ids, md_n, dv = packed_hit_predicate(
+            col, o3, d3, excl=None if excl is None else excl[lanes][None])
+        tt = torch.where(ok, t, torch.inf)
+        bt, bi = best_t[lanes], best_id[lanes]
+        upd, gmin, gid, onehot = lex_update(tt, ids, bt, bi, dim=0)
+        w = onehot.float()
+        for i, v in enumerate(payload_features(col, md_n, dv)):
+            payload[i, lanes] = torch.where(upd, (w * v).sum(dim=0),
+                                            payload[i, lanes])
+        best_t[lanes] = torch.where(upd, gmin, bt)
+        best_id[lanes] = torch.where(upd, gid, bi)
+        hit[pidx, cols] = False
+        if any_hit:
+            hit[:, cols[best_id[lanes] != 0.0]] = False
+
+
+def trace_perlane_plain(o, d, alive, plt_i, plt_s, ab, P: int, excl=None,
+                        any_hit: bool = False):
+    """Winner rows [16, n] (ROW_* layout) of rays o/d [3, n] with alive [n]:
+    the per-lane trace alone, plain torch (JAX: trace_perlane_pallas), banks
+    in index order.
+
+    excl: optional [n] triangle id each ray may not hit (0: none).
+    any_hit: the occlusion query — each ray tests its slab-hit pages in
+    index order and stops at its first page with a hit, so only
+    ROW_ID != 0 ("some triangle hits") is meaningful (ROADMAP C5)."""
+    valid = alive != 0.0
+    win = winner_init(valid)
+    inv = torch.stack([slab_inv(d[k]) for k in range(3)])
+    views = bank_views(plt_i, plt_s, ab, P)
+    rays = torch.nonzero(valid).squeeze(1)
+    for b in range(views[0].shape[0]):
+        bank_pass(views, b, rays, o, d, inv, win, excl, any_hit)
+    return winner_rows(*win)
 
 
 def shadow_feeler_plain(st, rows, seed, rays, ray_chunk: int,

@@ -68,12 +68,14 @@ def build() -> dict:
     """Compile the kernel library unless the hashed build exists: one nvcc
     per source, all started together, then one link.
 
-    Returns {"path", "seconds", "log"}: seconds is 0.0 and log empty when
-    the library was already built.  The compiler's `-Xptxas -v` report
-    (registers, shared memory and spills per kernel) is the log."""
+    Returns {"path", "seconds", "log"}: seconds is 0.0, and log the saved
+    one, when the library was already built.  The compiler's `-Xptxas -v`
+    report (registers, shared memory and spills per kernel) is the log."""
     so = library_path()
     if so.exists():
-        return {"path": str(so), "seconds": 0.0, "log": ""}
+        saved = so.with_suffix(".log")
+        return {"path": str(so), "seconds": 0.0,
+                "log": saved.read_text() if saved.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
@@ -180,8 +182,19 @@ EXPAND = Kernel(
     "rust_raytrace_tpu_torch/csrc/compact.cu",
     "rust_raytrace_tpu/ops/compact.py:640")
 
+TRACE_SHADE_STREAMED = Kernel(
+    "trace_shade_streamed", "rt_trace_shade_streamed",
+    [P, P, I64, P, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P, P],
+    "rust_raytrace_tpu_torch/csrc/trace_streamed.cu",
+    "rust_raytrace_tpu/ops/intersect_streamed.py:687")
+TRACE_STREAMED = Kernel(
+    "trace_streamed", "rt_trace_streamed",
+    [P, P, I64, P, I64, P, I32, P, P, P, P, I32, I32, I32, P, P, P],
+    "rust_raytrace_tpu_torch/csrc/trace_streamed.cu",
+    "rust_raytrace_tpu/ops/intersect_streamed.py:612")
+
 KERNELS = (CULL, TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND,
-           TRACE_UNION_ROWS, SHADE)
+           TRACE_UNION_ROWS, SHADE, TRACE_SHADE_STREAMED, TRACE_STREAMED)
 
 
 def reset_launch_counts() -> None:

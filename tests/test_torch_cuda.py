@@ -15,10 +15,15 @@ import torch
 from rust_raytrace_tpu_torch.engine import (Engine, camera_rays_tiled,
                                             page_lists, pick_tile,
                                             shadow_rays)
+from rust_raytrace_tpu_torch import math3d as m3
+from rust_raytrace_tpu_torch.camera import create_viewport
+from rust_raytrace_tpu_torch.geometry import make_sphere, make_triangles
+from rust_raytrace_tpu_torch.materials import matte, reflective
 from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
-                                        intersect_perlane, shade)
+                                        intersect_perlane, intersect_streamed,
+                                        shade)
 from rust_raytrace_tpu_torch.models import circles
-from rust_raytrace_tpu_torch.scene import LightSource
+from rust_raytrace_tpu_torch.scene import LightSource, assemble
 from rust_raytrace_tpu_torch.utils import native, png
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key
 
@@ -163,7 +168,8 @@ def test_golden_on_card_launches_every_kernel(dev):
     launches = {k.name: k.launches for k in native.KERNELS}
     assert launches == {"cull_mask_exact": 1, "trace_shade_chunks": 1,
                         "compact": 2, "trace_shade_perlane": vp.maxdepth - 1,
-                        "expand": 2, "trace_chunks": 0, "shade": 0}
+                        "expand": 2, "trace_chunks": 0, "shade": 0,
+                        "trace_shade_streamed": 0, "trace_streamed": 0}
 
 
 def _bitwise(got, want):
@@ -221,6 +227,90 @@ def test_lit_render_on_card_equals_cpu(dev):
     launches = {k.name: k.launches for k in native.KERNELS}
     assert launches == {"cull_mask_exact": 2, "trace_shade_chunks": 0,
                         "compact": 2, "trace_shade_perlane": vp.maxdepth - 1,
-                        "expand": 2, "trace_chunks": 2, "shade": 1}
+                        "expand": 2, "trace_chunks": 2, "shade": 1,
+                        "trace_shade_streamed": 0, "trace_streamed": 0}
     ref = Engine(scene, device="cpu").render(vp, key=prng_key(1)).image
+    np.testing.assert_array_equal(img, ref)
+
+
+def _sphere_scene(lit: bool):
+    """A 40x40 sphere over a floor: 4 banks of pages at page size 8, with
+    the teapot preset's light or without."""
+    scene = assemble([
+        make_sphere((0.0, 0.0, 6.0), 2.5, (40, 40),
+                    matte(m3.make_color((252, 119, 0)), 0.2), 0.0),
+        make_triangles(np.asarray([[[-20, -3, -10], [20, -3, -10],
+                                    [0, -3, 40]]], np.float32),
+                       reflective(m3.make_color((120, 120, 120)), 0.8, 0.1),
+                       0.0)])
+    if lit:
+        scene.lights = LightSource(orig=np.asarray(LIGHT[:3], np.float32),
+                                   len2=LIGHT[3])
+    vp = create_viewport((64, 48), (1.0, 0.75), (0.0, 0.0, 0.0),
+                         m3.unit(m3.vec(0.0, -0.2, 1.0)), 90.0, 0.0, 4, 1)
+    return scene, vp
+
+
+@pytest.mark.parametrize("fixed", [True, False])
+def test_streamed_kernels_match_plain(dev, fixed):
+    """B10 (nearest rows; with self-exclusion; a dead chunk; the any-hit
+    occlusion bit) and B9 (every chunk live, then the wave-1 state with its
+    chunk_live) bitwise against their plain versions on 4 banks."""
+    scene, vp = _sphere_scene(False)
+    eng = Engine(scene, page_size=8, ray_chunk=RB, streamed=True, device=dev)
+    tabs = eng.stables
+    R = -(-vp.width * vp.height // RB) * RB
+    o, d = camera_rays_tiled(vp, pick_tile(vp.width, vp.height), R, dev)
+    o, _ = eng._pinhole_fold(vp, o)
+    alive = (torch.arange(R, device=dev) < vp.width * vp.height).float()
+    st = torch.cat([o, d, alive[None], alive[None],
+                    torch.zeros((8, R), device=dev)])
+    nc = R // RB
+    dead = torch.ones(nc, dtype=torch.int32, device=dev)
+    dead[1::3] = 0
+    rows = intersect_streamed.trace_streamed(o, d, alive, *tabs, 8, RB)
+    for kw in ({}, {"excl": rows[1].contiguous()}, {"chunk_live": dead}):
+        _bitwise(intersect_streamed.trace_streamed(o, d, alive, *tabs, 8, RB,
+                                                   **kw),
+                 intersect_streamed.trace_streamed_plain(
+                     o, d, alive, *tabs, 8, RB, **kw))
+    so, sd, hit, excl = shadow_rays(st, rows, prng_key(3), 0, fixed, LIGHT)
+    args = (so, sd, hit.float(), *tabs, 8, RB)
+    occ = intersect_streamed.trace_streamed(*args, excl=excl, any_hit=True)
+    occ_p = intersect_streamed.trace_streamed_plain(*args, excl=excl,
+                                                    any_hit=True)
+    assert torch.equal(occ[1] != 0, occ_p[1] != 0)
+    assert 0 < int((occ[1] != 0).sum()) < int(hit.sum())
+    key = prng_key(3)
+    for live in (torch.ones(nc, dtype=torch.int32, device=dev), dead):
+        args = (st, *tabs, fold_in(key, 0), 8, RB, fixed, 1 / 512, live)
+        st1 = intersect_streamed.trace_shade_streamed(*args)
+        _bitwise(st1, intersect_streamed.trace_shade_streamed_plain(*args))
+    clive = (st1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+    args = (st1, *tabs, fold_in(key, 1), 8, RB, fixed, 1 / 512, clive)
+    _bitwise(intersect_streamed.trace_shade_streamed(*args),
+             intersect_streamed.trace_shade_streamed_plain(*args))
+
+
+@pytest.mark.parametrize("lit", [False, True])
+def test_streamed_render_on_card_equals_cpu(dev, lit):
+    """The forced-streamed Engine: the card's render equals the CPU's
+    bitwise, through B9 (unlit) or B10 and B8 (lit), never B1, B2 or B4."""
+    scene, vp = _sphere_scene(lit)
+    native.reset_launch_counts()
+    img = Engine(scene, page_size=8, ray_chunk=RB, streamed=True,
+                 device=dev).render(vp, key=prng_key(1)).image
+    launches = {k.name: k.launches for k in native.KERNELS}
+    assert launches["cull_mask_exact"] == launches["trace_shade_chunks"] \
+        == launches["trace_shade_perlane"] == 0
+    assert launches["compact"] == launches["expand"] == 2
+    if lit:
+        assert launches["trace_streamed"] == 2 * vp.maxdepth
+        assert launches["shade"] == vp.maxdepth
+        assert launches["trace_shade_streamed"] == 0
+    else:
+        assert launches["trace_shade_streamed"] == vp.maxdepth
+        assert launches["trace_streamed"] == launches["shade"] == 0
+    ref = Engine(scene, page_size=8, ray_chunk=RB, streamed=True,
+                 device="cpu").render(vp, key=prng_key(1)).image
     np.testing.assert_array_equal(img, ref)

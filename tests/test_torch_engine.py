@@ -206,13 +206,17 @@ def test_engine_rejects_what_the_slice_does_not_run(small):
         Engine(scene, device="cpu", bounce_chunk=256)
 
 
-def test_engine_rejects_streamed_regime(small, monkeypatch):
-    """A scene whose page tables pass the resident cap needs the streamed
-    regime, which the port does not run yet."""
+def test_engine_rejects_streamed_regime(small):
+    """A scene whose page tables pass the resident cap takes the streamed
+    regime (ROADMAP A8, ported); what the port still rejects there is the
+    JAX Engine's union-kernel fallback (streamed=False past the cap) and the
+    bank-major sweep (B12)."""
     _, scene, _ = small
-    monkeypatch.setattr(engine, "TABLE_SLOT_CAP", 1000)
+    assert Engine(scene, table_slot_cap=1000, device="cpu").streamed
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Engine(scene, device="cpu")
+        Engine(scene, table_slot_cap=1000, streamed=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP B12"):
+        Engine(scene, streamed=True, bank_major=True, device="cpu")
 
 
 def test_engine_rejects_lights():

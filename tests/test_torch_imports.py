@@ -42,6 +42,7 @@ PORT_MODULES = [
     "rust_raytrace_tpu_torch.ops.cull",
     "rust_raytrace_tpu_torch.ops.intersect",
     "rust_raytrace_tpu_torch.ops.intersect_perlane",
+    "rust_raytrace_tpu_torch.ops.intersect_streamed",
     "rust_raytrace_tpu_torch.ops.compact",
     "rust_raytrace_tpu_torch.utils.rng",
     "rust_raytrace_tpu_torch.utils.native",
