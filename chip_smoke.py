@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Four main paths run: the unlit circles_2k render (B1, B2, B3, B4, B5); the
-lit one, circles_2k with the teapot preset's light (B1 twice at wave 0, B6
-twice, B8, B3, B4 with its fused shadow feeler, B5); and the streamed
+The main paths: the unlit circles_2k render (B1, B2, B3, B4, B5); the lit
+one, circles_2k with the teapot preset's light (B1 twice at wave 0, B6
+twice, B8, B3, B4 with its fused shadow feeler, B5); the streamed
 regime's, synthetic_1m_2k (a 708x708 lat/lon sphere, 1,001,112 triangles,
 past the resident tables' cap) unlit (B9 every wave, B3, B5) and lit (B10
-twice and B8 every wave, B3, B5).
+twice and B8 every wave, B3, B5); the portable renderer on circles_2k
+(WavefrontRenderer: B11 every wave of every slab); the legacy loop on
+circles_2k (Engine(compact=False): B1 and B6 every wave); spp 4 on circles
+512x512 (the unlit path's kernels); and a debug render (wave 0 through B1,
+B6 and B8).
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -31,25 +35,38 @@ Phases, each fatal on failure:
      sphere: B10 nearest (all 16 rows), B10 any-hit
      with self-exclusion on their shadow rays (the occlusion bit), B9 on
      the wave-0 state with dead chunks and on the wave-1 state, under live
-     and fixed RNG, all bitwise, and each timed on the full wave;
-  4. golden: the default (compacted) Engine's 96x54 circles render under
-     fixed_rng is byte-equal to tests/goldens/circles_96x54.png;
+     and fixed RNG, all bitwise, and each timed on the full wave; then B11
+     (t and id) on 64 chunks of circles_2k's camera rays and wave-1 rays at
+     the WavefrontRenderer's page size 256, bitwise, timed on full waves
+     beside its bound, with its ptxas report;
+  4. golden: the 96x54 circles render under fixed_rng of the default
+     (compacted) Engine, of WavefrontRenderer(backend="kernel") and of
+     Engine(compact=False) is byte-equal to tests/goldens/circles_96x54.png;
   5. kernel path vs plain path of the default Engine at 640x360 under
      fixed_rng, unlit and lit, on circles and on the synthetic_1m sphere
-     (streamed regime; at STREAMED_CHECK_RES): at most 0.01% of u8 pixels
-     may differ;
+     (streamed regime; at STREAMED_CHECK_RES), and of the
+     WavefrontRenderer; the WavefrontRenderer's "kernel" vs "portable"
+     backends; the Engine vs the WavefrontRenderer; the compacted vs the
+     legacy Engine, unlit, lit and at spp 4: at most 0.01% of u8 pixels
+     may differ in each;
   6. circles_2k (2560x1440, maxdepth 5, live RNG): the default Engine after
      its autotune (the planned schedule printed) and Engine(ncompact=0),
      three timed renders each, in turns; then the lit default Engine, three
      timed renders after a warm-up; then synthetic_1m_2k (2560x1440,
      maxdepth 5, live RNG) through the default Engine, which must take the
      streamed regime at page size 224: three timed renders after the
-     autotune's, then one lit render after a warm-up; every kernel of each
-     path must have launched in its renders and no kernel of another
-     regime (counts set to 0 just before each render);
-  7. profile: one default, one ncompact=0 and one lit circles_2k render
-     and one unlit and one lit synthetic_1m_2k render under torch.profiler
-     (the card's time per kernel and copy, its busy share) and the host
+     autotune's, then one lit render after a warm-up; then, three timed
+     renders after a warm-up each, circles_2k through WavefrontRenderer at
+     its defaults (B11 only) and through Engine(compact=False) (B1 and B6,
+     none of B2-B5), and the default Engine at spp 4 on circles 512x512;
+     then one debug render of circles_2k (buffer shapes, valid hit ids,
+     candidate sets); every kernel of each path must have launched in its
+     renders and no kernel of another path (counts set to 0 just before
+     each render);
+  7. profile: one default, one ncompact=0, one lit, one WavefrontRenderer
+     and one legacy circles_2k render and one unlit and one lit
+     synthetic_1m_2k render under torch.profiler (the card's time per
+     kernel and copy, by kind with B11 apart, its busy share) and the host
      un-permute timed alone.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, with no such line, when
@@ -68,6 +85,7 @@ import torch
 
 from rust_raytrace_tpu_torch import engine as eng_mod
 from rust_raytrace_tpu_torch import math3d as m3
+from rust_raytrace_tpu_torch import render as render_mod
 from rust_raytrace_tpu_torch.camera import create_viewport
 from rust_raytrace_tpu_torch.engine import Engine, page_lists
 from rust_raytrace_tpu_torch.geometry import make_sphere
@@ -77,6 +95,7 @@ from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
                                         intersect_perlane, intersect_streamed,
                                         shade)
 from rust_raytrace_tpu_torch.ops.pages import LANE_ID
+from rust_raytrace_tpu_torch.render import WavefrontRenderer
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
 from rust_raytrace_tpu_torch.utils import native, png
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key, uniform
@@ -95,6 +114,9 @@ FP32_FLOP_PER_S = 67e12
 #: lexicographic update)
 SLAB_FLOPS = 26
 HIT_FLOPS = 34
+#: the same hit test with the ray origin (B11: eight dot products, not
+#: four, and three more subtractions)
+HIT_FLOPS_ORIGIN = 58
 #: float32 operations of one ray's shade (B0b: contributions, two
 #: normalizations with their Newton steps, reflection, selects)
 SHADE_FLOPS = 120
@@ -111,6 +133,13 @@ STREAMED_LIT_PATH = ("trace_streamed", "shade", "compact", "expand")
 #: kernels of the resident regime, which the streamed renders never launch
 RESIDENT_ONLY = ("cull_mask_exact", "trace_shade_chunks",
                  "trace_shade_perlane")
+#: the legacy loop (Engine(compact=False)) runs B1 and B6 every wave and
+#: none of the compacted loop's fused or compaction kernels
+LEGACY_PATH = ("cull_mask_exact", "trace_chunks")
+NOT_LEGACY = ("trace_shade_chunks", "compact", "trace_shade_perlane",
+              "expand")
+#: a debug render's wave 0 runs unfused: B1, B6 to rows, B8
+DEBUG_PATH = ("cull_mask_exact", "trace_chunks", "shade")
 #: the phase-5 resolution of the synthetic_1m sphere (the plain path walks
 #: the 35 banks with many small torch ops)
 STREAMED_CHECK_RES = (640, 360)
@@ -231,19 +260,31 @@ PLAIN = {"cull_mask_exact": cull.cull_mask_exact_plain,
          "trace_streamed": intersect_streamed.trace_streamed_plain}
 
 
+def _plain_nearest(O, D, PK, page_size, ray_chunk):
+    return intersect.nearest_hit_plain(O, D, PK, ray_chunk)
+
+
+#: the render module's kernel wrapper (WavefrontRenderer) and its plain
+#: version
+PLAIN_RENDER = {"nearest_hit": _plain_nearest}
+
+
 @contextlib.contextmanager
 def plain_path():
-    """Engines render through the plain versions of every kernel inside;
-    fails if a kernel launched."""
-    saved = {n: getattr(eng_mod, n) for n in PLAIN}
+    """Engines and WavefrontRenderers render through the plain versions of
+    every kernel inside; fails if a kernel launched."""
+    patches = [(eng_mod, PLAIN), (render_mod, PLAIN_RENDER)]
+    saved = [(m, {n: getattr(m, n) for n in table}) for m, table in patches]
     before = _counts()
-    for n, fn in PLAIN.items():
-        setattr(eng_mod, n, fn)
+    for m, table in patches:
+        for n, fn in table.items():
+            setattr(m, n, fn)
     try:
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(eng_mod, n, fn)
+        for m, table in saved:
+            for n, fn in table.items():
+                setattr(m, n, fn)
     if _counts() != before:
         raise AssertionError("plain path launched a kernel")
 
@@ -438,10 +479,91 @@ def streamed_kernels(dev, card, key, results):
     return scene, eng, vp
 
 
+def wavefront_kernels(dev, card, key, results, build_log):
+    """Phase 3 for the portable renderer: B11 on circles_2k at page size
+    256 (WavefrontRenderer's default), bitwise against its plain version on
+    N_CHECK_CHUNKS chunks of 1,024 spread over the image, of the camera
+    rays and of the wave-1 bounce rays (live RNG), then on a whole
+    2560x1440 wave beside its bound; and B11's ptxas report.  Returns the
+    scene's WavefrontRenderer and the viewport."""
+    scene, vp = circles.build(resolution="2k", maxdepth=5)
+    wr = WavefrontRenderer(scene, device=dev)
+    st = wr.tensors
+    NP, P = st.PK.shape[0], st.page_size
+    n_tris = len(scene.tris) - 1
+    print(f"circles_2k for WavefrontRenderer: {n_tris} triangles in {NP} "
+          f"pages of {P} ({NP * P} slots)")
+    o, d = render_mod.camera_rays(vp, key, dev)
+    R = o.shape[0]
+    t, hid = intersect.nearest_hit(o, d, st.PK, P)
+    rv = render_mod._random_unit_vec(fold_in(key, 0), R, dev)
+    alive = torch.ones(R, dtype=torch.bool, device=dev)
+    _, _, alive1, o1, d1 = render_mod.shade_active(
+        st, o, d, t, hid, torch.ones(R, device=dev), alive, rv)
+    chunks = torch.linspace(0, R // RB - 1, N_CHECK_CHUNKS,
+                            device=dev).round().long()
+    rays = (chunks[:, None] * RB + torch.arange(RB, device=dev)).reshape(-1)
+    n = rays.numel()
+
+    def bound(O, n_rays):
+        # every ray against every triangle; the rays, the pages' used
+        # lanes and the winners once
+        return _bound(n_rays * 24 + NP * P * 17 * 4 + n_rays * 8,
+                      n_rays * n_tris * HIT_FLOPS_ORIGIN)
+
+    checks = {}
+    for name, (O, D) in (("camera rays", (o, d)),
+                         ("wave-1 bounce rays", (o1, d1))):
+        Oc, Dc = O[rays].contiguous(), D[rays].contiguous()
+        tk, ik = intersect.nearest_hit(Oc, Dc, st.PK, P)
+        tp, ip = intersect.nearest_hit_plain(Oc, Dc, st.PK)
+        torch.cuda.synchronize()
+        _require_bitwise(f"B11 {name} t", tk, tp)
+        if not torch.equal(ik, ip):
+            raise AssertionError(f"B11 {name}: {int((ik != ip).sum())} ids "
+                                 f"differ")
+        checks[name] = (Oc, Dc)
+        print(f"B11 on {N_CHECK_CHUNKS} chunks of circles_2k {name}: t and "
+              f"id bitwise equal ({int((ik != 0).sum())} hits of {n})")
+    Oc, Dc = checks["camera rays"]
+    results[native.NEAREST_HIT.name] = dict(
+        rays=n, max_abs_err=0.0,
+        ms=_time_ms(lambda: intersect.nearest_hit(Oc, Dc, st.PK, P)),
+        plain_ms=_time_ms(lambda: intersect.nearest_hit_plain(Oc, Dc, st.PK),
+                          reps=2),
+        **bound(Oc, n))
+    Ob, Db = checks["wave-1 bounce rays"]
+    results[native.NEAREST_HIT.name]["wave1"] = dict(
+        ms=_time_ms(lambda: intersect.nearest_hit(Ob, Db, st.PK, P)),
+        plain_ms=_time_ms(lambda: intersect.nearest_hit_plain(Ob, Db, st.PK),
+                          reps=2))
+    for name, (O, D) in (("camera rays", (o, d)),
+                         ("wave-1 bounce rays", (o1, d1))):
+        ms = _time_ms(lambda: intersect.nearest_hit(O, D, st.PK, P), reps=3)
+        b = bound(O, R)
+        res = results[native.NEAREST_HIT.name]
+        if name != "camera rays":
+            res = res["wave1"]
+        res.update(ms_full=ms, bound_ms_full=b["bound_ms"],
+                   bound_by_full=b["bound_by"])
+        print(f"time nearest_hit B11 (full 2560x1440 wave of {name}, {R} "
+              f"rays x {n_tris} triangles): kernel {ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"{R * n_tris / ms / 1e9:.3f} G ray-triangle tests/s [{card}]")
+    print(f"circles_2k wave 0: {int((hid != 0).sum())} hits of {R}; "
+          f"{int(alive1.sum())} rays live for wave 1")
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "nearest_hit" in line:
+            for rep_line in lines[i:i + 4]:
+                print(f"  ptxas B11: {rep_line.strip()}")
+    return scene, wr, vp
+
+
 #: the kernels' function names in csrc/*.cu
 PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
                 "trace_shade_perlane_kernel", "expand_kernel",
-                "shade_kernel", "trace_streamed_kernel")
+                "shade_kernel", "trace_streamed_kernel", "nearest_hit_kernel")
 
 
 def _groups(per_name) -> dict:
@@ -813,6 +935,8 @@ def main() -> int:
           f"of {int(total_a2)} lanes")
     del full2, out2_k, out2_p, dead2_k, dead2_p, y2, back2_k, back2_p, masks2
     s_scene, eng_s, s_vp = streamed_kernels(dev, card, key, results)
+    w_scene, wr, w_vp = wavefront_kernels(dev, card, key, results,
+                                          built["log"])
     t_zero = _time_ms(lambda: torch.zeros_like(full1))
     for k in native.KERNELS:
         r = results[k.name]
@@ -834,6 +958,24 @@ def main() -> int:
         raise AssertionError(f"golden: {n_bad} pixels differ")
     print("golden: circles 96x54 fixed_rng byte-equal on the card "
           "(default Engine, compacted after waves 0 and 1)")
+    for label, render, path in (
+            ("WavefrontRenderer(backend='kernel')",
+             lambda: png.quantize_u8(WavefrontRenderer(
+                 g_scene, backend="kernel", device=dev).render(
+                     g_vp, fixed_rng=True).image), ("nearest_hit",)),
+            ("Engine(compact=False)",
+             lambda: Engine(g_scene, compact=False, device=dev).render(
+                 g_vp, fixed_rng=True).image, LEGACY_PATH)):
+        native.reset_launch_counts()
+        img = render()
+        torch.cuda.synchronize()
+        n_bad = int((img != golden).any(axis=-1).sum())
+        missing = [k for k in path if _counts()[k] == 0]
+        if n_bad or missing:
+            raise AssertionError(f"golden, {label}: {n_bad} pixels differ, "
+                                 f"never launched {missing}")
+        print(f"golden: circles 96x54 fixed_rng byte-equal on the card "
+              f"({label}; launches {_counts()})")
 
     # 5. kernel path vs plain path on the card, default Engine, unlit and
     # lit, on circles and in the streamed regime on the synthetic_1m sphere
@@ -874,6 +1016,46 @@ def main() -> int:
                     lambda: e5.render(s_vp5, fixed_rng=True).image,
                     lambda: e5.render(s_vp5, fixed_rng=True).image)
         del e5
+
+    # 5b. the portable renderer and the Engine's other paths at 640x360:
+    # B11 against its plain version through the whole WavefrontRenderer, the
+    # two nearest-hit backends, the Engine against the portable renderer
+    # (the reference's engine == xla cross-check), compacted against legacy
+    def compare(label, img_a, img_b):
+        n_px = img_a.shape[0] * img_a.shape[1]
+        n_diff = int((img_a != img_b).any(axis=-1).sum())
+        print(f"{label} {img_a.shape[1]}x{img_a.shape[0]} fixed_rng: "
+              f"{n_diff} of {n_px} pixels differ")
+        if n_diff > 1e-4 * n_px:
+            raise AssertionError(f"{label}: images differ beyond 0.01%")
+
+    p_scene, p_vp = circles.build(resolution=(640, 360), maxdepth=5)
+
+    def wr_image(backend):
+        return png.quantize_u8(WavefrontRenderer(
+            p_scene, backend=backend, device=dev).render(
+                p_vp, fixed_rng=True).image)
+
+    check_paths("WavefrontRenderer kernel", lambda: wr_image("kernel"),
+                lambda: wr_image("kernel"))
+    img_wk = wr_image("kernel")
+    compare("WavefrontRenderer kernel vs portable", img_wk,
+            wr_image("portable"))
+    compare("Engine vs WavefrontRenderer (kernel)",
+            Engine(p_scene, device=dev).render(p_vp, fixed_rng=True).image,
+            img_wk)
+    for label, make in (("unlit", lambda sc: sc), ("lit", lit)):
+        sc = make(circles.build(resolution=(640, 360), maxdepth=5)[0])
+        compare(f"Engine compacted vs legacy, {label}",
+                Engine(sc, device=dev).render(p_vp, fixed_rng=True).image,
+                Engine(sc, compact=False, device=dev).render(
+                    p_vp, fixed_rng=True).image)
+    q_scene, q_vp = circles.build(resolution=(640, 360), maxdepth=5,
+                                  samples=4)
+    compare("Engine spp 4 compacted vs legacy",
+            Engine(q_scene, device=dev).render(q_vp, fixed_rng=True).image,
+            Engine(q_scene, compact=False, device=dev).render(
+                q_vp, fixed_rng=True).image)
 
     # 6. circles_2k end to end: the autotuned default Engine and ncompact=0
     eng.render(vp)                       # the autotune plans on this render
@@ -1010,9 +1192,92 @@ def main() -> int:
         raise AssertionError(f"lit streamed path: never launched {missing}, "
                              f"launched {other}, or no shadow cast")
 
+    # 6d. the portable renderer on circles_2k at its defaults (page size
+    # 256, ray chunk 1024, slabs of 2^20 rays): B11 every wave of every slab
+    def timed(label, renderer, tvp, path, absent, warm=True):
+        """Three renders after a warm-up, launch counts summed over them;
+        fails unless every kernel of `path` launched and none of
+        `absent`."""
+        if warm:
+            renderer.render(tvp)
+            torch.cuda.synchronize()
+        runs, counts = [], {k.name: 0 for k in native.KERNELS}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            native.reset_launch_counts()
+            runs.append(renderer.render(tvp))
+            torch.cuda.synchronize()
+            for k, c in _counts().items():
+                counts[k] += c
+        best = min(runs, key=lambda r: r.seconds)
+        n0 = tvp.width * tvp.height * tvp.samples_per_pixel
+        if best.image.shape != (tvp.height, tvp.width, 3) \
+                or int(best.wave_rays[0]) != n0 \
+                or not np.isfinite(best.image).all() \
+                or not best.image.max() > 0:
+            raise AssertionError(f"{label}: image {best.image.shape}, "
+                                 f"wave_rays {best.wave_rays}")
+        print(f"{label}: best {best.seconds:.6f} s of "
+              f"{[round(r.seconds, 6) for r in runs]}, rays_traced "
+              f"{best.rays_traced}, {best.mrays_per_sec:.3f} Mrays/s, "
+              f"wave_rays {best.wave_rays.tolist()} [{card}]")
+        print(f"launches in the 3 {label} renders: {counts}")
+        missing = [k for k in path if counts[k] == 0]
+        other = [k for k in absent if counts[k]]
+        if missing or other:
+            raise AssertionError(f"{label}: never launched {missing}, "
+                                 f"launched {other}")
+        return best, counts
+
+    not_b11 = [k.name for k in native.KERNELS if k.name != "nearest_hit"]
+    _, w_launches = timed(
+        "WavefrontRenderer circles_2k (page size 256, 4 slabs)", wr, w_vp,
+        ("nearest_hit",), not_b11)
+
+    # 6e. the legacy loop on circles_2k: B1 and B6 every wave
+    eng_leg = Engine(scene, compact=False, device=dev)
+    _, leg_launches = timed("Engine(compact=False) circles_2k", eng_leg, vp,
+                            LEGACY_PATH, NOT_LEGACY)
+
+    # 6f. spp 4 on circles 512x512 (1,048,576 rays), the default Engine
+    q4_scene, q4_vp = circles.build(resolution=(512, 512), maxdepth=5,
+                                    samples=4)
+    eng_q4 = Engine(q4_scene, device=dev)
+    q4_best, q4_launches = timed("Engine spp 4 circles 512x512", eng_q4,
+                                 q4_vp, UNLIT_PATH, ("nearest_hit",))
+    if q4_best.image.dtype != np.uint8:
+        raise AssertionError("spp 4: not quantized on the device")
+
+    # 6g. one debug render of circles_2k: wave 0 unfused (B1, B6, B8)
+    native.reset_launch_counts()
+    dbg = eng.render(vp, debug=True)
+    torch.cuda.synchronize()
+    dbg_launches = _counts()
+    n_tris = len(scene.tris) - 1
+    nc = R // RB
+    ok = (dbg.primary_t.shape == (vp.height, vp.width)
+          and dbg.primary_id.shape == (vp.height, vp.width)
+          and dbg.primary_id.min() >= 0 and dbg.primary_id.max() <= n_tris
+          and (dbg.primary_id != 0).mean() > 0.1
+          and np.isfinite(dbg.primary_t[dbg.primary_id != 0]).all()
+          and np.isinf(dbg.primary_t[dbg.primary_id == 0]).all()
+          and dbg.primary_chunk.shape == (vp.height, vp.width)
+          and dbg.primary_chunk.max() == nc - 1 and len(dbg.chunk_tris) == nc
+          and all(((c > 0) & (c <= n_tris)).all() for c in dbg.chunk_tris))
+    missing = [k for k in DEBUG_PATH if dbg_launches[k] == 0]
+    if not ok or missing or dbg_launches["trace_shade_chunks"]:
+        raise AssertionError(f"debug render: buffers ok {ok}, never "
+                             f"launched {missing}, launches {dbg_launches}")
+    print(f"debug render of circles_2k: {dbg.seconds:.6f} s, "
+          f"{int((dbg.primary_id != 0).sum())} primary hits, candidate sets "
+          f"of {nc} chunks (mean {np.mean([len(c) for c in dbg.chunk_tris]):.1f}"
+          f" triangles); launches {dbg_launches} [{card}]")
+
     # 7. where the time of one circles_2k and one synthetic_1m_2k render goes
     for name, e, pvp in (("default", eng, vp), ("ncompact=0", eng0, vp),
                          ("lit", eng_l, vp),
+                         ("WavefrontRenderer", wr, w_vp),
+                         ("legacy", eng_leg, vp),
                          ("synthetic_1m_2k", eng_s, s_vp),
                          ("synthetic_1m_2k lit", eng_sl, s_vp)):
         wall_ms, per_name, busy_ms = _profile_render(e, pvp)
@@ -1023,6 +1288,9 @@ def main() -> int:
             print(f"  device {ms:9.3f} ms  {n[:90]}")
         print(f"  by kind: " + ", ".join(f"{g} {ms:.3f} ms" for g, ms in
                                          _groups(per_name).items()))
+        b11 = sum(ms for n, ms in per_name.items() if "nearest_hit" in n)
+        if b11:
+            print(f"  of which B11 (nearest_hit_kernel) {b11:.3f} ms")
     img_u8 = np.zeros((3, R), np.uint8)
     perm = eng._perm(vp, tile)
     t_host = []
@@ -1036,9 +1304,12 @@ def main() -> int:
     # launches: B9 of the streamed path, B10 of the lit streamed path; the
     # others of the lit circles path for its kernels, else of the unlit one
     paths = {"unlit": launches, "lit": lit_launches, "streamed": s_launches,
-             "streamed_lit": sl_launches}
+             "streamed_lit": sl_launches, "wavefront": w_launches,
+             "legacy": leg_launches, "spp4": q4_launches,
+             "debug": dbg_launches}
     main_path = {"trace_shade_streamed": "streamed",
-                 "trace_streamed": "streamed_lit"}
+                 "trace_streamed": "streamed_lit",
+                 "nearest_hit": "wavefront"}
 
     def path_of(name):
         return main_path.get(name, "lit" if name in LIT_PATH else "unlit")

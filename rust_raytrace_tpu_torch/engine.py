@@ -1,61 +1,76 @@
 """The production render path on torch: `Engine` and its host helpers.
 
 Counterpart: `rust_raytrace_tpu/engine.py` — `Engine.__init__` (its choice
-of regime and page size), `Engine.render` with `_pinhole_fold` and the
-autotune of the compaction schedule, the wave loop of
-`_render_device_compact` and its shadow pass `_shadow_mask` (the resident
-wave-0 and streamed branches); plus `_camera_rays_tiled` (spp 1) with
-`_unit_rows`, `_quantize_u8`, `pick_tile`, `tile_permutation`,
-`plan_boundaries`, `auto_page_size` and `_assemble_host_image`, copied
-because the JAX module imports jax.
+of regime and page size), `Engine.render` with `_pinhole_fold`, the
+autotune of the compaction schedule and the debug buffers, the wave loop
+of `_render_device_compact` and its shadow pass `_shadow_mask` (the
+resident wave-0 and streamed branches), the legacy loop `_render_device`
+with its inline shadow pass and `_shade_rows`, `walk_one_ray`; plus
+`_camera_rays_tiled` with the spp jitter (`_pos_uniform`, `_threefry2x32`),
+`_unit_rows`, `_box_filter`, `_device_quantizable`, `_quantize_u8`,
+`pick_tile`, `tile_permutation`, `plan_boundaries`, `auto_page_size` and
+`_assemble_host_image`, copied because the JAX module imports jax.
 
-One render: tile-order camera rays -> pinhole fold of the page scalars ->
-wave 0 = cull (B1) -> stable sort of the page lists -> union trace + shade
-(B2) -> at each compaction boundary: `compact_meta` and compaction (B3) ->
-waves 1.. = per-lane trace + shade (B4) -> expansion (B5) backward over the
-boundaries -> u8 quantization on the device -> un-permute on the host.  A
-scene with a light (`scene.lights`) runs wave 0 unfused: cull (B1) -> sort
--> union trace to winner rows (B6) -> `shadow_mask` (the shadow rays
-through B1, a sort and B6 with self-exclusion) -> shade with the mask (B8);
-its bounce waves run B4 with the shadow feeler fused.
+One render: tile-order camera rays (a pixel's spp samples on adjacent
+lanes) -> pinhole fold of the page scalars -> wave 0 = cull (B1) -> stable
+sort of the page lists -> union trace + shade (B2) -> at each compaction
+boundary: `compact_meta` and compaction (B3) -> waves 1.. = per-lane trace +
+shade (B4) -> expansion (B5) backward over the boundaries -> box filter (spp
+2, 4) and u8 quantization on the device -> un-permute on the host.  A
+scene with a light (`scene.lights`), or a debug render, runs wave 0
+unfused: cull (B1) -> sort -> union trace to winner rows (B6) -> (lit:
+`shadow_mask`, the shadow rays through B1, a sort and B6 with
+self-exclusion) -> shade (B8); a lit scene's bounce waves run B4 with the
+shadow feeler fused.
 
 A scene past the resident tables' cap (`table_slot_cap` triangle slots)
 takes the streamed regime: no cull and no pinhole fold; every wave, wave 0
-included, runs the bank-worklist trace + shade (B9), or, with a light, the
-bank-worklist trace to winner rows (B10) -> the shadow rays through B10's
-any-hit mode with self-exclusion (`shadow_mask_streamed`) -> shade with the
-mask (B8); compaction (B3) and expansion (B5) as in the resident regime.
-The kernels run on CUDA tensors and their plain torch versions on CPU
-tensors (`device=`).
+included, runs the bank-worklist trace + shade (B9), or, with a light or
+for debug rows at wave 0, the bank-worklist trace to winner rows (B10) ->
+(lit: the shadow rays through B10's any-hit mode with self-exclusion,
+`shadow_mask_streamed`) -> shade (B8); compaction (B3) and expansion (B5)
+as in the resident regime.
+
+`Engine(compact=False)` or `exact_cull=False` takes the legacy loop in
+either regime: no compaction; every wave B1 (or the interval culls of
+`ops.cull`), a sort, B6 to winner rows and the shade in torch glue, with
+the scatter vectors of jax.random.uniform; lit, its own shadow pass
+(`legacy_shadow_mask`).  The kernels run on CUDA tensors and their plain
+torch versions on CPU tensors (`device=`).
 
 What this engine does not run yet raises NotImplementedError naming the
-ROADMAP item that brings it: spp > 1, debug buffers, bounce_chunk, the
-bank-major streamed sweep and the union-kernel bounce waves of a scene past
-the cap with streamed=False.
+ROADMAP item that brings it: `render_banded` (A10), `render_sharded` (A11),
+bounce_chunk, the bank-major streamed sweep (B12) and the union-kernel
+bounce waves of a scene past the cap with streamed=False.
 """
 
+import math
 import time
 
 import numpy as np
 import torch
 
-from .camera import Viewport
+from .camera import Viewport, pixel_rays
 from .ops.compact import (compact, compact_meta, expand, make_dead_array,
                           pick_cb)
-from .ops.cull import cull_mask_exact
+from .ops.cull import (chunk_bounds, chunk_bounds_octants, cull_mask_exact,
+                       cull_mask_tmin, cull_mask_tmin_octants)
 from .ops.intersect import (fold_pages_origin, trace_chunks,
                             trace_shade_chunks)
 from .ops.intersect_perlane import (GROUP, MAX_BANKS, trace_shade_perlane,
                                     upload_perlane_tables)
 from .ops.intersect_streamed import (trace_shade_streamed, trace_streamed,
                                      upload_streamed_tables)
-from .ops.pages import build_pages_kd
-from .ops.shade import fma, rsqrt, shade
-from .ops.state import (ROW_ACC, ROW_ALIVE, ROW_DEAD, ROW_ENC, ROW_ID,
-                        ROW_NORM, ROW_T, STATE_ROWS)
-from .render import RenderResult
+from .ops.pages import LANE_ID, build_pages_kd
+from .ops.shade import FIXED_RV, SKY, fma, rsqrt, shade, sum3
+from .ops.state import (ROW_ACC, ROW_ALIVE, ROW_ALPHA, ROW_COLOR, ROW_DEAD,
+                        ROW_ENC, ROW_ID, ROW_NORM, ROW_SCAT, ROW_T, ROW_W,
+                        STATE_ROWS)
+from .materials import KIND_MATTE, KIND_REFLECTIVE
+from .render import RayCaster, RenderResult
 from .scene import Scene
-from .utils.rng import fold_in, prng_key, uniform
+from .utils.png import quantize_u8 as host_quantize_u8
+from .utils.rng import fold_in, prng_key, threefry2x32, uniform
 
 F32 = np.float32
 
@@ -131,10 +146,12 @@ def plan_boundaries(wave_rays, tau_mid: float = 0.65,
 
 
 def _assemble_host_image(img_dev, v: Viewport, perm: np.ndarray, spp: int,
-                         dev_quant: bool) -> np.ndarray:
+                         dev_quant: bool, want_u8: bool = False) -> np.ndarray:
     """Un-permute a tile-order framebuffer ([3, R] or [3, R//spp] numpy)
     into the [height, width, 3] image.  dev_quant: the input is u8,
-    already quantized (and box-filtered) on the device."""
+    already quantized (and box-filtered) on the device.  want_u8: the
+    device rendered float where u8 was asked for (an spp that
+    `device_quantizable` rejects): average and quantize here."""
     if dev_quant:
         P0 = v.height * v.width
         data = np.asarray(img_dev).T[:P0]            # [P0, 3] u8
@@ -150,46 +167,84 @@ def _assemble_host_image(img_dev, v: Viewport, perm: np.ndarray, spp: int,
         img = img.reshape(v.height, v.width, spp, 3).mean(axis=2)
     else:
         img = img.reshape(v.height, v.width, 3)
+    if want_u8:
+        img = host_quantize_u8(img)
     return img
 
 
+def device_quantizable(spp: int) -> bool:
+    """Whether quantizing on the device is byte-equal to quantizing the
+    float image on the host (the JAX package's `_device_quantizable`): the
+    box filter's division by spp is exact, and its left-to-right add chain
+    matches np.mean's order, only for spp in {1, 2, 4}."""
+    return spp in (1, 2, 4)
+
+
+def box_filter(img: torch.Tensor, spp: int) -> torch.Tensor:
+    """The samples of each pixel averaged (raytrace.rs:1426): [3, R] in
+    tile order, a pixel's spp samples on adjacent lanes -> [3, R // spp],
+    with an explicit left-to-right add chain, as the JAX `_box_filter`."""
+    s = img.reshape(3, img.shape[1] // spp, spp)
+    acc = s[..., 0]
+    for i in range(1, spp):
+        acc = acc + s[..., i]
+    return acc / float(spp)
+
+
+def pos_uniform(key, q: torch.Tensor, salt: int) -> torch.Tensor:
+    """Uniform [0, 1) float32 keyed by the absolute stream position q (the
+    JAX `_pos_uniform`): the first word of Threefry-2x32 under the key
+    fold_in(key, salt) of the counter (q, 0), its top 24 bits times 2^-24.
+    A pure function of (key, salt, q), so any window of the stream draws
+    the full render's values."""
+    k0, k1 = (int(w) for w in fold_in(key, salt))
+    bits, _ = threefry2x32(k0, k1, q.to(torch.int64) & 0xFFFFFFFF, 0)
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
 def unit_rows(v: torch.Tensor, wide: bool = False) -> torch.Tensor:
-    """Normalize [3, R] column vectors.  XLA reduces `jnp.sum(v * v,
-    axis=0)` in row order with each product fused into the running sum:
-    fma(v2, v2, fma(v1, v1, v0*v0)) (measured against the jitted camera).
-    wide: the rsqrt of a fusion XLA vectorizes 16 floats wide (C7)."""
-    return v * rsqrt(fma(v[2], v[2], fma(v[1], v[1], v[0] * v[0])),
-                     wide)[None]
+    """Normalize [3, R] column vectors (`jnp.sum(v * v, axis=0)` is XLA's
+    `sum3`, measured against the jitted camera).  wide: the rsqrt of a
+    fusion XLA vectorizes 16 floats wide (C7)."""
+    return v * rsqrt(sum3(v, v), wide)[None]
 
 
-def camera_rays_tiled(v: Viewport, tile: int, n_pad: int, device):
-    """Primary rays in tile-major order (`pixel_ray` at the pixel centre):
-    (o, d) as [3, n_pad] float32 on `device`; positions past the image have
-    o = d = 0 (invalid lanes).
+def camera_rays_tiled(v: Viewport, tile: int, n_pad: int, device,
+                      key=None):
+    """Primary rays in tile-major order (`pixel_ray`): (o, d) as [3, n_pad]
+    float32 on `device`; positions past the image have o = d = 0 (invalid
+    lanes).  A pixel's spp samples sit on adjacent lanes (q // spp is the
+    pixel); spp 1 shoots through the pixel centre, spp > 1 jitters sample q
+    by `pos_uniform(key, q, 1_000_001)` across and 1_000_002 down.
 
     The image-plane point is orig + vu*(col + 0.5) + vv*(row + 0.5) with
     both multiply-adds fused, as XLA on the CPU compiles the JAX version
     (ROADMAP C2): unfused, a ray 1 ulp off flips a pixel of the 48x27
     circles render.  The normalization is `unit_rows`, with XLA-CPU's rsqrt
     (C1)."""
-    if v.samples_per_pixel != 1:
-        raise NotImplementedError("spp > 1 camera jitter (ROADMAP A6)")
-    R0 = v.height * v.width
+    spp = v.samples_per_pixel
+    R0 = v.height * v.width * spp
     q = torch.arange(n_pad, device=device)
+    pix = q // spp if spp > 1 else q
     T = tile
     tpr = v.width // T
-    tile_id = q // (T * T)
-    within = q % (T * T)
+    tile_id = pix // (T * T)
+    within = pix % (T * T)
     row = ((tile_id // tpr) * T + within // T).to(torch.float32)
     col = ((tile_id % tpr) * T + within % T).to(torch.float32)
+    if spp == 1:
+        u_off = v_off = 0.5
+    else:
+        u_off = pos_uniform(key, q, 1_000_001)
+        v_off = pos_uniform(key, q, 1_000_002)
 
     def column(a):
         return torch.from_numpy(np.asarray(a, F32).copy()).to(device)[:, None]
 
     vu_delta = column(np.asarray(v.vu, F32) * (F32(1.0) / F32(v.width)))
     vv_delta = column(np.asarray(v.vv, F32) * (F32(1.0) / F32(v.height)))
-    px_u = fma(vv_delta, (row + 0.5)[None],
-               fma(vu_delta, (col + 0.5)[None], column(v.orig)))
+    px_u = fma(vv_delta, (row + v_off)[None],
+               fma(vu_delta, (col + u_off)[None], column(v.orig)))
     d = unit_rows(px_u - column(v.cam))
     live = (q < R0)[None]
     return torch.where(live, px_u, 0.0), torch.where(live, d, 0.0)
@@ -219,11 +274,18 @@ def shadow_rays(state, rows, key, wave: int, fixed_rng: bool, light):
     light point fma(u3, len2, l), the camera's sum of squares, and
     so = fma(nf, 0.005*(u1 + 1), point); under fixed_rng XLA vectorizes the
     normalization 16 floats wide."""
-    R = state.shape[1]
-    dev = state.device
-    o, d = state[0:3], state[3:6]
+    return shadow_rays_od(state[0:3], state[3:6], state[ROW_ALIVE] != 0.0,
+                          rows, key, wave, fixed_rng, light)
+
+
+def shadow_rays_od(o, d, alive, rows, key, wave: int, fixed_rng: bool,
+                   light):
+    """`shadow_rays` of rays o, d [3, R] with the [R] bool mask alive (the
+    legacy loop carries no state tensor)."""
+    R = o.shape[1]
+    dev = o.device
     hid = rows[ROW_ID]
-    hit = (state[ROW_ALIVE] != 0.0) & (hid != 0.0)
+    hit = alive & (hid != 0.0)
     point = fma(torch.where(hit, rows[ROW_T], 0.0)[None], d, o)
     nrm = rows[ROW_NORM:ROW_NORM + 3]
     norm_f = torch.where((rows[ROW_ENC] >= 8.0)[None], -nrm, nrm)
@@ -271,13 +333,102 @@ def shadow_mask_streamed(state, rows, key, wave: int, fixed_rng: bool, light,
     return (hit & (srows[ROW_ID] != 0.0)).float()
 
 
+def legacy_shadow_mask(o, d, alive, rows, key, wave: int, fixed_rng: bool,
+                       light, aabb_lo, aabb_hi, PK, page_size: int,
+                       ray_chunk: int):
+    """The shadow pass of the legacy loop (JAX: inlined in
+    `_render_device`): `shadow_rays_od` of the wave's masked rays, the
+    octant interval cull, a stable sort and B6 with each ray's own triangle
+    excluded.  Returns the [R] bool mask."""
+    so, sd, hit, excl = shadow_rays_od(o, d, alive, rows, key, wave,
+                                       fixed_rng, light)
+    smask, stmin = cull_mask_tmin_octants(
+        *chunk_bounds_octants(so, sd, hit, ray_chunk), aabb_lo, aabb_hi)
+    counts, plist, ptmin = page_lists(smask, stmin)
+    srows = trace_chunks(so, sd, PK, counts, plist, ptmin, page_size,
+                         ray_chunk, excl=excl)
+    return hit & (srows[ROW_ID] != 0.0)
+
+
+def legacy_rv(key, wave: int, R: int, fixed_rng: bool, device):
+    """The legacy loop's scatter vectors (JAX `_random_unit_rows`): (v,
+    inv) with v = jax.random.uniform of shape (3, R) from fold_in(key,
+    wave), less 0.5, and inv [R] its rsqrt norm, so rv = v * inv; under
+    fixed_rng (FIXED_RV as [3, R], None)."""
+    if fixed_rng:
+        return (torch.tensor(FIXED_RV, dtype=torch.float32,
+                             device=device)[:, None].expand(3, R), None)
+    v = uniform(fold_in(key, wave), (3, R), device) - 0.5
+    return v, rsqrt(sum3(v, v))
+
+
+def shade_rows(rows, o, d, weight, valid, rv, shadowed=None,
+               fused_ddot: bool = True):
+    """One wave of the legacy loop's shade from the winner rows (JAX:
+    `engine._shade_rows`, XLA glue): the color algebra of
+    `ops.shade.shade_state_rows` on [3, R] columns with separate accum,
+    weight and alive, and the scatter vectors of `legacy_rv`.  Returns
+    (contrib [3, R], weight', alive', o', d').  The sums over the three
+    rows are XLA's reductions (`sum3`); |d.nf| is one too where
+    fused_ddot, else its products round before the adds, as XLA compiles
+    the legacy loop's wave 0 (ROADMAP C8)."""
+    v, inv_v = rv
+    t = rows[ROW_T]
+    miss = rows[ROW_ID] == 0.0
+    n = rows[ROW_NORM:ROW_NORM + 3]
+    enc = rows[ROW_ENC]
+    kind = torch.remainder(enc, 4.0)
+    edge = torch.remainder(torch.floor(enc / 4.0), 2.0) == 1.0
+    back = enc >= 8.0
+    color = rows[ROW_COLOR:ROW_COLOR + 3]
+    if shadowed is not None:
+        color = torch.where(shadowed[None], 0.0, color)
+    alpha = rows[ROW_ALPHA]
+    scat = rows[ROW_SCAT]
+    nf = torch.where(back[None], -n, n)
+    is_scatter = (~miss) & (~edge) & ((kind == KIND_MATTE)
+                                      | (kind == KIND_REFLECTIVE))
+    is_terminal = valid & ~is_scatter
+    scatter_live = valid & is_scatter
+    sky = torch.tensor(SKY, dtype=torch.float32, device=o.device)[:, None]
+    term = torch.where(miss[None], sky, torch.where(edge[None], 0.0, color))
+    contrib = (torch.where(is_terminal[None], weight * term, 0.0)
+               + torch.where(scatter_live[None],
+                             weight * color * (1.0 - alpha), 0.0))
+    new_w = torch.where(scatter_live, weight * alpha, weight)
+
+    p = fma(t[None], d, o)
+    if inv_v is None:
+        rvs = v
+        m = nf + rvs
+    else:
+        rvs = v * inv_v
+        m = fma(v, inv_v, nf)
+    m = m * rsqrt(sum3(m, m))
+    if fused_ddot:
+        ddot = torch.abs(sum3(d, nf))
+    else:
+        ddot = torch.abs((d[0] * nf[0] + d[1] * nf[1]) + d[2] * nf[2])
+    r = fma(rvs, scat, fma(2.0 * nf, ddot, d))
+    r = r * rsqrt(sum3(r, r))
+    is_matte = (kind == KIND_MATTE)[None]
+    if inv_v is None:
+        no = p + torch.where(is_matte, rvs * 0.001, r * 0.001)
+    else:
+        no = fma(torch.where(is_matte, rvs, r), 0.001, p)
+    nd = torch.where(is_matte, m, r)
+    upd = scatter_live[None]
+    return (contrib, new_w, scatter_live, torch.where(upd, no, o),
+            torch.where(upd, nd, d))
+
+
 def quantize_u8(img: torch.Tensor) -> torch.Tensor:
     """PNG writer's exact `(c*255) as u8` semantics (raytrace.rs:1470-1472)."""
     x = torch.nan_to_num(img * 255.0, nan=0.0, posinf=255.0, neginf=0.0)
     return torch.clamp(torch.trunc(x), 0.0, 255.0).to(torch.uint8)
 
 
-class Engine:
+class Engine(RayCaster):
     """Culled, compacted wavefront renderer.
 
     scene: a `scene.Scene`, lit when `scene.lights` is set (a shadow ray
@@ -299,19 +450,28 @@ class Engine:
     compacts after the first n waves (negative: after every wave but the
     last); a sequence of bools says per boundary.  Every schedule renders
     the same image bits.
+
+    compact=False or exact_cull=False takes the legacy loop (`_render_legacy`,
+    the JAX `_render_device`) in either regime: every wave culls (B1, or
+    with exact_cull=False the interval culls of `ops.cull`), sorts and runs
+    the union trace to winner rows (B6) over the union page tables, then
+    shades in torch glue (`shade_rows`).
     """
 
     def __init__(self, scene: Scene, page_size: int = 56,
                  ray_chunk: int = 1024, bounce_chunk: int = 0,
                  ncompact=None, streamed=None,
                  table_slot_cap: int = TABLE_SLOT_CAP,
-                 bank_major: bool = False, device="cuda"):
+                 bank_major: bool = False, compact: bool = True,
+                 exact_cull: bool = True, device="cuda"):
         if bounce_chunk != 0:
             raise NotImplementedError(
                 "bounce_chunk != 0: ROADMAP 'Engine knobs'")
         if bank_major:
             raise NotImplementedError(
                 "bank_major: the bank-major streamed sweep, ROADMAP B12")
+        self.compact = compact
+        self.exact_cull = exact_cull
         self._auto_schedule = ncompact is None
         if ncompact is None:
             ncompact = 2
@@ -343,11 +503,14 @@ class Engine:
         if self.streamed:
             self.stables = upload_streamed_tables(self.pages, dev)
         else:
+            self.plt_i, self.plt_s, self.ab = upload_perlane_tables(
+                self.pages, dev)
+        if not self.streamed or not self._use_compact():
+            # the union tables: the resident regime's wave 0 and the
+            # legacy loop (which reads them in either regime)
             self.PK = torch.from_numpy(self.pages.PK).to(dev)
             self.aabb_lo = torch.from_numpy(self.pages.aabb_lo).to(dev)
             self.aabb_hi = torch.from_numpy(self.pages.aabb_hi).to(dev)
-            self.plt_i, self.plt_s, self.ab = upload_perlane_tables(
-                self.pages, dev)
         self.scene = scene
         lights = scene.lights
         #: (ox, oy, oz, len2) as float32 values, or None: an unlit scene
@@ -359,11 +522,18 @@ class Engine:
         self._perm_cache = {}
         self._pk0_cache = {}
 
-    def _compacts_after(self, wave: int, maxdepth: int) -> bool:
+    def _use_compact(self) -> bool:
+        """The compacted wave loop, or the legacy one (the JAX
+        `_use_compact`; its spp condition always holds here, since the ray
+        count is padded to a multiple of spp)."""
+        return self.compact and self.exact_cull
+
+    def _compacts_after(self, wave: int, maxdepth: int, ncompact=None) -> bool:
         """Whether boundary `wave` (after that wave) compacts."""
-        if isinstance(self.ncompact, tuple):
-            return wave < len(self.ncompact) and self.ncompact[wave]
-        limit = maxdepth - 1 if self.ncompact < 0 else self.ncompact
+        ncompact = self.ncompact if ncompact is None else ncompact
+        if isinstance(ncompact, tuple):
+            return wave < len(ncompact) and ncompact[wave]
+        limit = maxdepth - 1 if ncompact < 0 else ncompact
         return wave < min(limit, maxdepth - 1)
 
     def _perm(self, v: Viewport, tile: int) -> np.ndarray:
@@ -375,24 +545,31 @@ class Engine:
 
     def _pinhole_fold(self, v: Viewport, o: torch.Tensor):
         """Re-anchor primary rays at the pinhole and fold it into the page
-        scalars (cached per camera).  Returns (o, pk0); pk0 is None in the
-        streamed regime, whose kernels take the true origins."""
+        scalars (cached per camera).  Returns (o, pk0); pk0 is None when
+        the render reads no union pages at wave 0 (the streamed regime's
+        compacted loop: its kernels take the true origins)."""
         cam = torch.from_numpy(np.asarray(v.cam, F32).copy()).to(self.device)
         o = cam[:, None].expand(o.shape).contiguous()
-        if self.streamed:
+        if self.PK is None:
             return o, None
         cam_key = tuple(np.asarray(v.cam, dtype=np.float32).tolist())
         if cam_key not in self._pk0_cache:
             self._pk0_cache[cam_key] = fold_pages_origin(self.PK, cam_key)
         return o, self._pk0_cache[cam_key]
 
-    def _render_waves(self, state, key, maxdepth: int, fixed_rng: bool, pk0):
+    def _render_waves(self, state, key, maxdepth: int, fixed_rng: bool, pk0,
+                      ray_chunk=None, ncompact=None,
+                      want_primary: bool = False):
         """The wave loop of _render_device_compact.  Returns (accumulated
         color [3, R] in the original lane order, per-wave live counts as
-        tensors).  No host sync: counts, offsets and prefixes stay on the
-        device (the plain versions on the CPU do sync)."""
+        tensors, primary [2, R] rows (t, id) of wave 0 or None, cull0 =
+        wave 0's (counts, plist) or None).  want_primary runs wave 0
+        unfused (trace to winner rows, then B8) and keeps its rows and, in
+        the resident regime, its page lists.  No host sync: counts, offsets
+        and prefixes stay on the device (the plain versions on the CPU do
+        sync)."""
         R = state.shape[1]
-        RB = self.ray_chunk
+        RB = self.ray_chunk if ray_chunk is None else ray_chunk
         P = self.page_size
         cb = pick_cb(R)
         wc = 0.0 if fixed_rng else WEIGHT_CUTOFF
@@ -401,6 +578,7 @@ class Engine:
         prefix = None          # lane extent of the state's content (None: R)
         boundaries = []        # (meta, masks, prefix before the boundary)
         wave_counts = []
+        primary = cull0 = None
         for wave in range(maxdepth):
             alive = state[ROW_ALIVE] != 0.0
             wave_counts.append(alive.sum(dtype=torch.int32))
@@ -410,33 +588,45 @@ class Engine:
                           .to(torch.int32) if wave else
                           torch.ones(R // RB, dtype=torch.int32, device=dev))
             if self.streamed:
-                state = self._streamed_wave(state, key, wave, seed,
-                                            fixed_rng, wc, chunk_live)
+                state, rows = self._streamed_wave(
+                    state, key, wave, seed, fixed_rng, wc, chunk_live, RB,
+                    want_primary and wave == 0)
             elif wave == 0:
                 mask, tmin = cull_mask_exact(state[0:3], state[3:6], alive,
                                              self.aabb_lo, self.aabb_hi, RB)
                 counts, plist, ptmin = page_lists(mask, tmin)
-                if self.light is None:
-                    state = trace_shade_chunks(state, pk0, counts, plist,
+                zo = pk0 is not None
+                pk = pk0 if zo else self.PK
+                rows = None
+                if self.light is None and not want_primary:
+                    state = trace_shade_chunks(state, pk, counts, plist,
                                                ptmin, seed, P, RB, fixed_rng,
-                                               wc, zero_origin=True)
+                                               wc, zero_origin=zo)
                 else:
-                    # the shadow pass runs between trace and shade
-                    rows = trace_chunks(state[0:3], state[3:6], pk0, counts,
-                                        plist, ptmin, P, RB, zero_origin=True)
-                    shd = shadow_mask(state, rows, key, wave, fixed_rng,
-                                      self.light, self.aabb_lo, self.aabb_hi,
-                                      self.PK, P, RB)
+                    # unfused: the shadow pass (lit) runs between trace and
+                    # shade, and debug keeps the rows
+                    rows = trace_chunks(state[0:3], state[3:6], pk, counts,
+                                        plist, ptmin, P, RB, zero_origin=zo)
+                    shd = None
+                    if self.light is not None:
+                        shd = shadow_mask(state, rows, key, wave, fixed_rng,
+                                          self.light, self.aabb_lo,
+                                          self.aabb_hi, self.PK, P, RB)
                     state = shade(state, rows, seed, RB, fixed_rng, wc,
                                   chunk_live, shd)
+                if want_primary:
+                    cull0 = (counts, plist)
             else:
+                rows = None
                 state = trace_shade_perlane(
                     state, self.plt_i, self.plt_s, self.ab, seed, P, RB,
                     fixed_rng, wc, chunk_live, self.light)
-            if not self._compacts_after(wave, maxdepth):
+            if want_primary and wave == 0:
+                primary = rows[ROW_T:ROW_ID + 1]
+            if not self._compacts_after(wave, maxdepth, ncompact):
                 continue
             if dead_arr is None:
-                n_bound = sum(self._compacts_after(w, maxdepth)
+                n_bound = sum(self._compacts_after(w, maxdepth, ncompact)
                               for w in range(maxdepth))
                 dead_arr = make_dead_array(R, dev, n_bound, cb)
                 dead_base = torch.zeros((), dtype=torch.int32, device=dev)
@@ -455,56 +645,132 @@ class Engine:
         y = state[ROW_ACC:ROW_ACC + 4]
         for meta, masks, before in reversed(boundaries):
             y = expand(y, dead_arr, masks, meta, cb, grid_live=before)
-        return y[0:3], wave_counts
+        return y[0:3], wave_counts, primary, cull0
 
     def _streamed_wave(self, state, key, wave: int, seed, fixed_rng: bool,
-                       wc: float, chunk_live):
-        """One wave of the streamed regime: B9, or with a light B10 to
-        winner rows, the streamed shadow pass and B8."""
-        P, RB = self.page_size, self.ray_chunk
-        if self.light is None:
+                       wc: float, chunk_live, RB: int, want_rows: bool):
+        """One wave of the streamed regime: B9; or with a light, or when
+        the rows are wanted (debug), B10 to winner rows, the streamed
+        shadow pass (lit) and B8.  Returns (state, rows or None)."""
+        P = self.page_size
+        if self.light is None and not want_rows:
             return trace_shade_streamed(state, *self.stables, seed, P, RB,
-                                        fixed_rng, wc, chunk_live)
+                                        fixed_rng, wc, chunk_live), None
         rows = trace_streamed(state[0:3], state[3:6], state[ROW_ALIVE],
                               *self.stables, P, RB, chunk_live=chunk_live)
-        shd = shadow_mask_streamed(state, rows, key, wave, fixed_rng,
-                                   self.light, self.stables, P, RB)
-        return shade(state, rows, seed, RB, fixed_rng, wc, chunk_live, shd)
+        shd = None
+        if self.light is not None:
+            shd = shadow_mask_streamed(state, rows, key, wave, fixed_rng,
+                                       self.light, self.stables, P, RB)
+        return shade(state, rows, seed, RB, fixed_rng, wc, chunk_live,
+                     shd), rows
+
+    def _render_legacy(self, o, d, alive0, key, maxdepth: int,
+                       fixed_rng: bool, pk0, want_primary: bool):
+        """The legacy wave loop (JAX `_render_device`): no compaction; o, d
+        [3, R] and the accum, weight and alive of every ray carried whole.
+        Each wave: the masked rays, a cull (B1; with exact_cull=False the
+        chunk-bound cull at wave 0 and the octant cull after), a stable
+        sort, B6 to winner rows (zero_origin on the folded pages at wave
+        0), the shadow pass when lit, `shade_rows`, and the weight cutoff.
+        Returns (accum [3, R], wave counts, primary [2, R] or None)."""
+        R = o.shape[1]
+        RB = self.ray_chunk
+        P = self.page_size
+        dev = o.device
+        wc = 0.0 if fixed_rng else WEIGHT_CUTOFF
+        accum = torch.zeros((3, R), dtype=torch.float32, device=dev)
+        weight = torch.ones((R,), dtype=torch.float32, device=dev)
+        alive = alive0
+        wave_counts = []
+        primary = None
+        for wave in range(maxdepth):
+            wave_counts.append(alive.sum(dtype=torch.int32))
+            o_m = torch.where(alive[None], o, 0.0)
+            d_m = torch.where(alive[None], d, 0.0)
+            if self.exact_cull:
+                mask, tmin = cull_mask_exact(o_m, d_m, alive, self.aabb_lo,
+                                             self.aabb_hi, RB)
+            elif wave == 0:
+                mask, tmin = cull_mask_tmin(
+                    *chunk_bounds(o_m, d_m, alive, RB), self.aabb_lo,
+                    self.aabb_hi)
+            else:
+                mask, tmin = cull_mask_tmin_octants(
+                    *chunk_bounds_octants(o_m, d_m, alive, RB),
+                    self.aabb_lo, self.aabb_hi)
+            counts, plist, ptmin = page_lists(mask, tmin)
+            zo = wave == 0 and pk0 is not None
+            rows = trace_chunks(o_m, d_m, pk0 if zo else self.PK, counts,
+                                plist, ptmin, P, RB, zero_origin=zo)
+            if wave == 0 and want_primary:
+                primary = rows[ROW_T:ROW_ID + 1]
+            rv = legacy_rv(key, wave, R, fixed_rng, dev)
+            shadowed = None
+            if self.light is not None:
+                shadowed = legacy_shadow_mask(
+                    o_m, d_m, alive, rows, key, wave, fixed_rng, self.light,
+                    self.aabb_lo, self.aabb_hi, self.PK, P, RB)
+            contrib, weight, alive, o, d = shade_rows(
+                rows, o_m, d_m, weight, alive, rv, shadowed,
+                fused_ddot=wave > 0)
+            accum = accum + contrib
+            if wc > 0.0:
+                alive = alive & (weight > wc)
+        return accum, wave_counts, primary
 
     def render(self, v: Viewport, key=None, fixed_rng: bool = False,
                progress=None, debug: bool = False,
                quantize: bool = True) -> RenderResult:
         """Render `v`.  key: a `utils.rng.prng_key` (default key 0);
-        quantize=True returns u8 quantized on the device, False float."""
-        if debug:
-            raise NotImplementedError("debug buffers: ROADMAP A7")
-        if v.samples_per_pixel != 1:
-            raise NotImplementedError("spp > 1: ROADMAP A6")
+        quantize=True returns u8 (quantized on the device where that is
+        byte-equal to the host's quantization, `device_quantizable`), False
+        float.  debug: also the primary hit buffers (primary_t,
+        primary_id; and in the compacted resident regime at spp 1 the
+        candidate sets, primary_chunk and chunk_tris)."""
         key = prng_key(0) if key is None else np.asarray(key, np.uint32)
         RB = self.ray_chunk
+        spp = v.samples_per_pixel
         dev = self.device
         t0 = time.perf_counter()
 
         tile = pick_tile(v.width, v.height)
-        R0 = v.height * v.width
+        R0 = v.height * v.width * spp
+        # whole chunks, the 128-lane compaction alignment, whole sample
+        # groups: the lcm, as the JAX Engine pads
         quantum = max(RB, 128)
+        quantum = quantum * spp // math.gcd(quantum, spp)
         R = -(-R0 // quantum) * quantum
-        o, d = camera_rays_tiled(v, tile, R, dev)
+        quant = quantize and device_quantizable(spp)
+        o, d = camera_rays_tiled(v, tile, R, dev, key)
         o, pk0 = self._pinhole_fold(v, o)
-        alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
-        state = torch.cat(
-            [o, d, alive0, alive0,
-             torch.zeros((STATE_ROWS - ROW_ACC, R), dtype=torch.float32,
-                         device=dev)], dim=0)
-
-        img, wave_counts = self._render_waves(state, key, v.maxdepth,
-                                              fixed_rng, pk0)
-        if quantize:
+        alive0 = torch.arange(R, device=dev) < R0
+        cull0 = None
+        if self._use_compact():
+            a0 = alive0.to(torch.float32)[None]
+            state = torch.cat(
+                [o, d, a0, a0,
+                 torch.zeros((STATE_ROWS - ROW_ACC, R), dtype=torch.float32,
+                             device=dev)], dim=0)
+            img, wave_counts, primary, cull0 = self._render_waves(
+                state, key, v.maxdepth, fixed_rng, pk0, want_primary=debug)
+        else:
+            img, wave_counts, primary = self._render_legacy(
+                o, d, alive0, key, v.maxdepth, fixed_rng, pk0, debug)
+        if quant:
+            if spp > 1:
+                img = box_filter(img, spp)
             img = quantize_u8(img)
         img_h = img.cpu().numpy()
         wave_counts = torch.stack(wave_counts).cpu().numpy()
-        img = _assemble_host_image(img_h, v, self._perm(v, tile), 1, quantize)
-        if self._auto_schedule and dev.type == "cuda":
+        perm = self._perm(v, tile)
+        img = _assemble_host_image(img_h, v, perm, spp, quant,
+                                   want_u8=quantize and not quant)
+        pt = pid = primary_chunk = chunk_tris = None
+        if debug:
+            pt, pid, primary_chunk, chunk_tris = self._debug_buffers(
+                v, perm, primary, cull0, RB)
+        if self._auto_schedule and self._use_compact() and dev.type == "cuda":
             # one shot, as the JAX Engine on the TPU: the schedule changes
             # speed only, never bits
             self._auto_schedule = False
@@ -512,8 +778,75 @@ class Engine:
 
         seconds = time.perf_counter() - t0
         result = RenderResult(image=img, rays_traced=int(wave_counts.sum()),
-                              wave_rays=wave_counts, primary_t=None,
-                              primary_id=None, seconds=seconds)
+                              wave_rays=wave_counts, primary_t=pt,
+                              primary_id=pid, seconds=seconds,
+                              primary_chunk=primary_chunk,
+                              chunk_tris=chunk_tris)
         if progress is not None:
             progress.update_wavefront(result)
         return result
+
+    def _debug_buffers(self, v: Viewport, perm, primary, cull0, RB: int):
+        """The debug buffers of a render, un-permuted on the host: primary
+        t and id per sample ([H, W] or [H, W, spp]) and, where the render
+        kept wave 0's page lists (cull0) at spp 1, each pixel's primary
+        chunk and each chunk's candidate triangle ids (the surviving pages'
+        ids, as debug.rs records its check_tris)."""
+        spp = v.samples_per_pixel
+        R0 = v.height * v.width * spp
+        primary_h = primary.cpu().numpy()[:, :R0]
+        pt = np.empty(R0, dtype=np.float32)
+        pid = np.empty(R0, dtype=np.int32)
+        pt[perm] = primary_h[0]
+        pid[perm] = primary_h[1].astype(np.int32)
+        shape = (v.height, v.width, spp) if spp > 1 else (v.height, v.width)
+        primary_chunk = chunk_tris = None
+        if cull0 is not None and spp == 1:
+            counts_h = cull0[0].cpu().numpy()
+            plist_h = cull0[1].cpu().numpy()
+            page_ids = self.pages.PK[:, :, LANE_ID].astype(np.int64)
+            chunk_tris = []
+            for c in range(counts_h.shape[0]):
+                ids = page_ids[plist_h[c, :counts_h[c]]].ravel()
+                chunk_tris.append(np.unique(ids[ids > 0]))
+            qpos = np.empty(R0, dtype=np.int64)
+            qpos[perm] = np.arange(R0)
+            primary_chunk = (qpos // RB).reshape(v.height, v.width)
+        return pt.reshape(shape), pid.reshape(shape), primary_chunk, \
+            chunk_tris
+
+    def walk_one_ray(self, v: Viewport, px, key=None,
+                     fixed_rng: bool = True) -> RenderResult:
+        """Single-pixel probe (Viewport::walk_one_ray, raytrace.rs:1442-1455)
+        through the compacted wave loop: the pixel's ray (its image-plane
+        origin, no pinhole fold) rides lane 0 of one 128-lane chunk, with
+        ray_chunk 128 and a compaction after every wave but the last, the
+        wave 0 unfused, and the scene's shadow pass when lit.  Under
+        fixed_rng (the default) the probed pixel equals render()'s bitwise;
+        with live RNG it is an independent sample (the scatter hash keys on
+        the lane)."""
+        row, col = px
+        key = prng_key(0) if key is None else np.asarray(key, np.uint32)
+        dev = self.device
+        o_np, d_np = pixel_rays(v, np.asarray(row), np.asarray(col))
+        R = 128
+        state = torch.zeros((STATE_ROWS, R), dtype=torch.float32, device=dev)
+        state[0:3, 0] = torch.from_numpy(np.asarray(o_np, F32).reshape(3))
+        state[3:6, 0] = torch.from_numpy(np.asarray(d_np, F32).reshape(3))
+        state[ROW_W:ROW_ALIVE + 1, 0] = 1.0          # weight, alive
+        img, wave_counts, primary, _ = self._render_waves(
+            state, key, v.maxdepth, fixed_rng, None, ray_chunk=R,
+            ncompact=-1, want_primary=True)
+        wave_rays = torch.stack(wave_counts).cpu().numpy()
+        primary_h = primary.cpu().numpy()
+        return RenderResult(
+            image=img.cpu().numpy()[:, 0].reshape(1, 1, 3),
+            rays_traced=int(wave_rays.sum()), wave_rays=wave_rays,
+            primary_t=primary_h[0, 0].reshape(1, 1),
+            primary_id=primary_h[1, 0].astype(np.int32).reshape(1, 1))
+
+    def render_banded(self, v: Viewport, **kw):
+        raise NotImplementedError("render_banded: ROADMAP A10")
+
+    def render_sharded(self, v: Viewport, **kw):
+        raise NotImplementedError("render_sharded: ROADMAP A11")

@@ -1,9 +1,12 @@
-"""B1: exact packet cull of ray chunks against page AABBs.
+"""B1: exact packet cull of ray chunks against page AABBs; and the XLA
+path's interval-arithmetic culls.
 
 Counterpart: `rust_raytrace_tpu/ops/cull_pallas.py:cull_mask_exact_pallas`
 (and its XLA form `ops/cull.py:cull_mask_exact`).  `cull_mask_exact` runs
 the CUDA kernel `csrc/cull.cu` on CUDA tensors and `cull_mask_exact_plain`
 on CPU tensors; chip_smoke.py holds the two equal on the card.
+`chunk_bounds`, `cull_mask_tmin` and their octant forms are the JAX
+package's `ops/cull.py` functions of the same names, in torch ops.
 """
 
 import torch
@@ -93,3 +96,87 @@ def cull_mask_exact(ot, dt, valid, blo, bhi, ray_chunk: int):
                 blo.data_ptr(), bhi.data_ptr(), NP, NC, ray_chunk,
                 mask.data_ptr(), tmin.data_ptr(), native.stream(dev))
     return mask, tmin
+
+
+# The interval-arithmetic culls of the JAX package's XLA path
+# (`rust_raytrace_tpu/ops/cull.py`): torch glue on any device, not kernels.
+# `Engine(exact_cull=False)` culls wave 0 with one bound per chunk and the
+# bounce waves with one per direction octant; the legacy loop's shadow rays
+# always take the octant form.
+
+def chunk_bounds(ot, dt, valid, ray_chunk: int):
+    """Per-chunk origin and direction AABBs of the valid rays: (olo, ohi,
+    dlo, dhi), each [NC, 3]; a chunk with no valid ray gets inverted
+    bounds, which fail every page test.  ot, dt: [3, R]; valid: [R] bool."""
+    R = ot.shape[1]
+    NC = R // ray_chunk
+    o = ot.reshape(3, NC, ray_chunk)
+    d = dt.reshape(3, NC, ray_chunk)
+    v = valid.reshape(1, NC, ray_chunk)
+    return (torch.where(v, o, torch.inf).amin(dim=-1).T,
+            torch.where(v, o, -torch.inf).amax(dim=-1).T,
+            torch.where(v, d, torch.inf).amin(dim=-1).T,
+            torch.where(v, d, -torch.inf).amax(dim=-1).T)
+
+
+def cull_mask_tmin(olo, ohi, dlo, dhi, blo, bhi):
+    """([NC, NP] bool, [NC, NP] float32): whether some ray of a chunk's
+    bounds can enter a page, and a lower bound of its entry distance (+inf
+    where not).  Per axis, the interval of t at which t*d, d in [dlo, dhi],
+    reaches the Minkowski-expanded box [blo - ohi, bhi - olo]; the chunk
+    hits the page iff the three intervals intersect."""
+    blo_e = blo[None, :, :] - ohi[:, None, :]
+    bhi_e = bhi[None, :, :] - olo[:, None, :]
+    dlo_e = dlo[:, None, :].expand(blo_e.shape)
+    dhi_e = dhi[:, None, :].expand(blo_e.shape)
+    overlap0 = (blo_e <= 0) & (bhi_e >= 0)
+    pos_ok = dhi_e > 0
+    pos_tlo = blo_e / dhi_e
+    pos_thi = torch.where(dlo_e > 0, bhi_e / dlo_e, torch.inf)
+    neg_ok = dlo_e < 0
+    neg_tlo = bhi_e / dlo_e
+    neg_thi = torch.where(dhi_e < 0, blo_e / dhi_e, torch.inf)
+    pos_case = blo_e > 0
+    feasible = overlap0 | torch.where(pos_case, pos_ok, neg_ok)
+    tlo = torch.where(overlap0, 0.0, torch.where(pos_case, pos_tlo, neg_tlo))
+    thi = torch.where(overlap0, torch.inf,
+                      torch.where(pos_case, pos_thi, neg_thi))
+    tlo = torch.where(feasible, tlo, torch.inf)
+    thi = torch.where(feasible, thi, -torch.inf)
+    tmin = tlo.amax(dim=-1)
+    hit = (tmin <= thi.amin(dim=-1)) & feasible.all(dim=-1)
+    return hit, torch.where(hit, tmin, torch.inf)
+
+
+def chunk_bounds_octants(ot, dt, valid, ray_chunk: int):
+    """`chunk_bounds` per direction octant (the sign pattern of d), so each
+    sub-bundle's direction box is sign-definite: four [8, NC, 3] tensors."""
+    R = ot.shape[1]
+    NC = R // ray_chunk
+    o = ot.reshape(3, NC, ray_chunk)
+    d = dt.reshape(3, NC, ray_chunk)
+    v = valid.reshape(1, NC, ray_chunk)
+    oct_id = ((d[0:1] < 0).int() + 2 * (d[1:2] < 0).int()
+              + 4 * (d[2:3] < 0).int())
+    out = ([], [], [], [])
+    for q in range(8):
+        vq = v & (oct_id == q)
+        out[0].append(torch.where(vq, o, torch.inf).amin(dim=-1).T)
+        out[1].append(torch.where(vq, o, -torch.inf).amax(dim=-1).T)
+        out[2].append(torch.where(vq, d, torch.inf).amin(dim=-1).T)
+        out[3].append(torch.where(vq, d, -torch.inf).amax(dim=-1).T)
+    return tuple(torch.stack(b) for b in out)
+
+
+def cull_mask_tmin_octants(olo8, ohi8, dlo8, dhi8, blo, bhi):
+    """The octant-split cull: a page survives if any octant's bounds hit
+    it, with the least entry bound of those octants."""
+    nc = olo8.shape[1]
+    hit8, tmin8 = cull_mask_tmin(
+        olo8.reshape(8 * nc, 3), ohi8.reshape(8 * nc, 3),
+        dlo8.reshape(8 * nc, 3), dhi8.reshape(8 * nc, 3), blo, bhi)
+    hit8 = hit8.reshape(8, nc, -1)
+    tmin8 = tmin8.reshape(8, nc, -1)
+    hit = hit8.any(dim=0)
+    tmin = torch.where(hit8, tmin8, torch.inf).amin(dim=0)
+    return hit, torch.where(hit, tmin, torch.inf)

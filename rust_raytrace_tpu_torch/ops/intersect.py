@@ -1,12 +1,15 @@
-"""The packed-triangle hit predicate and the union trace over culled page
-lists: B2, the wave-0 trace + shade, and B6, the trace alone (winner rows).
+"""The packed-triangle hit predicate, the union trace over culled page
+lists (B2, the wave-0 trace + shade, and B6, the trace alone to winner
+rows) and the dense brute-force nearest hit (B11).
 
 Counterparts in `rust_raytrace_tpu/ops/intersect_pallas.py`:
 `packed_hit_predicate`, `fold_pages_origin`, `trace_shade_chunks_pallas`
-(inner `_kernel_trace_shade`, `_trace_pages`) and `trace_chunks_pallas`
-(inner `_kernel_trace`).  `trace_shade_chunks` and `trace_chunks` run the
+(inner `_kernel_trace_shade`, `_trace_pages`), `trace_chunks_pallas`
+(inner `_kernel_trace`) and `nearest_hit_pallas` (inner `_kernel`,
+`_predicate_update`).  `trace_shade_chunks` and `trace_chunks` run the
 CUDA kernel `csrc/trace_shade_union.cu` on CUDA tensors and
-`trace_shade_chunks_plain` and `trace_chunks_plain` on CPU tensors.
+`trace_shade_chunks_plain` and `trace_chunks_plain` on CPU tensors;
+`nearest_hit` runs `csrc/nearest_hit.cu` or `nearest_hit_plain`.
 
 The plain version computes what the TPU kernel computes, page by page: the
 per-page (t, id) minimum, the lexicographic update of each ray's winner, the
@@ -255,3 +258,70 @@ def trace_chunks(ot, dt, PK, counts, plist, ptmin, page_size: int,
         counts.data_ptr(), plist.data_ptr(), ptmin.data_ptr(),
         int(zero_origin), ray_chunk, out.data_ptr(), native.stream(dev))
     return out
+
+
+#: (triangle, ray) pairs a block of the plain nearest hits
+#: (`nearest_hit_plain`, `intersect_xla.nearest_hit_xla`) evaluates at once,
+#: by device: on the host the float64 temporaries of the emulated fma stay
+#: in its cache; on a card few large blocks keep the launches few
+PLAIN_PAIRS = {"cpu": 1 << 16, "cuda": 1 << 26}
+
+
+def nearest_hit_plain(O, D, PK, ray_chunk: int = 1024):
+    """Plain torch version of `nearest_hit`.  Each ray is independent of
+    its chunk, so ray_chunk changes nothing here."""
+    R = O.shape[0]
+    dev = O.device
+    best_t = torch.full((R,), torch.inf, dtype=torch.float32, device=dev)
+    best_id = torch.zeros((R,), dtype=torch.float32, device=dev)
+    ot, dt = O.T, D.T
+    pk = PK[..., :USED_LANES]
+    block = max(128, PLAIN_PAIRS.get(dev.type, 1 << 16) // PK.shape[1])
+    for r0 in range(0, R, block):
+        rays = slice(r0, min(R, r0 + block))
+        o3 = tuple(ot[k, rays][None] for k in range(3))    # [1, n]
+        d3 = tuple(dt[k, rays][None] for k in range(3))
+        bt, bi = best_t[rays], best_id[rays]
+        for page in pk:
+
+            def col(f, page=page):
+                return page[:, f:f + 1]                    # [P, 1]
+
+            t, ok, ids, _, _ = packed_hit_predicate(col, o3, d3)
+            tt = torch.where(ok, t, torch.inf)
+            gmin = tt.amin(dim=0)
+            gid = torch.where(tt == gmin, ids, torch.inf).amin(dim=0)
+            upd = (gmin < bt) | ((gmin == bt) & ~torch.isinf(gmin)
+                                 & (gid < bi))
+            bt = torch.where(upd, gmin, bt)
+            bi = torch.where(upd, gid, bi)
+        best_t[rays], best_id[rays] = bt, bi
+    return best_t, best_id.to(torch.int32)
+
+
+def nearest_hit(O, D, PK, page_size: int, ray_chunk: int = 1024):
+    """Nearest hit of every ray against every triangle (dense brute force).
+
+    O, D: [R, 3] float32 ray origins and directions (d = 0: a padding ray,
+    which never hits); PK: [NP, P, 128] packed pages.  Returns (best_t [R]
+    float32, +inf on a miss; best_id [R] int32, 0 on a miss): the
+    lexicographic (t, id) minimum over all triangles, so the least t and,
+    on a tie, the least id.  ray_chunk is the TPU kernel's block of rays;
+    the winners do not depend on it."""
+    dev = O.device
+    if dev.type == "cpu":
+        return nearest_hit_plain(O, D, PK, ray_chunk)
+    native.require(dev.type == "cuda",
+                   f"nearest_hit: no kernel for device {dev}")
+    R = O.shape[0]
+    NP = PK.shape[0]
+    native.check_tensor("O", O, dev, (R, 3), torch.float32)
+    native.check_tensor("D", D, dev, (R, 3), torch.float32)
+    native.check_tensor("PK", PK, dev, (NP, page_size, 128), torch.float32)
+    best_t = torch.empty((R,), dtype=torch.float32, device=dev)
+    best_id = torch.empty((R,), dtype=torch.int32, device=dev)
+    if R:
+        native.NEAREST_HIT(O.data_ptr(), D.data_ptr(), R, PK.data_ptr(),
+                           page_size, NP, best_t.data_ptr(),
+                           best_id.data_ptr(), native.stream(dev))
+    return best_t, best_id

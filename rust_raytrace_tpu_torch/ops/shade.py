@@ -90,6 +90,14 @@ def norm2(v0, v1, v2):
     return fma(v2, v2, fma(v0, v0, v1 * v1))
 
 
+def sum3(a, b):
+    """a0*b0 + a1*b1 + a2*b2 as XLA-CPU compiles `jnp.sum(a * b, axis)`
+    over an axis of three: x, y, z in order, each product fused into the
+    running sum from +0: fma(a2, b2, fma(a1, b1, a0*b0 + 0)).  a, b: the
+    three components each (a [3, ...] tensor or a sequence)."""
+    return fma(a[2], b[2], fma(a[1], b[1], a[0] * b[0] + 0.0))
+
+
 def unit3(v0, v1, v2):
     """Normalize a 3-vector given as three equal-shape tensors."""
     inv = rsqrt(norm2(v0, v1, v2))

@@ -193,8 +193,15 @@ TRACE_STREAMED = Kernel(
     "rust_raytrace_tpu_torch/csrc/trace_streamed.cu",
     "rust_raytrace_tpu/ops/intersect_streamed.py:612")
 
+NEAREST_HIT = Kernel(
+    "nearest_hit", "rt_nearest_hit",
+    [P, P, I64, P, I32, I32, P, P, P],
+    "rust_raytrace_tpu_torch/csrc/nearest_hit.cu",
+    "rust_raytrace_tpu/ops/intersect_pallas.py:163")
+
 KERNELS = (CULL, TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND,
-           TRACE_UNION_ROWS, SHADE, TRACE_SHADE_STREAMED, TRACE_STREAMED)
+           TRACE_UNION_ROWS, SHADE, TRACE_SHADE_STREAMED, TRACE_STREAMED,
+           NEAREST_HIT)
 
 
 def reset_launch_counts() -> None:

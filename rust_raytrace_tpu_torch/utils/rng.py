@@ -10,8 +10,11 @@ words (Salmon et al., SC'11).  Neither step depends on
 `jax_threefry_partitionable`, which only changes how bulk random bits are
 laid out.  The shade kernels draw their scatter vectors from a counter hash
 of these words (`ops/shade.scatter_rv`), not from `jax.random` bit streams;
-the one bulk draw the render makes is the wave-0 shadow jitter
-(`engine.shadow_mask`), which `uniform` reproduces.
+the bulk draws, which `uniform` reproduces, are the shadow jitter
+(`engine.shadow_rays_od`), the legacy loop's and the portable renderer's
+scatter vectors (`engine.legacy_rv`, `render._random_unit_vec`) and the
+portable renderer's spp jitter (`render.camera_rays`); the Engine's spp
+jitter hashes absolute positions (`engine.pos_uniform`).
 
 Keys are host numpy `[2]` uint32 arrays: they seed kernels as two scalars and
 never need the device.

@@ -23,6 +23,7 @@ from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
                                         intersect_perlane, intersect_streamed,
                                         shade)
 from rust_raytrace_tpu_torch.models import circles
+from rust_raytrace_tpu_torch.render import WavefrontRenderer, camera_rays
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
 from rust_raytrace_tpu_torch.utils import native, png
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key
@@ -169,7 +170,8 @@ def test_golden_on_card_launches_every_kernel(dev):
     assert launches == {"cull_mask_exact": 1, "trace_shade_chunks": 1,
                         "compact": 2, "trace_shade_perlane": vp.maxdepth - 1,
                         "expand": 2, "trace_chunks": 0, "shade": 0,
-                        "trace_shade_streamed": 0, "trace_streamed": 0}
+                        "trace_shade_streamed": 0, "trace_streamed": 0,
+                        "nearest_hit": 0}
 
 
 def _bitwise(got, want):
@@ -228,7 +230,8 @@ def test_lit_render_on_card_equals_cpu(dev):
     assert launches == {"cull_mask_exact": 2, "trace_shade_chunks": 0,
                         "compact": 2, "trace_shade_perlane": vp.maxdepth - 1,
                         "expand": 2, "trace_chunks": 2, "shade": 1,
-                        "trace_shade_streamed": 0, "trace_streamed": 0}
+                        "trace_shade_streamed": 0, "trace_streamed": 0,
+                        "nearest_hit": 0}
     ref = Engine(scene, device="cpu").render(vp, key=prng_key(1)).image
     np.testing.assert_array_equal(img, ref)
 
@@ -314,3 +317,48 @@ def test_streamed_render_on_card_equals_cpu(dev, lit):
     ref = Engine(scene, page_size=8, ray_chunk=RB, streamed=True,
                  device="cpu").render(vp, key=prng_key(1)).image
     np.testing.assert_array_equal(img, ref)
+
+
+def test_nearest_hit_matches_plain(dev):
+    """B11 on circles' camera rays at 96x54 and on rays from the image
+    plane in scattered directions, page size 256, with R not a multiple of
+    the kernel's block: t and id bitwise."""
+    scene, vp = circles.build(resolution=(96, 54), maxdepth=5)
+    wr = WavefrontRenderer(scene, device=dev)
+    o, d = camera_rays(vp, prng_key(0), dev)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    d2 = torch.nn.functional.normalize(
+        torch.rand((1000, 3), generator=gen) - 0.5, dim=1).to(dev)
+    PK = wr.tensors.PK
+    for O, D in ((o, d), (o[:1000].contiguous(), d2.contiguous())):
+        native.reset_launch_counts()
+        t, i = intersect.nearest_hit(O, D, PK, 256)
+        assert native.NEAREST_HIT.launches == 1
+        tp, ip = intersect.nearest_hit_plain(O, D, PK)
+        torch.cuda.synchronize()
+        _bitwise(t, tp)
+        assert torch.equal(i, ip) and i.dtype == torch.int32
+        assert 0 < int((i != 0).sum()) < O.shape[0]
+
+
+@pytest.mark.parametrize("backend", ["kernel", "portable"])
+def test_wavefront_render_on_card_equals_cpu(dev, backend):
+    """WavefrontRenderer at 64x36, live RNG, in two slabs: the card's float
+    image, primary buffers and wave_rays equal the CPU's bitwise; the
+    kernel backend launches B11 once a wave of each slab and nothing
+    else."""
+    scene, vp = circles.build(resolution=(64, 36), maxdepth=4)
+    kw = dict(backend=backend, slab_size=1536)
+    native.reset_launch_counts()
+    got = WavefrontRenderer(scene, device=dev, **kw).render(
+        vp, key=prng_key(2))
+    launches = {k.name: k.launches for k in native.KERNELS}
+    want = WavefrontRenderer(scene, device="cpu", **kw).render(
+        vp, key=prng_key(2))
+    n_b11 = 2 * vp.maxdepth if backend == "kernel" else 0
+    assert launches == {k: (n_b11 if k == "nearest_hit" else 0)
+                        for k in launches}
+    for a, b in ((got.image, want.image), (got.primary_t, want.primary_t)):
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+    np.testing.assert_array_equal(got.primary_id, want.primary_id)
+    np.testing.assert_array_equal(got.wave_rays, want.wave_rays)

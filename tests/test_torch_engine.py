@@ -220,26 +220,43 @@ def test_engine_rejects_streamed_regime(small):
 
 
 def test_engine_rejects_lights():
-    """A lit scene renders since the lights path (ROADMAP A5) was ported;
-    what that path still rejects is what every scene does: debug buffers
-    and spp > 1."""
+    """A lit scene renders since the lights path (ROADMAP A5) was ported,
+    and so does it at spp > 1 (A6) and with debug buffers (A7); what it
+    still rejects is what every scene does: banded (A10) and sharded (A11)
+    renders."""
     scene, vp = circles.build(resolution=(8, 8))
     scene.lights = LightSource(orig=np.asarray([0.0, 5.0, 6.0], np.float32),
                                len2=0.5)
     eng = Engine(scene, device="cpu")
     assert eng.light == (0.0, 5.0, 6.0, 0.5)
     _, vp2 = circles.build(resolution=(8, 8), samples=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        eng.render(vp2, fixed_rng=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        eng.render(vp, fixed_rng=True, debug=True)
+    img = eng.render(vp2, fixed_rng=True).image
+    assert img.shape == (8, 8, 3) and img.dtype == np.uint8
+    dbg = eng.render(vp, fixed_rng=True, debug=True)
+    assert dbg.primary_id.shape == (8, 8) and dbg.primary_t.shape == (8, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        eng.render_banded(vp, fixed_rng=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        eng.render_sharded(vp, fixed_rng=True)
 
 
 def test_render_rejects_spp_and_debug(small):
+    """spp > 1 (ROADMAP A6) and debug buffers (A7) render: u8 at
+    spp 2 and 3 (host-quantized), the primary buffers and candidate sets;
+    the bounce_chunk knob and banded renders are still rejected."""
     _, scene, vp = small
     eng = Engine(scene, ray_chunk=RB, device="cpu")
-    _, vp2 = circles.build(resolution=(16, 16), samples=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        eng.render(vp2, fixed_rng=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        eng.render(vp, fixed_rng=True, debug=True)
+    for spp in (2, 3):
+        _, vp2 = circles.build(resolution=(16, 16), samples=spp)
+        res = eng.render(vp2, fixed_rng=True)
+        assert res.image.shape == (16, 16, 3)
+        assert res.image.dtype == np.uint8
+        assert res.wave_rays[0] == 16 * 16 * spp
+    dbg = eng.render(vp, fixed_rng=True, debug=True)
+    assert dbg.primary_t.shape == (vp.height, vp.width)
+    assert dbg.primary_chunk.shape == (vp.height, vp.width)
+    assert len(dbg.chunk_tris) == -(-vp.width * vp.height // RB)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(scene, device="cpu", bounce_chunk=256)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        eng.render_banded(vp)

@@ -43,11 +43,13 @@ PORT_MODULES = [
     "rust_raytrace_tpu_torch.ops.intersect",
     "rust_raytrace_tpu_torch.ops.intersect_perlane",
     "rust_raytrace_tpu_torch.ops.intersect_streamed",
+    "rust_raytrace_tpu_torch.ops.intersect_xla",
     "rust_raytrace_tpu_torch.ops.compact",
     "rust_raytrace_tpu_torch.utils.rng",
     "rust_raytrace_tpu_torch.utils.native",
     "rust_raytrace_tpu_torch.utils.xla_rsqrt",
     "rust_raytrace_tpu_torch.utils.png",
+    "rust_raytrace_tpu_torch.utils.progress",
 ]
 
 
@@ -78,6 +80,22 @@ def test_port_imports_without_the_jax_package():
         "scene, vp = circles.build(resolution=(16, 9), maxdepth=2)\n"
         "img = Engine(scene, ray_chunk=128, device='cpu').render(vp).image\n"
         "assert img.shape == (9, 16, 3)\n",
+        blocked=("jax", "rust_raytrace_tpu"))
+
+
+def test_portable_renderer_runs_without_the_jax_package():
+    """WavefrontRenderer, both backends, with jax and the JAX package
+    blocked (one torch thread: the suite's workers share the host)."""
+    _run_blocked(
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from rust_raytrace_tpu_torch.models import circles\n"
+        "from rust_raytrace_tpu_torch.render import WavefrontRenderer\n"
+        "scene, vp = circles.build(resolution=(16, 9), maxdepth=2)\n"
+        "for b in ('kernel', 'portable'):\n"
+        "    img = WavefrontRenderer(scene, backend=b, device='cpu')"
+        ".render(vp).image\n"
+        "    assert img.shape == (9, 16, 3)\n",
         blocked=("jax", "rust_raytrace_tpu"))
 
 
@@ -146,6 +164,23 @@ def test_compact_constants_equal_jax(name):
     "LANE_ALPHA", "LANE_SCAT", "PACK_LANES"])
 def test_page_lanes_equal_jax(name):
     assert getattr(tpages, name) == getattr(jpages, name)
+
+
+def test_render_constants_equal_jax():
+    """The sky of the portable shade and the fixed_rng scatter vector,
+    which XLA folds from unit((0.36, 0.48, 0.8)) inside the jitted
+    trace_rays."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import rust_raytrace_tpu.render as jrender
+    import rust_raytrace_tpu_torch.render as trender
+    np.testing.assert_array_equal(np.asarray(trender.SKY, np.float32),
+                                  np.asarray(jrender.SKY))
+    folded = jax.jit(lambda: jrender._unit(
+        jnp.asarray([0.36, 0.48, 0.8], dtype=jnp.float32)))()
+    np.testing.assert_array_equal(np.asarray(trender.FIXED_RV, np.float32),
+                                  np.asarray(folded))
 
 
 @pytest.mark.parametrize("name", ["KIND_SOLID", "KIND_MATTE",
