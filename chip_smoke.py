@@ -11,8 +11,12 @@ past the resident tables' cap) unlit (B9 every wave, B3, B5) and lit (B10
 twice and B8 every wave, B3, B5); the portable renderer on circles_2k
 (WavefrontRenderer: B11 every wave of every slab); the legacy loop on
 circles_2k (Engine(compact=False): B1 and B6 every wave); spp 4 on circles
-512x512 (the unlit path's kernels); and a debug render (wave 0 through B1,
-B6 and B8).
+512x512 (the unlit path's kernels); a debug render (wave 0 through B1,
+B6 and B8); synthetic_1m_2k through Engine(bank_major=True) (B9 on waves
+0-1, the bank-major sweep's prep, sweep and finish, B12a-c, on the later
+waves, B3, B5); circles_2k through render_banded (the unlit path's
+kernels, band by band); and the per-lane shadow pass
+(engine.shadow_mask_perlane, B7 any-hit) on lit circles_2k's wave-1 rows.
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -38,7 +42,19 @@ Phases, each fatal on failure:
      and fixed RNG, all bitwise, and each timed on the full wave; then B11
      (t and id) on 64 chunks of circles_2k's camera rays and wave-1 rays at
      the WavefrontRenderer's page size 256, bitwise, timed on full waves
-     beside its bound, with its ptxas report;
+     beside its bound, with its ptxas report; B7 (nearest, all 16 rows) on
+     the lit circles_2k chunks' wave-1 rays and any-hit with
+     self-exclusion on their shadow rays (the occlusion bit), again on a
+     resident sphere of 4 banks (camera rays, wave-1 rays, shadow rays),
+     timed on the full lit wave 1 beside its bound, and the per-lane
+     shadow pass against the B1/B6 one there (lanes that differ, times in
+     turns, its launches); B12 on synthetic_1m_2k's wave-2 state (after B9
+     waves 0-1 and their compactions), under fixed and live RNG, on
+     N_CHECK_CHUNKS chunks with dead chunks past the prefix: prep's winner
+     init and demand, the sweep's winner stream, finish's state bitwise
+     against the plain phases and the chained B12 against B9; on the whole
+     wave-2 state B12 == B9 bitwise, each phase timed beside its bound, and
+     the chain and B9 timed in turns; B7's and B12's ptxas reports;
   4. golden: the 96x54 circles render under fixed_rng of the default
      (compacted) Engine, of WavefrontRenderer(backend="kernel") and of
      Engine(compact=False) is byte-equal to tests/goldens/circles_96x54.png;
@@ -48,7 +64,11 @@ Phases, each fatal on failure:
      WavefrontRenderer; the WavefrontRenderer's "kernel" vs "portable"
      backends; the Engine vs the WavefrontRenderer; the compacted vs the
      legacy Engine, unlit, lit and at spp 4: at most 0.01% of u8 pixels
-     may differ in each;
+     may differ in each; the bank-major Engine on the sphere, kernel vs
+     plain path (at most 0.01%) and against the worklist Engine (0 pixels,
+     an equal float image); shadow_mask_perlane vs shadow_mask on lit
+     circles' wave-1 rows (at most 0.01% of lanes); render_banded in three
+     bands vs render() (0 pixels, equal wave_rays);
   6. circles_2k (2560x1440, maxdepth 5, live RNG): the default Engine after
      its autotune (the planned schedule printed) and Engine(ncompact=0),
      three timed renders each, in turns; then the lit default Engine, three
@@ -60,14 +80,19 @@ Phases, each fatal on failure:
      its defaults (B11 only) and through Engine(compact=False) (B1 and B6,
      none of B2-B5), and the default Engine at spp 4 on circles 512x512;
      then one debug render of circles_2k (buffer shapes, valid hit ids,
-     candidate sets); every kernel of each path must have launched in its
-     renders and no kernel of another path (counts set to 0 just before
-     each render);
+     candidate sets); synthetic_1m_2k through Engine(bank_major=True),
+     three timed renders after a warm-up (B9 twice and B12a-c three times
+     a render, none of B1, B2, B4, B10, B11) and one fixed_rng render
+     byte-equal to the default Engine's; circles_2k through render_banded
+     in three bands of 480 rows, three timed renders and one fixed_rng
+     render byte-equal to render()'s; every kernel of each path must have
+     launched in its renders and no kernel of another path (counts set to
+     0 just before each render);
   7. profile: one default, one ncompact=0, one lit, one WavefrontRenderer
-     and one legacy circles_2k render and one unlit and one lit
-     synthetic_1m_2k render under torch.profiler (the card's time per
-     kernel and copy, by kind with B11 apart, its busy share) and the host
-     un-permute timed alone.
+     and one legacy circles_2k render and one unlit, one bank-major and one
+     lit synthetic_1m_2k render under torch.profiler (the card's time per
+     kernel and copy, by kind with B11, B9 and B12a-c apart, its busy
+     share) and the host un-permute timed alone.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, with no such line, when
 CUDA is missing or any phase fails.
@@ -79,6 +104,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -140,6 +166,14 @@ NOT_LEGACY = ("trace_shade_chunks", "compact", "trace_shade_perlane",
               "expand")
 #: a debug render's wave 0 runs unfused: B1, B6 to rows, B8
 DEBUG_PATH = ("cull_mask_exact", "trace_chunks", "shade")
+#: Engine(bank_major=True) in the streamed regime, unlit: B9 on waves 0-1,
+#: the bank-major sweep's three kernels (B12) on the later waves
+BANK_MAJOR_PATH = ("trace_shade_streamed", "bankmajor_prep",
+                   "bankmajor_sweep", "bankmajor_finish", "compact",
+                   "expand")
+BANK_MAJOR_KERNELS = ("bankmajor_prep", "bankmajor_sweep", "bankmajor_finish")
+#: the per-lane shadow pass (engine.shadow_mask_perlane): B7 alone
+PERLANE_SHADOW_PATH = ("trace_perlane",)
 #: the phase-5 resolution of the synthetic_1m sphere (the plain path walks
 #: the 35 banks with many small torch ops)
 STREAMED_CHECK_RES = (640, 360)
@@ -260,6 +294,18 @@ PLAIN = {"cull_mask_exact": cull.cull_mask_exact_plain,
          "trace_streamed": intersect_streamed.trace_streamed_plain}
 
 
+def _plain_perlane_rows(ot, dt, alive, plt_i, plt_s, ab, page_size,
+                        ray_chunk, chunk_live=None, excl=None,
+                        any_hit=False):
+    return intersect_perlane.trace_perlane_plain(
+        ot, dt, alive, plt_i, plt_s, ab, page_size, excl, any_hit, ray_chunk,
+        chunk_live)
+
+
+PLAIN["trace_shade_bankmajor"] = intersect_streamed.trace_shade_bankmajor_plain
+PLAIN["trace_perlane"] = _plain_perlane_rows
+
+
 def _plain_nearest(O, D, PK, page_size, ray_chunk):
     return intersect.nearest_hit_plain(O, D, PK, ray_chunk)
 
@@ -290,16 +336,18 @@ def plain_path():
 
 
 def _streamed_bound(eng, page_of, o, d, valid, ids, io_bytes: int,
-                    shade_flops: int = 0, any_hit: bool = False) -> dict:
-    """The least time the card could take for one streamed trace (B9 or
-    B10) of rays o/d [3, n] with `valid` [n] that found the triangles `ids`
-    [n] (0: none), counting what this run's data needs: bytes, io_bytes
-    per ray plus the bank AABBs, the page AABBs of every bank that holds a
-    found triangle and the features of every page that does (intersect
-    and shade; intersect only for any-hit); operations, every valid ray's
-    slab test of every bank, of the 128 pages of one bank for a ray that
-    enters a bank, the hit tests of its found triangle's page (one
-    triangle for any-hit), and shade_flops per valid ray."""
+                    shade_flops: int = 0, any_hit: bool = False,
+                    feats=None) -> dict:
+    """The least time the card could take for one streamed trace (B9, B10
+    or B12's sweep) of rays o/d [3, n] with `valid` [n] that found the
+    triangles `ids` [n] (0: none), counting what this run's data needs:
+    bytes, io_bytes per ray plus the bank AABBs, the page AABBs of every
+    bank that holds a found triangle and the features of every page that
+    does (intersect and shade, or `feats` of them; intersect only for
+    any-hit); operations, every valid ray's slab test of every bank, of the
+    128 pages of one bank for a ray that enters a bank, the hit tests of its
+    found triangle's page (one triangle for any-hit), and shade_flops per
+    valid ray."""
     plt_i, _, _, bank_ab = eng.stables
     NB, P = plt_i.shape[0], eng.page_size
     bb = bank_ab[:NB]
@@ -317,7 +365,8 @@ def _streamed_bound(eng, page_of, o, d, valid, ids, io_bytes: int,
     hits = valid & (ids != 0)
     pages = torch.unique(page_of[ids[hits].long()])
     banks = torch.unique(pages // 128)
-    feats = 17 if any_hit else 24
+    if feats is None:
+        feats = 17 if any_hit else 24
     n_bytes = (o.shape[1] * io_bytes + NB * 7 * 4 + banks.numel() * 128 * 7 * 4
                + pages.numel() * P * feats * 4)
     flops = (int(valid.sum()) * (NB * SLAB_FLOPS + shade_flops)
@@ -326,7 +375,294 @@ def _streamed_bound(eng, page_of, o, d, valid, ids, io_bytes: int,
     return _bound(n_bytes, flops)
 
 
-def streamed_kernels(dev, card, key, results):
+def _page_of(eng, n_tris: int, dev):
+    """[n_tris + 1] int64: the page of each triangle id."""
+    P = eng.page_size
+    ids = eng.pages.PK[:, :, LANE_ID].astype(np.int64)
+    page_of = np.zeros(n_tris + 1, np.int64)
+    page_of[ids.ravel()] = np.repeat(np.arange(ids.shape[0]), P)
+    return torch.from_numpy(page_of).to(dev)
+
+
+def _perlane_bound(eng, page_of, o, valid, ids, io_bytes: int,
+                   any_hit: bool = False) -> dict:
+    """The least time the card could take for one per-lane trace over the
+    resident tables (B7) of rays o [3, n] with `valid` [n] that found the
+    triangles `ids` [n]: bytes, io_bytes per ray plus the page AABBs and
+    the features of every page that holds a found triangle (intersect and
+    payload; intersect only for any-hit); operations, every valid ray's
+    slab test of every page and the hit tests of its found triangle's page
+    (one triangle for any-hit)."""
+    NP, P = eng.pages.num_pages, eng.page_size
+    hits = valid & (ids != 0)
+    pages = torch.unique(page_of[ids[hits].long()])
+    feats = 17 if any_hit else 24
+    return _bound(o.shape[1] * io_bytes + NP * 7 * 4
+                  + pages.numel() * P * feats * 4,
+                  int(valid.sum()) * NP * SLAB_FLOPS
+                  + int(hits.sum()) * (1 if any_hit else P) * HIT_FLOPS)
+
+
+def _print_ptxas(build_log: str, label: str, names) -> None:
+    """The -Xptxas -v report (registers, spills) of the kernels whose
+    mangled names hold one of `names`."""
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and any(n in line
+                                                      for n in names):
+            for rep_line in lines[i:i + 4]:
+                print(f"  ptxas {label}: {rep_line.strip()}")
+
+
+def _wave2_state(eng, full0, key, fixed: bool):
+    """The wave-2 state of the streamed Engine's default schedule: B9 wave
+    0, compaction (B3), B9 wave 1, compaction; dead chunks past the
+    survivor prefix."""
+    dev = full0.device
+    R = full0.shape[1]
+    P = eng.page_size
+    cb = compact.pick_cb(R)
+    wc = 0.0 if fixed else 1 / 512
+    dead = compact.make_dead_array(R, dev, 2, cb)
+    base = torch.zeros((), dtype=torch.int32, device=dev)
+    prefix = None
+    st = full0
+    for wave in (0, 1):
+        live = ((st[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+                if wave else torch.ones(R // RB, dtype=torch.int32,
+                                        device=dev))
+        st = intersect_streamed.trace_shade_streamed(
+            st, *eng.stables, fold_in(key, wave), P, RB, fixed, wc, live)
+        meta, total_a, skip, dead_end = compact.compact_meta(
+            st[7], st[11], cb, base, R)
+        st, dead = compact.compact(st, dead, meta, cb, grid_live=prefix)
+        old = (torch.full((), R, dtype=torch.int32, device=dev)
+               if prefix is None else prefix)
+        prefix = torch.where(skip, old, total_a)
+        base = torch.where(skip, base, dead_end)
+    return st
+
+
+def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
+    """Phase 3 for the bank-major sweep (B12) on synthetic_1m_2k: the
+    wave-2 state of the default schedule (after waves 0-1 and their
+    compactions), under fixed and live RNG, on N_CHECK_CHUNKS chunks
+    spread over its live chunks plus dead chunks past the prefix: prep's
+    winner init and group demand, the sweep's winner stream, finish's
+    state, each bitwise against its plain phase, and the chained B12
+    against B9; then the whole wave: B12 == B9 bitwise, and each phase, the
+    chain and B9 timed beside their bounds."""
+    dev = full0.device
+    tabs = eng.stables
+    P = eng.page_size
+    NB = tabs[0].shape[0]
+    st_ = intersect_streamed
+    errs = {k: 0.0 for k in BANK_MAJOR_KERNELS}
+    for fixed in (True, False):
+        wc = 0.0 if fixed else 1 / 512
+        full2 = _wave2_state(eng, full0, key, fixed)
+        live2 = (full2[7] != 0).reshape(-1, RB).any(dim=1)
+        lc = torch.nonzero(live2)[:, 0]
+        n_dead = 8
+        pick = torch.linspace(0, lc.numel() - 1, N_CHECK_CHUNKS - n_dead,
+                              device=dev).round().long()
+        tail = torch.arange(int(lc[-1]) + 1, int(lc[-1]) + 1 + n_dead,
+                            device=dev)
+        if int(tail[-1]) >= live2.numel():
+            raise AssertionError("wave-2 state: no dead chunks past the "
+                                 "prefix")
+        chunks = torch.cat([lc[pick], tail])
+        rays = (chunks[:, None] * RB
+                + torch.arange(RB, device=dev)).reshape(-1)
+        st2 = full2[:, rays].contiguous()
+        cl = (st2[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+        seed = fold_in(key, 2)
+        win_k, gm_k = st_.bankmajor_prep(st2, tabs[3], NB, RB, cl)
+        win_p, gm_p = st_.bankmajor_prep_plain(st2, tabs[3], NB, RB, cl)
+        errs["bankmajor_prep"] = _require_bitwise(
+            f"B12a winner init, fixed_rng {fixed}", win_k, win_p)
+        if not torch.equal(gm_k, gm_p):
+            raise AssertionError(f"B12a demand: {int((gm_k != gm_p).sum())} "
+                                 f"(bank, chunk) words differ")
+        count, order = st_.bankmajor_order(gm_k)
+        sw_k = st_.bankmajor_sweep(st2, win_k, gm_k, count, order, *tabs, P,
+                                   RB)
+        sw_p = st_.bankmajor_sweep_plain(st2, win_k, gm_k, count, order,
+                                         *tabs, P, RB)
+        errs["bankmajor_sweep"] = _require_bitwise(
+            f"B12b winner stream, fixed_rng {fixed}", sw_k, sw_p)
+        fin = (st2, sw_k, tabs[0], tabs[1], seed, P, RB, fixed, wc, cl)
+        out_k = st_.bankmajor_finish(*fin)
+        errs["bankmajor_finish"] = _require_bitwise(
+            f"B12c state, fixed_rng {fixed}", out_k,
+            st_.bankmajor_finish_plain(*fin))
+        b9 = st_.trace_shade_streamed(st2, *tabs, seed, P, RB, fixed, wc, cl)
+        _require_bitwise(f"B12 chained vs B9, fixed_rng {fixed}",
+                         st_.trace_shade_bankmajor(st2, *tabs, seed, P, RB,
+                                                   fixed, wc, cl), b9)
+        _require_bitwise(f"B12 chained vs B9, fixed_rng {fixed}", out_k, b9)
+        print(f"B12 on {N_CHECK_CHUNKS} chunks of synthetic_1m_2k's wave-2 "
+              f"state (fixed_rng {fixed}; {int((cl == 0).sum())} chunks "
+              f"dead, {int((st2[7] != 0).sum())} rays live, "
+              f"{int((gm_k != 0).sum())} of {gm_k.numel()} (bank, chunk) "
+              f"pairs demanded, {int((sw_k[1] != 0).sum())} hits): prep, "
+              f"sweep and finish bitwise equal to their plain phases, the "
+              f"chain bitwise equal to B9")
+    # timings: the live-RNG check inputs, then the whole wave-2 state
+    wc = 1 / 512
+    n = st2.shape[1]
+    valid = st2[7] != 0
+    hits = valid & (sw_k[1] != 0)
+    pre = (st2, tabs[3], NB, RB, cl)
+    swa = (st2, win_k, gm_k, count, order, *tabs, P, RB)
+    results["bankmajor_prep"] = dict(
+        rays=n, max_abs_err=errs["bankmajor_prep"],
+        ms=_time_ms(lambda: st_.bankmajor_prep(*pre)),
+        plain_ms=_time_ms(lambda: st_.bankmajor_prep_plain(*pre), reps=1),
+        **_bound(n * 40 + NB * (n // RB) * 4 + NB * 28,
+                 int(valid.sum()) * NB * SLAB_FLOPS))
+    results["bankmajor_sweep"] = dict(
+        rays=n, max_abs_err=errs["bankmajor_sweep"],
+        ms=_time_ms(lambda: st_.bankmajor_sweep(*swa)),
+        plain_ms=_time_ms(lambda: st_.bankmajor_sweep_plain(*swa), reps=1),
+        **_streamed_bound(eng, page_of, st2[0:3], st2[3:6], valid, sw_k[1],
+                          52, feats=17))
+    results["bankmajor_finish"] = dict(
+        rays=n, max_abs_err=errs["bankmajor_finish"],
+        ms=_time_ms(lambda: st_.bankmajor_finish(*fin)),
+        plain_ms=_time_ms(lambda: st_.bankmajor_finish_plain(*fin), reps=1),
+        **_bound(n * 140 + int(hits.sum()) * 24 * 4,
+                 int(valid.sum()) * SHADE_FLOPS
+                 + int(hits.sum()) * HIT_FLOPS))
+    R = full2.shape[1]
+    flive = live2.to(torch.int32)
+    seed = fold_in(key, 2)
+    fvalid = full2[7] != 0
+    fwin, fgm = st_.bankmajor_prep(full2, tabs[3], NB, RB, flive)
+    fcount, forder = st_.bankmajor_order(fgm)
+    fsw = st_.bankmajor_sweep(full2, fwin, fgm, fcount, forder, *tabs, P, RB)
+    fhits = fvalid & (fsw[1] != 0)
+    chain = (full2, *tabs, seed, P, RB, False, wc, flive)
+    b9_full = st_.trace_shade_streamed(*chain)
+    _require_bitwise("B12 chained vs B9 on the whole wave-2 state",
+                     st_.trace_shade_bankmajor(*chain), b9_full)
+    full = {
+        "bankmajor_prep": (
+            lambda: st_.bankmajor_prep(full2, tabs[3], NB, RB, flive),
+            _bound(R * 40 + NB * (R // RB) * 4 + NB * 28,
+                   int(fvalid.sum()) * NB * SLAB_FLOPS)),
+        "bankmajor_sweep": (
+            lambda: st_.bankmajor_sweep(full2, fwin, fgm, fcount, forder,
+                                        *tabs, P, RB),
+            _streamed_bound(eng, page_of, full2[0:3], full2[3:6], fvalid,
+                            fsw[1], 52, feats=17)),
+        "bankmajor_finish": (
+            lambda: st_.bankmajor_finish(full2, fsw, tabs[0], tabs[1], seed,
+                                         P, RB, False, wc, flive),
+            _bound(R * 140 + int(fhits.sum()) * 24 * 4,
+                   int(fvalid.sum()) * SHADE_FLOPS
+                   + int(fhits.sum()) * HIT_FLOPS)),
+    }
+    for name, (fn, bound) in full.items():
+        ms = _time_ms(fn)
+        results[name].update(ms_full=ms, bound_ms_full=bound["bound_ms"],
+                             bound_by_full=bound["bound_by"])
+        print(f"time {name} (whole wave-2 state of synthetic_1m_2k, "
+              f"{R // RB} chunks, {int(flive.sum())} live): kernel "
+              f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) [{card}]")
+    chain_bound = _streamed_bound(eng, page_of, full2[0:3], full2[3:6],
+                                  fvalid, fsw[1], 128, SHADE_FLOPS)
+    t_glue = _time_ms(lambda: st_.bankmajor_order(fgm))
+    t_chain = _time_ms(lambda: st_.trace_shade_bankmajor(*chain), reps=3)
+    t_b9 = _time_ms(lambda: st_.trace_shade_streamed(*chain), reps=3)
+    t_chain2 = _time_ms(lambda: st_.trace_shade_bankmajor(*chain), reps=3)
+    t_b9_2 = _time_ms(lambda: st_.trace_shade_streamed(*chain), reps=3)
+    # the banks a live wave-2 ray enters (the most an index-order sweep
+    # can visit for it) and those it enters before its hit (the least a
+    # front-to-back walk visits)
+    bb = tabs[3][:NB]
+    lo, dl = full2[0:3, fvalid], full2[3:6, fvalid]
+    btlo, bthi = cull.slab([bb[:, k:k + 1] for k in range(3)],
+                           [bb[:, k + 3:k + 4] for k in range(3)],
+                           [lo[k][None] for k in range(3)],
+                           [cull.slab_inv(dl[k])[None] for k in range(3)])
+    entered = (btlo <= bthi) & (bthi >= 0.0) & (bb[:, 6:7] != 0.0)
+    before = entered & (btlo <= fsw[0][fvalid][None])
+    n_entered = float(entered.sum(dim=0).float().mean())
+    n_before = float(before.sum(dim=0).float().mean())
+    del btlo, bthi, entered, before, lo, dl
+    print(f"wave-2 rays of synthetic_1m_2k enter {n_entered:.3f} of {NB} "
+          f"bank AABBs on average, {n_before:.3f} of them before their hit")
+    results["bankmajor_sweep"]["wave2"] = dict(
+        chain_ms=[t_chain, t_chain2], b9_ms=[t_b9, t_b9_2], glue_ms=t_glue,
+        bound_ms=chain_bound["bound_ms"], bound_by=chain_bound["bound_by"],
+        banks_entered_mean=n_entered, banks_before_hit_mean=n_before)
+    print(f"time B12 chained (prep, glue, sweep, finish) vs B9 on the whole "
+          f"wave-2 state ({int(fvalid.sum())} live rays, {int(fhits.sum())} "
+          f"hits), in turns: B12 {t_chain:.4f}, B9 {t_b9:.4f}, B12 "
+          f"{t_chain2:.4f}, B9 {t_b9_2:.4f} ms; glue {t_glue:.4f} ms; bound "
+          f"{chain_bound['bound_ms']:.4f} ms ({chain_bound['bound_by']}) "
+          f"[{card}]")
+    _print_ptxas(build_log, "B12", ("bm_prep", "bm_sweep", "bm_finish"))
+
+
+def perlane_banks(dev, key):
+    """B7 on a resident scene of several banks: a 120x120 lat/lon sphere
+    (28,560 triangles) before synthetic_1m_2k's camera; on N_CHECK_CHUNKS
+    chunks of camera rays that hit it, nearest rows, then the wave-1
+    bounce rays' nearest rows and their shadow rays' any-hit occlusion
+    bits with self-exclusion, against the plain version."""
+    scene = assemble([make_sphere((0.0, 0.0, 10.0), 4.0, (120, 120),
+                                  matte(m3.make_color((252, 119, 0)), 0.2),
+                                  0.0)])
+    eng = Engine(scene, device=dev)
+    P = eng.page_size
+    NB = eng.ab.shape[0] // 128
+    if eng.streamed or NB < 2:
+        raise AssertionError(f"B7 scene: streamed {eng.streamed}, {NB} banks")
+    tabs = (eng.plt_i, eng.plt_s, eng.ab)
+    vp = synthetic_view((2560, 1440))
+    R0 = vp.width * vp.height
+    R = -(-R0 // RB) * RB
+    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
+                                                           vp.height), R, dev)
+    alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)
+    frows = intersect_perlane.trace_perlane(o, d, alive0, *tabs, P, RB)
+    hit_chunks = torch.nonzero((frows[1] != 0).reshape(-1, RB).any(dim=1))
+    pick = torch.linspace(0, hit_chunks.numel() - 1, N_CHECK_CHUNKS,
+                          device=dev).round().long()
+    rays = (hit_chunks[pick, 0][:, None] * RB
+            + torch.arange(RB, device=dev)).reshape(-1)
+    a = alive0[rays][None]
+    st0 = torch.cat([o[:, rays], d[:, rays], a, a,
+                     torch.zeros((8, rays.numel()), device=dev)])
+    cam = (st0[0:3], st0[3:6], st0[7], *tabs, P, RB)
+    rows0 = intersect_perlane.trace_perlane(*cam)
+    _require_bitwise("B7 camera rays, several banks", rows0,
+                     _plain_perlane_rows(*cam))
+    ones = torch.ones(st0.shape[1] // RB, dtype=torch.int32, device=dev)
+    st1 = shade.shade(st0, rows0, fold_in(key, 0), RB, False, 1 / 512, ones)
+    w1 = (st1[0:3], st1[3:6], st1[7], *tabs, P, RB)
+    rows1 = intersect_perlane.trace_perlane(*w1)
+    _require_bitwise("B7 wave-1 rays, several banks", rows1,
+                     _plain_perlane_rows(*w1))
+    so, sd, hit, excl = eng_mod.shadow_rays(st1, rows1, key, 1, False, LIGHT)
+    sh = (so, sd, hit.float(), *tabs, P, RB)
+    occ = intersect_perlane.trace_perlane(*sh, excl=excl, any_hit=True)
+    occ_p = _plain_perlane_rows(*sh, excl=excl, any_hit=True)
+    if not torch.equal(occ[1] != 0, occ_p[1] != 0):
+        raise AssertionError("B7 any-hit, several banks: occlusion bits "
+                             "differ")
+    print(f"B7 on a resident sphere of {len(scene.tris) - 1} triangles, "
+          f"{eng.pages.num_pages} pages of {P} in {NB} banks, "
+          f"{N_CHECK_CHUNKS} chunks: camera rays ({int((rows0[1] != 0).sum())}"
+          f" hits) and wave-1 rays ({int((rows1[1] != 0).sum())} hits) "
+          f"bitwise equal; any-hit occlusion bits equal ({int(hit.sum())} "
+          f"shadow rays, {int((occ[1] != 0).sum())} occluded)")
+
+
+def streamed_kernels(dev, card, key, results, build_log):
     """Phase 3 for the streamed regime: B10 and B9 on synthetic_1m_2k, on
     N_CHECK_CHUNKS chunks spread over those whose camera rays hit the
     sphere, and on whole waves.  Returns (scene, its default Engine,
@@ -347,10 +683,7 @@ def streamed_kernels(dev, card, key, results):
           f"{eng.pages.num_pages} pages of {P}, {NB} banks, streamed tables "
           f"{mb:.1f} MB on the card; host: scene {t1 - t0:.1f} s, Engine "
           f"{t2 - t1:.1f} s")
-    ids = eng.pages.PK[:, :, LANE_ID].astype(np.int64)
-    page_of = np.zeros(len(scene.tris), np.int64)
-    page_of[ids.ravel()] = np.repeat(np.arange(ids.shape[0]), P)
-    page_of = torch.from_numpy(page_of).to(dev)
+    page_of = _page_of(eng, len(scene.tris) - 1, dev)
     vp = synthetic_view((2560, 1440))
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
@@ -476,6 +809,8 @@ def streamed_kernels(dev, card, key, results):
           f"{R0} rays, {int((focc[1] != 0).sum())} shadowed; wave 1: "
           f"{int((full1[7] != 0).sum())} live rays, "
           f"{int((frows1[1] != 0).sum())} hits")
+    del fso, fsd, fhit, fexcl, fsh, focc, full1, frows1, frows
+    bankmajor_kernels(eng, page_of, full0, card, key, results, build_log)
     return scene, eng, vp
 
 
@@ -563,7 +898,9 @@ def wavefront_kernels(dev, card, key, results, build_log):
 #: the kernels' function names in csrc/*.cu
 PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
                 "trace_shade_perlane_kernel", "expand_kernel",
-                "shade_kernel", "trace_streamed_kernel", "nearest_hit_kernel")
+                "shade_kernel", "trace_streamed_kernel", "nearest_hit_kernel",
+                "trace_perlane_kernel", "bm_prep_kernel", "bm_sweep_kernel",
+                "bm_finish_kernel")
 
 
 def _groups(per_name) -> dict:
@@ -784,6 +1121,44 @@ def main() -> int:
     print(f"B4 with the shadow feeler on {N_CHECK_CHUNKS} chunks: bitwise "
           f"equal; {hits1} hit rays ran the feeler")
 
+    # B7 (trace_perlane, the trace of the per-lane shadow pass) on the same
+    # chunks' lit wave-1 rays: nearest rows, then any-hit with each ray's
+    # own triangle excluded on their shadow rays
+    tabs7 = (eng.plt_i, eng.plt_s, eng.ab)
+    page_of_c = _page_of(eng, len(scene.tris) - 1, dev)
+    ray7 = (st1l_k[0:3], st1l_k[3:6], st1l_k[7], *tabs7, P, RB)
+    rows7 = intersect_perlane.trace_perlane(*ray7)
+    err7 = _require_bitwise("B7 lit wave-1 rays", rows7,
+                            _plain_perlane_rows(*ray7))
+    so7, sd7, hit7, excl7 = eng_mod.shadow_rays(st1l_k, rows7, key, 1, False,
+                                                LIGHT)
+    sh7 = (so7, sd7, hit7.float(), *tabs7, P, RB)
+    occ7 = intersect_perlane.trace_perlane(*sh7, excl=excl7, any_hit=True)
+    occ7_p = _plain_perlane_rows(*sh7, excl=excl7, any_hit=True)
+    n_bits = int(((occ7[1] != 0) != (occ7_p[1] != 0)).sum())
+    if n_bits:
+        raise AssertionError(f"B7 any-hit: {n_bits} occlusion bits differ")
+    results[native.TRACE_PERLANE.name] = dict(
+        rays=int(st0.shape[1]), max_abs_err=err7,
+        ms=_time_ms(lambda: intersect_perlane.trace_perlane(*ray7)),
+        plain_ms=_time_ms(lambda: _plain_perlane_rows(*ray7), reps=2),
+        **_perlane_bound(eng, page_of_c, st1l_k[0:3], st1l_k[7] != 0,
+                         rows7[1], 92),
+        any_hit=dict(
+            ms=_time_ms(lambda: intersect_perlane.trace_perlane(
+                *sh7, excl=excl7, any_hit=True)),
+            plain_ms=_time_ms(lambda: _plain_perlane_rows(
+                *sh7, excl=excl7, any_hit=True), reps=2),
+            **_perlane_bound(eng, page_of_c, so7, hit7, occ7[1], 96,
+                             any_hit=True)))
+    print(f"B7 on {N_CHECK_CHUNKS} chunks of lit circles_2k's wave-1 rays "
+          f"(1 bank): nearest rows bitwise equal "
+          f"({int((rows7[1] != 0).sum())} hits); any-hit occlusion bits "
+          f"equal ({int(hit7.sum())} shadow rays, "
+          f"{int((occ7[1] != 0).sum())} occluded)")
+    perlane_banks(dev, key)
+    _print_ptxas(built["log"], "B7", ("trace_perlane_kernel",))
+
     # the kernels alone at full 2k size (3,600 chunks)
     alive_f = full0[7] != 0.0
     fm, ft = cull.cull_mask_exact(full0[0:3], full0[3:6], alive_f,
@@ -859,6 +1234,64 @@ def main() -> int:
     print(f"time threefry glue (jax.random.uniform of [3, {R}] and [1, {R}]"
           f", torch ops): {t_rng:.4f} ms per wave-0 shadow pass [{card}]; "
           f"{int(fhit.sum())} hits, {int(fshd.sum())} shadowed")
+
+    # B7 on the full lit wave 1, and the per-lane shadow pass
+    # (shadow_mask_perlane, B7's path) beside the B1/B6 one on its rows
+    fray7 = (full1l[0:3], full1l[3:6], full1l[7], *tabs7, P, RB)
+    frows7 = intersect_perlane.trace_perlane(*fray7)
+    fso7, fsd7, fhit7, fexcl7 = eng_mod.shadow_rays(full1l, frows7, key, 1,
+                                                    False, LIGHT)
+    fsh7 = (fso7, fsd7, fhit7.float(), *tabs7, P, RB)
+    focc7 = intersect_perlane.trace_perlane(*fsh7, excl=fexcl7, any_hit=True)
+    for name, res, fn, bound in (
+            ("B7 nearest, lit wave-1 rays",
+             results[native.TRACE_PERLANE.name],
+             lambda: intersect_perlane.trace_perlane(*fray7),
+             _perlane_bound(eng, page_of_c, full1l[0:3], full1l[7] != 0,
+                            frows7[1], 92)),
+            ("B7 any-hit, their shadow rays",
+             results[native.TRACE_PERLANE.name]["any_hit"],
+             lambda: intersect_perlane.trace_perlane(*fsh7, excl=fexcl7,
+                                                     any_hit=True),
+             _perlane_bound(eng, page_of_c, fso7, fhit7, focc7[1], 96,
+                            any_hit=True))):
+        ms = _time_ms(fn)
+        res.update(ms_full=ms, bound_ms_full=bound["bound_ms"],
+                   bound_by_full=bound["bound_by"])
+        print(f"time {name} (full lit 2k wave, {R // RB} chunks): kernel "
+              f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) [{card}]")
+    spass = (full1l, frows7, key, 1, False, LIGHT)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    smask7 = eng_mod.shadow_mask_perlane(*spass, *tabs7, P, RB)
+    torch.cuda.synchronize()
+    perlane_launches = _counts()
+    smask6 = eng_mod.shadow_mask(*spass, eng.aabb_lo, eng.aabb_hi, eng.PK, P,
+                                 RB)
+    n_lanes = int((smask7 != smask6).sum())
+    t7 = [_time_ms(lambda: eng_mod.shadow_mask_perlane(*spass, *tabs7, P,
+                                                       RB), reps=3)]
+    t6 = [_time_ms(lambda: eng_mod.shadow_mask(
+        *spass, eng.aabb_lo, eng.aabb_hi, eng.PK, P, RB), reps=3)]
+    t7.append(_time_ms(lambda: eng_mod.shadow_mask_perlane(*spass, *tabs7,
+                                                           P, RB), reps=3))
+    t6.append(_time_ms(lambda: eng_mod.shadow_mask(
+        *spass, eng.aabb_lo, eng.aabb_hi, eng.PK, P, RB), reps=3))
+    results[native.TRACE_PERLANE.name]["shadow_pass"] = dict(
+        perlane_ms=t7, union_ms=t6, lanes_differ=n_lanes)
+    print(f"shadow pass on the full lit circles_2k wave-1 rows "
+          f"({int(fhit7.sum())} shadow rays, {int(smask7.sum())} shadowed): "
+          f"per-lane (B7) vs B1/B6 branch, {n_lanes} of {R} lanes differ; "
+          f"in turns per-lane {t7[0]:.4f}, B1/B6 {t6[0]:.4f}, per-lane "
+          f"{t7[1]:.4f}, B1/B6 {t6[1]:.4f} ms; launches of the per-lane "
+          f"pass {perlane_launches} [{card}]")
+    if n_lanes > 1e-4 * R or perlane_launches["trace_perlane"] != 1 or any(
+            c for k, c in perlane_launches.items() if k != "trace_perlane"):
+        raise AssertionError("per-lane shadow pass: lanes differ beyond "
+                             "0.01%, or launched other than B7 once")
+    del fray7, frows7, fso7, fsd7, fhit7, fexcl7, fsh7, focc7, spass
+    del smask7, smask6
     del frows, fsargs, fhit, fexcl, fsrows, fshd, full1l
 
     # B3 and B5 on the whole state after wave 0: the first boundary
@@ -934,7 +1367,8 @@ def main() -> int:
           f"{int(dead_end)}): bitwise equal; {n_a2} survivors in a prefix "
           f"of {int(total_a2)} lanes")
     del full2, out2_k, out2_p, dead2_k, dead2_p, y2, back2_k, back2_p, masks2
-    s_scene, eng_s, s_vp = streamed_kernels(dev, card, key, results)
+    s_scene, eng_s, s_vp = streamed_kernels(dev, card, key, results,
+                                            built["log"])
     w_scene, wr, w_vp = wavefront_kernels(dev, card, key, results,
                                           built["log"])
     t_zero = _time_ms(lambda: torch.zeros_like(full1))
@@ -1015,7 +1449,71 @@ def main() -> int:
         check_paths(f"synthetic_1m streamed {label}",
                     lambda: e5.render(s_vp5, fixed_rng=True).image,
                     lambda: e5.render(s_vp5, fixed_rng=True).image)
+        if label == "unlit":
+            # the bank-major sweep (B12) on the same Engine: kernel vs
+            # plain path, and the bits of the worklist Engine (B9)
+            e5.bank_major = True
+            check_paths("synthetic_1m streamed bank-major",
+                        lambda: e5.render(s_vp5, fixed_rng=True).image,
+                        lambda: e5.render(s_vp5, fixed_rng=True).image)
+            native.reset_launch_counts()
+            bm_f = e5.render(s_vp5, fixed_rng=True, quantize=False)
+            bm5 = _counts()
+            e5.bank_major = False
+            wl_f = e5.render(s_vp5, fixed_rng=True, quantize=False)
+            n_px = int((png.quantize_u8(bm_f.image)
+                        != png.quantize_u8(wl_f.image)).any(axis=-1).sum())
+            same_f = np.array_equal(bm_f.image.view(np.uint32),
+                                    wl_f.image.view(np.uint32))
+            print(f"bank-major vs worklist Engine, synthetic_1m "
+                  f"{s_vp5.width}x{s_vp5.height} fixed_rng: {n_px} pixels "
+                  f"differ, float images equal {same_f}, wave_rays "
+                  f"{bm_f.wave_rays.tolist()}; bank-major launches {bm5}")
+            if n_px or not same_f or not np.array_equal(
+                    bm_f.wave_rays, wl_f.wave_rays) or any(
+                        bm5[k] == 0 for k in BANK_MAJOR_KERNELS):
+                raise AssertionError("bank-major and worklist Engines "
+                                     "differ, or B12 never launched")
         del e5
+
+    # the per-lane shadow pass (B7) against the B1/B6 one on lit circles'
+    # wave-1 rows: both ask whether another triangle passes the predicate
+    c_scene, c_vp = circles.build(resolution=(640, 360), maxdepth=5)
+    ec = Engine(lit(c_scene), device=dev)
+    cP = ec.page_size
+    cR0 = c_vp.width * c_vp.height
+    cR = -(-cR0 // RB) * RB
+    co, cd = eng_mod.camera_rays_tiled(
+        c_vp, eng_mod.pick_tile(c_vp.width, c_vp.height), cR, dev)
+    co, cpk0 = ec._pinhole_fold(c_vp, co)
+    ca = (torch.arange(cR, device=dev) < cR0).to(torch.float32)[None]
+    cst0 = torch.cat([co, cd, ca, ca, torch.zeros((8, cR), device=dev)])
+    ckey = prng_key(5)
+    cm, ct = cull.cull_mask_exact(cst0[0:3], cst0[3:6], cst0[7] != 0,
+                                  ec.aabb_lo, ec.aabb_hi, RB)
+    crows0 = intersect.trace_chunks(cst0[0:3], cst0[3:6], cpk0,
+                                    *page_lists(cm, ct), cP, RB,
+                                    zero_origin=True)
+    cshd0 = eng_mod.shadow_mask(cst0, crows0, ckey, 0, True, LIGHT,
+                                ec.aabb_lo, ec.aabb_hi, ec.PK, cP, RB)
+    cst1 = shade.shade(cst0, crows0, fold_in(ckey, 0), RB, True, 0.0,
+                       torch.ones(cR // RB, dtype=torch.int32, device=dev),
+                       cshd0)
+    ctabs = (ec.plt_i, ec.plt_s, ec.ab)
+    crows1 = intersect_perlane.trace_perlane(cst1[0:3], cst1[3:6], cst1[7],
+                                             *ctabs, cP, RB)
+    cm7 = eng_mod.shadow_mask_perlane(cst1, crows1, ckey, 1, True, LIGHT,
+                                      *ctabs, cP, RB)
+    cm6 = eng_mod.shadow_mask(cst1, crows1, ckey, 1, True, LIGHT, ec.aabb_lo,
+                              ec.aabb_hi, ec.PK, cP, RB)
+    n_lanes = int((cm7 != cm6).sum())
+    print(f"shadow_mask_perlane vs shadow_mask, lit circles "
+          f"{c_vp.width}x{c_vp.height} wave-1 rows, fixed_rng: {n_lanes} of "
+          f"{cR} lanes differ ({int(cm7.sum())} shadowed of "
+          f"{int(((cst1[7] != 0) & (crows1[1] != 0)).sum())} hits)")
+    if n_lanes > 1e-4 * cR or not cm7.any():
+        raise AssertionError("the two shadow passes differ beyond 0.01%")
+    del cst0, cst1, crows0, crows1, cm, ct, cm7, cm6, ec
 
     # 5b. the portable renderer and the Engine's other paths at 640x360:
     # B11 against its plain version through the whole WavefrontRenderer, the
@@ -1050,6 +1548,17 @@ def main() -> int:
                 Engine(sc, device=dev).render(p_vp, fixed_rng=True).image,
                 Engine(sc, compact=False, device=dev).render(
                     p_vp, fixed_rng=True).image)
+    # render_banded in three bands of 120 rows vs render()
+    e_band = Engine(p_scene, device=dev)
+    band5 = e_band.render_banded(p_vp, fixed_rng=True, band_rows=120)
+    full5 = e_band.render(p_vp, fixed_rng=True)
+    n_px = int((band5.image != full5.image).any(axis=-1).sum())
+    print(f"render_banded (3 bands of 120 rows) vs render, circles "
+          f"{p_vp.width}x{p_vp.height} fixed_rng: {n_px} pixels differ, "
+          f"wave_rays {band5.wave_rays.tolist()} vs "
+          f"{full5.wave_rays.tolist()}")
+    if n_px or not np.array_equal(band5.wave_rays, full5.wave_rays):
+        raise AssertionError("render_banded and render differ")
     q_scene, q_vp = circles.build(resolution=(640, 360), maxdepth=5,
                                   samples=4)
     compare("Engine spp 4 compacted vs legacy",
@@ -1273,12 +1782,60 @@ def main() -> int:
           f"of {nc} chunks (mean {np.mean([len(c) for c in dbg.chunk_tris]):.1f}"
           f" triangles); launches {dbg_launches} [{card}]")
 
+    # 6h. synthetic_1m_2k through Engine(bank_major=True): three timed
+    # renders after the autotune's; B9 on waves 0-1, B12 on waves 2-4
+    s_lights, s_scene.lights = s_scene.lights, None
+    eng_bm = Engine(s_scene, bank_major=True, device=dev)
+    s_scene.lights = s_lights
+    if not (eng_bm.streamed and eng_bm.bank_major
+            and eng_bm.light is None):
+        raise AssertionError("bank-major synthetic_1m: not streamed unlit")
+    bm_best, bm_launches = timed(
+        "synthetic_1m_2k Engine(bank_major=True)", eng_bm, s_vp,
+        BANK_MAJOR_PATH, RESIDENT_ONLY + ("nearest_hit", "trace_streamed",
+                                          "trace_chunks", "shade",
+                                          "trace_perlane"))
+    print(f"synthetic_1m_2k bank-major schedule {eng_bm.ncompact}; the "
+          f"default streamed Engine's best {best_s.seconds:.6f} s "
+          f"({best_s.mrays_per_sec:.3f} Mrays/s, schedule {eng_s.ncompact})")
+    n_w = s_vp.maxdepth
+    if bm_launches["trace_shade_streamed"] != 3 * 2 or any(
+            bm_launches[k] != 3 * (n_w - 2) for k in BANK_MAJOR_KERNELS):
+        raise AssertionError(f"bank-major: B9 not on waves 0-1 only, or "
+                             f"B12 not on every later wave: {bm_launches}")
+    bm_fixed = eng_bm.render(s_vp, fixed_rng=True)
+    wl_fixed = eng_s.render(s_vp, fixed_rng=True)
+    n_px = int((bm_fixed.image != wl_fixed.image).any(axis=-1).sum())
+    print(f"synthetic_1m_2k fixed_rng, bank-major vs default Engine: {n_px} "
+          f"pixels differ; wave_rays {bm_fixed.wave_rays.tolist()}")
+    if n_px or not np.array_equal(bm_fixed.wave_rays, wl_fixed.wave_rays):
+        raise AssertionError("bank-major synthetic_1m_2k differs from the "
+                             "default Engine under fixed_rng")
+
+    # 6i. circles_2k through render_banded, three bands of 480 rows, on the
+    # autotuned default Engine
+    banded = SimpleNamespace(
+        render=lambda tvp: eng.render_banded(tvp, band_rows=480))
+    _, band_launches = timed("circles_2k render_banded (3 bands of 480 rows)",
+                             banded, vp, UNLIT_PATH,
+                             ("nearest_hit", "trace_perlane")
+                             + BANK_MAJOR_KERNELS)
+    band_f = eng.render_banded(vp, fixed_rng=True, band_rows=480)
+    full_f = eng.render(vp, fixed_rng=True)
+    n_px = int((band_f.image != full_f.image).any(axis=-1).sum())
+    print(f"circles_2k fixed_rng, render_banded vs render: {n_px} pixels "
+          f"differ; wave_rays {band_f.wave_rays.tolist()} vs "
+          f"{full_f.wave_rays.tolist()}")
+    if n_px or not np.array_equal(band_f.wave_rays, full_f.wave_rays):
+        raise AssertionError("render_banded differs from render()")
+
     # 7. where the time of one circles_2k and one synthetic_1m_2k render goes
     for name, e, pvp in (("default", eng, vp), ("ncompact=0", eng0, vp),
                          ("lit", eng_l, vp),
                          ("WavefrontRenderer", wr, w_vp),
                          ("legacy", eng_leg, vp),
                          ("synthetic_1m_2k", eng_s, s_vp),
+                         ("synthetic_1m_2k bank-major", eng_bm, s_vp),
                          ("synthetic_1m_2k lit", eng_sl, s_vp)):
         wall_ms, per_name, busy_ms = _profile_render(e, pvp)
         print(f"profile {name}: render {wall_ms:.3f} ms under the profiler, "
@@ -1291,6 +1848,14 @@ def main() -> int:
         b11 = sum(ms for n, ms in per_name.items() if "nearest_hit" in n)
         if b11:
             print(f"  of which B11 (nearest_hit_kernel) {b11:.3f} ms")
+        kinds = {k: sum(ms for n, ms in per_name.items() if pat in n)
+                 for k, pat in (("B9", "trace_streamed_kernel<true"),
+                                ("B12a", "bm_prep_kernel"),
+                                ("B12b", "bm_sweep_kernel"),
+                                ("B12c", "bm_finish_kernel"))}
+        if kinds["B9"] or kinds["B12b"]:
+            print("  of which " + ", ".join(f"{k} {ms:.3f} ms"
+                                            for k, ms in kinds.items()))
     img_u8 = np.zeros((3, R), np.uint8)
     perm = eng._perm(vp, tile)
     t_host = []
@@ -1306,10 +1871,13 @@ def main() -> int:
     paths = {"unlit": launches, "lit": lit_launches, "streamed": s_launches,
              "streamed_lit": sl_launches, "wavefront": w_launches,
              "legacy": leg_launches, "spp4": q4_launches,
-             "debug": dbg_launches}
+             "debug": dbg_launches, "bank_major": bm_launches,
+             "perlane_shadow": perlane_launches, "banded": band_launches}
     main_path = {"trace_shade_streamed": "streamed",
                  "trace_streamed": "streamed_lit",
-                 "nearest_hit": "wavefront"}
+                 "nearest_hit": "wavefront",
+                 "trace_perlane": "perlane_shadow",
+                 **{k: "bank_major" for k in BANK_MAJOR_KERNELS}}
 
     def path_of(name):
         return main_path.get(name, "lit" if name in LIT_PATH else "unlit")

@@ -4,8 +4,9 @@ Counterpart: `rust_raytrace_tpu/engine.py` — `Engine.__init__` (its choice
 of regime and page size), `Engine.render` with `_pinhole_fold`, the
 autotune of the compaction schedule and the debug buffers, the wave loop
 of `_render_device_compact` and its shadow pass `_shadow_mask` (the
-resident wave-0 and streamed branches), the legacy loop `_render_device`
-with its inline shadow pass and `_shade_rows`, `walk_one_ray`; plus
+resident wave-0, per-lane and streamed branches), the legacy loop
+`_render_device` with its inline shadow pass and `_shade_rows`,
+`walk_one_ray`, `render_banded` and `_dispatch_device`; plus
 `_camera_rays_tiled` with the spp jitter (`_pos_uniform`, `_threefry2x32`),
 `_unit_rows`, `_box_filter`, `_device_quantizable`, `_quantize_u8`,
 `pick_tile`, `tile_permutation`, `plan_boundaries`, `auto_page_size` and
@@ -29,7 +30,9 @@ included, runs the bank-worklist trace + shade (B9), or, with a light or
 for debug rows at wave 0, the bank-worklist trace to winner rows (B10) ->
 (lit: the shadow rays through B10's any-hit mode with self-exclusion,
 `shadow_mask_streamed`) -> shade (B8); compaction (B3) and expansion (B5)
-as in the resident regime.
+as in the resident regime.  With `Engine(bank_major=True)` the unlit
+waves from 2 on run the bank-major sweep instead of B9: prep, sweep and
+finish (B12), the same bits.
 
 `Engine(compact=False)` or `exact_cull=False` takes the legacy loop in
 either regime: no compaction; every wave B1 (or the interval culls of
@@ -38,14 +41,20 @@ the scatter vectors of jax.random.uniform; lit, its own shadow pass
 (`legacy_shadow_mask`).  The kernels run on CUDA tensors and their plain
 torch versions on CPU tensors (`device=`).
 
+`render_banded` renders the image in horizontal bands of whole tiles,
+each band the same tile-major stream positions the full render emits,
+through the same wave loop.  `shadow_mask_perlane` is the per-lane branch
+of the shadow pass (B7 any-hit with self-exclusion), which the JAX wave
+loop takes only under its probe arguments; no Engine path calls it.
+
 What this engine does not run yet raises NotImplementedError naming the
-ROADMAP item that brings it: `render_banded` (A10), `render_sharded` (A11),
-bounce_chunk, the bank-major streamed sweep (B12) and the union-kernel
-bounce waves of a scene past the cap with streamed=False.
+ROADMAP item that brings it: `render_sharded` (A11), bounce_chunk, and the
+union-kernel bounce waves of a scene past the cap with streamed=False.
 """
 
 import math
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -57,9 +66,11 @@ from .ops.cull import (chunk_bounds, chunk_bounds_octants, cull_mask_exact,
                        cull_mask_tmin, cull_mask_tmin_octants)
 from .ops.intersect import (fold_pages_origin, trace_chunks,
                             trace_shade_chunks)
-from .ops.intersect_perlane import (GROUP, MAX_BANKS, trace_shade_perlane,
+from .ops.intersect_perlane import (GROUP, MAX_BANKS, trace_perlane,
+                                    trace_shade_perlane,
                                     upload_perlane_tables)
-from .ops.intersect_streamed import (trace_shade_streamed, trace_streamed,
+from .ops.intersect_streamed import (trace_shade_bankmajor,
+                                     trace_shade_streamed, trace_streamed,
                                      upload_streamed_tables)
 from .ops.pages import LANE_ID, build_pages_kd
 from .ops.shade import FIXED_RV, SKY, fma, rsqrt, shade, sum3
@@ -210,12 +221,14 @@ def unit_rows(v: torch.Tensor, wide: bool = False) -> torch.Tensor:
 
 
 def camera_rays_tiled(v: Viewport, tile: int, n_pad: int, device,
-                      key=None):
+                      key=None, q_base: int = 0):
     """Primary rays in tile-major order (`pixel_ray`): (o, d) as [3, n_pad]
-    float32 on `device`; positions past the image have o = d = 0 (invalid
-    lanes).  A pixel's spp samples sit on adjacent lanes (q // spp is the
-    pixel); spp 1 shoots through the pixel centre, spp > 1 jitters sample q
-    by `pos_uniform(key, q, 1_000_001)` across and 1_000_002 down.
+    float32 on `device` for the stream positions q_base .. q_base + n_pad
+    of the whole image (a band of `Engine.render_banded` gets the very rays
+    the full render emits there); positions past the image have o = d = 0
+    (invalid lanes).  A pixel's spp samples sit on adjacent lanes (q // spp
+    is the pixel); spp 1 shoots through the pixel centre, spp > 1 jitters
+    sample q by `pos_uniform(key, q, 1_000_001)` across and 1_000_002 down.
 
     The image-plane point is orig + vu*(col + 0.5) + vv*(row + 0.5) with
     both multiply-adds fused, as XLA on the CPU compiles the JAX version
@@ -224,7 +237,7 @@ def camera_rays_tiled(v: Viewport, tile: int, n_pad: int, device,
     (C1)."""
     spp = v.samples_per_pixel
     R0 = v.height * v.width * spp
-    q = torch.arange(n_pad, device=device)
+    q = torch.arange(n_pad, device=device) + q_base
     pix = q // spp if spp > 1 else q
     T = tile
     tpr = v.width // T
@@ -330,6 +343,20 @@ def shadow_mask_streamed(state, rows, key, wave: int, fixed_rng: bool, light,
     so, sd, hit, excl = shadow_rays(state, rows, key, wave, fixed_rng, light)
     srows = trace_streamed(so, sd, hit.float(), *tables, page_size,
                            ray_chunk, excl=excl, any_hit=True)
+    return (hit & (srows[ROW_ID] != 0.0)).float()
+
+
+def shadow_mask_perlane(state, rows, key, wave: int, fixed_rng: bool, light,
+                        plt_i, plt_s, ab, page_size: int, ray_chunk: int):
+    """The shadow pass of a wave over the resident per-lane tables (JAX:
+    the per-lane branch of `_shadow_mask`): `shadow_rays`, then B7's
+    any-hit mode with each ray's own triangle excluded (shadow rays are
+    scattered, so no packet cull).  plt_i/plt_s/ab: `upload_perlane_tables`.
+    Returns the [R] float32 mask.  Like the JAX wave loop, which reaches
+    this branch only under its probe arguments, no Engine path calls it."""
+    so, sd, hit, excl = shadow_rays(state, rows, key, wave, fixed_rng, light)
+    srows = trace_perlane(so, sd, hit.float(), plt_i, plt_s, ab, page_size,
+                          ray_chunk, excl=excl, any_hit=True)
     return (hit & (srows[ROW_ID] != 0.0)).float()
 
 
@@ -451,6 +478,11 @@ class Engine(RayCaster):
     last); a sequence of bools says per boundary.  Every schedule renders
     the same image bits.
 
+    bank_major: in the streamed regime, the unlit waves from 2 on run the
+    bank-major sweep (B12) instead of the bank-worklist kernel (B9); the
+    same bits either way.  Accepted and inert in the resident regime, as
+    in the JAX Engine.
+
     compact=False or exact_cull=False takes the legacy loop (`_render_legacy`,
     the JAX `_render_device`) in either regime: every wave culls (B1, or
     with exact_cull=False the interval culls of `ops.cull`), sorts and runs
@@ -467,9 +499,7 @@ class Engine(RayCaster):
         if bounce_chunk != 0:
             raise NotImplementedError(
                 "bounce_chunk != 0: ROADMAP 'Engine knobs'")
-        if bank_major:
-            raise NotImplementedError(
-                "bank_major: the bank-major streamed sweep, ROADMAP B12")
+        self.bank_major = bool(bank_major)
         self.compact = compact
         self.exact_cull = exact_cull
         self._auto_schedule = ncompact is None
@@ -649,13 +679,16 @@ class Engine(RayCaster):
 
     def _streamed_wave(self, state, key, wave: int, seed, fixed_rng: bool,
                        wc: float, chunk_live, RB: int, want_rows: bool):
-        """One wave of the streamed regime: B9; or with a light, or when
-        the rows are wanted (debug), B10 to winner rows, the streamed
-        shadow pass (lit) and B8.  Returns (state, rows or None)."""
+        """One wave of the streamed regime: B9, or from wave 2 on with
+        bank_major the bank-major sweep (B12); or with a light, or when the
+        rows are wanted (debug), B10 to winner rows, the streamed shadow
+        pass (lit) and B8.  Returns (state, rows or None)."""
         P = self.page_size
         if self.light is None and not want_rows:
-            return trace_shade_streamed(state, *self.stables, seed, P, RB,
-                                        fixed_rng, wc, chunk_live), None
+            fused = (trace_shade_bankmajor if wave > 1 and self.bank_major
+                     else trace_shade_streamed)
+            return fused(state, *self.stables, seed, P, RB, fixed_rng, wc,
+                         chunk_live), None
         rows = trace_streamed(state[0:3], state[3:6], state[ROW_ALIVE],
                               *self.stables, P, RB, chunk_live=chunk_live)
         shd = None
@@ -729,38 +762,20 @@ class Engine(RayCaster):
         primary_id; and in the compacted resident regime at spp 1 the
         candidate sets, primary_chunk and chunk_tris)."""
         key = prng_key(0) if key is None else np.asarray(key, np.uint32)
-        RB = self.ray_chunk
         spp = v.samples_per_pixel
         dev = self.device
         t0 = time.perf_counter()
 
         tile = pick_tile(v.width, v.height)
         R0 = v.height * v.width * spp
-        # whole chunks, the 128-lane compaction alignment, whole sample
-        # groups: the lcm, as the JAX Engine pads
-        quantum = max(RB, 128)
-        quantum = quantum * spp // math.gcd(quantum, spp)
+        quantum = self._quantum(spp)
         R = -(-R0 // quantum) * quantum
         quant = quantize and device_quantizable(spp)
         o, d = camera_rays_tiled(v, tile, R, dev, key)
         o, pk0 = self._pinhole_fold(v, o)
         alive0 = torch.arange(R, device=dev) < R0
-        cull0 = None
-        if self._use_compact():
-            a0 = alive0.to(torch.float32)[None]
-            state = torch.cat(
-                [o, d, a0, a0,
-                 torch.zeros((STATE_ROWS - ROW_ACC, R), dtype=torch.float32,
-                             device=dev)], dim=0)
-            img, wave_counts, primary, cull0 = self._render_waves(
-                state, key, v.maxdepth, fixed_rng, pk0, want_primary=debug)
-        else:
-            img, wave_counts, primary = self._render_legacy(
-                o, d, alive0, key, v.maxdepth, fixed_rng, pk0, debug)
-        if quant:
-            if spp > 1:
-                img = box_filter(img, spp)
-            img = quantize_u8(img)
+        img, wave_counts, primary, cull0 = self._dispatch(
+            v, o, d, alive0, key, fixed_rng, debug, quant, pk0)
         img_h = img.cpu().numpy()
         wave_counts = torch.stack(wave_counts).cpu().numpy()
         perm = self._perm(v, tile)
@@ -769,7 +784,7 @@ class Engine(RayCaster):
         pt = pid = primary_chunk = chunk_tris = None
         if debug:
             pt, pid, primary_chunk, chunk_tris = self._debug_buffers(
-                v, perm, primary, cull0, RB)
+                v, perm, primary, cull0, self.ray_chunk)
         if self._auto_schedule and self._use_compact() and dev.type == "cuda":
             # one shot, as the JAX Engine on the TPU: the schedule changes
             # speed only, never bits
@@ -785,6 +800,39 @@ class Engine(RayCaster):
         if progress is not None:
             progress.update_wavefront(result)
         return result
+
+    def _quantum(self, spp: int) -> int:
+        """The ray-count padding quantum: whole chunks, the 128-lane
+        compaction alignment and whole sample groups — their lcm, as the
+        JAX Engine pads."""
+        quantum = max(self.ray_chunk, 128)
+        return quantum * spp // math.gcd(quantum, spp)
+
+    def _dispatch(self, v: Viewport, o, d, alive0, key, fixed_rng: bool,
+                  debug: bool, quant: bool, pk0):
+        """The device render of prepared rays (JAX: `_dispatch_device`),
+        shared by render() and render_banded(): the compacted or the legacy
+        wave loop, then on the device the box filter and u8 quantization
+        where quant.  Returns (image [3, R] float32 or [3, R // spp] u8,
+        per-wave live counts as tensors, primary rows or None, cull0)."""
+        cull0 = None
+        if self._use_compact():
+            R = o.shape[1]
+            a0 = alive0.to(torch.float32)[None]
+            state = torch.cat(
+                [o, d, a0, a0,
+                 torch.zeros((STATE_ROWS - ROW_ACC, R), dtype=torch.float32,
+                             device=o.device)], dim=0)
+            img, wave_counts, primary, cull0 = self._render_waves(
+                state, key, v.maxdepth, fixed_rng, pk0, want_primary=debug)
+        else:
+            img, wave_counts, primary = self._render_legacy(
+                o, d, alive0, key, v.maxdepth, fixed_rng, pk0, debug)
+        if quant:
+            if v.samples_per_pixel > 1:
+                img = box_filter(img, v.samples_per_pixel)
+            img = quantize_u8(img)
+        return img, wave_counts, primary, cull0
 
     def _debug_buffers(self, v: Viewport, perm, primary, cull0, RB: int):
         """The debug buffers of a render, un-permuted on the host: primary
@@ -845,8 +893,71 @@ class Engine(RayCaster):
             primary_t=primary_h[0, 0].reshape(1, 1),
             primary_id=primary_h[1, 0].astype(np.int32).reshape(1, 1))
 
-    def render_banded(self, v: Viewport, **kw):
-        raise NotImplementedError("render_banded: ROADMAP A10")
+    def render_banded(self, v: Viewport, key=None, fixed_rng: bool = False,
+                      band_rows=None, max_band_rays: int = 4_194_304,
+                      progress=None, quantize: bool = True) -> RenderResult:
+        """Render `v` in horizontal bands, so that the device holds one
+        band's rays, not the image's: the analog of the reference's row
+        work queue (raytrace.rs:1181-1191).
+
+        Each band's rays are the tile-major stream positions the full
+        render emits there (`camera_rays_tiled(q_base=)`; the spp jitter is
+        keyed by position), so under fixed_rng the banded image equals
+        render()'s bit for bit at any band split and spp.  With live RNG
+        band bi scatters under fold_in(key, bi) while its camera draws from
+        key, as the JAX Engine does.  band_rows: rows per band, a positive
+        multiple of the pixel tile (ValueError otherwise); default, as many
+        as keep a band within max_band_rays rays.  Returns the whole image,
+        the wave counts summed over the bands and no debug buffers;
+        progress gets one `update` per band and the per-wave totals."""
+        key = prng_key(0) if key is None else np.asarray(key, np.uint32)
+        spp = v.samples_per_pixel
+        dev = self.device
+        t0 = time.perf_counter()
+
+        tile = pick_tile(v.width, v.height)
+        rays_per_row = v.width * spp
+        if band_rows is None:
+            band_rows = max(max_band_rays // rays_per_row, tile)
+            band_rows -= band_rows % tile
+        if band_rows <= 0 or band_rows % tile:
+            raise ValueError(f"band_rows {band_rows} must be a positive "
+                             f"multiple of the {tile}-px tile")
+        band_rows = min(band_rows, v.height)
+        quantum = self._quantum(spp)
+        quant = quantize and device_quantizable(spp)
+        perm_full = self._perm(v, tile)
+        out = np.empty((v.height, v.width, 3),
+                       dtype=np.uint8 if quantize else np.float32)
+        wave_counts = None
+        for bi, r0 in enumerate(range(0, v.height, band_rows)):
+            bh = min(band_rows, v.height - r0)
+            q0 = r0 * rays_per_row
+            Rb0 = bh * rays_per_row
+            Rpad = -(-Rb0 // quantum) * quantum
+            o, d = camera_rays_tiled(v, tile, Rpad, dev, key, q_base=q0)
+            o, pk0 = self._pinhole_fold(v, o)
+            alive0 = torch.arange(Rpad, device=dev) < Rb0
+            img, wc, _, _ = self._dispatch(v, o, d, alive0, fold_in(key, bi),
+                                           fixed_rng, False, quant, pk0)
+            band = SimpleNamespace(height=bh, width=v.width)
+            out[r0:r0 + bh] = _assemble_host_image(
+                img.cpu().numpy(), band, perm_full[q0:q0 + Rb0] - q0, spp,
+                quant, want_u8=quantize and not quant)
+            wc = torch.stack(wc).cpu().numpy()
+            wave_counts = wc if wave_counts is None else wave_counts + wc
+            if progress is not None:
+                # per band, as the reference's row workers flush
+                # (raytrace.rs:1411-1429)
+                progress.update(bh * v.width, {"Rays": int(wc.sum())})
+        result = RenderResult(image=out, rays_traced=int(wave_counts.sum()),
+                              wave_rays=wave_counts, primary_t=None,
+                              primary_id=None,
+                              seconds=time.perf_counter() - t0)
+        if progress is not None:
+            for i, n in enumerate(wave_counts):
+                progress._stat(f"Wave{i}Rays", "count").add(int(n))
+        return result
 
     def render_sharded(self, v: Viewport, **kw):
         raise NotImplementedError("render_sharded: ROADMAP A11")

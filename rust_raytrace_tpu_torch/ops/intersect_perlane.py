@@ -3,10 +3,12 @@
 Counterparts in `rust_raytrace_tpu/ops/intersect_perlane.py`:
 `build_perlane_tables` (copied: the JAX module imports jax),
 `trace_shade_perlane_pallas` (inner `_kernel_fused`, `_trace_chunk`,
-`_group`), with its fused shadow feeler (`light=`), and the any-hit mode of
-`trace_perlane_pallas` that the feeler runs.  `trace_shade_perlane` runs the
-CUDA kernel `csrc/trace_shade_perlane.cu` on CUDA tensors and
-`trace_shade_perlane_plain` on CPU tensors.
+`_group`), with its fused shadow feeler (`light=`), and B7
+`trace_perlane_pallas` (inner `_kernel`), the trace alone to winner rows,
+nearest or any-hit.  `trace_shade_perlane` and `trace_perlane` run the CUDA
+kernels `csrc/trace_shade_perlane.cu` and `csrc/trace_perlane.cu` on CUDA
+tensors and `trace_shade_perlane_plain` and `trace_perlane_plain` on CPU
+tensors.
 
 Each ray slab-tests the page AABBs of one bank (<= 128 pages) at a time,
 tests its nearest remaining page (ties to the lower page index), then drops
@@ -118,7 +120,9 @@ def winner_rows(best_t, best_id, payload):
 def bank_pass(views, bank, rays, o, d, inv, win, excl=None,
               any_hit: bool = False):
     """One bank's per-lane traversal (JAX: `_group`) for the rays at index
-    `rays` of o/d/inv [3, n], in place on win = winner_init's triple.
+    `rays` of o/d/inv [3, n], in place on win = winner_init's triple, or
+    the triple and an [n] int32 tensor of winner slots (page * P +
+    triangle, the page counted over all banks), which B12's sweep keeps.
 
     views: bank_views; bank: the bank (an int, or a tensor holding each
     ray's).  Each ray slab-tests the bank's pages, then tests its nearest
@@ -128,7 +132,9 @@ def bank_pass(views, bank, rays, o, d, inv, win, excl=None,
     if rays.numel() == 0:
         return
     tab_i, tab_s, boxes = views
-    best_t, best_id, payload = win
+    best_t, best_id, payload = win[:3]
+    slot = win[3] if len(win) > 3 else None
+    P = tab_i.shape[2]
     box = boxes[bank]
     box = box[:, None] if box.dim() == 2 else box.transpose(0, 1)
     tlo, thi = slab([box[..., k] for k in range(3)],
@@ -178,6 +184,12 @@ def bank_pass(views, bank, rays, o, d, inv, win, excl=None,
         for i, v in enumerate(payload_features(col, md_n, dv)):
             payload[i, lanes] = torch.where(upd, (w * v).sum(dim=0),
                                             payload[i, lanes])
+        if slot is not None:
+            b = bank if isinstance(bank, int) else bank[cols]
+            j = onehot.to(torch.int32).argmax(dim=0)
+            slot[lanes] = torch.where(
+                upd, ((b * GROUP + pidx) * P + j).to(torch.int32),
+                slot[lanes])
         best_t[lanes] = torch.where(upd, gmin, bt)
         best_id[lanes] = torch.where(upd, gid, bi)
         hit[pidx, cols] = False
@@ -186,7 +198,8 @@ def bank_pass(views, bank, rays, o, d, inv, win, excl=None,
 
 
 def trace_perlane_plain(o, d, alive, plt_i, plt_s, ab, P: int, excl=None,
-                        any_hit: bool = False):
+                        any_hit: bool = False, ray_chunk: int = 0,
+                        chunk_live=None):
     """Winner rows [16, n] (ROW_* layout) of rays o/d [3, n] with alive [n]:
     the per-lane trace alone, plain torch (JAX: trace_perlane_pallas), banks
     in index order.
@@ -194,15 +207,79 @@ def trace_perlane_plain(o, d, alive, plt_i, plt_s, ab, P: int, excl=None,
     excl: optional [n] triangle id each ray may not hit (0: none).
     any_hit: the occlusion query — each ray tests its slab-hit pages in
     index order and stops at its first page with a hit, so only
-    ROW_ID != 0 ("some triangle hits") is meaningful (ROADMAP C5)."""
+    ROW_ID != 0 ("some triangle hits") is meaningful (ROADMAP C5); the
+    payload rows are 0, as the kernel leaves them.  chunk_live: optional
+    [n // ray_chunk] flags; a chunk flagged 0 gets all-zero rows."""
     valid = alive != 0.0
+    live = None
+    if chunk_live is not None:
+        live = torch.repeat_interleave(chunk_live != 0, ray_chunk)
+        valid = valid & live
     win = winner_init(valid)
     inv = torch.stack([slab_inv(d[k]) for k in range(3)])
     views = bank_views(plt_i, plt_s, ab, P)
     rays = torch.nonzero(valid).squeeze(1)
     for b in range(views[0].shape[0]):
         bank_pass(views, b, rays, o, d, inv, win, excl, any_hit)
-    return winner_rows(*win)
+    rows = winner_rows(*win)
+    if any_hit:
+        rows[ROW_ID + 1:] = 0.0
+    if live is not None:
+        rows = torch.where(live[None], rows, 0.0)
+    return rows
+
+
+def trace_perlane(ot, dt, alive, plt_i, plt_s, ab, page_size: int,
+                  ray_chunk: int, chunk_live=None, excl=None,
+                  any_hit: bool = False):
+    """Winner rows [16, R] (ops/state.py ROW_* layout) of the per-lane
+    trace alone over the resident tables (B7).
+
+    ot/dt: [3, R] float32 ray origins and directions (rows of a larger
+    tensor are fine: the last dim must be dense, one row stride for both);
+    alive: [R] float32, rays with alive == 0 are invalid (ROW_T -inf, the
+    rest 0); plt_i/plt_s/ab: `upload_perlane_tables`; chunk_live: optional
+    [R // ray_chunk] int32 flags — a chunk flagged 0 gets all-zero rows;
+    excl: optional [R] float32 triangle id each ray may not hit (0: none);
+    any_hit: the occlusion query, which stops a ray at its first hit and
+    leaves the payload rows 0 (only ROW_ID != 0 is meaningful, ROADMAP C5).
+    Rows 11..15 are 0.
+    """
+    dev = ot.device
+    if dev.type == "cpu":
+        return trace_perlane_plain(ot, dt, alive, plt_i, plt_s, ab,
+                                   page_size, excl, any_hit, ray_chunk,
+                                   chunk_live)
+    native.require(dev.type == "cuda",
+                   f"trace_perlane: no kernel for device {dev}")
+    R = ot.shape[1]
+    P = page_size
+    NB = ab.shape[0] // GROUP
+    native.check_ray_chunk(R, ray_chunk)
+    native.check_tensor("ot", ot, dev, (3, R), torch.float32, False)
+    native.check_tensor("dt", dt, dev, (3, R), torch.float32, False)
+    native.require(ot.stride(0) == dt.stride(0),
+                   "ot and dt need one row stride")
+    native.check_tensor("alive", alive, dev, (R,), torch.float32)
+    native.check_tensor("plt_i", plt_i, dev, (NB * N_INT * P, GROUP),
+                        torch.float32)
+    native.check_tensor("plt_s", plt_s, dev, (NB * N_SHD * P, GROUP),
+                        torch.float32)
+    native.check_tensor("ab", ab, dev, (NB * GROUP, PACK_LANES),
+                        torch.float32)
+    if excl is not None:
+        native.check_tensor("excl", excl, dev, (R,), torch.float32)
+    if chunk_live is not None:
+        native.check_tensor("chunk_live", chunk_live, dev,
+                            (R // ray_chunk,), torch.int32)
+    out = torch.empty((TRACE_ROWS, R), dtype=torch.float32, device=dev)
+    native.TRACE_PERLANE(
+        ot.data_ptr(), dt.data_ptr(), ot.stride(0), alive.data_ptr(), R,
+        0 if excl is None else excl.data_ptr(), int(any_hit),
+        plt_i.data_ptr(), plt_s.data_ptr(), ab.data_ptr(), P, NB, ray_chunk,
+        0 if chunk_live is None else chunk_live.data_ptr(), out.data_ptr(),
+        native.stream(dev))
+    return out
 
 
 def shadow_feeler_plain(st, rows, seed, rays, ray_chunk: int,

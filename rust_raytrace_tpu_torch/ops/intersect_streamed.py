@@ -1,13 +1,17 @@
-"""B9 and B10: the streamed regime's bank-worklist trace, for scenes past
-the resident tables' cap.
+"""B9, B10 and B12: the streamed regime's traces, for scenes past the
+resident tables' cap.
 
 Counterparts in `rust_raytrace_tpu/ops/intersect_streamed.py`:
 `build_streamed_tables` (copied: the JAX module imports jax),
-`trace_shade_streamed_pallas` (B9, inner `_kernel_streamed_fused`) and
-`trace_streamed_pallas` (B10, inner `_kernel_streamed`).
-`trace_shade_streamed` and `trace_streamed` run the CUDA kernels of
-`csrc/trace_streamed.cu` on CUDA tensors and `trace_shade_streamed_plain`
-and `trace_streamed_plain` on CPU tensors.
+`trace_shade_streamed_pallas` (B9, inner `_kernel_streamed_fused`),
+`trace_streamed_pallas` (B10, inner `_kernel_streamed`) and
+`trace_shade_bankmajor_pallas` (B12, the bank-major sweep: inner
+`_kernel_bm_prep`, `_kernel_bm_sweep`, `_kernel_bm_finish` and the glue
+between them).  `trace_shade_streamed` and `trace_streamed` run the CUDA
+kernels of `csrc/trace_streamed.cu`, and `bankmajor_prep`,
+`bankmajor_sweep` and `bankmajor_finish` those of
+`csrc/trace_bankmajor.cu`, on CUDA tensors, and their `*_plain` versions
+on CPU tensors.
 
 The tables are the per-lane tables of every bank, with no bank cap, one
 bank per slab ([NB, 17P, 128] and [NB, 7P, 128]), beside the page AABBs and
@@ -19,6 +23,16 @@ per chunk and sorts lanes by primary bank; the winner, a lexicographic
 (t, id) minimum with exact pruning, does not depend on that order.  Not
 carried: the TPU kernel's `stats` profiling rows and `sort_lanes`, which
 change no output.
+
+B12 runs one wave as three phases, chained by `trace_shade_bankmajor`:
+prep (each lane's winner init and, per bank and chunk, a bitmask of the
+chunk's 128-lane groups whose rays enter the bank), a glue step over the
+[NB, NC] demand only (each bank's demanding chunks first, and their
+count), the sweep (banks in index order, each over its demanding chunks'
+demanded groups, `bank_pass` per ray, the winner kept as t, id and slot)
+and the finish (the winner's payload from its slot, then the shade).  It
+equals B9 bit for bit; the TPU kernel's lane sort by primary bank is not
+carried.
 """
 
 import numpy as np
@@ -30,11 +44,21 @@ from .intersect_perlane import (GROUP, N_INT, N_SHD, bank_pass, bank_views,
                                 build_perlane_tables, winner_init,
                                 winner_rows)
 from .pages import PACK_LANES, PageTables
+from .intersect import packed_hit_predicate, payload_features, PAYLOAD_ROWS
 from .shade import scatter_rv, shade_state_rows
 from .state import ROW_ALIVE, ROW_ID, STATE_ROWS, TRACE_ROWS
 
 #: rays a plain-version block holds (a step gathers 17*P table floats per ray)
 _PLAIN_RAYS = 32768
+#: hit rays whose winner page a plain finish block gathers at once
+_PLAIN_FINISH_RAYS = 8192
+
+#: B12's winner stream, [WIN_ROWS, R] float32: t, id, and the winner's
+#: slot (page * P + triangle, pages counted over all banks) as int32 bits
+WIN_T = 0
+WIN_ID = 1
+WIN_SLOT = 2
+WIN_ROWS = 3
 
 
 def build_streamed_tables(pages: PageTables):
@@ -235,3 +259,270 @@ def _check_tables(dev, P: int, NB: int, plt_i, plt_s, ab, bank_ab) -> None:
                         torch.float32)
     native.check_tensor("bank_ab", bank_ab, dev,
                         (-(-NB // 8) * 8, PACK_LANES), torch.float32)
+
+
+def _check_bankmajor(R: int, ray_chunk: int) -> None:
+    native.check_ray_chunk(R, ray_chunk)
+    native.require(ray_chunk % GROUP == 0,
+                   f"bank-major sweep needs ray_chunk % {GROUP} == 0, got "
+                   f"{ray_chunk}")
+
+
+def _chunk_lanes(chunk_live, ray_chunk: int):
+    return torch.repeat_interleave(chunk_live != 0, ray_chunk)
+
+
+def bankmajor_prep_plain(state, bank_ab, NB: int, ray_chunk: int,
+                         chunk_live=None):
+    """Plain torch version of `bankmajor_prep`."""
+    R = state.shape[1]
+    RB = ray_chunk
+    G = RB // GROUP
+    valid = state[ROW_ALIVE] != 0.0
+    if chunk_live is not None:
+        valid = valid & _chunk_lanes(chunk_live, RB)
+    win = torch.zeros((WIN_ROWS, R), dtype=torch.float32,
+                      device=state.device)
+    win[WIN_T] = torch.where(valid, torch.inf, -torch.inf)
+    gm = torch.empty((NB, R // RB), dtype=torch.int32, device=state.device)
+    bb = bank_ab[:NB]
+    bits = 1 << torch.arange(G, device=state.device)
+    step = max(1, _PLAIN_RAYS // RB) * RB
+    for i in range(0, R, step):
+        sl = slice(i, min(R, i + step))
+        o, d = state[0:3, sl], state[3:6, sl]
+        btlo, bthi = slab([bb[:, k:k + 1] for k in range(3)],
+                          [bb[:, k + 3:k + 4] for k in range(3)],
+                          [o[k][None] for k in range(3)],
+                          [slab_inv(d[k])[None] for k in range(3)])
+        hit = ((btlo <= bthi) & (bthi >= 0.0) & (bb[:, 6:7] != 0.0)
+               & valid[sl][None])                                # [NB, n]
+        grp = hit.reshape(NB, -1, G, GROUP).any(dim=3)           # [NB, c, G]
+        gm[:, i // RB:sl.stop // RB] = (grp * bits).sum(dim=2).to(
+            torch.int32)
+    return win, gm
+
+
+def bankmajor_prep(state, bank_ab, NB: int, ray_chunk: int,
+                   chunk_live=None):
+    """B12a: the winner stream's init and the group demand of one wave.
+
+    state: [16, R] ray state; bank_ab: `upload_streamed_tables`' bank
+    AABBs; NB: the bank count; chunk_live: optional [R // ray_chunk] int32
+    flags (a chunk flagged 0 is invalid throughout).  Returns (win, gm):
+    win [WIN_ROWS, R] float32 with t = +inf on valid lanes and -inf on the
+    rest, id and slot 0; gm [NB, R // ray_chunk] int32, bit g of gm[b, c]
+    set when a valid ray of chunk c's 128-lane group g enters bank b's
+    AABB."""
+    dev = state.device
+    if dev.type == "cpu":
+        return bankmajor_prep_plain(state, bank_ab, NB, ray_chunk,
+                                    chunk_live)
+    native.require(dev.type == "cuda",
+                   f"bankmajor_prep: no kernel for device {dev}")
+    R = state.shape[1]
+    _check_bankmajor(R, ray_chunk)
+    native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
+    native.check_tensor("bank_ab", bank_ab, dev,
+                        (-(-NB // 8) * 8, PACK_LANES), torch.float32)
+    if chunk_live is not None:
+        native.check_tensor("chunk_live", chunk_live, dev,
+                            (R // ray_chunk,), torch.int32)
+    win = torch.empty((WIN_ROWS, R), dtype=torch.float32, device=dev)
+    gm = torch.empty((NB, R // ray_chunk), dtype=torch.int32, device=dev)
+    native.BM_PREP(state.data_ptr(), R, bank_ab.data_ptr(), NB, ray_chunk,
+                   0 if chunk_live is None else chunk_live.data_ptr(),
+                   win.data_ptr(), gm.data_ptr(), native.stream(dev))
+    return win, gm
+
+
+def bankmajor_order(gm):
+    """B12's glue, on the [NB, NC] demand only: (count [NB] int32, order
+    [NB, NC] int32), each bank's demanding chunks first in chunk order
+    (a stable sort), then the rest (JAX: phase B of
+    trace_shade_bankmajor_pallas at one bank per step)."""
+    demand = gm != 0
+    count = demand.sum(dim=1, dtype=torch.int32)
+    order = torch.sort((~demand).to(torch.int32), dim=1, stable=True).indices
+    return count, order.to(torch.int32).contiguous()
+
+
+def bankmajor_sweep_plain(state, win, gm, count, order, plt_i, plt_s, ab,
+                          bank_ab, page_size: int, ray_chunk: int):
+    """Plain torch version of `bankmajor_sweep`."""
+    R = state.shape[1]
+    RB = ray_chunk
+    out = win.clone()
+    best_t, best_id = out[WIN_T], out[WIN_ID]
+    slot = out[WIN_SLOT].view(torch.int32)
+    payload = torch.zeros((len(PAYLOAD_ROWS), R), dtype=torch.float32,
+                          device=win.device)        # not kept: the slot is
+    views = bank_views(plt_i, plt_s, ab, page_size)
+    o, d = state[0:3], state[3:6]
+    inv = torch.stack([slab_inv(d[k]) for k in range(3)])
+    valid = state[ROW_ALIVE] != 0.0
+    group = torch.arange(RB, device=win.device) // GROUP
+    for b in range(views[0].shape[0]):
+        chunks = order[b, :int(count[b])].long()
+        lanes = (chunks[:, None] * RB
+                 + torch.arange(RB, device=win.device)).reshape(-1)
+        want = ((gm[b, chunks][:, None] >> group[None]) & 1).reshape(-1)
+        rays = lanes[want != 0]
+        rays = rays[valid[rays]]
+        for i in range(0, rays.numel(), _PLAIN_RAYS):
+            bank_pass(views, b, rays[i:i + _PLAIN_RAYS], o, d, inv,
+                      (best_t, best_id, payload, slot))
+    return out
+
+
+def bankmajor_sweep(state, win, gm, count, order, plt_i, plt_s, ab, bank_ab,
+                    page_size: int, ray_chunk: int):
+    """B12b: the bank-major sweep.  Banks in index order; bank b runs the
+    per-lane page traversal (`bank_pass`) for every valid ray of the
+    groups its demand list (gm, count, order of `bankmajor_order`) names,
+    after each ray's bank-AABB test against its winner so far.  Returns the
+    new winner stream (t, id, slot); the payload is the finish's."""
+    dev = state.device
+    if dev.type == "cpu":
+        return bankmajor_sweep_plain(state, win, gm, count, order, plt_i,
+                                     plt_s, ab, bank_ab, page_size,
+                                     ray_chunk)
+    native.require(dev.type == "cuda",
+                   f"bankmajor_sweep: no kernel for device {dev}")
+    R = state.shape[1]
+    P = page_size
+    NB = plt_i.shape[0]
+    NC = R // ray_chunk
+    _check_bankmajor(R, ray_chunk)
+    native.require(NB * GROUP * P < 2 ** 31, "winner slots overflow int32")
+    native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
+    native.check_tensor("win", win, dev, (WIN_ROWS, R), torch.float32)
+    native.check_tensor("gm", gm, dev, (NB, NC), torch.int32)
+    native.check_tensor("count", count, dev, (NB,), torch.int32)
+    native.check_tensor("order", order, dev, (NB, NC), torch.int32)
+    _check_tables(dev, P, NB, plt_i, plt_s, ab, bank_ab)
+    out = win.clone()
+    native.BM_SWEEP(state.data_ptr(), R, out.data_ptr(), gm.data_ptr(),
+                    count.data_ptr(), order.data_ptr(), ab.data_ptr(),
+                    plt_i.data_ptr(), plt_s.data_ptr(), bank_ab.data_ptr(),
+                    P, NB, ray_chunk, native.stream(dev))
+    return out
+
+
+def winner_stream_rows(st, win, plt_i, plt_s, page_size: int):
+    """[16, n] winner rows (ROW_* layout) of rays st [16, n] from their
+    winner stream win [WIN_ROWS, n]: t, id, and each hit's payload
+    extracted from its winner's page as `bank_pass` extracts it (the
+    page's candidates against the ray, a one-hot masked sum)."""
+    P = page_size
+    n = st.shape[1]
+    payload = torch.zeros((len(PAYLOAD_ROWS), n), dtype=torch.float32,
+                          device=st.device)
+    hits = torch.nonzero(win[WIN_ID] != 0.0).squeeze(1)
+    slots = win[WIN_SLOT].view(torch.int32)
+    for i in range(0, hits.numel(), _PLAIN_FINISH_RAYS):
+        h = hits[i:i + _PLAIN_FINISH_RAYS]
+        page = slots[h].long() // P
+        b, p = page // GROUP, page % GROUP
+        m = h.numel()
+        gi = plt_i[b, :, p].reshape(m, N_INT, P).permute(1, 2, 0)
+        gs = plt_s[b, :, p].reshape(m, N_SHD, P).permute(1, 2, 0)
+
+        def col(f, gi=gi, gs=gs):
+            return gi[f] if f < N_INT else gs[f - N_INT]
+
+        _, _, ids, md_n, dv = packed_hit_predicate(
+            col, tuple(st[k, h][None] for k in range(3)),
+            tuple(st[3 + k, h][None] for k in range(3)))
+        w = (ids == win[WIN_ID, h][None]).float()
+        for j, v in enumerate(payload_features(col, md_n, dv)):
+            payload[j, h] = (w * v).sum(dim=0)
+    return winner_rows(win[WIN_T], win[WIN_ID], payload)
+
+
+def bankmajor_finish_plain(state, win, plt_i, plt_s, seed, page_size: int,
+                           ray_chunk: int, fixed_rng: bool,
+                           weight_cutoff: float, chunk_live):
+    """Plain torch version of `bankmajor_finish`."""
+    out = state.clone()
+    rays = torch.nonzero(_chunk_lanes(chunk_live, ray_chunk)).squeeze(1)
+    st = state[:, rays]
+    rows = winner_stream_rows(st, win[:, rays], plt_i, plt_s, page_size)
+    rv = scatter_rv(seed, rays, ray_chunk, fixed_rng)
+    out[:, rays] = shade_state_rows(st, rows, rv, weight_cutoff)
+    return out
+
+
+def bankmajor_finish(state, win, plt_i, plt_s, seed, page_size: int,
+                     ray_chunk: int, fixed_rng: bool, weight_cutoff: float,
+                     chunk_live):
+    """B12c: each ray's payload from its winner's slot, then the shade +
+    scatter + state update of B9 (the scatter hash keyed on (chunk, lane)
+    at ray_chunk).  chunk_live: [R // ray_chunk] int32 flags; chunks
+    flagged 0 pass their state through.  Returns the new state."""
+    dev = state.device
+    if dev.type == "cpu":
+        return bankmajor_finish_plain(state, win, plt_i, plt_s, seed,
+                                      page_size, ray_chunk, fixed_rng,
+                                      weight_cutoff, chunk_live)
+    native.require(dev.type == "cuda",
+                   f"bankmajor_finish: no kernel for device {dev}")
+    R = state.shape[1]
+    P = page_size
+    NB = plt_i.shape[0]
+    _check_bankmajor(R, ray_chunk)
+    native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
+    native.check_tensor("win", win, dev, (WIN_ROWS, R), torch.float32)
+    native.check_tensor("plt_i", plt_i, dev, (NB, N_INT * P, GROUP),
+                        torch.float32)
+    native.check_tensor("plt_s", plt_s, dev, (NB, N_SHD * P, GROUP),
+                        torch.float32)
+    native.check_tensor("chunk_live", chunk_live, dev, (R // ray_chunk,),
+                        torch.int32)
+    out = torch.empty_like(state)
+    s0, s1 = (int(w) for w in seed)
+    native.BM_FINISH(state.data_ptr(), out.data_ptr(), R, win.data_ptr(),
+                     plt_i.data_ptr(), plt_s.data_ptr(), P, ray_chunk,
+                     chunk_live.data_ptr(), s0, s1, int(fixed_rng),
+                     float(weight_cutoff),
+                     xla_rsqrt.device_table(dev).data_ptr(),
+                     native.stream(dev))
+    return out
+
+
+def trace_shade_bankmajor_plain(state, plt_i, plt_s, ab, bank_ab, seed,
+                                page_size: int, ray_chunk: int,
+                                fixed_rng: bool, weight_cutoff: float,
+                                chunk_live=None):
+    """Plain torch version of `trace_shade_bankmajor`: the plain phases."""
+    if chunk_live is None:
+        chunk_live = torch.ones(state.shape[1] // ray_chunk,
+                                dtype=torch.int32, device=state.device)
+    win, gm = bankmajor_prep_plain(state, bank_ab, plt_i.shape[0], ray_chunk,
+                                   chunk_live)
+    count, order = bankmajor_order(gm)
+    win = bankmajor_sweep_plain(state, win, gm, count, order, plt_i, plt_s,
+                                ab, bank_ab, page_size, ray_chunk)
+    return bankmajor_finish_plain(state, win, plt_i, plt_s, seed, page_size,
+                                  ray_chunk, fixed_rng, weight_cutoff,
+                                  chunk_live)
+
+
+def trace_shade_bankmajor(state, plt_i, plt_s, ab, bank_ab, seed,
+                          page_size: int, ray_chunk: int, fixed_rng: bool,
+                          weight_cutoff: float, chunk_live=None):
+    """One wave of the streamed regime through the bank-major sweep (B12):
+    `bankmajor_prep`, `bankmajor_order`, `bankmajor_sweep`,
+    `bankmajor_finish`.  Same arguments and result as
+    `trace_shade_streamed` (B9), bit for bit; chunk_live None: every chunk
+    live."""
+    if chunk_live is None:
+        chunk_live = torch.ones(state.shape[1] // ray_chunk,
+                                dtype=torch.int32, device=state.device)
+    NB = plt_i.shape[0]
+    win, gm = bankmajor_prep(state, bank_ab, NB, ray_chunk, chunk_live)
+    count, order = bankmajor_order(gm)
+    win = bankmajor_sweep(state, win, gm, count, order, plt_i, plt_s, ab,
+                          bank_ab, page_size, ray_chunk)
+    return bankmajor_finish(state, win, plt_i, plt_s, seed, page_size,
+                            ray_chunk, fixed_rng, weight_cutoff, chunk_live)

@@ -199,9 +199,32 @@ NEAREST_HIT = Kernel(
     "rust_raytrace_tpu_torch/csrc/nearest_hit.cu",
     "rust_raytrace_tpu/ops/intersect_pallas.py:163")
 
+TRACE_PERLANE = Kernel(
+    "trace_perlane", "rt_trace_perlane",
+    [P, P, I64, P, I64, P, I32, P, P, P, I32, I32, I32, P, P, P],
+    "rust_raytrace_tpu_torch/csrc/trace_perlane.cu",
+    "rust_raytrace_tpu/ops/intersect_perlane.py:679")
+
+#: B12's three phases; one sweep call launches one grid per bank
+BM_PREP = Kernel(
+    "bankmajor_prep", "rt_bm_prep",
+    [P, I64, P, I32, I32, P, P, P, P],
+    "rust_raytrace_tpu_torch/csrc/trace_bankmajor.cu",
+    "rust_raytrace_tpu/ops/intersect_streamed.py:795")
+BM_SWEEP = Kernel(
+    "bankmajor_sweep", "rt_bm_sweep",
+    [P, I64, P, P, P, P, P, P, P, P, I32, I32, I32, P],
+    "rust_raytrace_tpu_torch/csrc/trace_bankmajor.cu",
+    "rust_raytrace_tpu/ops/intersect_streamed.py:848")
+BM_FINISH = Kernel(
+    "bankmajor_finish", "rt_bm_finish",
+    [P, P, I64, P, P, P, I32, I32, P, U32, U32, I32, F32, P, P],
+    "rust_raytrace_tpu_torch/csrc/trace_bankmajor.cu",
+    "rust_raytrace_tpu/ops/intersect_streamed.py:970")
+
 KERNELS = (CULL, TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND,
            TRACE_UNION_ROWS, SHADE, TRACE_SHADE_STREAMED, TRACE_STREAMED,
-           NEAREST_HIT)
+           NEAREST_HIT, TRACE_PERLANE, BM_PREP, BM_SWEEP, BM_FINISH)
 
 
 def reset_launch_counts() -> None:

@@ -14,7 +14,7 @@ import torch
 
 from rust_raytrace_tpu_torch.engine import (Engine, camera_rays_tiled,
                                             page_lists, pick_tile,
-                                            shadow_rays)
+                                            shadow_mask_perlane, shadow_rays)
 from rust_raytrace_tpu_torch import math3d as m3
 from rust_raytrace_tpu_torch.camera import create_viewport
 from rust_raytrace_tpu_torch.geometry import make_sphere, make_triangles
@@ -171,7 +171,9 @@ def test_golden_on_card_launches_every_kernel(dev):
                         "compact": 2, "trace_shade_perlane": vp.maxdepth - 1,
                         "expand": 2, "trace_chunks": 0, "shade": 0,
                         "trace_shade_streamed": 0, "trace_streamed": 0,
-                        "nearest_hit": 0}
+                        "nearest_hit": 0, "trace_perlane": 0,
+                        "bankmajor_prep": 0, "bankmajor_sweep": 0,
+                        "bankmajor_finish": 0}
 
 
 def _bitwise(got, want):
@@ -231,7 +233,9 @@ def test_lit_render_on_card_equals_cpu(dev):
                         "compact": 2, "trace_shade_perlane": vp.maxdepth - 1,
                         "expand": 2, "trace_chunks": 2, "shade": 1,
                         "trace_shade_streamed": 0, "trace_streamed": 0,
-                        "nearest_hit": 0}
+                        "nearest_hit": 0, "trace_perlane": 0,
+                        "bankmajor_prep": 0, "bankmajor_sweep": 0,
+                        "bankmajor_finish": 0}
     ref = Engine(scene, device="cpu").render(vp, key=prng_key(1)).image
     np.testing.assert_array_equal(img, ref)
 
@@ -362,3 +366,114 @@ def test_wavefront_render_on_card_equals_cpu(dev, backend):
         np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
     np.testing.assert_array_equal(got.primary_id, want.primary_id)
     np.testing.assert_array_equal(got.wave_rays, want.wave_rays)
+
+
+def _sphere_state(eng, vp, dev):
+    R = -(-vp.width * vp.height // RB) * RB
+    o, d = camera_rays_tiled(vp, pick_tile(vp.width, vp.height), R, dev)
+    o, _ = eng._pinhole_fold(vp, o)
+    alive = (torch.arange(R, device=dev) < vp.width * vp.height).float()
+    return torch.cat([o, d, alive[None], alive[None],
+                      torch.zeros((8, R), device=dev)])
+
+
+@pytest.mark.parametrize("fixed", [True, False])
+def test_trace_perlane_matches_plain(dev, fixed):
+    """B7 on the resident tables of 4 banks (page size 8): nearest rows,
+    with self-exclusion, with a dead chunk, bitwise; the any-hit occlusion
+    bit of the lit wave's shadow rays, and the per-lane shadow pass, against
+    the plain versions."""
+    scene, vp = _sphere_scene(False)
+    eng = Engine(scene, page_size=8, ray_chunk=RB, device=dev)
+    assert not eng.streamed and eng.ab.shape[0] == 4 * 128
+    tabs = (eng.plt_i, eng.plt_s, eng.ab)
+    st = _sphere_state(eng, vp, dev)
+    o, d, alive = st[0:3], st[3:6], st[7]
+    rows = intersect_perlane.trace_perlane(o, d, alive, *tabs, 8, RB)
+    dead = torch.ones(st.shape[1] // RB, dtype=torch.int32, device=dev)
+    dead[1::3] = 0
+    for kw in ({}, {"excl": rows[1].contiguous()}, {"chunk_live": dead}):
+        native.reset_launch_counts()
+        got = intersect_perlane.trace_perlane(o, d, alive, *tabs, 8, RB, **kw)
+        assert native.TRACE_PERLANE.launches == 1
+        _bitwise(got, intersect_perlane.trace_perlane_plain(
+            o, d, alive, *tabs, 8, ray_chunk=RB, **kw))
+    key = prng_key(3)
+    so, sd, hit, excl = shadow_rays(st, rows, key, 1, fixed, LIGHT)
+    args = (so, sd, hit.float(), *tabs, 8, RB)
+    occ = intersect_perlane.trace_perlane(*args, excl=excl, any_hit=True)
+    occ_p = intersect_perlane.trace_perlane_plain(
+        so, sd, hit.float(), *tabs, 8, excl=excl, any_hit=True)
+    assert torch.equal(occ[1] != 0, occ_p[1] != 0)
+    assert 0 < int((occ[1] != 0).sum()) < int(hit.sum())
+    shd = shadow_mask_perlane(st, rows, key, 1, fixed, LIGHT, *tabs, 8, RB)
+    assert torch.equal(shd != 0, hit & (occ[1] != 0))
+
+
+@pytest.mark.parametrize("fixed", [True, False])
+def test_bankmajor_kernels_match_plain(dev, fixed):
+    """B12 on 4 streamed banks, on the wave-2 state (after B9 waves 0 and
+    1, dead chunks in it): prep's winner init and group demand, the sweep's
+    winner stream (t, id, slot) and finish's state bitwise against the
+    plain phases; the chained B12 equals B9 bitwise."""
+    scene, vp = _sphere_scene(False)
+    eng = Engine(scene, page_size=8, ray_chunk=RB, streamed=True, device=dev)
+    tabs = eng.stables
+    NB = tabs[0].shape[0]
+    st = _sphere_state(eng, vp, dev)
+    key = prng_key(3)
+    wc = 0.0 if fixed else 1 / 512
+    nc = st.shape[1] // RB
+    live = torch.ones(nc, dtype=torch.int32, device=dev)
+    for wave in (0, 1):
+        st = intersect_streamed.trace_shade_streamed(
+            st, *tabs, fold_in(key, wave), 8, RB, fixed, wc, live)
+        live = (st[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+    assert 0 < int(live.sum()) < nc
+    native.reset_launch_counts()
+    win, gm = intersect_streamed.bankmajor_prep(st, tabs[3], NB, RB, live)
+    win_p, gm_p = intersect_streamed.bankmajor_prep_plain(st, tabs[3], NB,
+                                                          RB, live)
+    _bitwise(win, win_p)
+    assert torch.equal(gm, gm_p) and int((gm != 0).sum()) > 0
+    count, order = intersect_streamed.bankmajor_order(gm)
+    sw = intersect_streamed.bankmajor_sweep(st, win, gm, count, order, *tabs,
+                                            8, RB)
+    _bitwise(sw, intersect_streamed.bankmajor_sweep_plain(
+        st, win, gm, count, order, *tabs, 8, RB))
+    seed = fold_in(key, 2)
+    fin = intersect_streamed.bankmajor_finish(st, sw, tabs[0], tabs[1], seed,
+                                              8, RB, fixed, wc, live)
+    _bitwise(fin, intersect_streamed.bankmajor_finish_plain(
+        st, sw, tabs[0], tabs[1], seed, 8, RB, fixed, wc, live))
+    assert (native.BM_PREP.launches, native.BM_SWEEP.launches,
+            native.BM_FINISH.launches) == (1, 1, 1)
+    _bitwise(intersect_streamed.trace_shade_bankmajor(
+        st, *tabs, seed, 8, RB, fixed, wc, live),
+        intersect_streamed.trace_shade_streamed(st, *tabs, seed, 8, RB,
+                                                fixed, wc, live))
+
+
+def test_bankmajor_render_on_card_equals_cpu(dev):
+    """Engine(streamed=True, bank_major=True): the card's render equals the
+    CPU's bitwise and the default streamed Engine's; B9 on waves 0-1, B12's
+    three kernels on each later wave, never B1, B2, B4 or B11."""
+    scene, vp = _sphere_scene(False)
+    eng = Engine(scene, page_size=8, ray_chunk=RB, streamed=True,
+                 bank_major=True, device=dev)
+    native.reset_launch_counts()
+    img = eng.render(vp, key=prng_key(1)).image
+    launches = {k.name: k.launches for k in native.KERNELS}
+    n = vp.maxdepth - 2
+    assert launches == {k: {"trace_shade_streamed": 2, "compact": 2,
+                            "expand": 2, "bankmajor_prep": n,
+                            "bankmajor_sweep": n,
+                            "bankmajor_finish": n}.get(k, 0)
+                        for k in launches}
+    ref = Engine(scene, page_size=8, ray_chunk=RB, streamed=True,
+                 bank_major=True, device="cpu").render(
+                     vp, key=prng_key(1)).image
+    np.testing.assert_array_equal(img, ref)
+    wl = Engine(scene, page_size=8, ray_chunk=RB, streamed=True,
+                device=dev).render(vp, key=prng_key(1)).image
+    np.testing.assert_array_equal(img, wl)

@@ -208,22 +208,22 @@ def test_engine_rejects_what_the_slice_does_not_run(small):
 
 def test_engine_rejects_streamed_regime(small):
     """A scene whose page tables pass the resident cap takes the streamed
-    regime (ROADMAP A8, ported); what the port still rejects there is the
-    JAX Engine's union-kernel fallback (streamed=False past the cap) and the
-    bank-major sweep (B12)."""
+    regime (ROADMAP A8, ported), with the bank-major sweep too (B12,
+    ported); what the port still rejects there is the JAX Engine's
+    union-kernel fallback (streamed=False past the cap)."""
     _, scene, _ = small
     assert Engine(scene, table_slot_cap=1000, device="cpu").streamed
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         Engine(scene, table_slot_cap=1000, streamed=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP B12"):
-        Engine(scene, streamed=True, bank_major=True, device="cpu")
+    eng = Engine(scene, streamed=True, bank_major=True, device="cpu")
+    assert eng.streamed and eng.bank_major
 
 
 def test_engine_rejects_lights():
     """A lit scene renders since the lights path (ROADMAP A5) was ported,
-    and so does it at spp > 1 (A6) and with debug buffers (A7); what it
-    still rejects is what every scene does: banded (A10) and sharded (A11)
-    renders."""
+    and so does it at spp > 1 (A6), with debug buffers (A7) and in bands
+    (A10); what it still rejects is what every scene does: sharded renders
+    (A11)."""
     scene, vp = circles.build(resolution=(8, 8))
     scene.lights = LightSource(orig=np.asarray([0.0, 5.0, 6.0], np.float32),
                                len2=0.5)
@@ -234,8 +234,9 @@ def test_engine_rejects_lights():
     assert img.shape == (8, 8, 3) and img.dtype == np.uint8
     dbg = eng.render(vp, fixed_rng=True, debug=True)
     assert dbg.primary_id.shape == (8, 8) and dbg.primary_t.shape == (8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        eng.render_banded(vp, fixed_rng=True)
+    banded = eng.render_banded(vp, fixed_rng=True)
+    np.testing.assert_array_equal(banded.image,
+                                  eng.render(vp, fixed_rng=True).image)
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         eng.render_sharded(vp, fixed_rng=True)
 
@@ -243,7 +244,8 @@ def test_engine_rejects_lights():
 def test_render_rejects_spp_and_debug(small):
     """spp > 1 (ROADMAP A6) and debug buffers (A7) render: u8 at
     spp 2 and 3 (host-quantized), the primary buffers and candidate sets;
-    the bounce_chunk knob and banded renders are still rejected."""
+    so do banded renders (A10) at spp 3; the bounce_chunk knob and sharded
+    renders are still rejected."""
     _, scene, vp = small
     eng = Engine(scene, ray_chunk=RB, device="cpu")
     for spp in (2, 3):
@@ -252,11 +254,14 @@ def test_render_rejects_spp_and_debug(small):
         assert res.image.shape == (16, 16, 3)
         assert res.image.dtype == np.uint8
         assert res.wave_rays[0] == 16 * 16 * spp
+        if spp == 3:
+            band = eng.render_banded(vp2, fixed_rng=True, band_rows=16)
+            np.testing.assert_array_equal(band.image, res.image)
     dbg = eng.render(vp, fixed_rng=True, debug=True)
     assert dbg.primary_t.shape == (vp.height, vp.width)
     assert dbg.primary_chunk.shape == (vp.height, vp.width)
     assert len(dbg.chunk_tris) == -(-vp.width * vp.height // RB)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(scene, device="cpu", bounce_chunk=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        eng.render_banded(vp)
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        eng.render_sharded(vp)

@@ -99,6 +99,34 @@ def test_portable_renderer_runs_without_the_jax_package():
         blocked=("jax", "rust_raytrace_tpu"))
 
 
+def test_banded_bank_major_and_perlane_shadow_run_without_the_jax_package():
+    """render_banded, the bank-major streamed Engine and the per-lane
+    shadow pass, with jax and the JAX package blocked."""
+    _run_blocked(
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from rust_raytrace_tpu_torch import engine\n"
+        "from rust_raytrace_tpu_torch.models import circles\n"
+        "from rust_raytrace_tpu_torch.ops.intersect_perlane import "
+        "upload_perlane_tables\n"
+        "from rust_raytrace_tpu_torch.utils.rng import prng_key\n"
+        "scene, vp = circles.build(resolution=(16, 16), maxdepth=3)\n"
+        "e = engine.Engine(scene, ray_chunk=128, device='cpu')\n"
+        "img = e.render_banded(vp, band_rows=16).image\n"
+        "assert img.shape == (16, 16, 3)\n"
+        "s = engine.Engine(scene, ray_chunk=128, streamed=True, "
+        "bank_major=True, device='cpu')\n"
+        "assert s.render(vp).image.shape == (16, 16, 3)\n"
+        "st = torch.zeros((16, 128))\n"
+        "st[5] = st[7] = 1.0\n"
+        "rows = torch.zeros((16, 128))\n"
+        "m = engine.shadow_mask_perlane(st, rows, prng_key(0), 1, True, "
+        "(0.0, 5.0, 0.0, 0.1), *upload_perlane_tables(e.pages, 'cpu'), "
+        "e.page_size, 128)\n"
+        "assert m.shape == (128,) and not m.any()\n",
+        blocked=("jax", "rust_raytrace_tpu"))
+
+
 def _imports_of(path):
     import ast
     with open(path) as f:
