@@ -15,8 +15,16 @@ circles_2k (Engine(compact=False): B1 and B6 every wave); spp 4 on circles
 B6 and B8); synthetic_1m_2k through Engine(bank_major=True) (B9 on waves
 0-1, the bank-major sweep's prep, sweep and finish, B12a-c, on the later
 waves, B3, B5); circles_2k through render_banded (the unlit path's
-kernels, band by band); and the per-lane shadow pass
-(engine.shadow_mask_perlane, B7 any-hit) on lit circles_2k's wave-1 rows.
+kernels, band by band); the per-lane shadow pass
+(engine.shadow_mask_perlane, B7 any-hit) on lit circles_2k's wave-1 rows;
+circles_2k through Engine(ray_chunk=4096) (the unlit path's kernels, the
+chunk-block ones B1 and B2 at 4 rays a thread); and the command line
+(`python -m rust_raytrace_tpu_torch.cli`, run in process): render
+circles_2k (the unlit path), with --band-rows, with --backend simple (B11)
+and with --debug-csv (the debug path), diff engine vs oracle, tune.  B13
+(the cull with the page sort in the kernel) and B14a/B14b (the bucketed
+compaction and its inverse) launch on no render path, as in the JAX
+package: phase 3 drives them directly.
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
@@ -54,7 +62,18 @@ Phases, each fatal on failure:
      init and demand, the sweep's winner stream, finish's state bitwise
      against the plain phases and the chained B12 against B9; on the whole
      wave-2 state B12 == B9 bitwise, each phase timed beside its bound, and
-     the chain and B9 timed in turns; B7's and B12's ptxas reports;
+     the chain and B9 timed in turns; B7's and B12's ptxas reports; B13
+     on circles_2k's camera rays (37 pages, NPpad 128) and on the 4-bank
+     sphere's (510 pages, NPpad 512): bitwise against its plain version on
+     the check chunks with dead chunks, equal to B1 + stable sort on the
+     whole wave, timed there beside that split form in turns; B14a/B14b on
+     circles_2k's state after wave 0 with octant codes (total_a / R and
+     the overflow flag printed; bitwise against the plain versions even
+     when it overflows), then with two buckets: bitwise, the round trip
+     exact, timed in turns beside B3 and B5 on the same state; B1, B2, B6
+     and B12a at ray_chunk 2048 and 4096 on 16 chunks against their plain
+     versions, and B1, B2 and B12a timed on whole waves at 1024, 2048 and
+     4096; the ptxas reports of B13, B14 and B2/B6 at 4 rays a thread;
   4. golden: the 96x54 circles render under fixed_rng of the default
      (compacted) Engine, of WavefrontRenderer(backend="kernel") and of
      Engine(compact=False) is byte-equal to tests/goldens/circles_96x54.png;
@@ -68,7 +87,8 @@ Phases, each fatal on failure:
      plain path (at most 0.01%) and against the worklist Engine (0 pixels,
      an equal float image); shadow_mask_perlane vs shadow_mask on lit
      circles' wave-1 rows (at most 0.01% of lanes); render_banded in three
-     bands vs render() (0 pixels, equal wave_rays);
+     bands vs render() (0 pixels, equal wave_rays); Engine(ray_chunk=4096)
+     on circles, kernel vs plain path (at most 0.01%);
   6. circles_2k (2560x1440, maxdepth 5, live RNG): the default Engine after
      its autotune (the planned schedule printed) and Engine(ncompact=0),
      three timed renders each, in turns; then the lit default Engine, three
@@ -85,9 +105,19 @@ Phases, each fatal on failure:
      a render, none of B1, B2, B4, B10, B11) and one fixed_rng render
      byte-equal to the default Engine's; circles_2k through render_banded
      in three bands of 480 rows, three timed renders and one fixed_rng
-     render byte-equal to render()'s; every kernel of each path must have
-     launched in its renders and no kernel of another path (counts set to
-     0 just before each render);
+     render byte-equal to render()'s; circles_2k through
+     Engine(ray_chunk=4096), three timed renders after a warm-up, its
+     Mrays/s beside the default's; the command line in process: `render
+     --scene circles --resolution 2k --stats` byte-equal to a fresh
+     Engine's first render under key 0 (B1-B5 launched), `--band-rows 480`
+     byte-equal to render_banded, `--backend simple` at 2k (B11),
+     `--debug-csv` at 640x360 (one line a pixel; B1, B6, B8), `diff --a
+     engine --b oracle` at 16x16 (rc 0, "Found 0 errors") and at 48x27
+     (its edge-tie report printed, not gated), `tune` at
+     640x360 (finishes; the runtimes and ray chunks it walked printed),
+     each render's ms and Mrays/s printed; every kernel of each path must
+     have launched in its renders and no kernel of another path (counts
+     set to 0 just before each render);
   7. profile: one default, one ncompact=0, one lit, one WavefrontRenderer
      and one legacy circles_2k render and one unlit, one bank-major and one
      lit synthetic_1m_2k render under torch.profiler (the card's time per
@@ -99,10 +129,12 @@ CUDA is missing or any phase fails.
 """
 
 import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -612,7 +644,9 @@ def perlane_banks(dev, key):
     (28,560 triangles) before synthetic_1m_2k's camera; on N_CHECK_CHUNKS
     chunks of camera rays that hit it, nearest rows, then the wave-1
     bounce rays' nearest rows and their shadow rays' any-hit occlusion
-    bits with self-exclusion, against the plain version."""
+    bits with self-exclusion, against the plain version.  Returns the
+    sphere's Engine, its whole camera wave (o, d, valid) and the check
+    lanes, which B13 takes too."""
     scene = assemble([make_sphere((0.0, 0.0, 10.0), 4.0, (120, 120),
                                   matte(m3.make_color((252, 119, 0)), 0.2),
                                   0.0)])
@@ -660,6 +694,7 @@ def perlane_banks(dev, key):
           f" hits) and wave-1 rays ({int((rows1[1] != 0).sum())} hits) "
           f"bitwise equal; any-hit occlusion bits equal ({int(hit.sum())} "
           f"shadow rays, {int((occ[1] != 0).sum())} occluded)")
+    return eng, o, d, alive0 != 0, rays
 
 
 def streamed_kernels(dev, card, key, results, build_log):
@@ -895,12 +930,441 @@ def wavefront_kernels(dev, card, key, results, build_log):
     return scene, wr, vp
 
 
+def _in_turns(fns: dict, rounds: int = 2, reps: int = 5) -> dict:
+    """CUDA-event ms of each fn, in turns (a, b, ..., then again)."""
+    out = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            out[k].append(_time_ms(fn, reps=reps))
+    return out
+
+
+def cull_sorted_kernels(cases, card, results):
+    """Phase 3 for B13 (cull_sorted: B1's cull with each chunk's pages
+    ranked by entry in the kernel), which no render path launches.  For
+    each case (rays [3, R], valid, page AABBs, the check lanes): on the
+    check chunks, with every seventh chunk dead, bitwise against its plain
+    version; on the whole wave against the split form the engine uses (B1,
+    then page_lists' stable sort): equal counts and page order, the hit
+    pages' keys equal to B1's sorted tmin and BIGT after them; then timed
+    there beside the split form, in turns."""
+    res = None
+    for label, (o, d, valid, blo, bhi, rays) in cases.items():
+        dev = o.device
+        NP = blo.shape[0]
+        NPpad = -(-NP // 128) * 128
+        R = o.shape[1]
+        NC = R // RB
+        co, cd = o[:, rays].contiguous(), d[:, rays].contiguous()
+        cv = valid[rays].contiguous()
+        live = torch.ones(rays.numel() // RB, dtype=torch.int32, device=dev)
+        live[3::7] = 0
+        args = (co, cd, cv, blo, bhi, RB)
+        got = cull.cull_sorted(*args, chunk_live=live)
+        want = cull.cull_sorted_plain(*args, chunk_live=live)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"B13 {label}: counts or plist differ")
+        _require_bitwise(f"B13 {label} ptmin", got[2], want[2])
+        full = (o, d, valid, blo, bhi, RB)
+        counts, plist, ptmin = cull.cull_sorted(*full)
+        c2, pl2, pt2 = page_lists(*cull.cull_mask_exact(*full))
+        j = torch.arange(NP, device=dev)[None]
+        split_ok = (torch.equal(counts, c2)
+                    and torch.equal(plist[:, :NP], pl2)
+                    and bool(torch.where(j < counts[:, None],
+                                         ptmin[:, :NP] == pt2,
+                                         ptmin[:, :NP] == cull.BIGT).all())
+                    and bool((ptmin[:, NP:] == cull.BIGT).all()))
+        if not split_ok:
+            raise AssertionError(f"B13 {label}: the whole wave disagrees "
+                                 f"with B1 + stable sort")
+
+        def bound(n_rays, v):
+            # the rays once (o, d, valid), the page boxes, the outputs; the
+            # slab tests of the valid rays and one comparison per pair of
+            # padded pages of a chunk
+            nc = n_rays // RB
+            return _bound(n_rays * 25 + NP * 24 + nc * (NPpad * 8 + 4),
+                          int(v.sum()) * NP * SLAB_FLOPS + nc * NPpad ** 2)
+
+        turns = _in_turns({
+            "B13": lambda: cull.cull_sorted(*full),
+            "B1 + sort": lambda: page_lists(*cull.cull_mask_exact(*full))})
+        b1_ms = _time_ms(lambda: cull.cull_mask_exact(*full))
+        bf = bound(R, valid)
+        entry = dict(
+            rays=int(rays.numel()), pages=NP, pages_padded=NPpad,
+            max_abs_err=0.0,
+            ms=_time_ms(lambda: cull.cull_sorted(*args, chunk_live=live)),
+            plain_ms=_time_ms(lambda: cull.cull_sorted_plain(
+                *args, chunk_live=live), reps=2),
+            **bound(rays.numel(), cv),
+            ms_full=min(turns["B13"]), bound_ms_full=bf["bound_ms"],
+            bound_by_full=bf["bound_by"], turns_full=turns,
+            b1_alone_ms_full=b1_ms)
+        print(f"B13 {label} ({NP} pages, NPpad {NPpad}): {rays.numel() // RB}"
+              f" check chunks bitwise equal (dead chunks included), the "
+              f"whole wave ({NC} chunks, {int(counts.sum())} chunk-page "
+              f"hits) equal to B1 + stable sort; time on the whole wave in "
+              f"turns B13 {turns['B13']} ms, B1 + sort {turns['B1 + sort']} "
+              f"ms (B1 alone {b1_ms:.4f} ms), bound {bf['bound_ms']:.4f} ms "
+              f"({bf['bound_by']}) [{card}]")
+        if res is None:
+            res = entry
+        else:
+            res[label] = entry
+    results[native.CULL_SORTED.name] = res
+
+
+def bucket_kernels(full1, card, results):
+    """Phase 3 for B14a/B14b (the bucketed compaction and its inverse),
+    which no render path launches: circles_2k's state after wave 0 (the
+    state B3 compacts at the first boundary) with codes 1 for retired lanes
+    and 2 + the direction's octant for live ones.  If the eight buckets
+    overflow R, one kernel-vs-plain run shows the kernel stays in bounds
+    and equals the plain version; the timed state takes two buckets (the
+    sign of d.x).  Gates: both kernels bitwise against their plain
+    versions, and the round trip gives back rows 8..15 of every live and
+    retired lane and 0 on gaps.  Timed in turns beside B3 and B5 on the
+    same state and masks."""
+    dev = full1.device
+    R = full1.shape[1]
+    cb = compact.pick_cb(R)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    alive = full1[7] != 0
+    dead = (full1[11] != 0) & ~alive
+    d = full1[3:6]
+    octant = ((d[0] < 0).int() + 2 * (d[1] < 0).int()
+              + 4 * (d[2] < 0).int()).float()
+
+    def with_codes(bucket):
+        st = full1.clone()
+        st[compact.ROW_CODE] = torch.where(alive, 2.0 + bucket,
+                                           torch.where(dead, 1.0, 0.0))
+        return st
+
+    def run(st, label):
+        code = st[compact.ROW_CODE].contiguous()
+        meta, total_a, overflow, dead_end = compact.compact_meta_buckets(
+            code, cb, zero, R)
+        dead_arr = compact.make_dead_array(R, dev)
+        out_k, dead_k = compact.compact_buckets(st, dead_arr.clone(), meta,
+                                                cb)
+        out_p, dead_p = compact.compact_buckets_plain(st, dead_arr.clone(),
+                                                      meta, cb)
+        torch.cuda.synchronize()
+        _require_bitwise(f"B14a {label} state", out_k, out_p)
+        _require_bitwise(f"B14a {label} dead", dead_k, dead_p)
+        y = out_k[8:16].contiguous()
+        back_k = compact.expand_buckets(y, dead_k, code[None], meta, cb)
+        back_p = compact.expand_buckets_plain(y, dead_k, code[None], meta,
+                                              cb)
+        torch.cuda.synchronize()
+        _require_bitwise(f"B14b {label}", back_k, back_p)
+        print(f"B14 {label}, cb {cb}: total_a / R = "
+              f"{int(total_a) / R:.4f}, overflow {bool(overflow)}; B14a "
+              f"(state and dead array) and B14b bitwise equal to their "
+              f"plain versions")
+        return meta, total_a, overflow, dead_arr, out_k, dead_k, back_k, code
+
+    meta8, total8, over8, *_ = run(with_codes(octant), "8 octant buckets")
+    st = with_codes((d[0] < 0).float())
+    meta, total_a, overflow, dead_arr, out_k, dead_k, back, code = run(
+        st, "2 buckets (sign of d.x)")
+    if bool(overflow):
+        raise AssertionError("B14: the two-bucket state overflows")
+    both = alive | dead
+    if not (torch.equal(back[:, both].view(torch.int32),
+                        st[8:16, both].view(torch.int32))
+            and not back[:, ~both].view(torch.int32).any()):
+        raise AssertionError("B14: the round trip lost a lane's payload")
+    y = out_k[8:16].contiguous()
+    m3_, _, _, _ = compact.compact_meta(st[7], st[11], cb, zero, R)
+    masks = torch.stack([st[7], st[11]])
+    y3 = compact.compact(st, dead_arr.clone(), m3_, cb)[0][8:12].contiguous()
+    scratch = dead_arr.clone()
+    fwd = _in_turns({
+        "B14a": lambda: compact.compact_buckets(st, scratch, meta, cb),
+        "B3": lambda: compact.compact(st, scratch, m3_, cb)})
+    inv = _in_turns({
+        "B14b": lambda: compact.expand_buckets(y, dead_k, code[None], meta,
+                                               cb),
+        "B5": lambda: compact.expand(y3, dead_k, masks, m3_, cb)})
+    n_a, n_d = int(alive.sum()), int(dead.sum())
+    pad_d = int(meta[:, compact.M9_DEAD + 1].sum()) * compact.ALIGN
+    b14a = _bound((R + 16 * n_a + 8 * n_d) * 4 + (16 * R + 8 * pad_d) * 4, 0)
+    b14b = _bound((R + 8 * n_a + 8 * n_d) * 4 + 8 * R * 4, 0)
+    common = dict(rays=R, max_abs_err=0.0, total_a_over_R=int(total_a) / R,
+                  octants_total_a_over_R=int(total8) / R,
+                  octants_overflow=bool(over8))
+    results[native.COMPACT_BUCKETS.name] = dict(
+        common, ms=min(fwd["B14a"]),
+        plain_ms=_time_ms(lambda: compact.compact_buckets_plain(
+            st, scratch, meta, cb), reps=2),
+        **b14a, turns=fwd)
+    results[native.EXPAND_BUCKETS.name] = dict(
+        common, ms=min(inv["B14b"]),
+        plain_ms=_time_ms(lambda: compact.expand_buckets_plain(
+            y, dead_k, code[None], meta, cb), reps=2),
+        **b14b, turns=inv)
+    print(f"B14 round trip at {R} rays: rows 8..15 of {n_a} live and {n_d} "
+          f"retired lanes back, gaps 0; in turns B14a {fwd['B14a']} ms vs "
+          f"B3 {fwd['B3']} ms, B14b {inv['B14b']} ms vs B5 {inv['B5']} ms; "
+          f"bounds B14a {b14a['bound_ms']:.4f} ms, B14b "
+          f"{b14b['bound_ms']:.4f} ms (bytes) [{card}]")
+
+
+def ray_chunk_kernels(eng, full0, pk0, s_eng, card, key, results):
+    """Phase 3 for ray_chunk 2048 and 4096 (blocks of 1024 threads, each
+    owning 2 or 4 rays of the chunk): B1, B2, B6 (camera rays, and shadow
+    rays with self-exclusion) on 16 chunks of circles_2k's camera rays that
+    hit a page, and B12a on 16 chunks of synthetic_1m_2k's that enter a
+    bank (every fourth then flagged dead), against
+    their plain versions (B1 with torch.equal as at 1024, the others
+    bitwise); then B1, B2 and B12a timed on the whole wave at each
+    ray_chunk beside 1024."""
+    dev = full0.device
+    R = full0.shape[1]
+    P = eng.page_size
+    svp = synthetic_view((2560, 1440))
+    so_, sd_ = eng_mod.camera_rays_tiled(
+        svp, eng_mod.pick_tile(svp.width, svp.height), R, dev)
+    sa = (torch.arange(R, device=dev) < svp.width * svp.height).float()[None]
+    s_full = torch.cat([so_, sd_, sa, sa, torch.zeros((8, R), device=dev)])
+    stabs = s_eng.stables
+    NB = stabs[0].shape[0]
+    times = {}
+
+    def spread_over(demand, rc):
+        # 16 chunks spread over those with some demand: an even spread over
+        # all chunks lands on one tile column of the image
+        hit = torch.nonzero(demand)[:, 0]
+        pick = torch.linspace(0, hit.numel() - 1, 16,
+                              device=dev).round().long()
+        return (hit[pick][:, None] * rc
+                + torch.arange(rc, device=dev)).reshape(-1)
+
+    for rc in (1024, 2048, 4096):
+        if rc != 1024:
+            m_all, _ = cull.cull_mask_exact(full0[0:3], full0[3:6],
+                                            full0[7] != 0, eng.aabb_lo,
+                                            eng.aabb_hi, rc)
+            rays = spread_over(m_all.any(dim=1), rc)
+            st = full0[:, rays].contiguous()
+            a1 = (st[0:3], st[3:6], st[7] != 0, eng.aabb_lo, eng.aabb_hi, rc)
+            mask, tmin = cull.cull_mask_exact(*a1)
+            mask_p, tmin_p = cull.cull_mask_exact_plain(*a1)
+            torch.cuda.synchronize()
+            if not (torch.equal(mask, mask_p) and torch.equal(tmin, tmin_p)):
+                raise AssertionError(f"B1 at ray_chunk {rc}: kernel and "
+                                     f"plain differ")
+            lists = page_lists(mask, tmin)
+            a2 = (st, pk0, *lists, fold_in(key, 0), P, rc, False, 1 / 512)
+            _require_bitwise(
+                f"B2 at ray_chunk {rc}",
+                intersect.trace_shade_chunks(*a2, zero_origin=True),
+                intersect.trace_shade_chunks_plain(*a2, zero_origin=True))
+            rows = intersect.trace_chunks(st[0:3], st[3:6], pk0, *lists, P,
+                                          rc, zero_origin=True)
+            _require_bitwise(f"B6 camera rays at ray_chunk {rc}", rows,
+                             intersect.trace_chunks_plain(
+                                 st[0:3], st[3:6], pk0, *lists, rc, True))
+            so, sd, hit, excl = eng_mod.shadow_rays(st, rows, key, 0, False,
+                                                    LIGHT)
+            sl = page_lists(*cull.cull_mask_exact(so, sd, hit, eng.aabb_lo,
+                                                  eng.aabb_hi, rc))
+            _require_bitwise(
+                f"B6 shadow rays at ray_chunk {rc}",
+                intersect.trace_chunks(so, sd, eng.PK, *sl, P, rc, excl=excl),
+                intersect.trace_chunks_plain(so, sd, eng.PK, *sl, rc,
+                                             excl=excl))
+            _, gm_all = intersect_streamed.bankmajor_prep(s_full, stabs[3],
+                                                          NB, rc)
+            srays = spread_over((gm_all != 0).any(dim=0), rc)
+            sst = s_full[:, srays].contiguous()
+            live = torch.ones(16, dtype=torch.int32, device=dev)
+            live[1::4] = 0
+            win, gm = intersect_streamed.bankmajor_prep(sst, stabs[3], NB,
+                                                        rc, live)
+            win_p, gm_p = intersect_streamed.bankmajor_prep_plain(
+                sst, stabs[3], NB, rc, live)
+            torch.cuda.synchronize()
+            _require_bitwise(f"B12a winners at ray_chunk {rc}", win, win_p)
+            if not torch.equal(gm, gm_p) or not bool((gm != 0).any()):
+                raise AssertionError(f"B12a demand at ray_chunk {rc}: "
+                                     f"differs or empty")
+            print(f"ray_chunk {rc} on 16 chunks: B1 equal, B2, B6 (camera "
+                  f"rays; {int(hit.sum())} shadow rays with "
+                  f"self-exclusion) and B12a (winner init; "
+                  f"{int((gm != 0).sum())} bank-chunk demands, group bits "
+                  f"up to {rc // 128 - 1}) bitwise equal to their plain "
+                  f"versions")
+        fa = (full0[0:3], full0[3:6], full0[7] != 0, eng.aabb_lo,
+              eng.aabb_hi, rc)
+        flists = page_lists(*cull.cull_mask_exact(*fa))
+        flive = torch.ones(R // rc, dtype=torch.int32, device=dev)
+        times[rc] = dict(
+            b1_ms_full=_time_ms(lambda: cull.cull_mask_exact(*fa)),
+            b2_ms_full=_time_ms(lambda: intersect.trace_shade_chunks(
+                full0, pk0, *flists, fold_in(key, 0), P, rc, False, 1 / 512,
+                zero_origin=True)),
+            b12a_ms_full=_time_ms(lambda: intersect_streamed.bankmajor_prep(
+                s_full, stabs[3], NB, rc, flive)))
+        print(f"time at ray_chunk {rc} (whole 2560x1440 waves): B1 "
+              f"{times[rc]['b1_ms_full']:.4f} ms, B2 "
+              f"{times[rc]['b2_ms_full']:.4f} ms (circles_2k camera rays), "
+              f"B12a {times[rc]['b12a_ms_full']:.4f} ms (synthetic_1m_2k "
+              f"camera rays, {NB} banks) [{card}]")
+    for k, field in ((native.CULL, "b1_ms_full"),
+                     (native.TRACE_SHADE_UNION, "b2_ms_full"),
+                     (native.BM_PREP, "b12a_ms_full")):
+        results[k.name]["ray_chunk_ms_full"] = {
+            rc: t[field] for rc, t in times.items()}
+
+
+def cli_phase(dev, card):
+    """Phase 6j: the command line on the card, in process (so that launch
+    counts show): render circles_2k (byte-equal to the first render of a
+    fresh Engine under key 0; B1-B5 launched), with --band-rows 480
+    (byte-equal to render_banded), with --backend simple, with
+    --debug-csv at 640x360; diff engine vs oracle at 16x16 (rc 0, no
+    error) and at 48x27 (its report printed); tune at 640x360 (it
+    finishes; the runtimes it walked).  Returns the launch counts of the
+    circles_2k render."""
+    from rust_raytrace_tpu_torch import cli
+
+    captured = []
+    run_render = cli.run_render
+
+    def spy(*a, **kw):
+        r = run_render(*a, **kw)
+        captured.append(r)
+        return r
+
+    def run(argv, ok=(0,)):
+        buf = io.StringIO()
+        captured.clear()
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        text = buf.getvalue()
+        launched = {k: c for k, c in counts.items() if c}
+        for r in captured:
+            print(f"  cli {' '.join(argv)}: render "
+                  f"{r.seconds * 1e3:.3f} ms, {r.mrays_per_sec:.3f} Mrays/s "
+                  f"({r.rays_traced} rays) [{card}]")
+        print(f"cli {' '.join(argv)}: rc {rc}, command wall {wall:.1f} ms, "
+              f"launches {launched}")
+        if rc not in ok:
+            raise AssertionError(f"cli {argv}: rc {rc}\n{text}")
+        return text, counts
+
+    def fresh_png(path, banded=False):
+        scene, vp = circles.build(resolution="2k", maxdepth=5)
+        e = Engine(scene, device=dev)
+        r = (e.render_banded(vp, key=prng_key(0), band_rows=480) if banded
+             else e.render(vp, key=prng_key(0)))
+        png.write_png(path, r.image)
+        return open(path, "rb").read()
+
+    cli.run_render = spy
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "cli.png")
+            ref = os.path.join(tmp, "ref.png")
+            _, counts = run(["render", "--scene", "circles", "--resolution",
+                             "2k", "--out", out, "--stats"])
+            cli_counts = counts
+            missing = [k for k in UNLIT_PATH if counts[k] == 0]
+            if open(out, "rb").read() != fresh_png(ref) or missing:
+                raise AssertionError(f"cli render 2k: PNG differs from the "
+                                     f"Engine's, or never launched {missing}")
+            shape_2k = png.read_png(out).shape
+            print(f"cli render circles 2k: PNG {shape_2k} byte-equal to a "
+                  f"fresh Engine's first render under key 0")
+            run(["render", "--scene", "circles", "--resolution", "2k",
+                 "--band-rows", "480", "--out", out])
+            if open(out, "rb").read() != fresh_png(ref, banded=True):
+                raise AssertionError("cli --band-rows 480: PNG differs from "
+                                     "render_banded's")
+            print("cli render --band-rows 480: PNG byte-equal to "
+                  "render_banded's")
+            _, counts = run(["render", "--scene", "circles", "--resolution",
+                             "2k", "--backend", "simple", "--out", out])
+            if counts["nearest_hit"] == 0 or png.read_png(
+                    out).shape != shape_2k:
+                raise AssertionError("cli --backend simple: B11 never "
+                                     "launched, or a bad image")
+            csv = os.path.join(tmp, "debug.csv")
+            _, counts = run(["render", "--scene", "circles", "--resolution",
+                             "640x360", "--debug-csv", csv, "--out", out])
+            with open(csv) as f:
+                n_lines = sum(1 for _ in f)
+            missing = [k for k in DEBUG_PATH if counts[k] == 0]
+            if n_lines != 1 + 640 * 360 or missing:
+                raise AssertionError(f"cli --debug-csv: {n_lines} lines, "
+                                     f"never launched {missing}")
+            print(f"cli --debug-csv 640x360: {n_lines} lines")
+        # the ray differ: at 16x16 (maxdepth 2) the JAX CLI finds no error
+        # and so must the port; at 48x27 the centre row's rays run exactly
+        # through shared triangle edges, where the engine's and the numpy
+        # oracle's winners may differ (the JAX CLI reports 7 such rays on
+        # an x86 CPU), so that report is printed, not gated
+        text, _ = run(["diff", "--scene", "circles", "--resolution", "16x16",
+                       "--maxdepth", "2", "--a", "engine", "--b", "oracle"])
+        print("  " + "\n  ".join(text.strip().splitlines()[-2:]))
+        if "Found 0 errors" not in text:
+            raise AssertionError(f"cli diff engine oracle:\n{text}")
+        text, _ = run(["diff", "--scene", "circles", "--resolution", "48x27",
+                       "--a", "engine", "--b", "oracle"], ok=(0, 1))
+        print("  " + "\n  ".join(text.strip().splitlines()[1:]))
+        if "Found " not in text:
+            raise AssertionError(f"cli diff 48x27 reported nothing:\n{text}")
+        text, _ = run(["tune", "--scene", "circles", "--resolution",
+                       "640x360"])
+        walked = [line for line in text.splitlines()
+                  if line.startswith(("Running", "Runtime", "Found"))]
+        print("  " + "\n  ".join(walked))
+        chunks = sorted({int(line.rsplit("=", 1)[1]) for line in walked
+                         if line.startswith("Running")})
+        print(f"cli tune walked ray_chunk {chunks} of the grid "
+              f"{list(cli.CHUNK_OPTS)} [{card}]")
+        if not any(line.startswith("Found minimum") for line in walked):
+            raise AssertionError("cli tune did not finish")
+        if max(cli.CHUNK_OPTS) not in chunks:
+            # the hill climb stopped short of the grid's top: walk the top
+            # two values of the same grid, so that tune runs at 4096 too
+            grid = cli.CHUNK_OPTS
+            cli.CHUNK_OPTS = grid[-2:]
+            try:
+                text, _ = run(["tune", "--scene", "circles", "--resolution",
+                               "640x360"])
+            finally:
+                cli.CHUNK_OPTS = grid
+            print("  " + "\n  ".join(line for line in text.splitlines()
+                                     if line.startswith(("Running", "Runtime",
+                                                         "Found"))))
+            if f"ray_chunk={max(grid)}" not in text:
+                raise AssertionError("cli tune never ran the grid's top")
+    finally:
+        cli.run_render = run_render
+    return cli_counts
+
+
 #: the kernels' function names in csrc/*.cu
 PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
                 "trace_shade_perlane_kernel", "expand_kernel",
                 "shade_kernel", "trace_streamed_kernel", "nearest_hit_kernel",
                 "trace_perlane_kernel", "bm_prep_kernel", "bm_sweep_kernel",
-                "bm_finish_kernel")
+                "bm_finish_kernel", "cull_sorted_kernel",
+                "compact_buckets_kernel", "expand_buckets_kernel")
 
 
 def _groups(per_name) -> dict:
@@ -1156,7 +1620,7 @@ def main() -> int:
           f"({int((rows7[1] != 0).sum())} hits); any-hit occlusion bits "
           f"equal ({int(hit7.sum())} shadow rays, "
           f"{int((occ7[1] != 0).sum())} occluded)")
-    perlane_banks(dev, key)
+    banks = perlane_banks(dev, key)
     _print_ptxas(built["log"], "B7", ("trace_perlane_kernel",))
 
     # the kernels alone at full 2k size (3,600 chunks)
@@ -1371,6 +1835,21 @@ def main() -> int:
                                             built["log"])
     w_scene, wr, w_vp = wavefront_kernels(dev, card, key, results,
                                           built["log"])
+    # B13 and B14, which no render path launches, and the chunk-block
+    # kernels at ray_chunk 2048 and 4096
+    b_eng, b_o, b_d, b_valid, b_rays = banks
+    cull_sorted_kernels({
+        "circles_2k camera rays": (full0[0:3], full0[3:6], full0[7] != 0,
+                                   eng.aabb_lo, eng.aabb_hi, rays),
+        "4-bank sphere camera rays": (b_o, b_d, b_valid, b_eng.aabb_lo,
+                                      b_eng.aabb_hi, b_rays)}, card, results)
+    del banks, b_eng, b_o, b_d, b_valid, b_rays
+    bucket_kernels(full1, card, results)
+    ray_chunk_kernels(eng, full0, pk0, eng_s, card, key, results)
+    _print_ptxas(built["log"], "B13", ("cull_sorted_kernel",))
+    _print_ptxas(built["log"], "B14", ("compact_buckets_kernel",
+                                       "expand_buckets_kernel"))
+    _print_ptxas(built["log"], "B2/B6", ("trace_union_kernelILi4",))
     t_zero = _time_ms(lambda: torch.zeros_like(full1))
     for k in native.KERNELS:
         r = results[k.name]
@@ -1439,6 +1918,13 @@ def main() -> int:
                         m_vp, fixed_rng=True).image,
                     lambda: Engine(m_scene, device=dev).render(
                         m_vp, fixed_rng=True).image)
+    # ray_chunk 4096: 2 chunk-block kernels' blocks own 4 rays a thread
+    rc_scene, rc_vp = circles.build(resolution=(640, 360), maxdepth=5)
+    check_paths("circles Engine(ray_chunk=4096)",
+                lambda: Engine(rc_scene, ray_chunk=4096, device=dev).render(
+                    rc_vp, fixed_rng=True).image,
+                lambda: Engine(rc_scene, ray_chunk=4096, device=dev).render(
+                    rc_vp, fixed_rng=True).image)
     s_vp5 = synthetic_view(STREAMED_CHECK_RES)
     for label in ("unlit", "lit"):
         if label == "lit":
@@ -1829,6 +2315,20 @@ def main() -> int:
     if n_px or not np.array_equal(band_f.wave_rays, full_f.wave_rays):
         raise AssertionError("render_banded differs from render()")
 
+    # 6j. circles_2k through Engine(ray_chunk=4096): three timed renders
+    # after the autotune's, beside the default Engine's (ray_chunk 1024)
+    eng_rc = Engine(scene, ray_chunk=4096, device=dev)
+    rc_best, rc_launches = timed("circles_2k Engine(ray_chunk=4096)", eng_rc,
+                                 vp, UNLIT_PATH, ("nearest_hit",))
+    d_best = min(runs["default"], key=lambda r: r.seconds)
+    print(f"circles_2k ray_chunk 4096 (schedule {eng_rc.ncompact}): "
+          f"{rc_best.mrays_per_sec:.3f} Mrays/s vs the default's (ray_chunk "
+          f"1024) {d_best.mrays_per_sec:.3f} Mrays/s [{card}]")
+    del eng_rc
+
+    # 6k. the command line on the card
+    cli_launches = cli_phase(dev, card)
+
     # 7. where the time of one circles_2k and one synthetic_1m_2k render goes
     for name, e, pvp in (("default", eng, vp), ("ncompact=0", eng0, vp),
                          ("lit", eng_l, vp),
@@ -1872,7 +2372,8 @@ def main() -> int:
              "streamed_lit": sl_launches, "wavefront": w_launches,
              "legacy": leg_launches, "spp4": q4_launches,
              "debug": dbg_launches, "bank_major": bm_launches,
-             "perlane_shadow": perlane_launches, "banded": band_launches}
+             "perlane_shadow": perlane_launches, "banded": band_launches,
+             "ray_chunk_4096": rc_launches, "cli": cli_launches}
     main_path = {"trace_shade_streamed": "streamed",
                  "trace_streamed": "streamed_lit",
                  "nearest_hit": "wavefront",
@@ -1882,10 +2383,16 @@ def main() -> int:
     def path_of(name):
         return main_path.get(name, "lit" if name in LIT_PATH else "unlit")
 
+    # B13 and B14 launch on no render path (the JAX package calls neither):
+    # phase 3 drives them directly, and every path's count is 0
+    direct = (native.CULL_SORTED.name, native.COMPACT_BUCKETS.name,
+              native.EXPAND_BUCKETS.name)
+
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
          "launches": paths[path_of(k.name)][k.name],
+         "path": "driven directly" if k.name in direct else path_of(k.name),
          "launches_by_path": {p: c[k.name] for p, c in paths.items()},
          "library_ms": None, **results[k.name]} for k in native.KERNELS]}))
     print(json.dumps({"ok": True, "device": {

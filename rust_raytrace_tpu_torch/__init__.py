@@ -8,23 +8,26 @@ modules it needs are copies under the same relative names.
 Layout (each module names its JAX counterpart):
   engine        Engine: the compacted and legacy wave loops (spp >= 1,
                 debug buffers, walk_one_ray) and their host helpers
+  cli           the command line: render, diff, tune (--device cuda|cpu)
   render        WavefrontRenderer (the portable renderer: backends
                 "kernel" = B11, "portable" = the page scan), RenderResult,
                 RayCaster
   scene, geometry, materials, camera, math3d, obj_parser, models,
-  ops/pages, utils/png
+  ops/pages, utils/png, oracle, octree, utils/raydebug,
+  utils/term_display, utils/tracelog
                 numpy host modules (copies)
   ops/state     row layout of the ray state and of the trace winner rows
   ops/shade     the shade + scatter hash, fma and XLA-CPU's rsqrt (B0b)
-  ops/cull      B1: packet cull of ray chunks against page AABBs; the
-                interval culls of the XLA path
+  ops/cull      B1: packet cull of ray chunks against page AABBs, B13: the
+                same with the page sort in the kernel; the interval culls
+                of the XLA path
   ops/intersect B0a hit predicate, pinhole fold, B2: wave-0 union trace+shade,
                 B6: union trace to rows, B11: dense nearest hit
   ops/intersect_xla  the portable page scan (JAX's nearest_hit_xla)
-  ops/compact   B3: compaction, B5: expansion
+  ops/compact   B3: compaction, B5: expansion, B14: the bucketed pair
   ops/intersect_perlane  per-lane tables, B4: bounce trace+shade
   ops/intersect_streamed  streamed tables, B9: bank-worklist trace+shade,
-                B10: bank-worklist trace to rows
+                B10: bank-worklist trace to rows, B12: the bank-major sweep
   utils/rng     jax.random-equal threefry keys
   utils/xla_rsqrt  the host CPU's rsqrtps table
   utils/native  nvcc build + ctypes binding + launch counts of csrc/*.cu

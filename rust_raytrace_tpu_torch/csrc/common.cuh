@@ -58,6 +58,21 @@ constexpr float KIND_REFLECTIVE = 2.0f;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
+// The block of a kernel whose block is one ray chunk: at most 1024 threads,
+// whole warps, each thread owning rpt (1, 2 or 4) of the chunk's rays, lane
+// s * threads + threadIdx.x for its slot s; slots past ray_chunk hold no
+// ray (ray_chunk <= 4096, utils/native.py MAX_RAY_CHUNK).
+struct ChunkBlock {
+  int threads;
+  int rpt;
+};
+
+inline ChunkBlock chunk_block(int ray_chunk) {
+  const int rpt = ray_chunk <= 1024 ? 1 : (ray_chunk <= 2048 ? 2 : 4);
+  const int per = (ray_chunk + rpt - 1) / rpt;
+  return {(per + 31) / 32 * 32, rpt};
+}
+
 // Reciprocal direction for slab tests: +-BIG where a component is zero.
 __device__ __forceinline__ float slab_inv(float d) {
   return d != 0.0f ? 1.0f / d : (d >= 0.0f ? BIG : -BIG);

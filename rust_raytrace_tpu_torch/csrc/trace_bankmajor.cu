@@ -23,9 +23,10 @@
 // meaning of the TPU's one table DMA per bank per wave.
 //
 // Design.
-//   prep: one block per chunk, one thread per ray.  Each thread writes its
-//     lane's winner init (t = +inf on valid lanes, -inf on invalid ones;
-//     id and slot 0) and slab-tests its ray against the bank AABBs, staged
+//   prep: one block per chunk, at most 1024 threads, each owning
+//     ceil(ray_chunk / 1024) rays.  Each thread writes its lanes' winner
+//     init (t = +inf on valid lanes, -inf on invalid ones; id and slot 0)
+//     and slab-tests its rays against the bank AABBs, staged
 //     in shared memory 128 banks at a time; warp ballots and a shared
 //     atomicOr set bit g of gm[bank, chunk] when some ray of the chunk's
 //     128-lane group g enters the bank.  The TPU's lane sort by primary
@@ -92,41 +93,59 @@ __device__ __forceinline__ bool enters(const float* __restrict__ box,
   return (tlo <= thi) & (thi >= 0.0f) & (tlo <= t_max);
 }
 
-// B12a.  Block c = chunk c; blockDim = ray_chunk (a multiple of 128).
+// B12a.  Block c = chunk c, at most 1024 threads (rt::chunk_block): a
+// thread owns RPT lanes of the chunk, slot s at lane s * blockDim + tid.
+// blockDim is a multiple of 32 and lanes run in whole warps, so the 32
+// lanes of a warp's slot lie in one 128-lane group: one ballot per warp
+// and slot decides its group's bit, for 8 to 32 groups at ray_chunk 1024
+// to 4096 (bit 31 of the int32 mask included).
+template <int RPT>
 __global__ void __launch_bounds__(1024)
 bm_prep_kernel(const float* __restrict__ st, long long R,
                const float* __restrict__ bank_ab, int NB, int NC,
-               const int* __restrict__ chunk_live, float* __restrict__ win,
-               int* __restrict__ gm) {
+               int ray_chunk, const int* __restrict__ chunk_live,
+               float* __restrict__ win, int* __restrict__ gm) {
   __shared__ float s_box[BANK_TILE * BOX];
   __shared__ int s_gm[BANK_TILE];
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
   const int c = blockIdx.x;
-  const long long r = (long long)c * blockDim.x + lane;
   const bool live = chunk_live == nullptr || chunk_live[c] != 0;
-  const bool valid = live && st[rt::ROW_ALIVE * R + r] != 0.0f;
-  win[WIN_T * R + r] = valid ? rt::inf_f() : -rt::inf_f();
-  win[WIN_ID * R + r] = 0.0f;
-  win[WIN_SLOT * R + r] = 0.0f;
-  float o[3], d[3], inv[3];
-  load_ray(st, R, r, o, d, inv);
-  const int gbit = 1 << (lane / GROUP);
+  bool valid[RPT];
+  float o[RPT][3], d[RPT][3], inv[RPT][3];
+  unsigned gbit[RPT];
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) {
+    const int l = s * blockDim.x + tid;
+    const bool in = l < ray_chunk;
+    const long long r = (long long)c * ray_chunk + (in ? l : 0);
+    valid[s] = in && live && st[rt::ROW_ALIVE * R + r] != 0.0f;
+    if (in) {
+      win[WIN_T * R + r] = valid[s] ? rt::inf_f() : -rt::inf_f();
+      win[WIN_ID * R + r] = 0.0f;
+      win[WIN_SLOT * R + r] = 0.0f;
+    }
+    load_ray(st, R, r, o[s], d[s], inv[s]);
+    gbit[s] = 1u << ((in ? l : 0) / GROUP);
+  }
   for (int b0 = 0; b0 < NB; b0 += BANK_TILE) {
     const int n = min(BANK_TILE, NB - b0);
-    for (int i = lane; i < n * 7; i += blockDim.x)
+    for (int i = tid; i < n * 7; i += blockDim.x)
       s_box[(i / 7) * BOX + i % 7] =
           bank_ab[(long long)(b0 + i / 7) * AB_LANES + i % 7];
-    for (int i = lane; i < n; i += blockDim.x) s_gm[i] = 0;
+    for (int i = tid; i < n; i += blockDim.x) s_gm[i] = 0;
     __syncthreads();
     for (int b = 0; b < n; ++b) {
       const float* box = s_box + b * BOX;
-      const bool hit = valid && box[6] != 0.0f &&
-                       enters(box, o, inv, rt::inf_f());
-      if (__ballot_sync(0xffffffffu, hit) != 0u && (lane & 31) == 0)
-        atomicOr(&s_gm[b], gbit);
+#pragma unroll
+      for (int s = 0; s < RPT; ++s) {
+        const bool hit = valid[s] && box[6] != 0.0f &&
+                         enters(box, o[s], inv[s], rt::inf_f());
+        if (__ballot_sync(0xffffffffu, hit) != 0u && (tid & 31) == 0)
+          atomicOr(&s_gm[b], (int)gbit[s]);
+      }
     }
     __syncthreads();
-    for (int i = lane; i < n; i += blockDim.x)
+    for (int i = tid; i < n; i += blockDim.x)
       gm[(long long)(b0 + i) * NC + c] = s_gm[i];
     __syncthreads();
   }
@@ -227,8 +246,12 @@ extern "C" int rt_bm_prep(const float* st, long long R, const float* bank_ab,
                           int NB, int ray_chunk, const int* chunk_live,
                           float* win, int* gm, void* stream) {
   const int NC = (int)(R / ray_chunk);
-  bm_prep_kernel<<<NC, ray_chunk, 0, (cudaStream_t)stream>>>(
-      st, R, bank_ab, NB, NC, chunk_live, win, gm);
+  const rt::ChunkBlock b = rt::chunk_block(ray_chunk);
+  auto kernel = b.rpt == 1 ? bm_prep_kernel<1>
+                           : (b.rpt == 2 ? bm_prep_kernel<2>
+                                         : bm_prep_kernel<4>);
+  kernel<<<NC, b.threads, 0, (cudaStream_t)stream>>>(
+      st, R, bank_ab, NB, NC, ray_chunk, chunk_live, win, gm);
   return (int)cudaGetLastError();
 }
 

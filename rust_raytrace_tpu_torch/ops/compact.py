@@ -4,9 +4,11 @@ Counterpart: `rust_raytrace_tpu/ops/compact.py` — the constants,
 `dead_capacity`, `make_dead_array`, `compact_meta` (in torch ops, on the
 device, with no host sync), `compact_pallas` (B3) and `expand_pallas` (B5).
 `compact` and `expand` run the CUDA kernels of `csrc/compact.cu` on CUDA
-tensors and `compact_plain` / `expand_plain` on CPU tensors.  The JAX
-module's `gate_frac` self-gating (measured out there) and its bucketed
-variants (B14) are not carried.
+tensors and `compact_plain` / `expand_plain` on CPU tensors.  The bucketed
+variants (B14: `compact_meta_buckets`, `compact_buckets` and
+`expand_buckets`, kernels in `csrc/compact_buckets.cu`) are here too; no
+render path calls them, as in the JAX package.  The JAX module's
+`gate_frac` self-gating (measured out there) is not carried.
 
 After a wave, compaction moves each chunk's surviving rays (alive row set)
 to a dense prefix of a fresh state array, in chunk order and lane order
@@ -222,3 +224,175 @@ def _check(dev, R, cb, meta, grid_live):
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+# The bucketed ("ray sorting") variant, B14: survivors grouped bucket-major
+# by the code in state row ROW_CODE (0 gap, 1 retired, 2 + q alive in
+# bucket q), each (chunk, bucket) segment 128-aligned.  The JAX package
+# measured it slower end to end on the TPU (the alignment padding of eight
+# segments a chunk inflates the prefix) and wires it into no render path;
+# neither does the port.
+
+#: alive buckets (direction octants)
+NB = 8
+#: meta columns: [cnt, case, off] per bucket, then the dead segment's, then
+#: the busy flag
+META9_COLS = 32
+M9_DEAD = 3 * NB
+M9_BUSY = 27
+
+
+def compact_meta_buckets(code, cb: int, dead_base, R: int):
+    """Per-chunk, per-bucket counts and offsets of one bucketed boundary.
+
+    code: [R] float32 codes; dead_base: int32 scalar tensor.  Returns (meta
+    [R // cb, META9_COLS] int32, total_a, overflow, dead_end): total_a the
+    lanes of the padded survivor prefix, overflow whether it exceeds R
+    (then the JAX engine would not compact), dead_end = dead_base + this
+    boundary's padded dead lanes.  All tensors stay on code's device; no
+    host sync."""
+    NC = R // cb
+    codes = code.reshape(NC, 1, cb)
+    q = torch.arange(2, 2 + NB, device=code.device, dtype=torch.float32)
+    cnt_q = (codes == q[None, :, None]).sum(dim=2, dtype=torch.int32)
+    cnt_d = (codes[:, 0] == 1.0).sum(dim=1, dtype=torch.int32)
+    pad_q = (cnt_q + (ALIGN - 1)) // ALIGN * ALIGN
+    pad_d = (cnt_d + (ALIGN - 1)) // ALIGN * ALIGN
+    tot_q = pad_q.sum(dim=0, dtype=torch.int32)                  # [NB]
+    base_q = torch.cumsum(tot_q, dim=0, dtype=torch.int32) - tot_q
+    within = torch.cumsum(pad_q, dim=0, dtype=torch.int32) - pad_q
+    off_q = base_q[None, :] + within
+    cs_d = torch.cumsum(pad_d, dim=0, dtype=torch.int32)
+    base = dead_base.to(torch.int32)
+    off_d = base + cs_d - pad_d
+    dead_end = base + cs_d[-1]
+    total_a = tot_q.sum(dtype=torch.int32)
+    overflow = total_a > R
+    busy = ((cnt_q.sum(dim=1) + cnt_d) > 0).to(torch.int32)
+    cols = []
+    for b in range(NB):
+        cols += [cnt_q[:, b], pad_q[:, b] // ALIGN, off_q[:, b]]
+    cols += [cnt_d, pad_d // ALIGN, off_d, busy]
+    meta = torch.zeros((NC, META9_COLS), dtype=torch.int32,
+                       device=code.device)
+    meta[:, :len(cols)] = torch.stack(cols, dim=1)
+    return meta, total_a, overflow, dead_end
+
+
+def _bucket_lanes(code, meta, cb: int, R: int, RD: int):
+    """The lanes of busy chunks in a bucket (mask columns 0..NB-1) or
+    retired (column NB): (masks [R, NB + 1] bool, each lane's position in
+    its segment [R] int64, and whether its segment ends within its array:
+    R lanes for a bucket's, RD for the dead one's, [R, NB + 1] bool)."""
+    chunk = torch.arange(R, device=code.device) // cb
+    q = torch.tensor([2.0 + b for b in range(NB)] + [1.0],
+                     device=code.device)
+    busy = (meta[:, M9_BUSY] != 0)[chunk]
+    masks = (code[:, None] == q[None]) & busy[:, None]           # [R, 9]
+    m = masks.reshape(R // cb, cb, NB + 1).to(torch.int64)
+    rank = (torch.cumsum(m, dim=1) - m).reshape(R, NB + 1)
+    cols = [3 * b for b in range(NB)] + [M9_DEAD]
+    cnt = meta[:, cols].long()
+    end = meta[:, [c + 2 for c in cols]].long() + ALIGN * meta[
+        :, [c + 1 for c in cols]].long()
+    limit = torch.tensor([R] * NB + [RD], device=code.device)
+    fits = ((cnt > 0) & (end <= limit))[chunk]                   # [R, 9]
+    pos = (meta[:, [c + 2 for c in cols]].long()[chunk] + rank).gather(
+        1, masks.long().argmax(dim=1, keepdim=True))[:, 0]
+    return masks & fits, pos
+
+
+def compact_buckets_plain(state, dead_arr, meta, cb: int):
+    """Plain torch version of `compact_buckets`."""
+    R = state.shape[1]
+    RD = dead_arr.shape[1]
+    out = torch.zeros_like(state)
+    moves, dst = _bucket_lanes(state[ROW_CODE], meta, cb, R, RD)
+    alive = moves[:, :NB].any(dim=1)
+    out[:, dst[alive]] = state[:, alive]
+    dead = moves[:, NB]
+    dead_arr[:, dst[dead]] = state[ROW_ACC:ROW_ACC + PAYLOAD_ROWS, dead]
+    # the padding lanes of the dead segments that are written
+    cnt_d = meta[:, M9_DEAD].long()
+    off_d = meta[:, M9_DEAD + 2].long()
+    pad_d = meta[:, M9_DEAD + 1].long() * ALIGN
+    lane = torch.arange(cb, device=state.device)[None]
+    pad = ((lane >= cnt_d[:, None]) & (lane < pad_d[:, None])
+           & ((cnt_d > 0) & (off_d + pad_d <= RD))[:, None])
+    dead_arr[:, (off_d[:, None] + lane)[pad]] = 0.0
+    return out, dead_arr
+
+
+def compact_buckets(state, dead_arr, meta, cb: int):
+    """B14a: apply one bucketed boundary's compaction.
+
+    state: [16, R] float32 with the codes in row ROW_CODE; dead_arr: [8, RD]
+    float32, updated in place; meta: `compact_meta_buckets` of the codes.
+    Returns (new state [16, R]: each (chunk, bucket) segment at its offset,
+    all 16 rows, zeros elsewhere; dead_arr).  A segment that would end past
+    its array (an overflowing layout) is not written."""
+    dev = state.device
+    if dev.type == "cpu":
+        return compact_buckets_plain(state, dead_arr, meta, cb)
+    native.require(dev.type == "cuda",
+                   f"compact_buckets: no kernel for device {dev}")
+    R = state.shape[1]
+    RD = dead_arr.shape[1]
+    _check_buckets(dev, R, cb, meta)
+    native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
+    native.check_tensor("dead_arr", dead_arr, dev, (PAYLOAD_ROWS, RD),
+                        torch.float32)
+    out = torch.zeros_like(state)
+    native.COMPACT_BUCKETS(state.data_ptr(), out.data_ptr(),
+                           dead_arr.data_ptr(), R, RD, meta.data_ptr(), cb,
+                           native.stream(dev))
+    return out, dead_arr
+
+
+def expand_buckets_plain(y, dead_arr, code, meta, cb: int):
+    """Plain torch version of `expand_buckets`."""
+    R = y.shape[1]
+    moves, src = _bucket_lanes(code.reshape(R), meta, cb, R,
+                               dead_arr.shape[1])
+    out = torch.zeros_like(y)
+    alive = moves[:, :NB].any(dim=1)
+    out[:, alive] = y[:, src[alive]]
+    dead = moves[:, NB]
+    out[:, dead] = dead_arr[:, src[dead]]
+    return out
+
+
+def expand_buckets(y, dead_arr, code, meta, cb: int):
+    """B14b: reverse one bucketed boundary for the 8-row payload.
+
+    y: [8, R] float32 in post-compaction order (rows 8..15 of the state
+    `compact_buckets` returned); dead_arr: [8, RD]; code: [1, R] float32,
+    the codes recorded before the boundary; meta: that boundary's.  Returns
+    [8, R] in pre-compaction order: each bucket lane's bits from its
+    segment, each retired lane's from the dead array, 0 on gaps, on idle
+    chunks and where a segment does not fit."""
+    dev = y.device
+    if dev.type == "cpu":
+        return expand_buckets_plain(y, dead_arr, code, meta, cb)
+    native.require(dev.type == "cuda",
+                   f"expand_buckets: no kernel for device {dev}")
+    R = y.shape[1]
+    RD = dead_arr.shape[1]
+    _check_buckets(dev, R, cb, meta)
+    native.check_tensor("y", y, dev, (PAYLOAD_ROWS, R), torch.float32)
+    native.check_tensor("dead_arr", dead_arr, dev, (PAYLOAD_ROWS, RD),
+                        torch.float32)
+    native.check_tensor("code", code, dev, (1, R), torch.float32)
+    out = torch.empty_like(y)
+    native.EXPAND_BUCKETS(y.data_ptr(), dead_arr.data_ptr(), code.data_ptr(),
+                          out.data_ptr(), R, RD, meta.data_ptr(), cb,
+                          native.stream(dev))
+    return out
+
+
+def _check_buckets(dev, R, cb, meta):
+    native.require(cb % ALIGN == 0 and cb <= 1024 and R % cb == 0,
+                   f"cb {cb} must be a multiple of {ALIGN} up to 1024 "
+                   f"dividing R = {R}")
+    native.check_tensor("meta", meta, dev, (R // cb, META9_COLS),
+                        torch.int32)

@@ -1,10 +1,12 @@
-"""B1: exact packet cull of ray chunks against page AABBs; and the XLA
-path's interval-arithmetic culls.
+"""B1: exact packet cull of ray chunks against page AABBs; B13: the same
+cull with each chunk's pages sorted in the kernel; and the XLA path's
+interval-arithmetic culls.
 
 Counterpart: `rust_raytrace_tpu/ops/cull_pallas.py:cull_mask_exact_pallas`
-(and its XLA form `ops/cull.py:cull_mask_exact`).  `cull_mask_exact` runs
-the CUDA kernel `csrc/cull.cu` on CUDA tensors and `cull_mask_exact_plain`
-on CPU tensors; chip_smoke.py holds the two equal on the card.
+(and its XLA form `ops/cull.py:cull_mask_exact`) and `cull_sorted_pallas`.
+`cull_mask_exact` and `cull_sorted` run the CUDA kernels of `csrc/cull.cu`
+on CUDA tensors and `cull_mask_exact_plain` / `cull_sorted_plain` on CPU
+tensors; chip_smoke.py holds each pair equal on the card.
 `chunk_bounds`, `cull_mask_tmin` and their octant forms are the JAX
 package's `ops/cull.py` functions of the same names, in torch ops.
 """
@@ -39,14 +41,17 @@ def slab(lo, hi, o, inv):
     return tlo, thi
 
 
-def cull_mask_exact_plain(ot, dt, valid, blo, bhi, ray_chunk: int):
-    """Plain torch version of `cull_mask_exact`."""
+def _chunk_page_reduce(ot, dt, valid, blo, bhi, ray_chunk: int,
+                       miss: float):
+    """Per (chunk, page): whether a valid ray of the chunk hits the page's
+    slab, and the min over the chunk's rays of max(tlo, 0) on a hit and
+    `miss` on a miss: ([NC, NP] bool, [NC, NP] float32)."""
     RB = ray_chunk
     R = ot.shape[1]
     NC = R // RB
     NP = blo.shape[0]
     mask = torch.empty((NC, NP), dtype=torch.bool, device=ot.device)
-    tmin = torch.empty((NC, NP), dtype=torch.float32, device=ot.device)
+    emin = torch.empty((NC, NP), dtype=torch.float32, device=ot.device)
     step = max(1, _PLAIN_BLOCK // (RB * NP))
     lo = [blo[:, k][None, :, None] for k in range(3)]     # [1, NP, 1]
     hi = [bhi[:, k][None, :, None] for k in range(3)]
@@ -59,11 +64,17 @@ def cull_mask_exact_plain(ot, dt, valid, blo, bhi, ray_chunk: int):
         v = valid[rays].reshape(c1 - c0, 1, RB)
         tlo, thi = slab(lo, hi, o, inv)                   # [c, NP, RB]
         hit = (tlo <= thi) & (thi >= 0.0) & v
-        entry = torch.where(hit, torch.clamp(tlo, min=0.0), torch.inf)
-        m = hit.any(dim=2)
-        mask[c0:c1] = m
-        tmin[c0:c1] = torch.where(m, entry.amin(dim=2), torch.inf)
-    return mask, tmin
+        entry = torch.where(hit, torch.clamp(tlo, min=0.0), miss)
+        mask[c0:c1] = hit.any(dim=2)
+        emin[c0:c1] = entry.amin(dim=2)
+    return mask, emin
+
+
+def cull_mask_exact_plain(ot, dt, valid, blo, bhi, ray_chunk: int):
+    """Plain torch version of `cull_mask_exact`."""
+    mask, emin = _chunk_page_reduce(ot, dt, valid, blo, bhi, ray_chunk,
+                                    torch.inf)
+    return mask, torch.where(mask, emin, torch.inf)
 
 
 def cull_mask_exact(ot, dt, valid, blo, bhi, ray_chunk: int):
@@ -96,6 +107,79 @@ def cull_mask_exact(ot, dt, valid, blo, bhi, ray_chunk: int):
                 blo.data_ptr(), bhi.data_ptr(), NP, NC, ray_chunk,
                 mask.data_ptr(), tmin.data_ptr(), native.stream(dev))
     return mask, tmin
+
+
+#: B13's key of a page no ray of the chunk hits (the JAX package's finite
+#: BIGT, cull_pallas.py:42)
+BIGT = 3.0e38
+
+
+def cull_sorted_plain(ot, dt, valid, blo, bhi, ray_chunk: int,
+                      chunk_live=None):
+    """Plain torch version of `cull_sorted`."""
+    R = ot.shape[1]
+    NC = R // ray_chunk
+    NP = blo.shape[0]
+    NPpad = -(-NP // 128) * 128
+    hit, emin = _chunk_page_reduce(ot, dt, valid, blo, bhi, ray_chunk, BIGT)
+    key = torch.full((NC, NPpad), BIGT, dtype=torch.float32, device=ot.device)
+    # the TPU kernel extracts the keys with one-hot sums: -0 comes out +0
+    key[:, :NP] = torch.where(hit, torch.where(emin == 0.0, 0.0, emin), BIGT)
+    ptmin, plist = torch.sort(key, dim=1, stable=True)
+    counts = hit.sum(dim=1, dtype=torch.int32)
+    plist = plist.to(torch.int32)
+    if chunk_live is not None:
+        dead = (chunk_live == 0)[:, None]
+        counts = torch.where(dead[:, 0], 0, counts)
+        plist = torch.where(dead, 0, plist)
+        ptmin = torch.where(dead, BIGT, ptmin)
+    return counts, plist, ptmin
+
+
+def cull_sorted(ot, dt, valid, blo, bhi, ray_chunk: int, chunk_live=None):
+    """B13: the exact cull with each chunk's pages sorted front to back.
+
+    ot, dt, valid, blo, bhi, ray_chunk: as `cull_mask_exact`; chunk_live:
+    optional [NC] int32, chunks flagged 0 are dead.  A page's key is the
+    least max(tlo, 0) over the chunk's valid rays that hit it, BIGT where
+    none does (and for the padding pages NP..NPpad, NPpad = NP rounded up
+    to 128).  Returns (counts [NC] int32, the pages hit; plist [NC, NPpad]
+    int32, the pages by (key, page index); ptmin [NC, NPpad] float32, their
+    keys); a dead chunk gets count 0, plist 0 and ptmin BIGT.  The engine
+    takes the split form (`cull_mask_exact`, then `engine.page_lists`), as
+    the JAX engine does: no render path calls this.
+    """
+    dev = ot.device
+    if dev.type == "cpu":
+        return cull_sorted_plain(ot, dt, valid, blo, bhi, ray_chunk,
+                                 chunk_live)
+    native.require(dev.type == "cuda",
+                   f"cull_sorted: no kernel for device {dev}")
+    R = ot.shape[1]
+    NP = blo.shape[0]
+    NPpad = -(-NP // 128) * 128
+    native.check_ray_chunk(R, ray_chunk)
+    native.check_tensor("ot", ot, dev, (3, R), torch.float32, False)
+    native.check_tensor("dt", dt, dev, (3, R), torch.float32, False)
+    native.require(ot.stride(0) == dt.stride(0),
+                   "ot and dt need one row stride")
+    native.check_tensor("valid", valid, dev, (R,), torch.bool)
+    native.check_tensor("blo", blo, dev, (NP, 3), torch.float32)
+    native.check_tensor("bhi", bhi, dev, (NP, 3), torch.float32)
+    NC = R // ray_chunk
+    if chunk_live is not None:
+        native.check_tensor("chunk_live", chunk_live, dev, (NC,),
+                            torch.int32)
+    counts = torch.empty((NC,), dtype=torch.int32, device=dev)
+    plist = torch.empty((NC, NPpad), dtype=torch.int32, device=dev)
+    ptmin = torch.empty((NC, NPpad), dtype=torch.float32, device=dev)
+    native.CULL_SORTED(
+        ot.data_ptr(), dt.data_ptr(), ot.stride(0), valid.data_ptr(),
+        blo.data_ptr(), bhi.data_ptr(), NP, NPpad, NC, ray_chunk,
+        0 if chunk_live is None else chunk_live.data_ptr(),
+        counts.data_ptr(), plist.data_ptr(), ptmin.data_ptr(),
+        native.stream(dev))
+    return counts, plist, ptmin
 
 
 # The interval-arithmetic culls of the JAX package's XLA path

@@ -222,9 +222,29 @@ BM_FINISH = Kernel(
     "rust_raytrace_tpu_torch/csrc/trace_bankmajor.cu",
     "rust_raytrace_tpu/ops/intersect_streamed.py:970")
 
+#: B13, the cull with the page sort in the kernel; B14a and B14b, the
+#: bucketed compaction and its inverse.  No render path launches them: the
+#: JAX package calls neither its fused cull nor its bucketed compaction
+CULL_SORTED = Kernel(
+    "cull_sorted", "rt_cull_sorted",
+    [P, P, I64, P, P, P, I32, I32, I32, I32, P, P, P, P, P],
+    "rust_raytrace_tpu_torch/csrc/cull.cu",
+    "rust_raytrace_tpu/ops/cull_pallas.py:122")
+COMPACT_BUCKETS = Kernel(
+    "compact_buckets", "rt_compact_buckets",
+    [P, P, P, I64, I64, P, I32, P],
+    "rust_raytrace_tpu_torch/csrc/compact_buckets.cu",
+    "rust_raytrace_tpu/ops/compact.py:918")
+EXPAND_BUCKETS = Kernel(
+    "expand_buckets", "rt_expand_buckets",
+    [P, P, P, P, I64, I64, P, I32, P],
+    "rust_raytrace_tpu_torch/csrc/compact_buckets.cu",
+    "rust_raytrace_tpu/ops/compact.py:1032")
+
 KERNELS = (CULL, TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND,
            TRACE_UNION_ROWS, SHADE, TRACE_SHADE_STREAMED, TRACE_STREAMED,
-           NEAREST_HIT, TRACE_PERLANE, BM_PREP, BM_SWEEP, BM_FINISH)
+           NEAREST_HIT, TRACE_PERLANE, BM_PREP, BM_SWEEP, BM_FINISH,
+           CULL_SORTED, COMPACT_BUCKETS, EXPAND_BUCKETS)
 
 
 def reset_launch_counts() -> None:
@@ -238,13 +258,18 @@ def require(ok: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+#: the largest ray_chunk the kernels take: the JAX Engine's and `cli
+#: tune`'s largest.  A kernel whose block is one chunk runs at most 1024
+#: threads, each owning ceil(ray_chunk / 1024) of the chunk's rays.
+MAX_RAY_CHUNK = 4096
+
+
 def check_ray_chunk(R: int, ray_chunk: int) -> None:
-    """The kernels run one chunk or one ray per thread: a chunk of at most
-    1024 threads, whole warps, dividing the ray count."""
+    """Whole warps, at most MAX_RAY_CHUNK rays, dividing the ray count."""
     require(R % ray_chunk == 0 and ray_chunk % 32 == 0
-            and 32 <= ray_chunk <= 1024,
-            f"ray_chunk {ray_chunk} must be a multiple of 32 in [32, 1024] "
-            f"dividing R = {R}")
+            and 32 <= ray_chunk <= MAX_RAY_CHUNK,
+            f"ray_chunk {ray_chunk} must be a multiple of 32 in "
+            f"[32, {MAX_RAY_CHUNK}] dividing R = {R}")
 
 
 def check_tensor(name: str, x, device, shape: tuple, dtype,

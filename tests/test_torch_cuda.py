@@ -173,7 +173,8 @@ def test_golden_on_card_launches_every_kernel(dev):
                         "trace_shade_streamed": 0, "trace_streamed": 0,
                         "nearest_hit": 0, "trace_perlane": 0,
                         "bankmajor_prep": 0, "bankmajor_sweep": 0,
-                        "bankmajor_finish": 0}
+                        "bankmajor_finish": 0, "cull_sorted": 0,
+                        "compact_buckets": 0, "expand_buckets": 0}
 
 
 def _bitwise(got, want):
@@ -235,7 +236,8 @@ def test_lit_render_on_card_equals_cpu(dev):
                         "trace_shade_streamed": 0, "trace_streamed": 0,
                         "nearest_hit": 0, "trace_perlane": 0,
                         "bankmajor_prep": 0, "bankmajor_sweep": 0,
-                        "bankmajor_finish": 0}
+                        "bankmajor_finish": 0, "cull_sorted": 0,
+                        "compact_buckets": 0, "expand_buckets": 0}
     ref = Engine(scene, device="cpu").render(vp, key=prng_key(1)).image
     np.testing.assert_array_equal(img, ref)
 
@@ -477,3 +479,149 @@ def test_bankmajor_render_on_card_equals_cpu(dev):
     wl = Engine(scene, page_size=8, ray_chunk=RB, streamed=True,
                 device=dev).render(vp, key=prng_key(1)).image
     np.testing.assert_array_equal(img, wl)
+
+
+def _camera_state(eng, vp, R, dev):
+    """The wave-0 state of vp's camera rays padded to R lanes, and the
+    folded pages (None in the streamed regime)."""
+    o, d = camera_rays_tiled(vp, pick_tile(vp.width, vp.height), R, dev)
+    o, pk0 = eng._pinhole_fold(vp, o)
+    alive = (torch.arange(R, device=dev) < vp.width * vp.height).float()
+    return torch.cat([o, d, alive[None], alive[None],
+                      torch.zeros((8, R), device=dev)]), pk0
+
+
+@pytest.mark.parametrize("rc", [128, 1024, 2048])
+def test_cull_sorted_matches_plain(dev, rc):
+    """B13 bitwise against its plain version on the 4-bank sphere's camera
+    rays (NP ~510, NPpad 512) with a dead chunk, and its split-form cross
+    check (B1, then a stable sort)."""
+    scene, vp = _sphere_scene(False)
+    eng = Engine(scene, page_size=8, ray_chunk=RB, device=dev)
+    NP = eng.aabb_lo.shape[0]
+    R = -(-vp.width * vp.height // 2048) * 2048
+    st, _ = _camera_state(eng, vp, R, dev)
+    live = torch.ones(R // rc, dtype=torch.int32, device=dev)
+    live[-1] = 0
+    args = (st[0:3], st[3:6], st[7] != 0, eng.aabb_lo, eng.aabb_hi, rc)
+    native.reset_launch_counts()
+    got = cull.cull_sorted(*args, chunk_live=live)
+    assert native.CULL_SORTED.launches == 1
+    want = cull.cull_sorted_plain(*args, chunk_live=live)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _bitwise(got[2], want[2])
+    assert got[1].shape == (R // rc, -(-NP // 128) * 128)
+    counts, plist, ptmin = cull.cull_sorted(*args)
+    mask, tmin = cull.cull_mask_exact(*args)
+    assert torch.equal(counts, mask.sum(dim=1, dtype=torch.int32))
+    assert torch.equal(plist[:, :NP].long(),
+                       torch.argsort(tmin, dim=1, stable=True))
+    assert int(counts.max()) > 0
+
+
+def _bucket_state(dev, R, cb, n_oct, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    st = torch.randn((16, R), generator=g)
+    u = torch.rand(R, generator=g)
+    code = torch.zeros(R)
+    alive = u < 0.4
+    code[alive] = (2 + torch.randint(0, n_oct, (R,), generator=g)
+                   .float())[alive]
+    code[(u >= 0.4) & (u < 0.7)] = 1.0
+    code[:cb] = 0.0                                  # an idle chunk
+    st[compact.ROW_CODE] = code
+    st[8, cb:cb + 40] = -0.0
+    st.view(torch.int32)[9, cb + 3] = 0x7FC12345
+    return st.to(dev), code.to(dev)
+
+
+@pytest.mark.parametrize("cb,R,n_oct", [(512, 16384, 2), (256, 3072, 2),
+                                        (256, 256 * 6, 8)])
+def test_bucketed_compaction_matches_plain(dev, cb, R, n_oct):
+    """B14a and B14b bitwise against their plain versions, on a dead array
+    whose lanes are not zero; n_oct 8 overflows (segments past R are not
+    written, by the kernel as by the plain version)."""
+    st, code = _bucket_state(dev, R, cb, n_oct, seed=R + cb)
+    base = torch.tensor(256, dtype=torch.int32, device=dev)
+    meta, total_a, overflow, _ = compact.compact_meta_buckets(code, cb, base,
+                                                              R)
+    assert bool(overflow) == (n_oct == 8)
+    dead = torch.randn((8, 2 * R), device=dev)
+    native.reset_launch_counts()
+    out_k, dead_k = compact.compact_buckets(st, dead.clone(), meta, cb)
+    out_p, dead_p = compact.compact_buckets_plain(st, dead.clone(), meta, cb)
+    _bitwise(out_k, out_p)
+    _bitwise(dead_k, dead_p)
+    y = out_k[8:16].contiguous()
+    back_k = compact.expand_buckets(y, dead_k, code[None], meta, cb)
+    back_p = compact.expand_buckets_plain(y, dead_k, code[None], meta, cb)
+    _bitwise(back_k, back_p)
+    assert (native.COMPACT_BUCKETS.launches,
+            native.EXPAND_BUCKETS.launches) == (1, 1)
+    if not bool(overflow):
+        both = code != 0
+        _bitwise(back_k[:, both].contiguous(), st[8:16, both].contiguous())
+
+
+@pytest.mark.parametrize("rc", [2048, 4096])
+def test_ray_chunk_kernels_match_plain(dev, rc):
+    """The kernels whose block is one chunk, at ray_chunk 2048 and 4096
+    (blocks of 1024 threads, 2 or 4 rays a thread): B1, B2 (live and
+    fixed RNG), B6 (camera rays, shadow rays with self-exclusion) and B12a,
+    against their plain versions; then the Engine's render on the card
+    equals the CPU's."""
+    scene, vp = circles.build(resolution=(128, 64), maxdepth=3)
+    eng = Engine(scene, ray_chunk=rc, device=dev)
+    P = eng.page_size
+    R = 128 * 64
+    st, pk0 = _camera_state(eng, vp, R, dev)
+    args = (st[0:3], st[3:6], st[7] != 0, eng.aabb_lo, eng.aabb_hi, rc)
+    mask, tmin = cull.cull_mask_exact(*args)
+    mask_p, tmin_p = cull.cull_mask_exact_plain(*args)
+    assert torch.equal(mask, mask_p) and torch.equal(tmin, tmin_p)
+    lists = page_lists(mask, tmin)
+    for fixed in (True, False):
+        a2 = (st, pk0, *lists, fold_in(prng_key(3), 0), P, rc, fixed, 1 / 512)
+        _bitwise(intersect.trace_shade_chunks(*a2, zero_origin=True),
+                 intersect.trace_shade_chunks_plain(*a2, zero_origin=True))
+    rows = intersect.trace_chunks(st[0:3], st[3:6], pk0, *lists, P, rc,
+                                  zero_origin=True)
+    _bitwise(rows, intersect.trace_chunks_plain(st[0:3], st[3:6], pk0,
+                                                *lists, rc, True))
+    so, sd, hit, excl = shadow_rays(st, rows, prng_key(3), 0, False, LIGHT)
+    sl = page_lists(*cull.cull_mask_exact(so, sd, hit, eng.aabb_lo,
+                                          eng.aabb_hi, rc))
+    _bitwise(intersect.trace_chunks(so, sd, eng.PK, *sl, P, rc, excl=excl),
+             intersect.trace_chunks_plain(so, sd, eng.PK, *sl, rc,
+                                          excl=excl))
+    s_scene, s_vp = _sphere_scene(False)
+    seng = Engine(s_scene, page_size=8, ray_chunk=rc, streamed=True,
+                  device=dev)
+    tabs = seng.stables
+    sst, _ = _camera_state(seng, s_vp, 4096, dev)
+    live = torch.ones(4096 // rc, dtype=torch.int32, device=dev)
+    win, gm = intersect_streamed.bankmajor_prep(sst, tabs[3],
+                                                tabs[0].shape[0], rc, live)
+    win_p, gm_p = intersect_streamed.bankmajor_prep_plain(
+        sst, tabs[3], tabs[0].shape[0], rc, live)
+    _bitwise(win, win_p)
+    assert torch.equal(gm, gm_p) and int((gm != 0).sum()) > 0
+    img = eng.render(vp, key=prng_key(1)).image
+    ref = Engine(scene, ray_chunk=rc, device="cpu").render(
+        vp, key=prng_key(1)).image
+    np.testing.assert_array_equal(img, ref)
+
+
+def test_debug_ids_on_card_equal_cpu(dev):
+    """circles at 48x27, whose centre row's rays run exactly through
+    shared triangle edges: the card's debug render (primary ids and t, the
+    image) equals the CPU's, so where `cli diff` flags those rays the
+    engine side is the same on both."""
+    scene, vp = circles.build(resolution=(48, 27), maxdepth=5)
+    got = Engine(scene, device=dev).render(vp, key=prng_key(0), debug=True)
+    want = Engine(scene, device="cpu").render(vp, key=prng_key(0),
+                                              debug=True)
+    np.testing.assert_array_equal(got.primary_id, want.primary_id)
+    np.testing.assert_array_equal(got.primary_t.view(np.uint32),
+                                  want.primary_t.view(np.uint32))
+    np.testing.assert_array_equal(got.image, want.image)

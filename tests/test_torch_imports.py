@@ -50,6 +50,12 @@ PORT_MODULES = [
     "rust_raytrace_tpu_torch.utils.xla_rsqrt",
     "rust_raytrace_tpu_torch.utils.png",
     "rust_raytrace_tpu_torch.utils.progress",
+    "rust_raytrace_tpu_torch.cli",
+    "rust_raytrace_tpu_torch.oracle",
+    "rust_raytrace_tpu_torch.octree",
+    "rust_raytrace_tpu_torch.utils.raydebug",
+    "rust_raytrace_tpu_torch.utils.term_display",
+    "rust_raytrace_tpu_torch.utils.tracelog",
 ]
 
 
@@ -124,6 +130,25 @@ def test_banded_bank_major_and_perlane_shadow_run_without_the_jax_package():
         "(0.0, 5.0, 0.0, 0.1), *upload_perlane_tables(e.pages, 'cpu'), "
         "e.page_size, 128)\n"
         "assert m.shape == (128,) and not m.any()\n",
+        blocked=("jax", "rust_raytrace_tpu"))
+
+
+def test_cli_runs_without_the_jax_package():
+    """The command line on the CPU (engine, oracle and the ray differ), with
+    jax and the JAX package blocked."""
+    _run_blocked(
+        "import os, tempfile, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from rust_raytrace_tpu_torch.cli import main\n"
+        "base = ['--device', 'cpu', '--scene', 'obj', '--obj', "
+        "'tests/assets/two_mats.obj', '--resolution', '16x16', "
+        "'--maxdepth', '2']\n"
+        "out = os.path.join(tempfile.mkdtemp(), 't.png')\n"
+        "for b in ('engine', 'oracle'):\n"
+        "    assert main(['render', *base, '--backend', b, '--out', "
+        "out]) == 0\n"
+        "assert main(['diff', *base, '--a', 'engine', '--b', 'oracle']) "
+        "== 0\n",
         blocked=("jax", "rust_raytrace_tpu"))
 
 
@@ -215,3 +240,10 @@ def test_render_constants_equal_jax():
                                   "KIND_REFLECTIVE"])
 def test_material_kinds_equal_jax(name):
     assert getattr(tmaterials, name) == getattr(jmaterials, name)
+
+
+def test_cull_sorted_miss_key_equals_jax():
+    """B13's finite key of a missed page."""
+    import rust_raytrace_tpu.ops.cull_pallas as jcull
+    import rust_raytrace_tpu_torch.ops.cull as tcull
+    assert tcull.BIGT == jcull.BIGT
