@@ -2,6 +2,14 @@
 """Smoke run of the torch/CUDA port (rust_raytrace_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --turns CSRC [--out FILE]
+
+The second form runs no smoke phase: it times the streamed kernels (B9,
+B10, B12b) and the synthetic_1m_2k renders that run them in turns against
+a build of CSRC, a `rust_raytrace_tpu_torch/csrc/` from before the
+page-major records (for example from `git archive <commit>
+rust_raytrace_tpu_torch/csrc`), whose streamed C entry points take the
+per-lane tables (`turns`).
 
 The main paths: the unlit circles_2k render (B1, B2, B3, B4, B5); the lit
 one, circles_2k with the teapot preset's light (B1 twice at wave 0, B6
@@ -42,7 +50,9 @@ Phases, each fatal on failure:
      plain version, and of each kernel on the full wave, beside the least
      time the card could take (bound), and the time of the shadow pass's
      bulk random draw (threefry glue); then the streamed kernels on the
-     synthetic_1m_2k tables (page size 224, 35 banks in device memory) on
+     synthetic_1m_2k tables (page size 224, 35 banks in device memory; the
+     page-major records built on the card checked word for word against
+     the per-lane tables and the pages' packed lanes) on
      64 chunks of its camera rays, spread over the chunks that hit the
      sphere: B10 nearest (all 16 rows), B10 any-hit
      with self-exclusion on their shadow rays (the occlusion bit), B9 on
@@ -61,8 +71,10 @@ Phases, each fatal on failure:
      N_CHECK_CHUNKS chunks with dead chunks past the prefix: prep's winner
      init and demand, the sweep's winner stream, finish's state bitwise
      against the plain phases and the chained B12 against B9; on the whole
-     wave-2 state B12 == B9 bitwise, each phase timed beside its bound, and
-     the chain and B9 timed in turns; B7's and B12's ptxas reports; B13
+     wave-2 state B12 == B9 bitwise, each phase timed beside its bound, one
+     B12b grid a sweep call (profiler) there and on an empty wave, and
+     the chain and B9 timed in turns; B7's, B9/B10's and B12's ptxas
+     reports; B13
      on circles_2k's camera rays (37 pages, NPpad 128) and on the 4-bank
      sphere's (510 pages, NPpad 512): bitwise against its plain version on
      the check chunks with dead chunks, equal to B1 + stable sort on the
@@ -122,13 +134,16 @@ Phases, each fatal on failure:
      and one legacy circles_2k render and one unlit, one bank-major and one
      lit synthetic_1m_2k render under torch.profiler (the card's time per
      kernel and copy, by kind with B11, B9 and B12a-c apart, its busy
-     share) and the host un-permute timed alone.
+     share; the bank-major render must hold one B12b grid a wave >= 2) and
+     the host un-permute timed alone.
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}.  Exits non-zero, with no such line, when
 CUDA is missing or any phase fails.
 """
 
+import argparse
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -136,6 +151,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -155,7 +171,7 @@ from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
 from rust_raytrace_tpu_torch.ops.pages import LANE_ID
 from rust_raytrace_tpu_torch.render import WavefrontRenderer
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
-from rust_raytrace_tpu_torch.utils import native, png
+from rust_raytrace_tpu_torch.utils import native, png, xla_rsqrt
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key, uniform
 
 DEVICE = "cuda"
@@ -279,8 +295,8 @@ def _require_bitwise(name, got, want):
 
 def _profile_render(eng, vp):
     """One render under torch.profiler.  Returns (wall ms, {device activity
-    name: ms}, busy ms): busy is the union of the card's kernel and copy
-    intervals."""
+    name: ms}, busy ms, {device activity name: count}): busy is the union
+    of the card's kernel and copy intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -294,13 +310,14 @@ def _profile_render(eng, vp):
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
         raise AssertionError("profiler: no device activity in the render")
-    per_name, busy_us, edge = {}, 0.0, float("-inf")
+    per_name, n_name, busy_us, edge = {}, {}, 0.0, float("-inf")
     for start, end, name in spans:
         per_name[name] = per_name.get(name, 0.0) + (end - start) / 1e3
+        n_name[name] = n_name.get(name, 0) + 1
         if end > edge:
             busy_us += end - max(start, edge)
             edge = end
-    return wall_ms, per_name, busy_us / 1e3
+    return wall_ms, per_name, busy_us / 1e3, n_name
 
 
 def _counts():
@@ -380,8 +397,8 @@ def _streamed_bound(eng, page_of, o, d, valid, ids, io_bytes: int,
     128 pages of one bank for a ray that enters a bank, the hit tests of its
     found triangle's page (one triangle for any-hit), and shade_flops per
     valid ray."""
-    plt_i, _, _, bank_ab = eng.stables
-    NB, P = plt_i.shape[0], eng.page_size
+    bank_ab = eng.stables.bank_ab
+    NB, P = eng.stables.plt_i.shape[0], eng.page_size
     bb = bank_ab[:NB]
     enters = torch.zeros_like(valid)
     step = 1 << 20
@@ -405,6 +422,49 @@ def _streamed_bound(eng, page_of, o, d, valid, ids, io_bytes: int,
              + int(enters.sum()) * 128 * SLAB_FLOPS
              + int(hits.sum()) * (1 if any_hit else P) * HIT_FLOPS)
     return _bound(n_bytes, flops)
+
+
+def _check_records(eng) -> None:
+    """The streamed Engine's page-major records on the card equal its
+    JAX-layout tables word for word: rec[b*128 + p, j, f] = plt_i[b, f*P +
+    j, p] (f < 17) or plt_s[b, (f-17)*P + j, p], pab = ab's lanes 0..7;
+    and, on the host, rec's first pages equal the pages' packed lanes
+    0..23."""
+    tabs, P = eng.stables, eng.page_size
+    NB = tabs.plt_i.shape[0]
+    rec = tabs.rec.view(torch.int32).reshape(NB, 128, P, 24)
+    for f in range(24):
+        src = (tabs.plt_i[:, f * P:(f + 1) * P] if f < 17
+               else tabs.plt_s[:, (f - 17) * P:(f - 16) * P])
+        if not torch.equal(rec[..., f],
+                           src.view(torch.int32).transpose(1, 2)):
+            raise AssertionError(f"records: feature {f} differs from the "
+                                 f"per-lane tables")
+    if not torch.equal(tabs.pab.view(torch.int32),
+                       tabs.ab.view(torch.int32)[:, :8]):
+        raise AssertionError("records: page boxes differ from ab")
+    NP = eng.pages.num_pages
+    host = tabs.rec[:NP].cpu().view(torch.int32).numpy()
+    if not (np.array_equal(host, eng.pages.PK[:, :, :24].view(np.int32))
+            and not bool(tabs.rec.view(torch.int32)[NP:].any())):
+        raise AssertionError("records: not the pages' lanes 0..23 with zero "
+                             "padding pages")
+    print(f"streamed records: {tuple(tabs.rec.shape)} and "
+          f"{tuple(tabs.pab.shape)} equal the per-lane tables word for word "
+          f"on the card, and the pages' lanes 0..23 ({NP} pages, "
+          f"{NB * 128 - NP} zero padding pages)")
+
+
+def _sweep_grids(fn) -> int:
+    """The bm_sweep_kernel grids the card ran during fn() (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "bm_sweep_kernel" in e.name)
 
 
 def _page_of(eng, n_tris: int, dev):
@@ -464,7 +524,7 @@ def _wave2_state(eng, full0, key, fixed: bool):
                 if wave else torch.ones(R // RB, dtype=torch.int32,
                                         device=dev))
         st = intersect_streamed.trace_shade_streamed(
-            st, *eng.stables, fold_in(key, wave), P, RB, fixed, wc, live)
+            st, eng.stables, fold_in(key, wave), P, RB, fixed, wc, live)
         meta, total_a, skip, dead_end = compact.compact_meta(
             st[7], st[11], cb, base, R)
         st, dead = compact.compact(st, dead, meta, cb, grid_live=prefix)
@@ -517,10 +577,10 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
             raise AssertionError(f"B12a demand: {int((gm_k != gm_p).sum())} "
                                  f"(bank, chunk) words differ")
         count, order = st_.bankmajor_order(gm_k)
-        sw_k = st_.bankmajor_sweep(st2, win_k, gm_k, count, order, *tabs, P,
+        sw_k = st_.bankmajor_sweep(st2, win_k, gm_k, count, order, tabs, P,
                                    RB)
         sw_p = st_.bankmajor_sweep_plain(st2, win_k, gm_k, count, order,
-                                         *tabs, P, RB)
+                                         tabs, P, RB)
         errs["bankmajor_sweep"] = _require_bitwise(
             f"B12b winner stream, fixed_rng {fixed}", sw_k, sw_p)
         fin = (st2, sw_k, tabs[0], tabs[1], seed, P, RB, fixed, wc, cl)
@@ -528,9 +588,9 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
         errs["bankmajor_finish"] = _require_bitwise(
             f"B12c state, fixed_rng {fixed}", out_k,
             st_.bankmajor_finish_plain(*fin))
-        b9 = st_.trace_shade_streamed(st2, *tabs, seed, P, RB, fixed, wc, cl)
+        b9 = st_.trace_shade_streamed(st2, tabs, seed, P, RB, fixed, wc, cl)
         _require_bitwise(f"B12 chained vs B9, fixed_rng {fixed}",
-                         st_.trace_shade_bankmajor(st2, *tabs, seed, P, RB,
+                         st_.trace_shade_bankmajor(st2, tabs, seed, P, RB,
                                                    fixed, wc, cl), b9)
         _require_bitwise(f"B12 chained vs B9, fixed_rng {fixed}", out_k, b9)
         print(f"B12 on {N_CHECK_CHUNKS} chunks of synthetic_1m_2k's wave-2 "
@@ -546,7 +606,7 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
     valid = st2[7] != 0
     hits = valid & (sw_k[1] != 0)
     pre = (st2, tabs[3], NB, RB, cl)
-    swa = (st2, win_k, gm_k, count, order, *tabs, P, RB)
+    swa = (st2, win_k, gm_k, count, order, tabs, P, RB)
     results["bankmajor_prep"] = dict(
         rays=n, max_abs_err=errs["bankmajor_prep"],
         ms=_time_ms(lambda: st_.bankmajor_prep(*pre)),
@@ -572,9 +632,9 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
     fvalid = full2[7] != 0
     fwin, fgm = st_.bankmajor_prep(full2, tabs[3], NB, RB, flive)
     fcount, forder = st_.bankmajor_order(fgm)
-    fsw = st_.bankmajor_sweep(full2, fwin, fgm, fcount, forder, *tabs, P, RB)
+    fsw = st_.bankmajor_sweep(full2, fwin, fgm, fcount, forder, tabs, P, RB)
     fhits = fvalid & (fsw[1] != 0)
-    chain = (full2, *tabs, seed, P, RB, False, wc, flive)
+    chain = (full2, tabs, seed, P, RB, False, wc, flive)
     b9_full = st_.trace_shade_streamed(*chain)
     _require_bitwise("B12 chained vs B9 on the whole wave-2 state",
                      st_.trace_shade_bankmajor(*chain), b9_full)
@@ -585,7 +645,7 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
                    int(fvalid.sum()) * NB * SLAB_FLOPS)),
         "bankmajor_sweep": (
             lambda: st_.bankmajor_sweep(full2, fwin, fgm, fcount, forder,
-                                        *tabs, P, RB),
+                                        tabs, P, RB),
             _streamed_bound(eng, page_of, full2[0:3], full2[3:6], fvalid,
                             fsw[1], 52, feats=17)),
         "bankmajor_finish": (
@@ -603,6 +663,30 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
               f"{R // RB} chunks, {int(flive.sum())} live): kernel "
               f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']}) [{card}]")
+    # one grid a sweep call: on the whole wave-2 state, and on an empty
+    # wave (every chunk dead, as wave 4 of synthetic_1m_2k)
+    dead = torch.zeros_like(flive)
+    ewin, egm = st_.bankmajor_prep(full2, tabs.bank_ab, NB, RB, dead)
+    ecount, eorder = st_.bankmajor_order(egm)
+    n_sweeps = {}
+    for label, args in (("wave 2", (full2, fwin, fgm, fcount, forder)),
+                        ("empty", (full2, ewin, egm, ecount, eorder))):
+        native.reset_launch_counts()
+        out = []
+        grids = _sweep_grids(lambda: out.append(
+            st_.bankmajor_sweep(*args, tabs, P, RB)))
+        n_sweeps[label] = (grids, native.BM_SWEEP.launches)
+        if grids != 1 or native.BM_SWEEP.launches != 1:
+            raise AssertionError(f"B12b on the {label} state: {grids} grids, "
+                                 f"{native.BM_SWEEP.launches} counted "
+                                 f"launches in one sweep call")
+    _require_bitwise("B12b on an empty wave", out[0], ewin)
+    t_empty = _time_ms(lambda: st_.bankmajor_sweep(full2, ewin, egm, ecount,
+                                                   eorder, tabs, P, RB))
+    print(f"B12b: one grid a sweep call (profiler: wave 2 "
+          f"{n_sweeps['wave 2'][0]}, empty wave {n_sweeps['empty'][0]}); "
+          f"the empty wave's sweep {t_empty:.4f} ms [{card}]")
+    results["bankmajor_sweep"]["empty_wave_ms"] = t_empty
     chain_bound = _streamed_bound(eng, page_of, full2[0:3], full2[3:6],
                                   fvalid, fsw[1], 128, SHADE_FLOPS)
     t_glue = _time_ms(lambda: st_.bankmajor_order(fgm))
@@ -713,11 +797,13 @@ def streamed_kernels(dev, card, key, results, build_log):
     if not (eng.streamed and P == 224):
         raise AssertionError(f"synthetic_1m_2k: streamed {eng.streamed}, "
                              f"page size {P}")
-    mb = sum(t.numel() for t in tabs) * 4 / 1e6
+    mb = sum(t.numel() for t in tabs[:4]) * 4 / 1e6
+    mb_rec = (tabs.rec.numel() + tabs.pab.numel()) * 4 / 1e6
     print(f"synthetic_1m_2k: {len(scene.tris) - 1} triangles, "
           f"{eng.pages.num_pages} pages of {P}, {NB} banks, streamed tables "
-          f"{mb:.1f} MB on the card; host: scene {t1 - t0:.1f} s, Engine "
-          f"{t2 - t1:.1f} s")
+          f"{mb:.1f} MB and page-major records {mb_rec:.1f} MB on the card; "
+          f"host: scene {t1 - t0:.1f} s, Engine {t2 - t1:.1f} s")
+    _check_records(eng)
     page_of = _page_of(eng, len(scene.tris) - 1, dev)
     vp = synthetic_view((2560, 1440))
     R0 = vp.width * vp.height
@@ -734,7 +820,7 @@ def streamed_kernels(dev, card, key, results, build_log):
         intersect_streamed.trace_shade_streamed_plain
     # the check chunks: spread over the chunks with a hit (the sphere
     # covers a fifth of the image)
-    fcam = (full0[0:3], full0[3:6], full0[7], *tabs, P, RB)
+    fcam = (full0[0:3], full0[3:6], full0[7], tabs, P, RB)
     frows = ts(*fcam)
     hit_chunks = torch.nonzero((frows[1] != 0).reshape(-1, RB).any(dim=1))
     pick = torch.linspace(0, hit_chunks.numel() - 1, N_CHECK_CHUNKS,
@@ -745,12 +831,12 @@ def streamed_kernels(dev, card, key, results, build_log):
     n = st0.shape[1]
 
     # B10: nearest on the camera rays, any-hit on their shadow rays
-    cam = (st0[0:3], st0[3:6], st0[7], *tabs, P, RB)
+    cam = (st0[0:3], st0[3:6], st0[7], tabs, P, RB)
     rows_k = ts(*cam)
     err10 = _require_bitwise("B10 camera rays", rows_k, tsp(*cam))
     so, sd, hit, excl = eng_mod.shadow_rays(st0, rows_k, key, 0, False,
                                             LIGHT)
-    sh = (so, sd, hit.float(), *tabs, P, RB)
+    sh = (so, sd, hit.float(), tabs, P, RB)
     occ_k = ts(*sh, excl=excl, any_hit=True)
     occ_p = tsp(*sh, excl=excl, any_hit=True)
     if not torch.equal(occ_k[1] != 0, occ_p[1] != 0):
@@ -779,16 +865,16 @@ def streamed_kernels(dev, card, key, results, build_log):
     errs = []
     for fixed in (True, False):
         wc = 0.0 if fixed else 1 / 512
-        a0 = (st0, *tabs, fold_in(key, 0), P, RB, fixed, wc, dead)
+        a0 = (st0, tabs, fold_in(key, 0), P, RB, fixed, wc, dead)
         errs.append(_require_bitwise(f"B9 wave 0, fixed_rng {fixed}",
                                      tss(*a0), tssp(*a0)))
-        st1 = tss(st0, *tabs, fold_in(key, 0), P, RB, fixed, wc, ones)
+        st1 = tss(st0, tabs, fold_in(key, 0), P, RB, fixed, wc, ones)
         live1 = (st1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
-        a1 = (st1, *tabs, fold_in(key, 1), P, RB, fixed, wc, live1)
+        a1 = (st1, tabs, fold_in(key, 1), P, RB, fixed, wc, live1)
         errs.append(_require_bitwise(f"B9 wave 1, fixed_rng {fixed}",
                                      tss(*a1), tssp(*a1)))
     # a1: live RNG's wave 1
-    rows1 = ts(st1[0:3], st1[3:6], st1[7], *tabs, P, RB)
+    rows1 = ts(st1[0:3], st1[3:6], st1[7], tabs, P, RB)
     results[native.TRACE_SHADE_STREAMED.name] = dict(
         rays=n, max_abs_err=max(errs), ms=_time_ms(lambda: tss(*a1)),
         plain_ms=_time_ms(lambda: tssp(*a1), reps=1),
@@ -803,14 +889,14 @@ def streamed_kernels(dev, card, key, results, build_log):
     # B9 on the unlit waves 0 and 1
     fso, fsd, fhit, fexcl = eng_mod.shadow_rays(full0, frows, key, 0, False,
                                                 LIGHT)
-    fsh = (fso, fsd, fhit.float(), *tabs, P, RB)
+    fsh = (fso, fsd, fhit.float(), tabs, P, RB)
     focc = ts(*fsh, excl=fexcl, any_hit=True)
     fones = torch.ones(R // RB, dtype=torch.int32, device=dev)
-    fa0 = (full0, *tabs, fold_in(key, 0), P, RB, False, 1 / 512, fones)
+    fa0 = (full0, tabs, fold_in(key, 0), P, RB, False, 1 / 512, fones)
     full1 = tss(*fa0)
     flive1 = (full1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
-    fa1 = (full1, *tabs, fold_in(key, 1), P, RB, False, 1 / 512, flive1)
-    frows1 = ts(full1[0:3], full1[3:6], full1[7], *tabs, P, RB)
+    fa1 = (full1, tabs, fold_in(key, 1), P, RB, False, 1 / 512, flive1)
+    frows1 = ts(full1[0:3], full1[3:6], full1[7], tabs, P, RB)
     full = {
         "B10 camera rays": (results[native.TRACE_STREAMED.name],
                             _time_ms(lambda: ts(*fcam)),
@@ -845,6 +931,7 @@ def streamed_kernels(dev, card, key, results, build_log):
           f"{int((full1[7] != 0).sum())} live rays, "
           f"{int((frows1[1] != 0).sum())} hits")
     del fso, fsd, fhit, fexcl, fsh, focc, full1, frows1, frows
+    _print_ptxas(build_log, "B9/B10", ("trace_streamed_kernel",))
     bankmajor_kernels(eng, page_of, full0, card, key, results, build_log)
     return scene, eng, vp
 
@@ -2337,7 +2424,7 @@ def main() -> int:
                          ("synthetic_1m_2k", eng_s, s_vp),
                          ("synthetic_1m_2k bank-major", eng_bm, s_vp),
                          ("synthetic_1m_2k lit", eng_sl, s_vp)):
-        wall_ms, per_name, busy_ms = _profile_render(e, pvp)
+        wall_ms, per_name, busy_ms, n_name = _profile_render(e, pvp)
         print(f"profile {name}: render {wall_ms:.3f} ms under the profiler, "
               f"device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%) [{card}]")
@@ -2356,6 +2443,12 @@ def main() -> int:
         if kinds["B9"] or kinds["B12b"]:
             print("  of which " + ", ".join(f"{k} {ms:.3f} ms"
                                             for k, ms in kinds.items()))
+        sweeps = sum(c for n, c in n_name.items() if "bm_sweep_kernel" in n)
+        if e is eng_bm and sweeps != pvp.maxdepth - 2:
+            raise AssertionError(f"bank-major render: {sweeps} B12b grids, "
+                                 f"not one a wave >= 2")
+        if sweeps:
+            print(f"  B12b grids in the render: {sweeps} (one a wave >= 2)")
     img_u8 = np.zeros((3, R), np.uint8)
     perm = eng._perm(vp, tile)
     t_host = []
@@ -2401,8 +2494,243 @@ def main() -> int:
     return 0
 
 
+#: the C entry points of a kernel library from before the page-major
+#: records (the streamed kernels took the per-lane tables plt_i, plt_s, ab
+#: and bank_ab, and the sweep launched one grid a bank): argument types
+PER_LANE_ENTRIES = {
+    "rt_trace_streamed": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p],
+    "rt_trace_shade_streamed": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+        ctypes.c_uint, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p],
+    "rt_bm_sweep": [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def per_lane_wrappers(lib) -> dict:
+    """`trace_streamed`, `trace_shade_streamed` and `bankmajor_sweep` with
+    the port's arguments, launching the kernels of `lib`, a library with
+    PER_LANE_ENTRIES (which read the per-lane tables of `tables`)."""
+    def ok(err, name):
+        if err != 0:
+            raise RuntimeError(f"per-lane build's {name}: CUDA error {err}")
+
+    def trace(ot, dt, alive, tables, page_size, ray_chunk, chunk_live=None,
+              excl=None, any_hit=False):
+        R = ot.shape[1]
+        out = torch.empty((16, R), dtype=torch.float32, device=ot.device)
+        ok(lib.rt_trace_streamed(
+            ot.data_ptr(), dt.data_ptr(), ot.stride(0), alive.data_ptr(), R,
+            0 if excl is None else excl.data_ptr(), int(any_hit),
+            tables.plt_i.data_ptr(), tables.plt_s.data_ptr(),
+            tables.ab.data_ptr(), tables.bank_ab.data_ptr(), page_size,
+            tables.plt_i.shape[0], ray_chunk,
+            0 if chunk_live is None else chunk_live.data_ptr(),
+            out.data_ptr(), native.stream(ot.device)), "rt_trace_streamed")
+        return out
+
+    def trace_shade(state, tables, seed, page_size, ray_chunk, fixed_rng,
+                    weight_cutoff, chunk_live):
+        out = torch.empty_like(state)
+        s0, s1 = (int(w) for w in seed)
+        ok(lib.rt_trace_shade_streamed(
+            state.data_ptr(), out.data_ptr(), state.shape[1],
+            tables.plt_i.data_ptr(), tables.plt_s.data_ptr(),
+            tables.ab.data_ptr(), tables.bank_ab.data_ptr(), page_size,
+            tables.plt_i.shape[0], ray_chunk, chunk_live.data_ptr(), s0, s1,
+            int(fixed_rng), float(weight_cutoff),
+            xla_rsqrt.device_table(state.device).data_ptr(),
+            native.stream(state.device)), "rt_trace_shade_streamed")
+        return out
+
+    def sweep(state, win, gm, count, order, tables, page_size, ray_chunk):
+        out = win.clone()
+        ok(lib.rt_bm_sweep(
+            state.data_ptr(), state.shape[1], out.data_ptr(), gm.data_ptr(),
+            count.data_ptr(), order.data_ptr(), tables.ab.data_ptr(),
+            tables.plt_i.data_ptr(), tables.plt_s.data_ptr(),
+            tables.bank_ab.data_ptr(), page_size, tables.plt_i.shape[0],
+            ray_chunk, native.stream(state.device)), "rt_bm_sweep")
+        return out
+
+    return {"trace_streamed": trace, "trace_shade_streamed": trace_shade,
+            "bankmajor_sweep": sweep}
+
+
+@contextlib.contextmanager
+def per_lane_path(wrappers: dict):
+    """Engines render the streamed regime through `wrappers` (of
+    `per_lane_wrappers`) inside."""
+    patches = [(eng_mod, "trace_streamed"), (eng_mod, "trace_shade_streamed"),
+               (intersect_streamed, "bankmajor_sweep")]
+    saved = [getattr(m, n) for m, n in patches]
+    for m, n in patches:
+        setattr(m, n, wrappers[n])
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(patches, saved):
+            setattr(m, n, fn)
+
+
+def turns(csrc: Path, out: Path) -> int:
+    """`--turns CSRC`: B10, B9 and B12b, and the synthetic_1m_2k renders
+    that run them, in turns against a build of CSRC, a csrc/ from before
+    the page-major records (PER_LANE_ENTRIES), on full 2560x1440 waves.
+
+    Kernels: CUDA events, 5 launches after a warm-up, rounds new, earlier,
+    new, earlier; each case first checks the two builds' outputs equal bit
+    for bit.  Cases: B10 on the camera wave (nearest rows) and on its
+    shadow rays (any-hit with self-exclusion), B9 on waves 0, 1 and 2, B12b
+    on the wave-2 state and on an empty wave.  Renders (live RNG, key 0):
+    the default, lit and bank-major Engines, best of three after a warm-up
+    each round, the earlier build's kernels swapped in by `per_lane_path`
+    (every other kernel is the checkout's); images byte-equal.  Prints the
+    card, both builds' ptxas reports and every number, and writes them as
+    JSON to `out`."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device(DEVICE)
+    card = _card()
+    print(card)
+    names = ("trace_streamed_kernel", "bm_sweep_kernel")
+    _print_ptxas(native.build()["log"], "new", names)
+    with tempfile.TemporaryDirectory() as tmp:
+        built = native.build(csrc=csrc, build_dir=Path(tmp))
+        lib = ctypes.CDLL(built["path"])
+    _print_ptxas(built["log"], "earlier", names)
+    for name, argtypes in PER_LANE_ENTRIES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    old = per_lane_wrappers(lib)
+
+    scene = synthetic_1m_scene()
+    eng = Engine(scene, device=dev)
+    eng_bm = Engine(scene, bank_major=True, device=dev)
+    eng_lit = Engine(lit(scene), device=dev)
+    tabs, P = eng.stables, eng.page_size
+    NB = tabs.plt_i.shape[0]
+    vp = synthetic_view((2560, 1440))
+    R0 = vp.width * vp.height
+    R = -(-R0 // RB) * RB
+    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
+                                                           vp.height), R, dev)
+    o, _ = eng._pinhole_fold(vp, o)
+    alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
+    full0 = torch.cat([o, d, alive0, alive0,
+                       torch.zeros((8, R), device=dev)], dim=0)
+    key = prng_key(7)
+    cam = (full0[0:3], full0[3:6], full0[7])
+    rows = intersect_streamed.trace_streamed(*cam, tabs, P, RB)
+    so, sd, hit, excl = eng_mod.shadow_rays(full0, rows, key, 0, False,
+                                            LIGHT)
+    sh = (so, sd, hit.float())
+    ones = torch.ones(R // RB, dtype=torch.int32, device=dev)
+    seeds = [fold_in(key, w) for w in range(3)]
+    full1 = intersect_streamed.trace_shade_streamed(
+        full0, tabs, seeds[0], P, RB, False, 1 / 512, ones)
+    full2 = _wave2_state(eng, full0, key, False)
+    live1, live2 = ((s[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+                    for s in (full1, full2))
+    sweeps = []
+    for live in (live2, torch.zeros_like(live2)):
+        win, gm = intersect_streamed.bankmajor_prep(full2, tabs.bank_ab, NB,
+                                                    RB, live)
+        sweeps.append((full2, win, gm, *intersect_streamed.bankmajor_order(gm),
+                       tabs, P, RB))
+
+    new = {"trace_streamed": intersect_streamed.trace_streamed,
+           "trace_shade_streamed": intersect_streamed.trace_shade_streamed,
+           "bankmajor_sweep": intersect_streamed.bankmajor_sweep}
+    cases = {
+        "B10 camera rays (nearest)": ("trace_streamed", (*cam, tabs, P, RB),
+                                      {}),
+        "B10 shadow rays (any-hit, excl)": (
+            "trace_streamed", (*sh, tabs, P, RB),
+            {"excl": excl, "any_hit": True}),
+        "B9 wave 0": ("trace_shade_streamed",
+                      (full0, tabs, seeds[0], P, RB, False, 1 / 512, ones),
+                      {}),
+        "B9 wave 1": ("trace_shade_streamed",
+                      (full1, tabs, seeds[1], P, RB, False, 1 / 512, live1),
+                      {}),
+        "B9 wave 2": ("trace_shade_streamed",
+                      (full2, tabs, seeds[2], P, RB, False, 1 / 512, live2),
+                      {}),
+        "B12b wave-2 state": ("bankmajor_sweep", sweeps[0], {}),
+        "B12b empty wave": ("bankmajor_sweep", sweeps[1], {}),
+    }
+    report = {"card": card, "live_rays": {
+        "wave0": R0, "wave0_hits": int((rows[1] != 0).sum()),
+        "shadow": int(hit.sum()), "wave1": int((full1[7] != 0).sum()),
+        "wave2": int((full2[7] != 0).sum())}, "kernels": {}, "renders": {}}
+    print(f"live rays: {report['live_rays']}")
+    for label, (name, args, kw) in cases.items():
+        fns = {b: (lambda f=fns_[name]: f(*args, **kw))
+               for b, fns_ in (("new", new), ("earlier", old))}
+        a, b = (fns[k]().view(torch.int32) for k in ("new", "earlier"))
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: the two builds differ in "
+                                 f"{int((a != b).sum())} words")
+        t = _in_turns(fns)
+        report["kernels"][label] = t
+        print(f"{label}: new {t['new'][0]:.4f} / {t['new'][1]:.4f} ms, "
+              f"earlier {t['earlier'][0]:.4f} / {t['earlier'][1]:.4f} ms "
+              f"(in turns; outputs bitwise equal) [{card}]")
+
+    def best_render(e):
+        e.render(vp)
+        runs = [e.render(vp) for _ in range(3)]
+        return min(runs, key=lambda r: r.seconds)
+
+    for label, e in (("synthetic_1m_2k", eng), ("synthetic_1m_2k lit", eng_lit),
+                     ("synthetic_1m_2k bank-major", eng_bm)):
+        by = {"new": [], "earlier": []}
+        images = {}
+        for _ in range(2):
+            r = best_render(e)
+            with per_lane_path(old):
+                r_old = best_render(e)
+            for b, res in (("new", r), ("earlier", r_old)):
+                by[b].append({"ms": res.seconds * 1e3,
+                              "mrays_per_s": res.mrays_per_sec})
+                images[b] = res.image
+        if not np.array_equal(images["new"], images["earlier"]):
+            raise AssertionError(f"{label}: the two builds' images differ")
+        report["renders"][label] = by
+        print(f"{label} render (best of 3, in turns new, earlier, new, "
+              f"earlier; images byte-equal): " + "; ".join(
+                  f"{b} " + ", ".join(f"{x['ms']:.3f} ms ({x['mrays_per_s']:.3f}"
+                                      " Mrays/s)" for x in v)
+                  for b, v in by.items()) + f" [{card}]")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    return 0
+
+
 if __name__ == "__main__":
     t0 = time.perf_counter()
-    rc = main()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--turns", type=Path, metavar="CSRC",
+                    help="instead of the smoke run, time the streamed "
+                         "kernels and renders in turns against a build of "
+                         "CSRC, a csrc/ from before the page-major records")
+    ap.add_argument("--out", type=Path,
+                    default=Path("build/streamed_turns.json"),
+                    help="JSON file for --turns's numbers")
+    args = ap.parse_args()
+    rc = main() if args.turns is None else turns(args.turns, args.out)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

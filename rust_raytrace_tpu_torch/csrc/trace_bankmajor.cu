@@ -1,7 +1,7 @@
 // B12: the bank-major streamed sweep — one wave of the streamed regime as
 // three kernels: prep (winner init and per-(bank, chunk) group demand),
-// sweep (one bank at a time over every chunk that demands it) and finish
-// (payload extraction, shade, state update).
+// sweep (every bank over the chunk groups that demand it, bank-major, in
+// one launch) and finish (payload extraction, shade, state update).
 //
 // Replaces: rust_raytrace_tpu/ops/intersect_streamed.py:
 // trace_shade_bankmajor_pallas, inner _kernel_bm_prep (B12a),
@@ -12,15 +12,16 @@
 // (trace_streamed.cu), bit for bit: the winner is the lexicographic
 // (t, id) minimum with exact pruning, which no visit order changes.
 //
-// Bound on this card: the scattered reads of the bank tables.  At 1M
-// triangles (P = 224, 35 banks) plt_i alone is 68 MB, past the 50 MB L2;
-// one bank's tables are 17*224*128*4 B = 1.95 MB of plt_i and 0.80 MB of
-// plt_s, which L2 holds many times over.  B9 lets every ray read its banks
-// where they lie, so a wave's incoherent bounce rays (waves >= 2, inside
-// the closed synthetic_1m sphere) spread their reads over all 98 MB of
-// tables at once; a sweep that visits every demanding chunk while one bank
-// is hot reads each bank from device memory about once a wave, the Hopper
-// meaning of the TPU's one table DMA per bank per wave.
+// Bound on this card: the hit predicate's arithmetic on the pages each ray
+// visits, as B9 (trace_streamed.cu), and the serial chain of each 128-ray
+// group's banks: group g's bank b+1 starts only once its bank b is done.
+// A bank's records (128 * 224 * 96 B = 2.75 MB at P = 224) stay in the 50
+// MB L2 while the groups that demand it pass; the 96 MB of all banks do
+// not.  B9 lets every ray read its banks where they lie, so a wave's
+// incoherent bounce rays (waves >= 2, inside the closed synthetic_1m
+// sphere) spread their reads over every bank at once; the sweep's items
+// run in bank-major order, the Hopper meaning of the TPU's one table DMA
+// per bank per wave.
 //
 // Design.
 //   prep: one block per chunk, at most 1024 threads, each owning
@@ -35,21 +36,31 @@
 //     bit-exactly.
 //   glue (torch, [NB, NC] only): each bank's demanding chunks first, in
 //     chunk order, and their count (ops/intersect_streamed.py).
-//   sweep: one launch per bank, in index order on the stream, so bank b+1
-//     sees bank b's winners.  The grid covers every (chunk, group) pair of
-//     the bank's demand list by position; blocks past the device-side
-//     count, or whose group bit is clear, exit at once (no host sync).  A
-//     block stages the bank's 128 page AABBs in shared memory; each live
-//     ray re-tests the bank AABB against its winner so far (the cross-bank
-//     cut: a page's entry is never nearer than its bank's, so a skipped
-//     bank holds no better hit), then runs rt::bank_pass (perlane.cuh),
-//     recording the winner's slot instead of its payload: the winner
-//     stream is 3 words a ray, t, id and slot (int32 bits).  The TPU kernel
-//     re-extracts the payload at every visit; only the last extraction's
-//     bits count.
+//   sweep: one persistent launch (the resident blocks of the card, 128
+//     threads each, one per lane of a group) for every bank.  An item is
+//     (bank b, position i in b's demand list, group g), numbered bank-major
+//     (b, then i, then g); blocks claim items in that order from a device
+//     counter (sync[0]).  An item whose group bit of gm is clear does
+//     nothing.  Otherwise the block waits, by an acquire load, until the
+//     group's previous demanded bank (the highest b' < b with the group's
+//     bit of gm[b', c] set) has released the group's flag (sync[1 + c * G +
+//     g] = b' + 1), stages bank b's 128 page boxes in shared memory, and
+//     runs each live ray: the cross-bank cut (the bank AABB against its
+//     winner so far: a page's entry is never nearer than its bank's, so a
+//     skipped bank holds no better hit), then rt::bank_walk (perlane.cuh)
+//     over the bank's page-major records, recording the winner's slot
+//     instead of its payload; then it releases the flag (a release store)
+//     to b + 1.  So each group sees its banks in index order, as one launch
+//     per bank did, and no bank waits for the whole grid.  An item's
+//     predecessor has a lower number, so it was claimed before, by a block
+//     that is running: the grid cannot deadlock.  Only an item's block
+//     writes its group's winner stream (3 words a ray: t, id and slot as
+//     int32 bits), read past L1 (ld.cg).  An empty wave claims no item: one
+//     launch whose blocks exit at once.  The TPU kernel re-extracts the
+//     payload at every visit; only the last extraction's bits count.
 //   finish: one thread per ray.  The winner's triangle is re-tested once
 //     (the same hit terms, hence the same enc bits) and its payload read,
-//     exactly as bank_pass stores it for B9; then B9's shade (B0b) with the
+//     exactly as rt::bank_walk stores it for B9; then B9's shade (B0b) with the
 //     scatter hash keyed on (chunk, lane) at ray_chunk.  Chunks flagged
 //     dead in chunk_live pass their state through.
 #include "perlane.cuh"
@@ -60,6 +71,8 @@ using rt::AB_LANES;
 using rt::GROUP;
 using rt::N_INT;
 using rt::N_SHD;
+using rt::PAB4;
+using rt::REC4;
 
 // winner stream rows ([3, R] float32): t, id, slot = the winner's page *
 // P + triangle as int32 bits
@@ -151,46 +164,100 @@ bm_prep_kernel(const float* __restrict__ st, long long R,
   }
 }
 
-// B12b, one bank.  Block x = position i in the bank's demand list times
-// the groups of a chunk, plus the group g; 128 threads, one per lane of
-// the group.  abb/ti/ts/box: the bank's page AABB rows, tables and AABB;
-// slot_base = bank * 128 * P.
-__global__ void __launch_bounds__(128)
-bm_sweep_kernel(const float* __restrict__ st, long long R,
-                float* __restrict__ win, const int* __restrict__ gm_b,
-                const int* __restrict__ count_b,
-                const int* __restrict__ order_b,
-                const float* __restrict__ abb, const float* __restrict__ ti,
-                const float* __restrict__ ts, const float* __restrict__ box,
-                int P, int ray_chunk, int slot_base) {
-  __shared__ float s_ab[GROUP * BOX];
-  const int groups = ray_chunk / GROUP;
-  const int i = blockIdx.x / groups;
-  const int g = blockIdx.x - i * groups;
-  if (i >= *count_b) return;
-  const int c = order_b[i];
-  if (((gm_b[c] >> g) & 1) == 0) return;
-  for (int k = threadIdx.x; k < GROUP * 7; k += GROUP)
-    s_ab[(k / 7) * BOX + k % 7] = abb[(k / 7) * AB_LANES + k % 7];
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// B12b: the persistent sweep.  GROUP threads a block; dynamic shared
+// memory: NB + 1 ints.  sync: [1 + NC * G] int32, zero at launch.
+__global__ void __launch_bounds__(GROUP)
+bm_sweep_kernel(const float* __restrict__ st, long long R, float* win,
+                const int* __restrict__ gm, const int* __restrict__ count,
+                const int* __restrict__ order,
+                const float4* __restrict__ rec,
+                const float4* __restrict__ pab,
+                const float* __restrict__ bank_ab, int P, int NB, int NC,
+                int ray_chunk, int* sync) {
+  extern __shared__ int s_first[];        // [NB + 1]: bank b's first item
+  __shared__ float4 s_ab[GROUP * PAB4];
+  __shared__ int s_item;
+  const int tid = threadIdx.x;
+  const int G = ray_chunk / GROUP;
+  if (tid == 0) {
+    int n = 0;
+    for (int b = 0; b < NB; ++b) {
+      s_first[b] = n;
+      n += count[b] * G;
+    }
+    s_first[NB] = n;
+  }
   __syncthreads();
-  const long long r = (long long)c * ray_chunk + g * GROUP + threadIdx.x;
-  if (st[rt::ROW_ALIVE * R + r] == 0.0f) return;
-  float o[3], d[3], inv[3];
-  load_ray(st, R, r, o, d, inv);
-  rt::Winner w = rt::winner_init(true);
-  w.t = win[WIN_T * R + r];
-  w.id = win[WIN_ID * R + r];
-  if (!enters(box, o, inv, w.t)) return;
-  int slot = __float_as_int(win[WIN_SLOT * R + r]);
-  const float id0 = w.id;
-  rt::bank_pass<false, false, true, BOX>(s_ab, ti, ts, P, o, d, inv, 0.0f, w,
-                                         slot_base, &slot);
-  // ids are unique and this bank is visited once a wave: the winner moved
-  // here exactly when its id changed
-  if (w.id != id0) {
-    win[WIN_T * R + r] = w.t;
-    win[WIN_ID * R + r] = w.id;
-    win[WIN_SLOT * R + r] = __int_as_float(slot);
+  const int items = s_first[NB];
+  int b = 0;
+  while (true) {
+    if (tid == 0) s_item = atomicAdd(sync, 1);
+    __syncthreads();
+    const int item = s_item;
+    if (item >= items) return;
+    while (item >= s_first[b + 1]) ++b;    // a block's items only grow
+    const int k = item - s_first[b];
+    const int i = k / G;
+    const int g = k - i * G;
+    const int c = order[(long long)b * NC + i];
+    if ((gm[(long long)b * NC + c] >> g) & 1) {
+      int* flag = sync + 1 + (long long)c * G + g;
+      if (tid == 0) {
+        int prev = b - 1;
+        while (prev >= 0 && ((gm[(long long)prev * NC + c] >> g) & 1) == 0)
+          --prev;
+        // a predecessor that never releases is a bug: trap (the launch
+        // fails) rather than hang the card
+        for (long long spins = 0; prev >= 0 && ld_acquire(flag) <= prev;
+             ++spins) {
+          if (spins > (1LL << 27)) __trap();
+          __nanosleep(64);
+        }
+      }
+      for (int q = tid; q < GROUP * PAB4; q += GROUP)
+        s_ab[q] = pab[(long long)b * GROUP * PAB4 + q];
+      __syncthreads();
+      const long long r = (long long)c * ray_chunk + g * GROUP + tid;
+      if (st[rt::ROW_ALIVE * R + r] != 0.0f) {
+        float o[3], d[3], inv[3];
+        load_ray(st, R, r, o, d, inv);
+        rt::Winner w = rt::winner_init(true);
+        w.t = __ldcg(win + WIN_T * R + r);
+        w.id = __ldcg(win + WIN_ID * R + r);
+        if (enters(bank_ab + (long long)b * AB_LANES, o, inv, w.t)) {
+          int slot = __float_as_int(__ldcg(win + WIN_SLOT * R + r));
+          const float id0 = w.id;
+          rt::bank_walk<false, false, true>(
+              s_ab, rec + (long long)b * GROUP * P * REC4, P, o, d, inv,
+              0.0f, w, b * GROUP * P, &slot);
+          // ids are unique and this bank is visited once a wave: the
+          // winner moved here exactly when its id changed
+          if (w.id != id0) {
+            __stcg(win + WIN_T * R + r, w.t);
+            __stcg(win + WIN_ID * R + r, w.id);
+            __stcg(win + WIN_SLOT * R + r, __int_as_float(slot));
+          }
+        }
+      }
+      __syncthreads();
+      if (tid == 0) {
+        __threadfence();
+        st_release(flag, b + 1);
+      }
+    }
+    __syncthreads();                       // s_item and s_ab are free
   }
 }
 
@@ -255,25 +322,28 @@ extern "C" int rt_bm_prep(const float* st, long long R, const float* bank_ab,
   return (int)cudaGetLastError();
 }
 
-// One launch per bank, in index order on the stream.
+// One persistent launch: the card's resident blocks claim every bank's
+// items.  sync: [1 + NC * ray_chunk / 128] int32 zeros.
 extern "C" int rt_bm_sweep(const float* st, long long R, float* win,
                            const int* gm, const int* count, const int* order,
-                           const float* ab, const float* plt_i,
-                           const float* plt_s, const float* bank_ab, int P,
-                           int NB, int ray_chunk, void* stream) {
-  const long long NC = R / ray_chunk;
-  const unsigned blocks = (unsigned)(NC * (ray_chunk / GROUP));
-  for (int b = 0; b < NB; ++b) {
-    bm_sweep_kernel<<<blocks, GROUP, 0, (cudaStream_t)stream>>>(
-        st, R, win, gm + b * NC, count + b, order + b * NC,
-        ab + (long long)b * GROUP * AB_LANES,
-        plt_i + (long long)b * N_INT * P * GROUP,
-        plt_s + (long long)b * N_SHD * P * GROUP,
-        bank_ab + (long long)b * AB_LANES, P, ray_chunk, b * GROUP * P);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+                           const float* rec, const float* pab,
+                           const float* bank_ab, int P, int NB, int ray_chunk,
+                           int* sync, void* stream) {
+  const int NC = (int)(R / ray_chunk);
+  const size_t smem = (size_t)(NB + 1) * sizeof(int);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bm_sweep_kernel, GROUP, smem);
+  if (e != cudaSuccess) return (int)e;
+  bm_sweep_kernel<<<sms * per_sm, GROUP, smem, (cudaStream_t)stream>>>(
+      st, R, win, gm, count, order, reinterpret_cast<const float4*>(rec),
+      reinterpret_cast<const float4*>(pab), bank_ab, P, NB, NC, ray_chunk,
+      sync);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int rt_bm_finish(const float* st, float* out, long long R,

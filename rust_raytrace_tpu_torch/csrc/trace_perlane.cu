@@ -17,7 +17,7 @@
 // features a triangle; the tables (487 KB a bank at P = 56) stay in L2.
 //
 // Design: one thread per ray, blocks of 128, banks in index order through
-// rt::bank_pass (perlane.cuh), the page loop of B4, B9 and B10; the winner
+// rt::bank_pass (perlane.cuh), the page loop of B4 and B7; the winner
 // is the lexicographic (t, id) minimum, so it equals the TPU kernel's
 // whatever the visit order.  The payload is stored as B4/B10 store it (a
 // -0 as +0, as the TPU kernel's one-hot masked sum does).  Any-hit stops a

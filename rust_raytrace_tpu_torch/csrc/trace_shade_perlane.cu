@@ -20,7 +20,7 @@
 // memory a block may use, and the whole table fits the 50 MB L2.
 //
 // Design: one thread per ray, blocks of 128.  Per bank a thread runs
-// rt::bank_pass (perlane.cuh, shared with B9 and B10): it keeps a
+// rt::bank_pass (perlane.cuh, shared with B7): it keeps a
 // 128-bit mask of slab-hit pages in registers; each step recomputes the
 // entry distance of the remaining pages, drops those beyond the best hit,
 // and tests the nearest (ties to the lower page index), which is the visit

@@ -341,7 +341,7 @@ def shadow_mask_streamed(state, rows, key, wave: int, fixed_rng: bool, light,
     first occluder).  tables: `upload_streamed_tables`.  Returns the [R]
     float32 mask."""
     so, sd, hit, excl = shadow_rays(state, rows, key, wave, fixed_rng, light)
-    srows = trace_streamed(so, sd, hit.float(), *tables, page_size,
+    srows = trace_streamed(so, sd, hit.float(), tables, page_size,
                            ray_chunk, excl=excl, any_hit=True)
     return (hit & (srows[ROW_ID] != 0.0)).float()
 
@@ -528,7 +528,8 @@ class Engine(RayCaster):
         dev = self.device
         self.PK = self.aabb_lo = self.aabb_hi = None
         self.plt_i = self.plt_s = self.ab = None
-        #: (plt_i, plt_s, ab, bank_ab) of the streamed regime, else None
+        #: the streamed regime's `StreamedTables` (the JAX layout and the
+        #: page-major records), else None
         self.stables = None
         if self.streamed:
             self.stables = upload_streamed_tables(self.pages, dev)
@@ -687,10 +688,10 @@ class Engine(RayCaster):
         if self.light is None and not want_rows:
             fused = (trace_shade_bankmajor if wave > 1 and self.bank_major
                      else trace_shade_streamed)
-            return fused(state, *self.stables, seed, P, RB, fixed_rng, wc,
+            return fused(state, self.stables, seed, P, RB, fixed_rng, wc,
                          chunk_live), None
         rows = trace_streamed(state[0:3], state[3:6], state[ROW_ALIVE],
-                              *self.stables, P, RB, chunk_live=chunk_live)
+                              self.stables, P, RB, chunk_live=chunk_live)
         shd = None
         if self.light is not None:
             shd = shadow_mask_streamed(state, rows, key, wave, fixed_rng,

@@ -13,11 +13,19 @@ kernels of `csrc/trace_streamed.cu`, and `bankmajor_prep`,
 `csrc/trace_bankmajor.cu`, on CUDA tensors, and their `*_plain` versions
 on CPU tensors.
 
-The tables are the per-lane tables of every bank, with no bank cap, one
-bank per slab ([NB, 17P, 128] and [NB, 7P, 128]), beside the page AABBs and
-each bank's AABB.  Every ray walks the banks its slab test hits, the nearest
-remaining one first (ties to the lower index), skips a bank once its entry
-lies beyond the ray's best hit, and runs the per-lane page traversal
+The tables (`StreamedTables`) are the per-lane tables of every bank, one
+bank per slab ([NB, 17P, 128] and [NB, 7P, 128]), beside the page AABBs
+and each bank's AABB: the JAX package's layout, which the plain versions,
+the CPU tests and B12's finish read.  The plain versions take any number
+of banks; the CUDA kernels at most `native.MAX_STREAMED_BANKS` (4,096,
+about 117 million triangle slots at P = 224), because a block of B9 or
+B10 stages every bank's AABB in shared memory, 32 B each.  Beside them lie the
+same triangles page-major (`streamed_records`): one 96-byte record of the
+packed lanes 0..23 per triangle and one 32-byte AABB per page, which the
+CUDA walks of B9, B10 and B12's sweep read (csrc/perlane.cuh:bank_walk).
+Every ray walks the banks its slab test hits, the nearest remaining one
+first (ties to the lower index), skips a bank once its entry lies beyond
+the ray's best hit, and runs the per-lane page traversal
 (`intersect_perlane.bank_pass`) inside.  The TPU kernel walks one worklist
 per chunk and sorts lanes by primary bank; the winner, a lexicographic
 (t, id) minimum with exact pruning, does not depend on that order.  Not
@@ -28,12 +36,15 @@ B12 runs one wave as three phases, chained by `trace_shade_bankmajor`:
 prep (each lane's winner init and, per bank and chunk, a bitmask of the
 chunk's 128-lane groups whose rays enter the bank), a glue step over the
 [NB, NC] demand only (each bank's demanding chunks first, and their
-count), the sweep (banks in index order, each over its demanding chunks'
-demanded groups, `bank_pass` per ray, the winner kept as t, id and slot)
-and the finish (the winner's payload from its slot, then the shade).  It
-equals B9 bit for bit; the TPU kernel's lane sort by primary bank is not
+count), the sweep (banks in index order for each demanded group, each
+bank over its demanding chunks' demanded groups, `bank_pass` per ray, the
+winner kept as t, id and slot; the kernel is one persistent launch that
+claims (bank, group) items bank-major) and the finish (the winner's
+payload from its slot, then the shade).  It equals B9 bit for bit; the TPU kernel's lane sort by primary bank is not
 carried.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,7 +54,7 @@ from .cull import slab, slab_inv
 from .intersect_perlane import (GROUP, N_INT, N_SHD, bank_pass, bank_views,
                                 build_perlane_tables, winner_init,
                                 winner_rows)
-from .pages import PACK_LANES, PageTables
+from .pages import LANE_SCAT, PACK_LANES, PageTables
 from .intersect import packed_hit_predicate, payload_features, PAYLOAD_ROWS
 from .shade import scatter_rv, shade_state_rows
 from .state import ROW_ALIVE, ROW_ID, STATE_ROWS, TRACE_ROWS
@@ -89,10 +100,50 @@ def build_streamed_tables(pages: PageTables):
             plt_s.reshape(NB, N_SHD * P, GROUP), ab, bank_ab)
 
 
-def upload_streamed_tables(pages: PageTables, device):
-    """`build_streamed_tables` as float32 tensors on `device`."""
-    return tuple(torch.from_numpy(x).to(device)
+#: floats of a triangle's page-major record (the packed lanes 0..23) and of
+#: a page's AABB there (lanes 0..2 lo, 3..5 hi, 6 valid, 7 zero)
+REC_LANES = LANE_SCAT + 1
+PAB_LANES = 8
+
+
+class StreamedTables(NamedTuple):
+    """The streamed regime's tables on one device, in both layouts.
+
+    plt_i, plt_s, ab, bank_ab: `build_streamed_tables` (pages on lanes, the
+    JAX package's layout); rec [NB*128, P, 24] and pab [NB*128, 8]:
+    `streamed_records` of them (page-major, the CUDA walks' layout)."""
+    plt_i: torch.Tensor
+    plt_s: torch.Tensor
+    ab: torch.Tensor
+    bank_ab: torch.Tensor
+    rec: torch.Tensor
+    pab: torch.Tensor
+
+
+def streamed_records(plt_i, plt_s, ab):
+    """The page-major records of the per-lane tables, on their device:
+    rec [NB*128, P, 24], where rec[b*128 + p, j] holds the packed lanes
+    0..23 of triangle j of bank b's page p (features 0..16 from plt_i, 17..23
+    from plt_s; a padding page is zero), and pab [NB*128, 8], each page's
+    AABB row of `ab` cut to 8 lanes.  32-bit word copies: -0 and NaN bits
+    survive."""
+    NB = plt_i.shape[0]
+    P = plt_i.shape[1] // N_INT
+    wi = plt_i.view(torch.int32).reshape(NB, N_INT, P, GROUP)
+    ws = plt_s.view(torch.int32).reshape(NB, N_SHD, P, GROUP)
+    rec = torch.cat([wi, ws], dim=1).permute(0, 3, 2, 1).reshape(
+        NB * GROUP, P, REC_LANES)
+    pab = ab.view(torch.int32)[:, :PAB_LANES]
+    return (rec.contiguous().view(torch.float32),
+            pab.contiguous().view(torch.float32))
+
+
+def upload_streamed_tables(pages: PageTables, device) -> StreamedTables:
+    """`build_streamed_tables` as float32 tensors on `device`, and their
+    page-major records built there."""
+    tabs = tuple(torch.from_numpy(x).to(device)
                  for x in build_streamed_tables(pages))
+    return StreamedTables(*tabs, *streamed_records(*tabs[:3]))
 
 
 def _trace_block(o, d, valid, views, bank_ab, excl, any_hit: bool):
@@ -124,16 +175,17 @@ def _trace_block(o, d, valid, views, bank_ab, excl, any_hit: bool):
         bank_pass(views, bsel, rays, o, d, inv, win, excl, any_hit)
 
 
-def trace_streamed_plain(ot, dt, alive, plt_i, plt_s, ab, bank_ab,
+def trace_streamed_plain(ot, dt, alive, tables: StreamedTables,
                          page_size: int, ray_chunk: int = 0, chunk_live=None,
                          excl=None, any_hit: bool = False):
-    """Plain torch version of `trace_streamed`."""
+    """Plain torch version of `trace_streamed`: reads the JAX layout."""
     n = ot.shape[1]
     valid = alive != 0.0
     if chunk_live is not None:
         live = torch.repeat_interleave(chunk_live != 0, ray_chunk)
         valid = valid & live
-    views = bank_views(plt_i, plt_s, ab, page_size)
+    views = bank_views(tables.plt_i, tables.plt_s, tables.ab, page_size)
+    bank_ab = tables.bank_ab
     rows = torch.empty((TRACE_ROWS, n), dtype=torch.float32, device=ot.device)
     for i in range(0, n, _PLAIN_RAYS):
         sl = slice(i, min(n, i + _PLAIN_RAYS))
@@ -148,7 +200,7 @@ def trace_streamed_plain(ot, dt, alive, plt_i, plt_s, ab, bank_ab,
     return rows
 
 
-def trace_streamed(ot, dt, alive, plt_i, plt_s, ab, bank_ab, page_size: int,
+def trace_streamed(ot, dt, alive, tables: StreamedTables, page_size: int,
                    ray_chunk: int, chunk_live=None, excl=None,
                    any_hit: bool = False):
     """Winner rows [16, R] (ops/state.py ROW_* layout) of the streamed
@@ -157,7 +209,7 @@ def trace_streamed(ot, dt, alive, plt_i, plt_s, ab, bank_ab, page_size: int,
     ot/dt: [3, R] float32 ray origins and directions (rows of a larger
     tensor are fine: the last dim must be dense, one row stride for both);
     alive: [R] float32, rays with alive == 0 are invalid (ROW_T -inf, the
-    rest 0); plt_i/plt_s/ab/bank_ab: `upload_streamed_tables`; chunk_live:
+    rest 0); tables: `upload_streamed_tables`; chunk_live:
     optional [R // ray_chunk] int32 flags — a chunk flagged 0 gets all-zero
     rows; excl: optional [R] float32 triangle id each ray may not hit (0:
     none); any_hit: the occlusion query, which stops a ray at its first hit
@@ -166,21 +218,20 @@ def trace_streamed(ot, dt, alive, plt_i, plt_s, ab, bank_ab, page_size: int,
     """
     dev = ot.device
     if dev.type == "cpu":
-        return trace_streamed_plain(ot, dt, alive, plt_i, plt_s, ab, bank_ab,
-                                    page_size, ray_chunk, chunk_live, excl,
-                                    any_hit)
+        return trace_streamed_plain(ot, dt, alive, tables, page_size,
+                                    ray_chunk, chunk_live, excl, any_hit)
     native.require(dev.type == "cuda",
                    f"trace_streamed: no kernel for device {dev}")
     R = ot.shape[1]
     P = page_size
-    NB = plt_i.shape[0]
+    NB = tables.plt_i.shape[0]
     native.check_ray_chunk(R, ray_chunk)
     native.check_tensor("ot", ot, dev, (3, R), torch.float32, False)
     native.check_tensor("dt", dt, dev, (3, R), torch.float32, False)
     native.require(ot.stride(0) == dt.stride(0),
                    "ot and dt need one row stride")
     native.check_tensor("alive", alive, dev, (R,), torch.float32)
-    _check_tables(dev, P, NB, plt_i, plt_s, ab, bank_ab)
+    _check_tables(dev, P, NB, tables)
     if excl is not None:
         native.check_tensor("excl", excl, dev, (R,), torch.float32)
     if chunk_live is not None:
@@ -190,13 +241,14 @@ def trace_streamed(ot, dt, alive, plt_i, plt_s, ab, bank_ab, page_size: int,
     native.TRACE_STREAMED(
         ot.data_ptr(), dt.data_ptr(), ot.stride(0), alive.data_ptr(), R,
         0 if excl is None else excl.data_ptr(), int(any_hit),
-        plt_i.data_ptr(), plt_s.data_ptr(), ab.data_ptr(), bank_ab.data_ptr(),
-        P, NB, ray_chunk, 0 if chunk_live is None else chunk_live.data_ptr(),
-        out.data_ptr(), native.stream(dev))
+        tables.rec.data_ptr(), tables.pab.data_ptr(),
+        tables.bank_ab.data_ptr(), P, NB, ray_chunk,
+        0 if chunk_live is None else chunk_live.data_ptr(), out.data_ptr(),
+        native.stream(dev))
     return out
 
 
-def trace_shade_streamed_plain(state, plt_i, plt_s, ab, bank_ab, seed,
+def trace_shade_streamed_plain(state, tables: StreamedTables, seed,
                                page_size: int, ray_chunk: int,
                                fixed_rng: bool, weight_cutoff: float,
                                chunk_live):
@@ -205,19 +257,19 @@ def trace_shade_streamed_plain(state, plt_i, plt_s, ab, bank_ab, seed,
     live = torch.repeat_interleave(chunk_live != 0, ray_chunk)
     rays = torch.nonzero(live).squeeze(1)
     st = state[:, rays]
-    rows = trace_streamed_plain(st[0:3], st[3:6], st[ROW_ALIVE], plt_i,
-                                plt_s, ab, bank_ab, page_size)
+    rows = trace_streamed_plain(st[0:3], st[3:6], st[ROW_ALIVE], tables,
+                                page_size)
     rv = scatter_rv(seed, rays, ray_chunk, fixed_rng)
     out[:, rays] = shade_state_rows(st, rows, rv, weight_cutoff)
     return out
 
 
-def trace_shade_streamed(state, plt_i, plt_s, ab, bank_ab, seed,
+def trace_shade_streamed(state, tables: StreamedTables, seed,
                          page_size: int, ray_chunk: int, fixed_rng: bool,
                          weight_cutoff: float, chunk_live):
     """One wave of the streamed regime (B9): trace, shade and state update.
 
-    state: [16, R] float32 ray state (ops/state.py); plt_i/plt_s/ab/bank_ab:
+    state: [16, R] float32 ray state (ops/state.py); tables:
     `upload_streamed_tables`; seed: the wave's two uint32 key words;
     ray_chunk: the RNG chunk width (scatter_rv); chunk_live: [NC] int32
     flags — chunks flagged 0 hold no live ray and pass their state through.
@@ -225,40 +277,45 @@ def trace_shade_streamed(state, plt_i, plt_s, ab, bank_ab, seed,
     """
     dev = state.device
     if dev.type == "cpu":
-        return trace_shade_streamed_plain(state, plt_i, plt_s, ab, bank_ab,
-                                          seed, page_size, ray_chunk,
-                                          fixed_rng, weight_cutoff,
-                                          chunk_live)
+        return trace_shade_streamed_plain(state, tables, seed, page_size,
+                                          ray_chunk, fixed_rng,
+                                          weight_cutoff, chunk_live)
     native.require(dev.type == "cuda",
                    f"trace_shade_streamed: no kernel for device {dev}")
     R = state.shape[1]
     P = page_size
-    NB = plt_i.shape[0]
+    NB = tables.plt_i.shape[0]
     native.check_ray_chunk(R, ray_chunk)
     native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
-    _check_tables(dev, P, NB, plt_i, plt_s, ab, bank_ab)
+    _check_tables(dev, P, NB, tables)
     native.check_tensor("chunk_live", chunk_live, dev, (R // ray_chunk,),
                         torch.int32)
     out = torch.empty_like(state)
     s0, s1 = (int(w) for w in seed)
     native.TRACE_SHADE_STREAMED(
-        state.data_ptr(), out.data_ptr(), R, plt_i.data_ptr(),
-        plt_s.data_ptr(), ab.data_ptr(), bank_ab.data_ptr(), P, NB,
-        ray_chunk, chunk_live.data_ptr(), s0, s1, int(fixed_rng),
-        float(weight_cutoff), xla_rsqrt.device_table(dev).data_ptr(),
-        native.stream(dev))
+        state.data_ptr(), out.data_ptr(), R, tables.rec.data_ptr(),
+        tables.pab.data_ptr(), tables.bank_ab.data_ptr(), P, NB, ray_chunk,
+        chunk_live.data_ptr(), s0, s1, int(fixed_rng), float(weight_cutoff),
+        xla_rsqrt.device_table(dev).data_ptr(), native.stream(dev))
     return out
 
 
-def _check_tables(dev, P: int, NB: int, plt_i, plt_s, ab, bank_ab) -> None:
-    native.check_tensor("plt_i", plt_i, dev, (NB, N_INT * P, GROUP),
+def _check_tables(dev, P: int, NB: int, tables: StreamedTables) -> None:
+    native.check_tensor("plt_i", tables.plt_i, dev, (NB, N_INT * P, GROUP),
                         torch.float32)
-    native.check_tensor("plt_s", plt_s, dev, (NB, N_SHD * P, GROUP),
+    native.check_tensor("plt_s", tables.plt_s, dev, (NB, N_SHD * P, GROUP),
                         torch.float32)
-    native.check_tensor("ab", ab, dev, (NB * GROUP, PACK_LANES),
+    native.check_tensor("ab", tables.ab, dev, (NB * GROUP, PACK_LANES),
                         torch.float32)
-    native.check_tensor("bank_ab", bank_ab, dev,
+    native.check_tensor("bank_ab", tables.bank_ab, dev,
                         (-(-NB // 8) * 8, PACK_LANES), torch.float32)
+    native.check_tensor("rec", tables.rec, dev, (NB * GROUP, P, REC_LANES),
+                        torch.float32)
+    native.check_tensor("pab", tables.pab, dev, (NB * GROUP, PAB_LANES),
+                        torch.float32)
+    native.require(NB <= native.MAX_STREAMED_BANKS,
+                   f"{NB} banks: the streamed kernels stage at most "
+                   f"{native.MAX_STREAMED_BANKS} bank AABBs")
 
 
 def _check_bankmajor(R: int, ray_chunk: int) -> None:
@@ -347,8 +404,9 @@ def bankmajor_order(gm):
     return count, order.to(torch.int32).contiguous()
 
 
-def bankmajor_sweep_plain(state, win, gm, count, order, plt_i, plt_s, ab,
-                          bank_ab, page_size: int, ray_chunk: int):
+def bankmajor_sweep_plain(state, win, gm, count, order,
+                          tables: StreamedTables, page_size: int,
+                          ray_chunk: int):
     """Plain torch version of `bankmajor_sweep`."""
     R = state.shape[1]
     RB = ray_chunk
@@ -357,7 +415,7 @@ def bankmajor_sweep_plain(state, win, gm, count, order, plt_i, plt_s, ab,
     slot = out[WIN_SLOT].view(torch.int32)
     payload = torch.zeros((len(PAYLOAD_ROWS), R), dtype=torch.float32,
                           device=win.device)        # not kept: the slot is
-    views = bank_views(plt_i, plt_s, ab, page_size)
+    views = bank_views(tables.plt_i, tables.plt_s, tables.ab, page_size)
     o, d = state[0:3], state[3:6]
     inv = torch.stack([slab_inv(d[k]) for k in range(3)])
     valid = state[ROW_ALIVE] != 0.0
@@ -375,23 +433,23 @@ def bankmajor_sweep_plain(state, win, gm, count, order, plt_i, plt_s, ab,
     return out
 
 
-def bankmajor_sweep(state, win, gm, count, order, plt_i, plt_s, ab, bank_ab,
+def bankmajor_sweep(state, win, gm, count, order, tables: StreamedTables,
                     page_size: int, ray_chunk: int):
     """B12b: the bank-major sweep.  Banks in index order; bank b runs the
     per-lane page traversal (`bank_pass`) for every valid ray of the
     groups its demand list (gm, count, order of `bankmajor_order`) names,
     after each ray's bank-AABB test against its winner so far.  Returns the
-    new winner stream (t, id, slot); the payload is the finish's."""
+    new winner stream (t, id, slot); the payload is the finish's.  On the
+    card: one launch a call, whatever NB (csrc/trace_bankmajor.cu)."""
     dev = state.device
     if dev.type == "cpu":
-        return bankmajor_sweep_plain(state, win, gm, count, order, plt_i,
-                                     plt_s, ab, bank_ab, page_size,
-                                     ray_chunk)
+        return bankmajor_sweep_plain(state, win, gm, count, order, tables,
+                                     page_size, ray_chunk)
     native.require(dev.type == "cuda",
                    f"bankmajor_sweep: no kernel for device {dev}")
     R = state.shape[1]
     P = page_size
-    NB = plt_i.shape[0]
+    NB = tables.plt_i.shape[0]
     NC = R // ray_chunk
     _check_bankmajor(R, ray_chunk)
     native.require(NB * GROUP * P < 2 ** 31, "winner slots overflow int32")
@@ -400,12 +458,16 @@ def bankmajor_sweep(state, win, gm, count, order, plt_i, plt_s, ab, bank_ab,
     native.check_tensor("gm", gm, dev, (NB, NC), torch.int32)
     native.check_tensor("count", count, dev, (NB,), torch.int32)
     native.check_tensor("order", order, dev, (NB, NC), torch.int32)
-    _check_tables(dev, P, NB, plt_i, plt_s, ab, bank_ab)
+    _check_tables(dev, P, NB, tables)
     out = win.clone()
+    # the item counter, then each (chunk, group)'s last swept bank + 1
+    sync = torch.zeros(1 + NC * (ray_chunk // GROUP), dtype=torch.int32,
+                       device=dev)
     native.BM_SWEEP(state.data_ptr(), R, out.data_ptr(), gm.data_ptr(),
-                    count.data_ptr(), order.data_ptr(), ab.data_ptr(),
-                    plt_i.data_ptr(), plt_s.data_ptr(), bank_ab.data_ptr(),
-                    P, NB, ray_chunk, native.stream(dev))
+                    count.data_ptr(), order.data_ptr(),
+                    tables.rec.data_ptr(), tables.pab.data_ptr(),
+                    tables.bank_ab.data_ptr(), P, NB, ray_chunk,
+                    sync.data_ptr(), native.stream(dev))
     return out
 
 
@@ -490,7 +552,7 @@ def bankmajor_finish(state, win, plt_i, plt_s, seed, page_size: int,
     return out
 
 
-def trace_shade_bankmajor_plain(state, plt_i, plt_s, ab, bank_ab, seed,
+def trace_shade_bankmajor_plain(state, tables: StreamedTables, seed,
                                 page_size: int, ray_chunk: int,
                                 fixed_rng: bool, weight_cutoff: float,
                                 chunk_live=None):
@@ -498,17 +560,18 @@ def trace_shade_bankmajor_plain(state, plt_i, plt_s, ab, bank_ab, seed,
     if chunk_live is None:
         chunk_live = torch.ones(state.shape[1] // ray_chunk,
                                 dtype=torch.int32, device=state.device)
-    win, gm = bankmajor_prep_plain(state, bank_ab, plt_i.shape[0], ray_chunk,
+    win, gm = bankmajor_prep_plain(state, tables.bank_ab,
+                                   tables.plt_i.shape[0], ray_chunk,
                                    chunk_live)
     count, order = bankmajor_order(gm)
-    win = bankmajor_sweep_plain(state, win, gm, count, order, plt_i, plt_s,
-                                ab, bank_ab, page_size, ray_chunk)
-    return bankmajor_finish_plain(state, win, plt_i, plt_s, seed, page_size,
-                                  ray_chunk, fixed_rng, weight_cutoff,
-                                  chunk_live)
+    win = bankmajor_sweep_plain(state, win, gm, count, order, tables,
+                                page_size, ray_chunk)
+    return bankmajor_finish_plain(state, win, tables.plt_i, tables.plt_s,
+                                  seed, page_size, ray_chunk, fixed_rng,
+                                  weight_cutoff, chunk_live)
 
 
-def trace_shade_bankmajor(state, plt_i, plt_s, ab, bank_ab, seed,
+def trace_shade_bankmajor(state, tables: StreamedTables, seed,
                           page_size: int, ray_chunk: int, fixed_rng: bool,
                           weight_cutoff: float, chunk_live=None):
     """One wave of the streamed regime through the bank-major sweep (B12):
@@ -519,10 +582,12 @@ def trace_shade_bankmajor(state, plt_i, plt_s, ab, bank_ab, seed,
     if chunk_live is None:
         chunk_live = torch.ones(state.shape[1] // ray_chunk,
                                 dtype=torch.int32, device=state.device)
-    NB = plt_i.shape[0]
-    win, gm = bankmajor_prep(state, bank_ab, NB, ray_chunk, chunk_live)
+    NB = tables.plt_i.shape[0]
+    win, gm = bankmajor_prep(state, tables.bank_ab, NB, ray_chunk,
+                             chunk_live)
     count, order = bankmajor_order(gm)
-    win = bankmajor_sweep(state, win, gm, count, order, plt_i, plt_s, ab,
-                          bank_ab, page_size, ray_chunk)
-    return bankmajor_finish(state, win, plt_i, plt_s, seed, page_size,
-                            ray_chunk, fixed_rng, weight_cutoff, chunk_live)
+    win = bankmajor_sweep(state, win, gm, count, order, tables, page_size,
+                          ray_chunk)
+    return bankmajor_finish(state, win, tables.plt_i, tables.plt_s, seed,
+                            page_size, ray_chunk, fixed_rng, weight_cutoff,
+                            chunk_live)

@@ -41,16 +41,17 @@ U32 = ctypes.c_uint
 F32 = ctypes.c_float
 
 
-def _sources() -> list:
-    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+def _sources(csrc: Path = CSRC) -> list:
+    return sorted(p for p in Path(csrc).iterdir()
+                  if p.suffix in (".cu", ".cuh"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libraytrace-{h.hexdigest()[:12]}.so"
+    return Path(build_dir) / f"libraytrace-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc() -> str:
@@ -64,26 +65,27 @@ def _nvcc() -> str:
     return str(path)
 
 
-def build() -> dict:
-    """Compile the kernel library unless the hashed build exists: one nvcc
-    per source, all started together, then one link.
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> dict:
+    """Compile the kernel library of the sources in `csrc` into
+    `build_dir` unless the hashed build exists: one nvcc per source, all
+    started together, then one link.
 
     Returns {"path", "seconds", "log"}: seconds is 0.0, and log the saved
     one, when the library was already built.  The compiler's `-Xptxas -v`
     report (registers, shared memory and spills per kernel) is the log."""
-    so = library_path()
+    so = library_path(csrc, build_dir)
     if so.exists():
         saved = so.with_suffix(".log")
         return {"path": str(so), "seconds": 0.0,
                 "log": saved.read_text() if saved.exists() else ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
     procs = []
-    for src in _sources():
+    for src in _sources(csrc):
         if src.suffix != ".cu":
             continue
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        obj = so.parent / f"{tag}.{src.stem}.o"
         procs.append((obj, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -184,12 +186,12 @@ EXPAND = Kernel(
 
 TRACE_SHADE_STREAMED = Kernel(
     "trace_shade_streamed", "rt_trace_shade_streamed",
-    [P, P, I64, P, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P, P],
+    [P, P, I64, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P, P],
     "rust_raytrace_tpu_torch/csrc/trace_streamed.cu",
     "rust_raytrace_tpu/ops/intersect_streamed.py:687")
 TRACE_STREAMED = Kernel(
     "trace_streamed", "rt_trace_streamed",
-    [P, P, I64, P, I64, P, I32, P, P, P, P, I32, I32, I32, P, P, P],
+    [P, P, I64, P, I64, P, I32, P, P, P, I32, I32, I32, P, P, P],
     "rust_raytrace_tpu_torch/csrc/trace_streamed.cu",
     "rust_raytrace_tpu/ops/intersect_streamed.py:612")
 
@@ -205,7 +207,8 @@ TRACE_PERLANE = Kernel(
     "rust_raytrace_tpu_torch/csrc/trace_perlane.cu",
     "rust_raytrace_tpu/ops/intersect_perlane.py:679")
 
-#: B12's three phases; one sweep call launches one grid per bank
+#: B12's three phases, one grid a call each (the sweep's is persistent
+#: and walks every bank)
 BM_PREP = Kernel(
     "bankmajor_prep", "rt_bm_prep",
     [P, I64, P, I32, I32, P, P, P, P],
@@ -213,7 +216,7 @@ BM_PREP = Kernel(
     "rust_raytrace_tpu/ops/intersect_streamed.py:795")
 BM_SWEEP = Kernel(
     "bankmajor_sweep", "rt_bm_sweep",
-    [P, I64, P, P, P, P, P, P, P, P, I32, I32, I32, P],
+    [P, I64, P, P, P, P, P, P, P, I32, I32, I32, P, P],
     "rust_raytrace_tpu_torch/csrc/trace_bankmajor.cu",
     "rust_raytrace_tpu/ops/intersect_streamed.py:848")
 BM_FINISH = Kernel(
@@ -262,6 +265,12 @@ def require(ok: bool, msg: str) -> None:
 #: tune`'s largest.  A kernel whose block is one chunk runs at most 1024
 #: threads, each owning ceil(ray_chunk / 1024) of the chunk's rays.
 MAX_RAY_CHUNK = 4096
+
+
+#: the most banks the streamed kernels (B9, B10, B12's sweep) take: a
+#: block of B9 or B10 stages every bank's AABB in shared memory, 32 B each
+#: (128 KiB at the cap, within the 227 KiB a Hopper block may hold)
+MAX_STREAMED_BANKS = 4096
 
 
 def check_ray_chunk(R: int, ray_chunk: int) -> None:

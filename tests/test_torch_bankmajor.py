@@ -136,11 +136,11 @@ def test_bankmajor_prep_equals_jax(tables, state, chunk_live):
     """Prep's winner init (t, id; the slot row is the TPU's page row, 0)
     on live chunks and the [NB, NC] group demand bitmask on every chunk;
     a dead chunk demands no bank."""
-    _, (si, ss, sab, sbab), jt = tables
+    _, tabs, jt = tables
     cl = np.asarray(chunk_live, np.int32)
-    NB = si.shape[0]
+    NB = tabs.plt_i.shape[0]
     native.reset_launch_counts()
-    win, gm = bankmajor_prep(torch.from_numpy(state), sbab, NB, RB,
+    win, gm = bankmajor_prep(torch.from_numpy(state), tabs.bank_ab, NB, RB,
                              torch.from_numpy(cl))
     assert native.BM_PREP.launches == 0              # CPU: plain version
     jwin, jgm = _jax_prep(state, jt[3], cl)
@@ -173,7 +173,7 @@ def test_bankmajor_equals_jax(tables, state, fixed_rng):
             fixed_rng=fixed_rng, weight_cutoff=wc,
             chunk_live=jnp.asarray(cl), interpret=True, sort_lanes=False))
         native.reset_launch_counts()
-        mine = trace_shade_bankmajor(torch.from_numpy(state), *tabs, seed, P,
+        mine = trace_shade_bankmajor(torch.from_numpy(state), tabs, seed, P,
                                      RB, fixed_rng, wc,
                                      torch.from_numpy(cl)).numpy()
         assert all(k.launches == 0 for k in native.KERNELS)
@@ -193,17 +193,17 @@ def test_bankmajor_equals_worklist(tables, state, fixed_rng):
     seed = np.asarray([9, 10], np.uint32)
     wc = 0.0 if fixed_rng else 1 / 512
     cl = torch.tensor([1, 0, 1], dtype=torch.int32)
-    want = trace_shade_streamed(st, *tabs, seed, P, RB, fixed_rng, wc, cl)
-    got = trace_shade_bankmajor(st, *tabs, seed, P, RB, fixed_rng, wc, cl)
+    want = trace_shade_streamed(st, tabs, seed, P, RB, fixed_rng, wc, cl)
+    got = trace_shade_bankmajor(st, tabs, seed, P, RB, fixed_rng, wc, cl)
     np.testing.assert_array_equal(bits(got.numpy()), bits(want.numpy()))
 
     NB = tabs[0].shape[0]
     win, gm = bankmajor_prep(st, tabs[3], NB, RB, cl)
     count, order = bankmajor_order(gm)
     assert (count == (gm != 0).sum(dim=1)).all()
-    win = bankmajor_sweep(st, win, gm, count, order, *tabs, P, RB)
+    win = bankmajor_sweep(st, win, gm, count, order, tabs, P, RB)
     live = torch.repeat_interleave(cl != 0, RB)
-    rows = trace_streamed_plain(st[0:3], st[3:6], st[7], *tabs, P, RB, cl)
+    rows = trace_streamed_plain(st[0:3], st[3:6], st[7], tabs, P, RB, cl)
     np.testing.assert_array_equal(bits(win[WIN_T][live].numpy()),
                                   bits(rows[0][live].numpy()))
     np.testing.assert_array_equal(win[WIN_ID].numpy(), rows[1].numpy())

@@ -277,14 +277,14 @@ def test_streamed_kernels_match_plain(dev, fixed):
     nc = R // RB
     dead = torch.ones(nc, dtype=torch.int32, device=dev)
     dead[1::3] = 0
-    rows = intersect_streamed.trace_streamed(o, d, alive, *tabs, 8, RB)
+    rows = intersect_streamed.trace_streamed(o, d, alive, tabs, 8, RB)
     for kw in ({}, {"excl": rows[1].contiguous()}, {"chunk_live": dead}):
-        _bitwise(intersect_streamed.trace_streamed(o, d, alive, *tabs, 8, RB,
+        _bitwise(intersect_streamed.trace_streamed(o, d, alive, tabs, 8, RB,
                                                    **kw),
                  intersect_streamed.trace_streamed_plain(
-                     o, d, alive, *tabs, 8, RB, **kw))
+                     o, d, alive, tabs, 8, RB, **kw))
     so, sd, hit, excl = shadow_rays(st, rows, prng_key(3), 0, fixed, LIGHT)
-    args = (so, sd, hit.float(), *tabs, 8, RB)
+    args = (so, sd, hit.float(), tabs, 8, RB)
     occ = intersect_streamed.trace_streamed(*args, excl=excl, any_hit=True)
     occ_p = intersect_streamed.trace_streamed_plain(*args, excl=excl,
                                                     any_hit=True)
@@ -292,11 +292,11 @@ def test_streamed_kernels_match_plain(dev, fixed):
     assert 0 < int((occ[1] != 0).sum()) < int(hit.sum())
     key = prng_key(3)
     for live in (torch.ones(nc, dtype=torch.int32, device=dev), dead):
-        args = (st, *tabs, fold_in(key, 0), 8, RB, fixed, 1 / 512, live)
+        args = (st, tabs, fold_in(key, 0), 8, RB, fixed, 1 / 512, live)
         st1 = intersect_streamed.trace_shade_streamed(*args)
         _bitwise(st1, intersect_streamed.trace_shade_streamed_plain(*args))
     clive = (st1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
-    args = (st1, *tabs, fold_in(key, 1), 8, RB, fixed, 1 / 512, clive)
+    args = (st1, tabs, fold_in(key, 1), 8, RB, fixed, 1 / 512, clive)
     _bitwise(intersect_streamed.trace_shade_streamed(*args),
              intersect_streamed.trace_shade_streamed_plain(*args))
 
@@ -429,7 +429,7 @@ def test_bankmajor_kernels_match_plain(dev, fixed):
     live = torch.ones(nc, dtype=torch.int32, device=dev)
     for wave in (0, 1):
         st = intersect_streamed.trace_shade_streamed(
-            st, *tabs, fold_in(key, wave), 8, RB, fixed, wc, live)
+            st, tabs, fold_in(key, wave), 8, RB, fixed, wc, live)
         live = (st[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
     assert 0 < int(live.sum()) < nc
     native.reset_launch_counts()
@@ -439,10 +439,10 @@ def test_bankmajor_kernels_match_plain(dev, fixed):
     _bitwise(win, win_p)
     assert torch.equal(gm, gm_p) and int((gm != 0).sum()) > 0
     count, order = intersect_streamed.bankmajor_order(gm)
-    sw = intersect_streamed.bankmajor_sweep(st, win, gm, count, order, *tabs,
+    sw = intersect_streamed.bankmajor_sweep(st, win, gm, count, order, tabs,
                                             8, RB)
     _bitwise(sw, intersect_streamed.bankmajor_sweep_plain(
-        st, win, gm, count, order, *tabs, 8, RB))
+        st, win, gm, count, order, tabs, 8, RB))
     seed = fold_in(key, 2)
     fin = intersect_streamed.bankmajor_finish(st, sw, tabs[0], tabs[1], seed,
                                               8, RB, fixed, wc, live)
@@ -451,9 +451,58 @@ def test_bankmajor_kernels_match_plain(dev, fixed):
     assert (native.BM_PREP.launches, native.BM_SWEEP.launches,
             native.BM_FINISH.launches) == (1, 1, 1)
     _bitwise(intersect_streamed.trace_shade_bankmajor(
-        st, *tabs, seed, 8, RB, fixed, wc, live),
-        intersect_streamed.trace_shade_streamed(st, *tabs, seed, 8, RB,
+        st, tabs, seed, 8, RB, fixed, wc, live),
+        intersect_streamed.trace_shade_streamed(st, tabs, seed, 8, RB,
                                                 fixed, wc, live))
+
+
+def test_streamed_records_on_card_equal_cpu(dev):
+    """The streamed Engine's tables on the card, the page-major records
+    built there included, equal the CPU build word for word."""
+    scene, _ = _sphere_scene(False)
+    eng = Engine(scene, page_size=8, ray_chunk=RB, streamed=True, device=dev)
+    ref = intersect_streamed.upload_streamed_tables(eng.pages, "cpu")
+    assert eng.stables.rec.shape == (eng.stables.ab.shape[0], 8, 24)
+    for name, got, want in zip(ref._fields, eng.stables, ref):
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)), name
+
+
+def _sweep_grids(fn) -> int:
+    """The bm_sweep_kernel grids the card ran during fn()."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if "bm_sweep_kernel" in e.name)
+
+
+def test_bankmajor_sweep_one_launch(dev):
+    """B12b launches one grid a call, with demand and with none (every
+    chunk dead: an empty wave), and the empty wave changes no winner."""
+    scene, vp = _sphere_scene(False)
+    eng = Engine(scene, page_size=8, ray_chunk=RB, streamed=True, device=dev)
+    tabs = eng.stables
+    NB = tabs.plt_i.shape[0]
+    st = _sphere_state(eng, vp, dev)
+    nc = st.shape[1] // RB
+    for live in (torch.ones(nc, dtype=torch.int32, device=dev),
+                 torch.zeros(nc, dtype=torch.int32, device=dev)):
+        win, gm = intersect_streamed.bankmajor_prep(st, tabs.bank_ab, NB, RB,
+                                                    live)
+        count, order = intersect_streamed.bankmajor_order(gm)
+        native.reset_launch_counts()
+        out = []
+        grids = _sweep_grids(lambda: out.append(
+            intersect_streamed.bankmajor_sweep(st, win, gm, count, order,
+                                               tabs, 8, RB)))
+        assert grids == 1 and native.BM_SWEEP.launches == 1
+        if int(live.sum()) == 0:
+            assert int(count.sum()) == 0
+            _bitwise(out[0], win)
+        else:
+            assert int((out[0][1] != 0).sum()) > 0
 
 
 def test_bankmajor_render_on_card_equals_cpu(dev):

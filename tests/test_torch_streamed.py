@@ -114,7 +114,7 @@ def test_trace_streamed_equals_jax(tables, rays, mode):
     """All 16 rows by bit pattern (nearest, with each ray's own nearest
     triangle excluded, and with the second chunk flagged dead: zero rows);
     any-hit with exclusion: the occlusion bit (ROADMAP C5)."""
-    (si, ss, sab, sbab), jt = tables
+    tabs, jt = tables
     o, d, alive = rays
     excl = chunk_live = None
     if mode in ("excl", "any_hit"):
@@ -131,7 +131,7 @@ def test_trace_streamed_equals_jax(tables, rays, mode):
     native.reset_launch_counts()
     mine = trace_streamed(
         torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(alive),
-        si, ss, sab, sbab, P, RB,
+        tabs, P, RB,
         chunk_live=None if chunk_live is None else torch.from_numpy(chunk_live),
         excl=None if excl is None else torch.from_numpy(excl),
         any_hit=mode == "any_hit").numpy()
@@ -156,7 +156,7 @@ def test_trace_streamed_equals_jax(tables, rays, mode):
 def test_trace_shade_streamed_equals_jax(tables, rays, fixed_rng):
     """The new state bitwise, every chunk live and the second chunk dead
     (passed through)."""
-    (si, ss, sab, sbab), jt = tables
+    tabs, jt = tables
     o, d, alive = rays
     R = o.shape[1]
     st = np.concatenate([o, d, alive[None], alive[None],
@@ -170,8 +170,8 @@ def test_trace_shade_streamed_equals_jax(tables, rays, fixed_rng):
             jnp.asarray(st), *jt, jnp.asarray(seed), P, RB,
             fixed_rng=fixed_rng, weight_cutoff=wc,
             chunk_live=jnp.asarray(cl), interpret=True))
-        mine = trace_shade_streamed(torch.from_numpy(st), si, ss, sab, sbab,
-                                    seed, P, RB, fixed_rng, wc,
+        mine = trace_shade_streamed(torch.from_numpy(st), tabs, seed, P, RB,
+                                    fixed_rng, wc,
                                     torch.from_numpy(cl)).numpy()
         np.testing.assert_array_equal(mine[[7, 11]], ref[[7, 11]])
         np.testing.assert_array_equal(bits(mine), bits(ref))
