@@ -4,12 +4,13 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --turns CSRC [--out FILE]
 
-The second form runs no smoke phase: it times the streamed kernels (B9,
-B10, B12b) and the synthetic_1m_2k renders that run them in turns against
-a build of CSRC, a `rust_raytrace_tpu_torch/csrc/` from before the
-page-major records (for example from `git archive <commit>
-rust_raytrace_tpu_torch/csrc`), whose streamed C entry points take the
-per-lane tables (`turns`).
+The second form runs no smoke phase: it times kernels and the renders
+that run them in turns against a build of CSRC, the
+`rust_raytrace_tpu_torch/csrc/` of an earlier commit (`git archive COMMIT
+rust_raytrace_tpu_torch/csrc`).  TURNS_AGAINST names the commit, binds its
+C entry points and says what is timed: now commit cd7d8a8's B11 (no alive
+mask) and B4 (over the per-lane tables), on their waves and in the
+default, lit and WavefrontRenderer circles_2k renders.
 
 The main paths: the unlit circles_2k render (B1, B2, B3, B4, B5); the lit
 one, circles_2k with the teapot preset's light (B1 twice at wave 0, B6
@@ -27,9 +28,10 @@ kernels, band by band); the per-lane shadow pass
 (engine.shadow_mask_perlane, B7 any-hit) on lit circles_2k's wave-1 rows;
 circles_2k through Engine(ray_chunk=4096) (the unlit path's kernels, the
 chunk-block ones B1 and B2 at 4 rays a thread); and the command line
-(`python -m rust_raytrace_tpu_torch.cli`, run in process): render
-circles_2k (the unlit path), with --band-rows, with --backend simple (B11)
-and with --debug-csv (the debug path), diff engine vs oracle, tune.  B13
+(`python -m rust_raytrace_tpu_torch.cli`, run in process, its slow runs
+each in a process of its own): render circles_2k (the unlit path), with
+--band-rows, with --backend simple (B11) and with --debug-csv (the debug
+path), diff engine vs oracle, tune.  B13
 (the cull with the page sort in the kernel) and B14a/B14b (the bucketed
 compaction and its inverse) launch on no render path, as in the JAX
 package: phase 3 drives them directly.
@@ -40,17 +42,18 @@ Phases, each fatal on failure:
      nvcc per source, all started together);
   3. kernels against their plain torch versions on the card, at the main
      paths' shapes (ray_chunk 1024, page size 56, 37 pages), bitwise: B1,
-     B2 and B4 on 64 chunks of a real circles_2k wave, then the lights
-     path's B6 on those camera rays (folded pages), B6 on their shadow rays
-     with self-exclusion, B8 with the shadow mask and B4 with the feeler on
-     the lit wave-1 state; B3 and B5 on the whole circles_2k state after
-     wave 0 (3,686,400 rays, cb 512, 7,200 chunks) and again at the second
-     boundary (after wave 1 on the survivor prefix: grid_live and
-     dead_base > 0, B5 compared within the prefix); times of kernel and
-     plain version, and of each kernel on the full wave, beside the least
-     time the card could take (bound), and the time of the shadow pass's
-     bulk random draw (threefry glue); then the streamed kernels on the
-     synthetic_1m_2k tables (page size 224, 35 banks in device memory; the
+     B2 and B4 (over the page-major records) on 64 chunks of a real
+     circles_2k wave, then the lights path's B6 on those camera rays
+     (folded pages), B6 on their shadow rays with self-exclusion, B8 with
+     the shadow mask and B4 with the feeler on the lit wave-1 state; B4
+     unlit and lit on the whole wave 1; B3 and B5 on the whole circles_2k
+     state after wave 0 (3,686,400 rays, cb 512, 7,200 chunks) and again
+     at the second boundary (after wave 1 on the survivor prefix:
+     grid_live and dead_base > 0, B5 compared within the prefix); times of
+     kernel and plain version, and of each kernel on the full wave, beside
+     the least time the card could take (bound), and the time of the shadow
+     pass's bulk random draw (threefry glue); then the streamed kernels on
+     the synthetic_1m_2k tables (page size 224, 35 banks in device memory; the
      page-major records built on the card checked word for word against
      the per-lane tables and the pages' packed lanes) on
      64 chunks of its camera rays, spread over the chunks that hit the
@@ -59,8 +62,12 @@ Phases, each fatal on failure:
      the wave-0 state with dead chunks and on the wave-1 state, under live
      and fixed RNG, all bitwise, and each timed on the full wave; then B11
      (t and id) on 64 chunks of circles_2k's camera rays and wave-1 rays at
-     the WavefrontRenderer's page size 256, bitwise, timed on full waves
-     beside its bound, with its ptxas report; B7 (nearest, all 16 rows) on
+     the WavefrontRenderer's page size 256, with no mask and with the
+     wave's alive mask, and on the whole camera wave (no mask) and the
+     whole wave 1 (masked), bitwise, timed on full waves beside its bound
+     (what the exact function needs, counted from the winners: every live
+     pair's t, a plane distance of each pair whose t could beat the
+     winner, the winner's three), with its ptxas report; B7 (nearest, all 16 rows) on
      the lit circles_2k chunks' wave-1 rays and any-hit with
      self-exclusion on their shadow rays (the occlusion bit), again on a
      resident sphere of 4 banks (camera rays, wave-1 rays, shadow rays),
@@ -119,7 +126,10 @@ Phases, each fatal on failure:
      in three bands of 480 rows, three timed renders and one fixed_rng
      render byte-equal to render()'s; circles_2k through
      Engine(ray_chunk=4096), three timed renders after a warm-up, its
-     Mrays/s beside the default's; the command line in process: `render
+     Mrays/s beside the default's; the command line in process (the
+     `--debug-csv` render and the two diffs were started in processes of
+     their own before phase 5, and have ended before phase 6 starts):
+     `render
      --scene circles --resolution 2k --stats` byte-equal to a fresh
      Engine's first render under key 0 (B1-B5 launched), `--band-rows 480`
      byte-equal to render_banded, `--backend simple` at 2k (B11),
@@ -147,6 +157,7 @@ import ctypes
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -168,7 +179,7 @@ from rust_raytrace_tpu_torch.models import circles
 from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
                                         intersect_perlane, intersect_streamed,
                                         shade)
-from rust_raytrace_tpu_torch.ops.pages import LANE_ID
+from rust_raytrace_tpu_torch.ops.pages import LANE_ID, LANE_N, LANE_NC
 from rust_raytrace_tpu_torch.render import WavefrontRenderer
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
 from rust_raytrace_tpu_torch.utils import native, png, xla_rsqrt
@@ -188,9 +199,15 @@ FP32_FLOP_PER_S = 67e12
 #: lexicographic update)
 SLAB_FLOPS = 26
 HIT_FLOPS = 34
-#: the same hit test with the ray origin (B11: eight dot products, not
-#: four, and three more subtractions)
-HIT_FLOPS_ORIGIN = 58
+#: B11's hit test (with the ray origin) in the parts its exact function
+#: needs: of every (ray, triangle) pair the plane's t (the two 3-term dot
+#: products n.d and n.o, the subtraction, the division, the tests t >= 0
+#: and against the best); of a pair whose t could win, a plane distance
+#: (two dot products, the fma, the subtraction, the test against 1); of the
+#: winner, the lexicographic update
+PLANE_T_FLOPS = 14
+PLANE_DIST_FLOPS = 14
+UPDATE_FLOPS = 2
 #: float32 operations of one ray's shade (B0b: contributions, two
 #: normalizations with their Newton steps, reflection, selects)
 SHADE_FLOPS = 120
@@ -246,6 +263,14 @@ def lit(scene):
     scene.lights = LightSource(orig=np.asarray(LIGHT[:3], np.float32),
                                len2=LIGHT[3])
     return scene
+
+
+_START = time.perf_counter()
+
+
+def _phase(label: str) -> None:
+    """Print the seconds since the script started, at a phase's start."""
+    print(f"phase {label}: {time.perf_counter() - _START:.1f} s")
 
 
 def _card() -> str:
@@ -355,8 +380,8 @@ PLAIN["trace_shade_bankmajor"] = intersect_streamed.trace_shade_bankmajor_plain
 PLAIN["trace_perlane"] = _plain_perlane_rows
 
 
-def _plain_nearest(O, D, PK, page_size, ray_chunk):
-    return intersect.nearest_hit_plain(O, D, PK, ray_chunk)
+def _plain_nearest(O, D, PK, page_size, ray_chunk, alive=None):
+    return intersect.nearest_hit_plain(O, D, PK, ray_chunk, alive)
 
 
 #: the render module's kernel wrapper (WavefrontRenderer) and its plain
@@ -495,15 +520,17 @@ def _perlane_bound(eng, page_of, o, valid, ids, io_bytes: int,
                   + int(hits.sum()) * (1 if any_hit else P) * HIT_FLOPS)
 
 
-def _print_ptxas(build_log: str, label: str, names) -> None:
-    """The -Xptxas -v report (registers, spills) of the kernels whose
-    mangled names hold one of `names`."""
-    lines = build_log.splitlines()
+def _print_ptxas(build_log: str, label: str, names) -> list:
+    """Print and return the -Xptxas -v report (registers, spills) of the
+    kernels whose mangled names hold one of `names`."""
+    lines, out = build_log.splitlines(), []
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and any(n in line
                                                       for n in names):
             for rep_line in lines[i:i + 4]:
+                out.append(rep_line.strip())
                 print(f"  ptxas {label}: {rep_line.strip()}")
+    return out
 
 
 def _wave2_state(eng, full0, key, fixed: bool):
@@ -736,10 +763,10 @@ def perlane_banks(dev, key):
                                   0.0)])
     eng = Engine(scene, device=dev)
     P = eng.page_size
-    NB = eng.ab.shape[0] // 128
+    NB = eng.ptables.ab.shape[0] // 128
     if eng.streamed or NB < 2:
         raise AssertionError(f"B7 scene: streamed {eng.streamed}, {NB} banks")
-    tabs = (eng.plt_i, eng.plt_s, eng.ab)
+    tabs = eng.ptables[:3]
     vp = synthetic_view((2560, 1440))
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
@@ -936,13 +963,54 @@ def streamed_kernels(dev, card, key, results, build_log):
     return scene, eng, vp
 
 
+def _b11_need(O, D, PK, best_t, best_id, live=None) -> dict:
+    """What B11's exact function needs on these rays, counted from its
+    result (best_t, best_id): every live ray's t against every triangle (a
+    slot whose normal is zero, a padding row, never wins: its t is +-inf or
+    NaN); one plane distance of each candidate, a pair whose t >= 0 beats
+    the ray's winner lexicographically (a smaller t, or an equal finite t
+    and a smaller id), which only a plane distance past 1 can reject,
+    whatever the order of the visits; and the winner's three plane
+    distances and update.  t as the kernel and the plain version round it.
+    Returns the counts and the operations."""
+    pk = PK.reshape(-1, PK.shape[-1])
+    pk = pk[(pk[:, LANE_N:LANE_N + 3] != 0).any(dim=1)]
+    rays = (torch.arange(O.shape[0], device=O.device) if live is None
+            else torch.nonzero(live).squeeze(1))
+    n_tris = pk.shape[0]
+
+    def dot3(f, r):
+        return shade.fma(pk[:, f + 2:f + 3], r[2][None],
+                         shade.fma(pk[:, f:f + 1], r[0][None],
+                                   pk[:, f + 1:f + 2] * r[1][None]))
+
+    ids = pk[:, LANE_ID:LANE_ID + 1]
+    cand = 0
+    block = max(1, (1 << 25) // max(1, n_tris))
+    for r0 in range(0, rays.numel(), block):
+        r = rays[r0:r0 + block]
+        o, d = O[r].T, D[r].T
+        t = (pk[:, LANE_NC:LANE_NC + 1] - dot3(LANE_N, o)) / dot3(LANE_N, d)
+        bt = best_t[r][None]
+        bi = best_id[r].float()[None]
+        cand += int(((t >= 0) & ((t < bt) | ((t == bt) & ~torch.isinf(t)
+                                             & (ids < bi)))).sum())
+    hits = int((best_id[rays] != 0).sum())
+    pairs = rays.numel() * n_tris
+    return dict(pairs=pairs, candidates=cand, hits=hits,
+                flops=pairs * PLANE_T_FLOPS + cand * PLANE_DIST_FLOPS
+                + hits * (3 * PLANE_DIST_FLOPS + UPDATE_FLOPS))
+
+
 def wavefront_kernels(dev, card, key, results, build_log):
     """Phase 3 for the portable renderer: B11 on circles_2k at page size
-    256 (WavefrontRenderer's default), bitwise against its plain version on
-    N_CHECK_CHUNKS chunks of 1,024 spread over the image, of the camera
-    rays and of the wave-1 bounce rays (live RNG), then on a whole
-    2560x1440 wave beside its bound; and B11's ptxas report.  Returns the
-    scene's WavefrontRenderer and the viewport."""
+    256 (WavefrontRenderer's default), bitwise against its plain version:
+    on N_CHECK_CHUNKS chunks of 1,024 spread over the image, of the camera
+    rays and of the wave-1 bounce rays (live RNG), with no mask and with
+    the wave's `alive` mask; on the whole camera wave with no mask and the
+    whole wave 1 with its mask (as trace_rays calls it); timed on whole
+    waves beside its bound; and B11's ptxas report.  Returns the scene's
+    WavefrontRenderer and the viewport."""
     scene, vp = circles.build(resolution="2k", maxdepth=5)
     wr = WavefrontRenderer(scene, device=dev)
     st = wr.tensors
@@ -962,58 +1030,88 @@ def wavefront_kernels(dev, card, key, results, build_log):
     rays = (chunks[:, None] * RB + torch.arange(RB, device=dev)).reshape(-1)
     n = rays.numel()
 
-    def bound(O, n_rays):
-        # every ray against every triangle; the rays, the pages' used
-        # lanes and the winners once
-        return _bound(n_rays * 24 + NP * P * 17 * 4 + n_rays * 8,
-                      n_rays * n_tris * HIT_FLOPS_ORIGIN)
+    def bound(O, D, live, won):
+        # bytes: the live rays, the mask, the pages' used lanes and the
+        # winners once; operations: what the exact function needs
+        n_rays = O.shape[0]
+        n_live = n_rays if live is None else int(live.sum())
+        need = _b11_need(O, D, st.PK, *won, live)
+        print(f"B11 needs on {n_live} live rays: {need['pairs']} pairs' t, "
+              f"{need['candidates']} candidates' plane distance, "
+              f"{need['hits']} winners")
+        return dict(_bound(n_live * 24 + n_rays * (0 if live is None else 1)
+                           + NP * P * 17 * 4 + n_rays * 8, need["flops"]),
+                    need={k: need[k] for k in ("pairs", "candidates",
+                                               "hits")})
+
+    def gate(label, O, D, live):
+        tk, ik = intersect.nearest_hit(O, D, st.PK, P, alive=live)
+        tp, ip = intersect.nearest_hit_plain(O, D, st.PK, alive=live)
+        torch.cuda.synchronize()
+        _require_bitwise(f"B11 {label} t", tk, tp)
+        if not torch.equal(ik, ip):
+            raise AssertionError(f"B11 {label}: {int((ik != ip).sum())} ids "
+                                 f"differ")
+        print(f"B11 on {label}: t and id bitwise equal "
+              f"({int((ik != 0).sum())} hits of {O.shape[0]} rays, "
+              f"{O.shape[0] if live is None else int(live.sum())} live)")
+        return tk, ik
 
     checks = {}
-    for name, (O, D) in (("camera rays", (o, d)),
-                         ("wave-1 bounce rays", (o1, d1))):
-        Oc, Dc = O[rays].contiguous(), D[rays].contiguous()
-        tk, ik = intersect.nearest_hit(Oc, Dc, st.PK, P)
-        tp, ip = intersect.nearest_hit_plain(Oc, Dc, st.PK)
-        torch.cuda.synchronize()
-        _require_bitwise(f"B11 {name} t", tk, tp)
-        if not torch.equal(ik, ip):
-            raise AssertionError(f"B11 {name}: {int((ik != ip).sum())} ids "
-                                 f"differ")
-        checks[name] = (Oc, Dc)
-        print(f"B11 on {N_CHECK_CHUNKS} chunks of circles_2k {name}: t and "
-              f"id bitwise equal ({int((ik != 0).sum())} hits of {n})")
-    Oc, Dc = checks["camera rays"]
+    for name, (O, D, live) in (("camera rays", (o, d, None)),
+                               ("wave-1 bounce rays", (o1, d1, alive1))):
+        Oc, Dc, lc = O[rays].contiguous(), D[rays].contiguous(), None
+        won = gate(f"{N_CHECK_CHUNKS} chunks of circles_2k {name}", Oc, Dc,
+                   None)
+        if live is not None:
+            lc = live[rays].contiguous()
+            won = gate(f"{N_CHECK_CHUNKS} chunks of circles_2k {name}, "
+                       f"masked", Oc, Dc, lc)
+        checks[name] = (Oc, Dc, lc, won)
+    won_full = {
+        "camera rays": gate("the whole circles_2k camera wave", o, d, None),
+        "wave-1 bounce rays": gate("the whole circles_2k wave 1, masked", o1,
+                                   d1, alive1)}
+    Oc, Dc, _, won = checks["camera rays"]
     results[native.NEAREST_HIT.name] = dict(
         rays=n, max_abs_err=0.0,
         ms=_time_ms(lambda: intersect.nearest_hit(Oc, Dc, st.PK, P)),
         plain_ms=_time_ms(lambda: intersect.nearest_hit_plain(Oc, Dc, st.PK),
                           reps=2),
-        **bound(Oc, n))
-    Ob, Db = checks["wave-1 bounce rays"]
+        **bound(Oc, Dc, None, won))
+    Ob, Db, lb, won = checks["wave-1 bounce rays"]
     results[native.NEAREST_HIT.name]["wave1"] = dict(
-        ms=_time_ms(lambda: intersect.nearest_hit(Ob, Db, st.PK, P)),
-        plain_ms=_time_ms(lambda: intersect.nearest_hit_plain(Ob, Db, st.PK),
-                          reps=2))
-    for name, (O, D) in (("camera rays", (o, d)),
-                         ("wave-1 bounce rays", (o1, d1))):
-        ms = _time_ms(lambda: intersect.nearest_hit(O, D, st.PK, P), reps=3)
-        b = bound(O, R)
+        ms=_time_ms(lambda: intersect.nearest_hit(Ob, Db, st.PK, P,
+                                                  alive=lb)),
+        plain_ms=_time_ms(lambda: intersect.nearest_hit_plain(
+            Ob, Db, st.PK, alive=lb), reps=2),
+        **bound(Ob, Db, lb, won))
+    for name, (O, D, live) in (("camera rays", (o, d, None)),
+                               ("wave-1 bounce rays", (o1, d1, alive1))):
+        ms = _time_ms(lambda: intersect.nearest_hit(O, D, st.PK, P,
+                                                    alive=live), reps=3)
+        b = bound(O, D, live, won_full[name])
         res = results[native.NEAREST_HIT.name]
         if name != "camera rays":
             res = res["wave1"]
+            res["ms_full_unmasked"] = _time_ms(
+                lambda: intersect.nearest_hit(O, D, st.PK, P), reps=3)
+            res["live_full"] = int(live.sum())
         res.update(ms_full=ms, bound_ms_full=b["bound_ms"],
-                   bound_by_full=b["bound_by"])
-        print(f"time nearest_hit B11 (full 2560x1440 wave of {name}, {R} "
-              f"rays x {n_tris} triangles): kernel {ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
-              f"{R * n_tris / ms / 1e9:.3f} G ray-triangle tests/s [{card}]")
+                   bound_by_full=b["bound_by"], need_full=b["need"])
+        n_live = R if live is None else int(live.sum())
+        print(f"time nearest_hit B11 (full 2560x1440 wave of {name}, "
+              f"{n_live} live of {R} rays x {n_tris} triangles): kernel "
+              f"{ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"{n_live * n_tris / ms / 1e9:.3f} G live ray-triangle "
+              f"pairs/s [{card}]")
+    unmasked = results[native.NEAREST_HIT.name]["wave1"]["ms_full_unmasked"]
+    print(f"time nearest_hit B11 on the whole wave 1 with no mask: "
+          f"{unmasked:.4f} ms [{card}]")
     print(f"circles_2k wave 0: {int((hid != 0).sum())} hits of {R}; "
           f"{int(alive1.sum())} rays live for wave 1")
-    lines = build_log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "nearest_hit" in line:
-            for rep_line in lines[i:i + 4]:
-                print(f"  ptxas B11: {rep_line.strip()}")
+    results[native.NEAREST_HIT.name]["ptxas"] = _print_ptxas(
+        build_log, "B11", ("nearest_hit_kernel",))
     return scene, wr, vp
 
 
@@ -1311,47 +1409,110 @@ def ray_chunk_kernels(eng, full0, pk0, s_eng, card, key, results):
             rc: t[field] for rc, t in times.items()}
 
 
-def cli_phase(dev, card):
-    """Phase 6j: the command line on the card, in process (so that launch
-    counts show): render circles_2k (byte-equal to the first render of a
-    fresh Engine under key 0; B1-B5 launched), with --band-rows 480
-    (byte-equal to render_banded), with --backend simple, with
-    --debug-csv at 640x360; diff engine vs oracle at 16x16 (rc 0, no
-    error) and at 48x27 (its report printed); tune at 640x360 (it
-    finishes; the runtimes it walked).  Returns the launch counts of the
-    circles_2k render."""
+#: the command line's slow runs (a Python loop over the pixels, the
+#: numpy oracle), each in a process of its own, started before phase 5 and
+#: read by cli_phase; {tmp}: their scratch directory
+SLOW_CLI = {
+    "debug": ["render", "--scene", "circles", "--resolution", "640x360",
+              "--debug-csv", "{tmp}/debug.csv", "--out", "{tmp}/debug.png"],
+    "diff16": ["diff", "--scene", "circles", "--resolution", "16x16",
+               "--maxdepth", "2", "--a", "engine", "--b", "oracle"],
+    "diff48": ["diff", "--scene", "circles", "--resolution", "48x27", "--a",
+               "engine", "--b", "oracle"],
+}
+#: the processes this script started, and their scratch directories:
+#: stopped and removed when it ends
+_CHILDREN: list = []
+_SCRATCH: list = []
+
+
+def run_cli(argv) -> dict:
+    """The command line's `main(argv)` in this process: its rc, wall ms,
+    printed text, the launch counts of its kernels and (seconds, Mrays/s,
+    rays) of each render it ran."""
     from rust_raytrace_tpu_torch import cli
 
-    captured = []
+    renders = []
     run_render = cli.run_render
 
     def spy(*a, **kw):
         r = run_render(*a, **kw)
-        captured.append(r)
+        renders.append((r.seconds, r.mrays_per_sec, r.rays_traced))
         return r
 
-    def run(argv, ok=(0,)):
-        buf = io.StringIO()
-        captured.clear()
-        torch.cuda.synchronize()
-        native.reset_launch_counts()
-        t0 = time.perf_counter()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    cli.run_render = spy
+    t0 = time.perf_counter()
+    try:
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        counts = _counts()
-        text = buf.getvalue()
-        launched = {k: c for k, c in counts.items() if c}
-        for r in captured:
-            print(f"  cli {' '.join(argv)}: render "
-                  f"{r.seconds * 1e3:.3f} ms, {r.mrays_per_sec:.3f} Mrays/s "
-                  f"({r.rays_traced} rays) [{card}]")
-        print(f"cli {' '.join(argv)}: rc {rc}, command wall {wall:.1f} ms, "
-              f"launches {launched}")
-        if rc not in ok:
-            raise AssertionError(f"cli {argv}: rc {rc}\n{text}")
-        return text, counts
+    finally:
+        cli.run_render = run_render
+    torch.cuda.synchronize()
+    return dict(rc=rc, wall_ms=(time.perf_counter() - t0) * 1e3,
+                text=buf.getvalue(), launches=_counts(), renders=renders)
+
+
+def start_slow_cli() -> dict:
+    """SLOW_CLI's runs, each started in a process of its own (`--cli`),
+    its output and errors written to files of a new scratch directory:
+    name -> (argv, process, path of the output; the errors' is it with
+    .err for .out)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    _SCRATCH.append(tmp)
+    started = {}
+    for name, argv in SLOW_CLI.items():
+        argv = [a.format(tmp=tmp) for a in argv]
+        out = os.path.join(tmp, f"{name}.out")
+        with open(out, "w") as f, open(out[:-4] + ".err", "w") as e:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--cli", *argv],
+                stdout=f, stderr=e)
+        _CHILDREN.append(proc)
+        started[name] = (argv, proc, out)
+    return started
+
+
+def cli_phase(dev, card, slow):
+    """Phase 6k: the command line on the card, in process (so that launch
+    counts show): render circles_2k (byte-equal to the first render of a
+    fresh Engine under key 0; B1-B5 launched), with --band-rows 480
+    (byte-equal to render_banded), with --backend simple; tune at 640x360
+    (it finishes; the runtimes it walked).  From `slow` (start_slow_cli's
+    runs, each in its own process, with its own launch counts): render
+    with --debug-csv at 640x360; diff engine vs oracle at 16x16 (rc 0, no
+    error) and at 48x27 (its report printed).  Returns the launch counts
+    of the circles_2k render."""
+    from rust_raytrace_tpu_torch import cli
+
+    def report(argv, r, ok):
+        for seconds, mrays, rays in r["renders"]:
+            print(f"  cli {' '.join(argv)}: render {seconds * 1e3:.3f} ms, "
+                  f"{mrays:.3f} Mrays/s ({rays} rays) [{card}]")
+        launched = {k: c for k, c in r["launches"].items() if c}
+        print(f"cli {' '.join(argv)}: rc {r['rc']}, command wall "
+              f"{r['wall_ms']:.1f} ms, launches {launched}")
+        if r["rc"] not in ok:
+            raise AssertionError(f"cli {argv}: rc {r['rc']}\n{r['text']}")
+        return r["text"], r["launches"]
+
+    def run(argv, ok=(0,)):
+        return report(argv, run_cli(argv), ok)
+
+    def collect(name, ok=(0,)):
+        argv, proc, out = slow[name]
+        rc = proc.wait()
+        with open(out) as f:
+            lines = f.read().splitlines()
+        if rc != 0 or not lines:
+            with open(out[:-4] + ".err") as f:
+                err = f.read().splitlines()
+            raise AssertionError(f"cli {argv} in its own process: exit "
+                                 f"{rc}\n" + "\n".join(lines[-10:]
+                                                        + err[-20:]))
+        return report(argv, json.loads(lines[-1]), ok)
 
     def fresh_png(path, banded=False):
         scene, vp = circles.build(resolution="2k", maxdepth=5)
@@ -1361,96 +1522,88 @@ def cli_phase(dev, card):
         png.write_png(path, r.image)
         return open(path, "rb").read()
 
-    cli.run_render = spy
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            out = os.path.join(tmp, "cli.png")
-            ref = os.path.join(tmp, "ref.png")
-            _, counts = run(["render", "--scene", "circles", "--resolution",
-                             "2k", "--out", out, "--stats"])
-            cli_counts = counts
-            missing = [k for k in UNLIT_PATH if counts[k] == 0]
-            if open(out, "rb").read() != fresh_png(ref) or missing:
-                raise AssertionError(f"cli render 2k: PNG differs from the "
-                                     f"Engine's, or never launched {missing}")
-            shape_2k = png.read_png(out).shape
-            print(f"cli render circles 2k: PNG {shape_2k} byte-equal to a "
-                  f"fresh Engine's first render under key 0")
-            run(["render", "--scene", "circles", "--resolution", "2k",
-                 "--band-rows", "480", "--out", out])
-            if open(out, "rb").read() != fresh_png(ref, banded=True):
-                raise AssertionError("cli --band-rows 480: PNG differs from "
-                                     "render_banded's")
-            print("cli render --band-rows 480: PNG byte-equal to "
-                  "render_banded's")
-            _, counts = run(["render", "--scene", "circles", "--resolution",
-                             "2k", "--backend", "simple", "--out", out])
-            if counts["nearest_hit"] == 0 or png.read_png(
-                    out).shape != shape_2k:
-                raise AssertionError("cli --backend simple: B11 never "
-                                     "launched, or a bad image")
-            csv = os.path.join(tmp, "debug.csv")
-            _, counts = run(["render", "--scene", "circles", "--resolution",
-                             "640x360", "--debug-csv", csv, "--out", out])
-            with open(csv) as f:
-                n_lines = sum(1 for _ in f)
-            missing = [k for k in DEBUG_PATH if counts[k] == 0]
-            if n_lines != 1 + 640 * 360 or missing:
-                raise AssertionError(f"cli --debug-csv: {n_lines} lines, "
-                                     f"never launched {missing}")
-            print(f"cli --debug-csv 640x360: {n_lines} lines")
-        # the ray differ: at 16x16 (maxdepth 2) the JAX CLI finds no error
-        # and so must the port; at 48x27 the centre row's rays run exactly
-        # through shared triangle edges, where the engine's and the numpy
-        # oracle's winners may differ (the JAX CLI reports 7 such rays on
-        # an x86 CPU), so that report is printed, not gated
-        text, _ = run(["diff", "--scene", "circles", "--resolution", "16x16",
-                       "--maxdepth", "2", "--a", "engine", "--b", "oracle"])
-        print("  " + "\n  ".join(text.strip().splitlines()[-2:]))
-        if "Found 0 errors" not in text:
-            raise AssertionError(f"cli diff engine oracle:\n{text}")
-        text, _ = run(["diff", "--scene", "circles", "--resolution", "48x27",
-                       "--a", "engine", "--b", "oracle"], ok=(0, 1))
-        print("  " + "\n  ".join(text.strip().splitlines()[1:]))
-        if "Found " not in text:
-            raise AssertionError(f"cli diff 48x27 reported nothing:\n{text}")
-        text, _ = run(["tune", "--scene", "circles", "--resolution",
-                       "640x360"])
-        walked = [line for line in text.splitlines()
-                  if line.startswith(("Running", "Runtime", "Found"))]
-        print("  " + "\n  ".join(walked))
-        chunks = sorted({int(line.rsplit("=", 1)[1]) for line in walked
-                         if line.startswith("Running")})
-        print(f"cli tune walked ray_chunk {chunks} of the grid "
-              f"{list(cli.CHUNK_OPTS)} [{card}]")
-        if not any(line.startswith("Found minimum") for line in walked):
-            raise AssertionError("cli tune did not finish")
-        if max(cli.CHUNK_OPTS) not in chunks:
-            # the hill climb stopped short of the grid's top: walk the top
-            # two values of the same grid, so that tune runs at 4096 too
-            grid = cli.CHUNK_OPTS
-            cli.CHUNK_OPTS = grid[-2:]
-            try:
-                text, _ = run(["tune", "--scene", "circles", "--resolution",
-                               "640x360"])
-            finally:
-                cli.CHUNK_OPTS = grid
-            print("  " + "\n  ".join(line for line in text.splitlines()
-                                     if line.startswith(("Running", "Runtime",
-                                                         "Found"))))
-            if f"ray_chunk={max(grid)}" not in text:
-                raise AssertionError("cli tune never ran the grid's top")
-    finally:
-        cli.run_render = run_render
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli.png")
+        ref = os.path.join(tmp, "ref.png")
+        _, counts = run(["render", "--scene", "circles", "--resolution",
+                         "2k", "--out", out, "--stats"])
+        cli_counts = counts
+        missing = [k for k in UNLIT_PATH if counts[k] == 0]
+        if open(out, "rb").read() != fresh_png(ref) or missing:
+            raise AssertionError(f"cli render 2k: PNG differs from the "
+                                 f"Engine's, or never launched {missing}")
+        shape_2k = png.read_png(out).shape
+        print(f"cli render circles 2k: PNG {shape_2k} byte-equal to a "
+              f"fresh Engine's first render under key 0")
+        run(["render", "--scene", "circles", "--resolution", "2k",
+             "--band-rows", "480", "--out", out])
+        if open(out, "rb").read() != fresh_png(ref, banded=True):
+            raise AssertionError("cli --band-rows 480: PNG differs from "
+                                 "render_banded's")
+        print("cli render --band-rows 480: PNG byte-equal to "
+              "render_banded's")
+        _, counts = run(["render", "--scene", "circles", "--resolution",
+                         "2k", "--backend", "simple", "--out", out])
+        if counts["nearest_hit"] == 0 or png.read_png(
+                out).shape != shape_2k:
+            raise AssertionError("cli --backend simple: B11 never "
+                                 "launched, or a bad image")
+    _, counts = collect("debug")
+    argv = slow["debug"][0]
+    with open(argv[argv.index("--debug-csv") + 1]) as f:
+        n_lines = sum(1 for _ in f)
+    missing = [k for k in DEBUG_PATH if counts[k] == 0]
+    if n_lines != 1 + 640 * 360 or missing:
+        raise AssertionError(f"cli --debug-csv: {n_lines} lines, never "
+                             f"launched {missing}")
+    print(f"cli --debug-csv 640x360: {n_lines} lines")
+    # the ray differ: at 16x16 (maxdepth 2) the JAX CLI finds no error and
+    # so must the port; at 48x27 the centre row's rays run exactly through
+    # shared triangle edges, where the engine's and the numpy oracle's
+    # winners may differ (the JAX CLI reports 7 such rays on an x86 CPU),
+    # so that report is printed, not gated
+    text, _ = collect("diff16")
+    print("  " + "\n  ".join(text.strip().splitlines()[-2:]))
+    if "Found 0 errors" not in text:
+        raise AssertionError(f"cli diff engine oracle:\n{text}")
+    text, _ = collect("diff48", ok=(0, 1))
+    print("  " + "\n  ".join(text.strip().splitlines()[1:]))
+    if "Found " not in text:
+        raise AssertionError(f"cli diff 48x27 reported nothing:\n{text}")
+    text, _ = run(["tune", "--scene", "circles", "--resolution", "640x360"])
+    walked = [line for line in text.splitlines()
+              if line.startswith(("Running", "Runtime", "Found"))]
+    print("  " + "\n  ".join(walked))
+    chunks = sorted({int(line.rsplit("=", 1)[1]) for line in walked
+                     if line.startswith("Running")})
+    print(f"cli tune walked ray_chunk {chunks} of the grid "
+          f"{list(cli.CHUNK_OPTS)} [{card}]")
+    if not any(line.startswith("Found minimum") for line in walked):
+        raise AssertionError("cli tune did not finish")
+    if max(cli.CHUNK_OPTS) not in chunks:
+        # the hill climb stopped short of the grid's top: walk the top two
+        # values of the same grid, so that tune runs at 4096 too
+        grid = cli.CHUNK_OPTS
+        cli.CHUNK_OPTS = grid[-2:]
+        try:
+            text, _ = run(["tune", "--scene", "circles", "--resolution",
+                           "640x360"])
+        finally:
+            cli.CHUNK_OPTS = grid
+        print("  " + "\n  ".join(line for line in text.splitlines()
+                                 if line.startswith(("Running", "Runtime",
+                                                     "Found"))))
+        if f"ray_chunk={max(grid)}" not in text:
+            raise AssertionError("cli tune never ran the grid's top")
     return cli_counts
 
 
 #: the kernels' function names in csrc/*.cu
 PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
                 "trace_shade_perlane_kernel", "expand_kernel",
-                "shade_kernel", "trace_streamed_kernel", "nearest_hit_kernel",
-                "trace_perlane_kernel", "bm_prep_kernel", "bm_sweep_kernel",
-                "bm_finish_kernel", "cull_sorted_kernel",
+                "shade_kernel", "trace_streamed_kernel", "live_list_kernel",
+                "nearest_hit_kernel", "trace_perlane_kernel", "bm_prep_kernel",
+                "bm_sweep_kernel", "bm_finish_kernel", "cull_sorted_kernel",
                 "compact_buckets_kernel", "expand_buckets_kernel")
 
 
@@ -1485,6 +1638,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
 
+    _phase("2 build")
     # 2. build
     built = native.build()
     print(f"build: {built['seconds']:.1f} s -> {built['path']}")
@@ -1493,13 +1647,18 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     native.library()
 
+    _phase("3 kernels")
     # 3. kernels against their plain versions at main-path shapes
     scene, vp = circles.build(resolution="2k", maxdepth=5)
     eng = Engine(scene, device=dev)
     P = eng.page_size
     NP = eng.pages.num_pages
+    tb = eng.ptables
     print(f"circles_2k: {len(scene.tris) - 1} triangles, {NP} pages of {P}, "
-          f"{eng.ab.shape[0] // 128} bank(s)")
+          f"{tb.ab.shape[0] // 128} bank(s); page-major records "
+          f"{sum(t.numel() * 4 for t in tb[3:]) / 1e6:.6f} MB beside "
+          f"{sum(t.numel() * 4 for t in tb[:3]) / 1e6:.6f} MB of per-lane "
+          f"tables on the card")
     tile = eng_mod.pick_tile(vp.width, vp.height)
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
@@ -1515,7 +1674,8 @@ def main() -> int:
     st0 = full0[:, rays].contiguous()
     key = prng_key(7)
     results = {}
-    table_bytes = sum(t.numel() * 4 for t in (eng.plt_i, eng.plt_s, eng.ab))
+    page_of_c = _page_of(eng, len(scene.tris) - 1, dev)
+    tabs7 = tb[:3]
 
     def b1_bound(n, valid):
         nc = n // RB
@@ -1529,11 +1689,23 @@ def main() -> int:
         return _bound(n * 128 + int((counts > 0).sum()) * P * 96,
                       int(live.sum()) * P * HIT_FLOPS)
 
-    def b4_bound(n, state):
-        # every live ray slab-tests every page (a lower bound: the triangle
-        # tests behind the slab hits depend on the traversal)
-        return _bound(n * 128 + table_bytes,
-                      int((state[7] != 0).sum()) * NP * SLAB_FLOPS)
+    def b4_bound(n, state, lit_=False):
+        # what B4's rays need at least: bytes, the state in and out, the
+        # page boxes and the records of every page that holds a found
+        # triangle; operations, every valid ray's slab test of every page,
+        # the hit tests of its found triangle's page and its shade, and,
+        # lit, every hit ray's feeler: a slab test of every page and one
+        # hit test
+        valid = state[7] != 0
+        ids = intersect_perlane.trace_perlane(state[0:3], state[3:6],
+                                              state[7], *tabs7, P, RB)[1]
+        hits = int((valid & (ids != 0)).sum())
+        pages = torch.unique(page_of_c[ids[valid & (ids != 0)].long()])
+        return _bound(n * 128 + NP * 32 + pages.numel() * P * 96,
+                      int(valid.sum()) * (NP * SLAB_FLOPS + SHADE_FLOPS)
+                      + hits * P * HIT_FLOPS
+                      + (hits * (NP * SLAB_FLOPS + HIT_FLOPS) if lit_
+                         else 0))
 
     alive = st0[7] != 0.0
     args1 = (st0[0:3], st0[3:6], alive, eng.aabb_lo, eng.aabb_hi, RB)
@@ -1569,8 +1741,8 @@ def main() -> int:
           f"{int((st1_k[7] != 0).sum())} rays live after wave 0")
 
     live = (st1_k[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
-    args4 = (st1_k, eng.plt_i, eng.plt_s, eng.ab, fold_in(key, 1), P, RB,
-             False, 1 / 512, live)
+    args4 = (st1_k, eng.ptables, fold_in(key, 1), P, RB, False, 1 / 512,
+             live)
     st2_k = intersect_perlane.trace_shade_perlane(*args4)
     st2_p = intersect_perlane.trace_shade_perlane_plain(*args4)
     torch.cuda.synchronize()
@@ -1596,11 +1768,6 @@ def main() -> int:
 
     def b8_bound(n, live):
         return _bound(n * (64 + 44 + 64 + 4), int(live.sum()) * SHADE_FLOPS)
-
-    def b4_lit_bound(n, state, hits):
-        # b4_bound's slab tests, and those of every hit's shadow ray
-        return _bound(n * 128 + table_bytes,
-                      (int((state[7] != 0).sum()) + hits) * NP * SLAB_FLOPS)
 
     def rows_plain(ot, dt, PK, c, pl, pt, zero_origin=False, excl=None):
         return intersect.trace_chunks_plain(ot, dt, PK, c, pl, pt, RB,
@@ -1649,14 +1816,14 @@ def main() -> int:
     print(f"B8 on {N_CHECK_CHUNKS} chunks: bitwise equal; "
           f"{int((st1l_k[7] != 0).sum())} rays live after wave 0")
     livel = (st1l_k[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
-    args4l = (st1l_k, eng.plt_i, eng.plt_s, eng.ab, fold_in(key, 1), P, RB,
-              False, 1 / 512, livel, LIGHT)
+    args4l = (st1l_k, eng.ptables, fold_in(key, 1), P, RB, False, 1 / 512,
+              livel, LIGHT)
     st2l_k = intersect_perlane.trace_shade_perlane(*args4l)
     err4l = _require_bitwise(
         "B4 with light", st2l_k,
         intersect_perlane.trace_shade_perlane_plain(*args4l))
     rows1 = intersect_perlane.trace_perlane_plain(
-        st1l_k[0:3], st1l_k[3:6], st1l_k[7], eng.plt_i, eng.plt_s, eng.ab, P)
+        st1l_k[0:3], st1l_k[3:6], st1l_k[7], *tabs7, P)
     hits1 = int(((st1l_k[7] != 0) & (rows1[1] != 0)).sum())
     unlit4 = {k: results[native.TRACE_SHADE_PERLANE.name][k]
               for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -1667,16 +1834,16 @@ def main() -> int:
         plain_ms=_time_ms(
             lambda: intersect_perlane.trace_shade_perlane_plain(*args4l),
             reps=2),
-        **b4_lit_bound(st0.shape[1], st1l_k, hits1),
+        **b4_bound(st0.shape[1], st1l_k, lit_=True),
         feeler=True, unlit=unlit4)
     print(f"B4 with the shadow feeler on {N_CHECK_CHUNKS} chunks: bitwise "
           f"equal; {hits1} hit rays ran the feeler")
+    results[native.TRACE_SHADE_PERLANE.name]["ptxas"] = _print_ptxas(
+        built["log"], "B4", ("trace_shade_perlane_kernel",))
 
     # B7 (trace_perlane, the trace of the per-lane shadow pass) on the same
     # chunks' lit wave-1 rays: nearest rows, then any-hit with each ray's
     # own triangle excluded on their shadow rays
-    tabs7 = (eng.plt_i, eng.plt_s, eng.ab)
-    page_of_c = _page_of(eng, len(scene.tris) - 1, dev)
     ray7 = (st1l_k[0:3], st1l_k[3:6], st1l_k[7], *tabs7, P, RB)
     rows7 = intersect_perlane.trace_perlane(*ray7)
     err7 = _require_bitwise("B7 lit wave-1 rays", rows7,
@@ -1719,6 +1886,14 @@ def main() -> int:
                                          fold_in(key, 0), P, RB, False,
                                          1 / 512, zero_origin=True)
     flive = (full1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+    # B4 on the whole unlit wave 1, bitwise
+    fargs4 = (full1, eng.ptables, fold_in(key, 1), P, RB, False, 1 / 512,
+              flive)
+    _require_bitwise("B4, the whole wave 1",
+                     intersect_perlane.trace_shade_perlane(*fargs4),
+                     intersect_perlane.trace_shade_perlane_plain(*fargs4))
+    print(f"B4 on the whole circles_2k wave 1 ({int((full1[7] != 0).sum())} "
+          f"live rays): bitwise equal")
     full_ms = {
         native.CULL.name: (_time_ms(lambda: cull.cull_mask_exact(
             full0[0:3], full0[3:6], alive_f, eng.aabb_lo, eng.aabb_hi, RB)),
@@ -1728,21 +1903,20 @@ def main() -> int:
                 full0, pk0, fc, fpl, fpt, fold_in(key, 0), P, RB, False,
                 1 / 512, zero_origin=True)), b2_bound(R, fc, full0)),
         native.TRACE_SHADE_PERLANE.name: (_time_ms(
-            lambda: intersect_perlane.trace_shade_perlane(
-                full1, eng.plt_i, eng.plt_s, eng.ab, fold_in(key, 1), P, RB,
-                False, 1 / 512, flive)), b4_bound(R, full1)),
+            lambda: intersect_perlane.trace_shade_perlane(*fargs4)),
+            b4_bound(R, full1)),
     }
     for name, (ms, bound) in full_ms.items():
-        results[name].update(ms_full=ms, bound_ms_full=bound["bound_ms"])
+        results[name].update(ms_full=ms, bound_ms_full=bound["bound_ms"],
+                             bound_by_full=bound["bound_by"])
         print(f"time {name} (full 2k wave, {R // RB} chunks): kernel "
               f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']}) [{card}]")
 
     # the lights path's kernels on the full lit wave 0 and wave 1
     unlit4 = results[native.TRACE_SHADE_PERLANE.name]["unlit"]
-    unlit4.update(ms_full=results[native.TRACE_SHADE_PERLANE.name].pop(
-        "ms_full"), bound_ms_full=results[native.TRACE_SHADE_PERLANE.name]
-        .pop("bound_ms_full"))
+    unlit4.update({k: results[native.TRACE_SHADE_PERLANE.name].pop(k)
+                   for k in ("ms_full", "bound_ms_full", "bound_by_full")})
     fcam = (full0[0:3], full0[3:6], pk0, fc, fpl, fpt)
     frows = intersect.trace_chunks(*fcam, P, RB, zero_origin=True)
     fsargs, fhit, fexcl = shadow_inputs(full0, frows)
@@ -1752,6 +1926,14 @@ def main() -> int:
     full1l = shade.shade(full0, frows, fold_in(key, 0), RB, False, 1 / 512,
                          fones, fshd)
     flivel = (full1l[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+    # B4 with the feeler on the whole lit wave 1, bitwise
+    fargs4l = (full1l, eng.ptables, fold_in(key, 1), P, RB, False, 1 / 512,
+               flivel, LIGHT)
+    _require_bitwise("B4 with light, the whole wave 1",
+                     intersect_perlane.trace_shade_perlane(*fargs4l),
+                     intersect_perlane.trace_shade_perlane_plain(*fargs4l))
+    print(f"B4 with the shadow feeler on the whole lit circles_2k wave 1 "
+          f"({int((full1l[7] != 0).sum())} live rays): bitwise equal")
     lit_full = {
         "B6 camera rays": (results[native.TRACE_UNION_ROWS.name],
                            _time_ms(lambda: intersect.trace_chunks(
@@ -1765,17 +1947,14 @@ def main() -> int:
                _time_ms(lambda: shade.shade(full0, frows, fold_in(key, 0),
                                             RB, False, 1 / 512, fones, fshd)),
                b8_bound(R, full0[7] != 0)),
-        # lower bound: the feeler's slab tests are not counted at full size
         "B4 with light": (results[native.TRACE_SHADE_PERLANE.name],
                           _time_ms(lambda: intersect_perlane
-                                   .trace_shade_perlane(
-                                       full1l, eng.plt_i, eng.plt_s, eng.ab,
-                                       fold_in(key, 1), P, RB, False,
-                                       1 / 512, flivel, LIGHT)),
-                          b4_lit_bound(R, full1l, 0)),
+                                   .trace_shade_perlane(*fargs4l)),
+                          b4_bound(R, full1l, lit_=True)),
     }
     for name, (res, ms, bound) in lit_full.items():
-        res.update(ms_full=ms, bound_ms_full=bound["bound_ms"])
+        res.update(ms_full=ms, bound_ms_full=bound["bound_ms"],
+                   bound_by_full=bound["bound_by"])
         print(f"time {name} (full lit 2k wave, {R // RB} chunks): kernel "
               f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']}) [{card}]")
@@ -1890,8 +2069,7 @@ def main() -> int:
     # prefix, so it is compared there
     clive = (out_k[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
     full2 = intersect_perlane.trace_shade_perlane(
-        out_k, eng.plt_i, eng.plt_s, eng.ab, fold_in(key, 1), P, RB, False,
-        1 / 512, clive)
+        out_k, eng.ptables, fold_in(key, 1), P, RB, False, 1 / 512, clive)
     meta2, total_a2, skip2, _ = compact.compact_meta(full2[7], full2[11], cb,
                                                      dead_end, R)
     if bool(skip2):
@@ -1918,10 +2096,13 @@ def main() -> int:
           f"{int(dead_end)}): bitwise equal; {n_a2} survivors in a prefix "
           f"of {int(total_a2)} lanes")
     del full2, out2_k, out2_p, dead2_k, dead2_p, y2, back2_k, back2_p, masks2
+    _phase("3 streamed kernels")
     s_scene, eng_s, s_vp = streamed_kernels(dev, card, key, results,
                                             built["log"])
+    _phase("3 B11")
     w_scene, wr, w_vp = wavefront_kernels(dev, card, key, results,
                                           built["log"])
+    _phase("3 B13, B14, ray_chunk")
     # B13 and B14, which no render path launches, and the chunk-block
     # kernels at ray_chunk 2048 and 4096
     b_eng, b_o, b_d, b_valid, b_rays = banks
@@ -1948,6 +2129,7 @@ def main() -> int:
     del full0, full1, fm, ft, fc, fpl, fpt, out_k, out_p, dead, dead_k
     del dead_p, scratch, back_k, back_p, y, masks
 
+    _phase("4 golden")
     # 4. golden on the card, default (compacted) Engine
     g_scene, g_vp = circles.build(resolution=(96, 54), maxdepth=5)
     golden = png.read_png(os.path.join(os.path.dirname(
@@ -1977,6 +2159,9 @@ def main() -> int:
         print(f"golden: circles 96x54 fixed_rng byte-equal on the card "
               f"({label}; launches {_counts()})")
 
+    # the command line's slow runs, in processes of their own meanwhile
+    slow_cli = start_slow_cli()
+    _phase("5 paths")
     # 5. kernel path vs plain path on the card, default Engine, unlit and
     # lit, on circles and in the streamed regime on the synthetic_1m sphere
     # (one Engine for both paths there, at a fixed schedule: the scene's
@@ -2072,7 +2257,7 @@ def main() -> int:
     cst1 = shade.shade(cst0, crows0, fold_in(ckey, 0), RB, True, 0.0,
                        torch.ones(cR // RB, dtype=torch.int32, device=dev),
                        cshd0)
-    ctabs = (ec.plt_i, ec.plt_s, ec.ab)
+    ctabs = ec.ptables[:3]
     crows1 = intersect_perlane.trace_perlane(cst1[0:3], cst1[3:6], cst1[7],
                                              *ctabs, cP, RB)
     cm7 = eng_mod.shadow_mask_perlane(cst1, crows1, ckey, 1, True, LIGHT,
@@ -2139,6 +2324,9 @@ def main() -> int:
             Engine(q_scene, compact=False, device=dev).render(
                 q_vp, fixed_rng=True).image)
 
+    _phase("6 renders")
+    for _, proc, _ in slow_cli.values():    # none runs beside the timings
+        proc.wait()
     # 6. circles_2k end to end: the autotuned default Engine and ncompact=0
     eng.render(vp)                       # the autotune plans on this render
     planned = eng.ncompact
@@ -2414,8 +2602,9 @@ def main() -> int:
     del eng_rc
 
     # 6k. the command line on the card
-    cli_launches = cli_phase(dev, card)
+    cli_launches = cli_phase(dev, card, slow_cli)
 
+    _phase("7 profile")
     # 7. where the time of one circles_2k and one synthetic_1m_2k render goes
     for name, e, pvp in (("default", eng, vp), ("ncompact=0", eng0, vp),
                          ("lit", eng_l, vp),
@@ -2432,9 +2621,11 @@ def main() -> int:
             print(f"  device {ms:9.3f} ms  {n[:90]}")
         print(f"  by kind: " + ", ".join(f"{g} {ms:.3f} ms" for g, ms in
                                          _groups(per_name).items()))
-        b11 = sum(ms for n, ms in per_name.items() if "nearest_hit" in n)
+        b11 = sum(ms for n, ms in per_name.items()
+                  if "nearest_hit_kernel" in n or "live_list_kernel" in n)
         if b11:
-            print(f"  of which B11 (nearest_hit_kernel) {b11:.3f} ms")
+            print(f"  of which B11 (live_list_kernel and nearest_hit_kernel)"
+                  f" {b11:.3f} ms")
         kinds = {k: sum(ms for n, ms in per_name.items() if pat in n)
                  for k, pat in (("B9", "trace_streamed_kernel<true"),
                                 ("B12a", "bm_prep_kernel"),
@@ -2494,220 +2685,250 @@ def main() -> int:
     return 0
 
 
-#: the C entry points of a kernel library from before the page-major
-#: records (the streamed kernels took the per-lane tables plt_i, plt_s, ab
-#: and bank_ab, and the sweep launched one grid a bank): argument types
-PER_LANE_ENTRIES = {
-    "rt_trace_streamed": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p],
-    "rt_trace_shade_streamed": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
-        ctypes.c_uint, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p],
-    "rt_bm_sweep": [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p],
-}
-
-
-def per_lane_wrappers(lib) -> dict:
-    """`trace_streamed`, `trace_shade_streamed` and `bankmajor_sweep` with
-    the port's arguments, launching the kernels of `lib`, a library with
-    PER_LANE_ENTRIES (which read the per-lane tables of `tables`)."""
+def cd7d8a8_wrappers(lib) -> dict:
+    """`nearest_hit` and `trace_shade_perlane` with the port's arguments,
+    launching the kernels of commit cd7d8a8's library `lib`: its B11 traces
+    every ray (the mask is not passed), its B4 reads the per-lane tables of
+    `tables`."""
     def ok(err, name):
         if err != 0:
-            raise RuntimeError(f"per-lane build's {name}: CUDA error {err}")
+            raise RuntimeError(f"earlier build's {name}: CUDA error {err}")
 
-    def trace(ot, dt, alive, tables, page_size, ray_chunk, chunk_live=None,
-              excl=None, any_hit=False):
-        R = ot.shape[1]
-        out = torch.empty((16, R), dtype=torch.float32, device=ot.device)
-        ok(lib.rt_trace_streamed(
-            ot.data_ptr(), dt.data_ptr(), ot.stride(0), alive.data_ptr(), R,
-            0 if excl is None else excl.data_ptr(), int(any_hit),
-            tables.plt_i.data_ptr(), tables.plt_s.data_ptr(),
-            tables.ab.data_ptr(), tables.bank_ab.data_ptr(), page_size,
-            tables.plt_i.shape[0], ray_chunk,
-            0 if chunk_live is None else chunk_live.data_ptr(),
-            out.data_ptr(), native.stream(ot.device)), "rt_trace_streamed")
-        return out
+    def nearest(O, D, PK, page_size, ray_chunk=1024, alive=None):
+        R = O.shape[0]
+        t = torch.empty(R, dtype=torch.float32, device=O.device)
+        i = torch.empty(R, dtype=torch.int32, device=O.device)
+        ok(lib.rt_nearest_hit(O.data_ptr(), D.data_ptr(), R, PK.data_ptr(),
+                              page_size, PK.shape[0], t.data_ptr(),
+                              i.data_ptr(), native.stream(O.device)),
+           "rt_nearest_hit")
+        return t, i
 
     def trace_shade(state, tables, seed, page_size, ray_chunk, fixed_rng,
-                    weight_cutoff, chunk_live):
+                    weight_cutoff, chunk_live, light=None):
+        dev = state.device
         out = torch.empty_like(state)
         s0, s1 = (int(w) for w in seed)
-        ok(lib.rt_trace_shade_streamed(
+        lx, ly, lz, l2 = (0.0,) * 4 if light is None else light
+        wide = xla_rsqrt.device_table(dev, wide=True)
+        ok(lib.rt_trace_shade_perlane(
             state.data_ptr(), out.data_ptr(), state.shape[1],
             tables.plt_i.data_ptr(), tables.plt_s.data_ptr(),
-            tables.ab.data_ptr(), tables.bank_ab.data_ptr(), page_size,
-            tables.plt_i.shape[0], ray_chunk, chunk_live.data_ptr(), s0, s1,
-            int(fixed_rng), float(weight_cutoff),
-            xla_rsqrt.device_table(state.device).data_ptr(),
-            native.stream(state.device)), "rt_trace_shade_streamed")
+            tables.ab.data_ptr(), page_size, tables.ab.shape[0] // 128,
+            ray_chunk, chunk_live.data_ptr(), s0, s1, int(fixed_rng),
+            float(weight_cutoff), int(light is not None), lx, ly, lz, l2,
+            xla_rsqrt.device_table(dev).data_ptr(),
+            0 if wide is None else wide.data_ptr(), native.stream(dev)),
+           "rt_trace_shade_perlane")
         return out
 
-    def sweep(state, win, gm, count, order, tables, page_size, ray_chunk):
-        out = win.clone()
-        ok(lib.rt_bm_sweep(
-            state.data_ptr(), state.shape[1], out.data_ptr(), gm.data_ptr(),
-            count.data_ptr(), order.data_ptr(), tables.ab.data_ptr(),
-            tables.plt_i.data_ptr(), tables.plt_s.data_ptr(),
-            tables.bank_ab.data_ptr(), page_size, tables.plt_i.shape[0],
-            ray_chunk, native.stream(state.device)), "rt_bm_sweep")
-        return out
-
-    return {"trace_streamed": trace, "trace_shade_streamed": trace_shade,
-            "bankmajor_sweep": sweep}
+    return {"nearest_hit": nearest, "trace_shade_perlane": trace_shade}
 
 
-@contextlib.contextmanager
-def per_lane_path(wrappers: dict):
-    """Engines render the streamed regime through `wrappers` (of
-    `per_lane_wrappers`) inside."""
-    patches = [(eng_mod, "trace_streamed"), (eng_mod, "trace_shade_streamed"),
-               (intersect_streamed, "bankmajor_sweep")]
-    saved = [getattr(m, n) for m, n in patches]
-    for m, n in patches:
-        setattr(m, n, wrappers[n])
-    try:
-        yield
-    finally:
-        for (m, n), fn in zip(patches, saved):
-            setattr(m, n, fn)
-
-
-def turns(csrc: Path, out: Path) -> int:
-    """`--turns CSRC`: B10, B9 and B12b, and the synthetic_1m_2k renders
-    that run them, in turns against a build of CSRC, a csrc/ from before
-    the page-major records (PER_LANE_ENTRIES), on full 2560x1440 waves.
-
-    Kernels: CUDA events, 5 launches after a warm-up, rounds new, earlier,
-    new, earlier; each case first checks the two builds' outputs equal bit
-    for bit.  Cases: B10 on the camera wave (nearest rows) and on its
-    shadow rays (any-hit with self-exclusion), B9 on waves 0, 1 and 2, B12b
-    on the wave-2 state and on an empty wave.  Renders (live RNG, key 0):
-    the default, lit and bank-major Engines, best of three after a warm-up
-    each round, the earlier build's kernels swapped in by `per_lane_path`
-    (every other kernel is the checkout's); images byte-equal.  Prints the
-    card, both builds' ptxas reports and every number, and writes them as
-    JSON to `out`."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    dev = torch.device(DEVICE)
-    card = _card()
-    print(card)
-    names = ("trace_streamed_kernel", "bm_sweep_kernel")
-    _print_ptxas(native.build()["log"], "new", names)
-    with tempfile.TemporaryDirectory() as tmp:
-        built = native.build(csrc=csrc, build_dir=Path(tmp))
-        lib = ctypes.CDLL(built["path"])
-    _print_ptxas(built["log"], "earlier", names)
-    for name, argtypes in PER_LANE_ENTRIES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
-    old = per_lane_wrappers(lib)
-
-    scene = synthetic_1m_scene()
-    eng = Engine(scene, device=dev)
-    eng_bm = Engine(scene, bank_major=True, device=dev)
-    eng_lit = Engine(lit(scene), device=dev)
-    tabs, P = eng.stables, eng.page_size
-    NB = tabs.plt_i.shape[0]
-    vp = synthetic_view((2560, 1440))
+def _circles_wave1(eng, vp, key, light):
+    """The default Engine's wave-1 state of a 2560x1440 circles render
+    under live RNG and its chunk_live, unlit (B1, B2) or lit (B1, B6, the
+    shadow pass, B8)."""
+    dev, P = eng.device, eng.page_size
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
     o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
                                                            vp.height), R, dev)
-    o, _ = eng._pinhole_fold(vp, o)
+    o, pk0 = eng._pinhole_fold(vp, o)
     alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
     full0 = torch.cat([o, d, alive0, alive0,
                        torch.zeros((8, R), device=dev)], dim=0)
-    key = prng_key(7)
-    cam = (full0[0:3], full0[3:6], full0[7])
-    rows = intersect_streamed.trace_streamed(*cam, tabs, P, RB)
-    so, sd, hit, excl = eng_mod.shadow_rays(full0, rows, key, 0, False,
-                                            LIGHT)
-    sh = (so, sd, hit.float())
-    ones = torch.ones(R // RB, dtype=torch.int32, device=dev)
-    seeds = [fold_in(key, w) for w in range(3)]
-    full1 = intersect_streamed.trace_shade_streamed(
-        full0, tabs, seeds[0], P, RB, False, 1 / 512, ones)
-    full2 = _wave2_state(eng, full0, key, False)
-    live1, live2 = ((s[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
-                    for s in (full1, full2))
-    sweeps = []
-    for live in (live2, torch.zeros_like(live2)):
-        win, gm = intersect_streamed.bankmajor_prep(full2, tabs.bank_ab, NB,
-                                                    RB, live)
-        sweeps.append((full2, win, gm, *intersect_streamed.bankmajor_order(gm),
-                       tabs, P, RB))
+    lists = page_lists(*cull.cull_mask_exact(full0[0:3], full0[3:6],
+                                             full0[7] != 0, eng.aabb_lo,
+                                             eng.aabb_hi, RB))
+    seed = fold_in(key, 0)
+    if light is None:
+        full1 = intersect.trace_shade_chunks(full0, pk0, *lists, seed, P, RB,
+                                             False, 1 / 512, zero_origin=True)
+    else:
+        rows = intersect.trace_chunks(full0[0:3], full0[3:6], pk0, *lists, P,
+                                      RB, zero_origin=True)
+        shd = eng_mod.shadow_mask(full0, rows, key, 0, False, light,
+                                  eng.aabb_lo, eng.aabb_hi, eng.PK, P, RB)
+        full1 = shade.shade(full0, rows, seed, RB, False, 1 / 512,
+                            torch.ones(R // RB, dtype=torch.int32,
+                                       device=dev), shd)
+    return full1, (full1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
 
-    new = {"trace_streamed": intersect_streamed.trace_streamed,
-           "trace_shade_streamed": intersect_streamed.trace_shade_streamed,
-           "bankmajor_sweep": intersect_streamed.bankmajor_sweep}
+
+def cd7d8a8_cases(dev, key):
+    """What `--turns` times against commit cd7d8a8: B11 on
+    WavefrontRenderer circles_2k's camera wave and on its wave 1 (the new
+    build with the wave's alive mask, as trace_rays calls it: compared on
+    the live rays, its dead rays (+inf, 0)), B4 unlit and lit on the
+    default Engine's wave-1 states; the default Engine, the lit default
+    Engine and WavefrontRenderer(backend="kernel") on circles_2k.  Returns
+    (kernel cases: label -> (wrapper name, args, kwargs, the rays compared
+    or None, the new build's outputs elsewhere or None), renderers: label
+    -> (renderer, viewport), the live rays of each case's input)."""
+    scene, vp = circles.build(resolution="2k", maxdepth=5)
+    eng = Engine(scene, device=dev)
+    eng_lit = Engine(lit(circles.build(resolution="2k", maxdepth=5)[0]),
+                     device=dev)
+    wr = WavefrontRenderer(scene, device=dev)
+    st = wr.tensors
+    P = eng.page_size
+    o, d = render_mod.camera_rays(vp, key, dev)
+    R = o.shape[0]
+    t, hid = intersect.nearest_hit(o, d, st.PK, st.page_size)
+    _, _, alive1, o1, d1 = render_mod.shade_active(
+        st, o, d, t, hid, torch.ones(R, device=dev),
+        torch.ones(R, dtype=torch.bool, device=dev),
+        render_mod._random_unit_vec(fold_in(key, 0), R, dev))
+    full1, live1 = _circles_wave1(eng, vp, key, None)
+    full1l, live1l = _circles_wave1(eng_lit, vp, key, LIGHT)
+    seed1 = fold_in(key, 1)
     cases = {
-        "B10 camera rays (nearest)": ("trace_streamed", (*cam, tabs, P, RB),
-                                      {}),
-        "B10 shadow rays (any-hit, excl)": (
-            "trace_streamed", (*sh, tabs, P, RB),
-            {"excl": excl, "any_hit": True}),
-        "B9 wave 0": ("trace_shade_streamed",
-                      (full0, tabs, seeds[0], P, RB, False, 1 / 512, ones),
-                      {}),
-        "B9 wave 1": ("trace_shade_streamed",
-                      (full1, tabs, seeds[1], P, RB, False, 1 / 512, live1),
-                      {}),
-        "B9 wave 2": ("trace_shade_streamed",
-                      (full2, tabs, seeds[2], P, RB, False, 1 / 512, live2),
-                      {}),
-        "B12b wave-2 state": ("bankmajor_sweep", sweeps[0], {}),
-        "B12b empty wave": ("bankmajor_sweep", sweeps[1], {}),
+        "B11 camera wave": ("nearest_hit", (o, d, st.PK, st.page_size), {},
+                            None, None),
+        "B11 wave 1 (new: masked)": ("nearest_hit",
+                                     (o1, d1, st.PK, st.page_size),
+                                     {"alive": alive1}, alive1,
+                                     (float("inf"), 0)),
+        "B4 unlit wave 1": ("trace_shade_perlane",
+                            (full1, eng.ptables, seed1, P, RB, False,
+                             1 / 512, live1), {}, None, None),
+        "B4 lit wave 1": ("trace_shade_perlane",
+                          (full1l, eng_lit.ptables, seed1, P, RB, False,
+                           1 / 512, live1l, LIGHT), {}, None, None),
     }
-    report = {"card": card, "live_rays": {
-        "wave0": R0, "wave0_hits": int((rows[1] != 0).sum()),
-        "shadow": int(hit.sum()), "wave1": int((full1[7] != 0).sum()),
-        "wave2": int((full2[7] != 0).sum())}, "kernels": {}, "renders": {}}
-    print(f"live rays: {report['live_rays']}")
-    for label, (name, args, kw) in cases.items():
-        fns = {b: (lambda f=fns_[name]: f(*args, **kw))
-               for b, fns_ in (("new", new), ("earlier", old))}
-        a, b = (fns[k]().view(torch.int32) for k in ("new", "earlier"))
+    renders = {"circles_2k": (eng, vp), "circles_2k lit": (eng_lit, vp),
+               "WavefrontRenderer circles_2k": (wr, vp)}
+    live = {"wr_wave1": int(alive1.sum()),
+            "b4_unlit_wave1": int((full1[7] != 0).sum()),
+            "b4_lit_wave1": int((full1l[7] != 0).sum()), "of": R}
+    return cases, renders, live
+
+
+#: `--turns`'s table, the one part of it that names an earlier commit:
+#: `commit`, whose csrc/ the tool builds (`git archive COMMIT
+#: rust_raytrace_tpu_torch/csrc`); `entries`, the C entry points of that
+#: build with their argument types (cd7d8a8's rt_nearest_hit has no mask,
+#: its rt_trace_shade_perlane reads the per-lane tables plt_i, plt_s, ab);
+#: `wrap(lib)`, the port's wrappers of those entry points; `patches`, the
+#: (module, name) under which the render paths look the wrappers up;
+#: `kernels`, the kernel functions whose ptxas reports it prints;
+#: `cases(dev, key)`, what it times.  The next redesign edits this table
+#: and the functions it names, not `turns`.
+TURNS_AGAINST = SimpleNamespace(
+    commit="cd7d8a8",
+    entries={
+        "rt_nearest_hit": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p],
+        "rt_trace_shade_perlane": [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
+            ctypes.c_uint, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    },
+    wrap=cd7d8a8_wrappers,
+    patches=((render_mod, "nearest_hit"), (eng_mod, "trace_shade_perlane")),
+    kernels=("nearest_hit_kernel", "trace_shade_perlane_kernel"),
+    cases=cd7d8a8_cases)
+
+
+@contextlib.contextmanager
+def patched(wrappers: dict):
+    """The render paths launch `wrappers` (TURNS_AGAINST.wrap's) inside."""
+    saved = [getattr(m, n) for m, n in TURNS_AGAINST.patches]
+    for m, n in TURNS_AGAINST.patches:
+        setattr(m, n, wrappers[n])
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(TURNS_AGAINST.patches, saved):
+            setattr(m, n, fn)
+
+
+def _words(out, rows):
+    """A wrapper's outputs as int32 words, on `rows` of each if given."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return torch.cat([(x if rows is None else x[..., rows]).reshape(-1).view(
+        torch.int32) for x in outs])
+
+
+def turns(csrc: Path, out: Path) -> int:
+    """`--turns CSRC`: the kernels and renders of TURNS_AGAINST.cases in
+    turns against a build of CSRC, the csrc/ of TURNS_AGAINST.commit, whose
+    entry points TURNS_AGAINST binds; every other kernel is the
+    checkout's in both builds.
+
+    Kernels: each case first checks the two builds' outputs equal bit for
+    bit (on the rays the case names, the new build's other rays holding
+    the case's values), then CUDA events, 5 launches after a warm-up,
+    rounds new, earlier, new, earlier.  Renders (live RNG, key 0): best of
+    three after a warm-up each round, the earlier build's kernels patched
+    in; images byte-equal.  Prints the card, both builds' ptxas reports and
+    every number, and writes them as JSON to `out`."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    T = TURNS_AGAINST
+    dev = torch.device(DEVICE)
+    card = _card()
+    print(f"{card}; against commit {T.commit}")
+    report = {"card": card, "commit": T.commit, "ptxas": {
+        "new": _print_ptxas(native.build()["log"], "new", T.kernels)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        built = native.build(csrc=csrc, build_dir=Path(tmp))
+        lib = ctypes.CDLL(built["path"])
+    report["ptxas"]["earlier"] = _print_ptxas(built["log"], "earlier",
+                                              T.kernels)
+    for name, argtypes in T.entries.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    old = T.wrap(lib)
+    new = {n: getattr(m, n) for m, n in T.patches}
+    cases, renders, live = T.cases(dev, prng_key(7))
+    report.update(live_rays=live, kernels={}, renders={})
+    print(f"live rays: {live}")
+    for label, (name, args, kw, rows, rest) in cases.items():
+        fns = {"new": lambda f=new[name]: f(*args, **kw),
+               "earlier": lambda f=old[name]: f(*args, **kw)}
+        a, b = fns["new"](), fns["earlier"]()
+        if rest is not None:
+            outs = a if isinstance(a, tuple) else (a,)
+            if not all(bool((x[..., ~rows] == v).all())
+                       for x, v in zip(outs, rest)):
+                raise AssertionError(f"{label}: the new build's rays off "
+                                     f"the case's are not {rest}")
+        a, b = _words(a, rows), _words(b, rows)
         if not torch.equal(a, b):
             raise AssertionError(f"{label}: the two builds differ in "
                                  f"{int((a != b).sum())} words")
-        t = _in_turns(fns)
-        report["kernels"][label] = t
-        print(f"{label}: new {t['new'][0]:.4f} / {t['new'][1]:.4f} ms, "
-              f"earlier {t['earlier'][0]:.4f} / {t['earlier'][1]:.4f} ms "
+        tt = _in_turns(fns)
+        report["kernels"][label] = tt
+        print(f"{label}: new {tt['new'][0]:.4f} / {tt['new'][1]:.4f} ms, "
+              f"earlier {tt['earlier'][0]:.4f} / {tt['earlier'][1]:.4f} ms "
               f"(in turns; outputs bitwise equal) [{card}]")
 
-    def best_render(e):
-        e.render(vp)
-        runs = [e.render(vp) for _ in range(3)]
+    def best_render(e, rvp):
+        e.render(rvp)
+        runs = [e.render(rvp) for _ in range(3)]
         return min(runs, key=lambda r: r.seconds)
 
-    for label, e in (("synthetic_1m_2k", eng), ("synthetic_1m_2k lit", eng_lit),
-                     ("synthetic_1m_2k bank-major", eng_bm)):
+    for label, (e, rvp) in renders.items():
         by = {"new": [], "earlier": []}
         images = {}
         for _ in range(2):
-            r = best_render(e)
-            with per_lane_path(old):
-                r_old = best_render(e)
+            r = best_render(e, rvp)
+            with patched(old):
+                r_old = best_render(e, rvp)
             for b, res in (("new", r), ("earlier", r_old)):
                 by[b].append({"ms": res.seconds * 1e3,
                               "mrays_per_s": res.mrays_per_sec})
                 images[b] = res.image
-        if not np.array_equal(images["new"], images["earlier"]):
+        if not np.array_equal(images["new"].view(np.uint8),
+                              images["earlier"].view(np.uint8)):
             raise AssertionError(f"{label}: the two builds' images differ")
         report["renders"][label] = by
         print(f"{label} render (best of 3, in turns new, earlier, new, "
@@ -2724,13 +2945,27 @@ if __name__ == "__main__":
     t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--turns", type=Path, metavar="CSRC",
-                    help="instead of the smoke run, time the streamed "
-                         "kernels and renders in turns against a build of "
-                         "CSRC, a csrc/ from before the page-major records")
-    ap.add_argument("--out", type=Path,
-                    default=Path("build/streamed_turns.json"),
+                    help="instead of the smoke run, time the kernels and "
+                         "renders of TURNS_AGAINST in turns against a build "
+                         "of CSRC, the csrc/ of its commit")
+    ap.add_argument("--out", type=Path, default=Path("build/turns.json"),
                     help="JSON file for --turns's numbers")
+    ap.add_argument("--cli", nargs=argparse.REMAINDER, metavar="ARGV",
+                    help="run the command line's main(ARGV) and print, as "
+                         "the last line, what run_cli returns as JSON (the "
+                         "smoke run starts its slow commands so)")
     args = ap.parse_args()
-    rc = main() if args.turns is None else turns(args.turns, args.out)
+    try:
+        if args.cli is not None:
+            print(json.dumps(run_cli(args.cli)))
+            rc = 0
+        else:
+            rc = main() if args.turns is None else turns(args.turns, args.out)
+    finally:
+        for proc in _CHILDREN:
+            proc.kill()
+            proc.wait()
+        for tmp in _SCRATCH:
+            shutil.rmtree(tmp, ignore_errors=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     sys.exit(rc)

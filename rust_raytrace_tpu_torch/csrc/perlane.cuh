@@ -1,11 +1,11 @@
 // The per-bank traversals of <= 128 pages.
 //
 // rt::bank_pass walks the per-lane tables (pages on lanes, the TPU's
-// layout), for B4 (trace_shade_perlane.cu) and B7 (trace_perlane.cu) over
-// their resident tables, banks in index order.  rt::bank_walk walks the
-// streamed regime's page-major records, for B9/B10 (trace_streamed.cu),
-// banks on a per-ray worklist, and B12's sweep (trace_bankmajor.cu), one
-// bank per item.
+// layout), for B7 (trace_perlane.cu) over the resident tables, banks in
+// index order.  rt::bank_walk walks the page-major records: the resident
+// regime's for B4 (trace_shade_perlane.cu), banks in index order, and the
+// streamed regime's for B9/B10 (trace_streamed.cu), banks on a per-ray
+// worklist, and B12's sweep (trace_bankmajor.cu), one bank per item.
 //
 // Counterpart: rust_raytrace_tpu/ops/intersect_perlane.py:_group and
 // ops/intersect_streamed.py:_bank_group_pass — each ray slab-tests the bank's
@@ -15,7 +15,7 @@
 // and pages does not change it (exact pruning only); any-hit returns the
 // first hit in that same visit order, so both walks keep it exactly.
 //
-// Why the streamed kernels left the TPU layout.  Pages on lanes
+// Why the walks left the TPU layout.  Pages on lanes
 // ([17P, 128] a bank) suit the TPU's 128-lane vectors: one vector load
 // reads one feature of 128 pages.  A CUDA thread tests one page at a time,
 // so there a triangle costs 17 scalar loads one feature row (P * 512 B,
@@ -232,10 +232,11 @@ __device__ __forceinline__ void cand_fill(Cands& c, uint32_t hit[4],
 // the excluded triangle ex, ANY_HIT a return at the first hit.  SLOT:
 // record the winner's slot (slot_base + page * P + triangle) in *slot
 // instead of its payload (B12's sweep extracts the payload once, at the
-// end).
+// end).  n_pages: the bank's pages past it are padding (invalid), so
+// their slab tests are skipped.
 //
 // The visit order is bank_pass's: the least (tlo, page) of the slab-hit
-// pages not yet visited, while its tlo <= w.t.  The 128 slab tests run
+// pages not yet visited, while its tlo <= w.t.  The slab tests run
 // once; the CAND least keys sit in registers in order, and only when more
 // pages than that were entered is the mask re-tested once the list runs
 // dry.  A popped page entered beyond w.t ends the bank: every page left,
@@ -247,7 +248,8 @@ __device__ __forceinline__ void bank_walk(const float4* __restrict__ box,
                                           const float d[3],
                                           const float inv[3], float ex,
                                           Winner& w, int slot_base = 0,
-                                          int* slot = nullptr) {
+                                          int* slot = nullptr,
+                                          int n_pages = GROUP) {
   uint32_t hit[4];
   Cands c;
 #pragma unroll
@@ -260,7 +262,7 @@ __device__ __forceinline__ void bank_walk(const float4* __restrict__ box,
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     uint32_t bits = 0;
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < 32 && q * 32 + j < n_pages; ++j) {
       const int p = q * 32 + j;
       float thi;
       bool valid;

@@ -12,64 +12,55 @@
 // with its own triangle excluded, decides whether its color counts as
 // black.
 //
-// Bound on this card: latency of scattered reads.  Bounce rays are
-// incoherent, so the threads of a warp test different pages; each triangle
-// costs ~40 flops of predicate against 17 features read from the page
-// tables (plt_i, 17 * P * 128 floats per bank, 487 KB at P = 56), which
-// stay in global memory behind L1/L2: they do not fit the 227 KB of shared
-// memory a block may use, and the whole table fits the 50 MB L2.
+// Bound on this card: issue and latency of the walk.  Bounce rays are
+// incoherent, so the threads of a warp walk different pages; each
+// triangle costs the hit predicate (~40 flops and an IEEE division), each
+// bank visit a slab test of each of its pages.  The tables are small (at
+// most 262,144 slots, 25 MB of records) and stay in L2.
 //
-// Design: one thread per ray, blocks of 128.  Per bank a thread runs
-// rt::bank_pass (perlane.cuh, shared with B7): it keeps a
-// 128-bit mask of slab-hit pages in registers; each step recomputes the
-// entry distance of the remaining pages, drops those beyond the best hit,
-// and tests the nearest (ties to the lower page index), which is the visit
-// order and cut of the TPU kernel's one-page-per-step loop.  The TPU's
-// in-chunk count sort, PAGES_PER_STEP and bank gating only balanced
-// 128-lane vector groups and are not carried over: winners do not depend on
-// how rays are grouped.  Chunks whose rays have all retired (chunk_live)
-// copy their state through.  The feeler visits a bank's slab-hit pages in
-// index order and stops at the first triangle that hits: occlusion is
-// order-free (ROADMAP C5), so this equals the TPU kernel's any-hit loop.  It
-// is a function of its own, so its traversal state is dead before the
-// shade.
+// Design: one thread per ray, blocks of 128.  The resident tables are read
+// page-major (rec, pab of ops/intersect_perlane.py:page_records, built on
+// the device beside the per-lane tables that B7 and the plain versions
+// read): per bank a thread runs rt::bank_walk (perlane.cuh, shared with
+// B9, B10 and B12's sweep), which slab-tests the bank's pages once a visit
+// (only up to the bank's last valid page, `extent`: the one bank of a small
+// scene is mostly padding), keeps its nearest candidates in registers and
+// reads a triangle as one 96-byte record, the payload included.  Its visit
+// order and cut are the per-lane traversal's (the TPU kernel's
+// one-page-per-step loop): the nearest remaining page (ties to the lower
+// index), dropping pages entered beyond the best hit; banks in index
+// order.  The TPU's in-chunk count sort, PAGES_PER_STEP and bank gating
+// only balanced 128-lane vector groups and are not carried over: winners
+// do not depend on how rays are grouped.  Chunks whose rays have all
+// retired (chunk_live) copy their state through.  The feeler is
+// rt::bank_walk's any-hit form with the winner excluded: nearest page
+// first, it stops at the first triangle that hits; only the occlusion bit
+// counts (ROADMAP C5), so it equals the TPU kernel's any-hit loop.  It is
+// a function of its own, so its traversal state is dead before the shade.
 #include "perlane.cuh"
 
 namespace {
 
-using rt::AB_LANES;
 using rt::GROUP;
-using rt::N_INT;
-using rt::N_SHD;
-using rt::page_tlo;
+using rt::PAB4;
+using rt::REC4;
 
 // Any-hit query of the shadow ray (so, sd): whether a triangle other than
 // `excl` hits it at a finite t (the nearest-hit update's condition from an
 // empty winner).
 __device__ bool occluded(const float so[3], const float sd[3], float excl,
-                         const float* __restrict__ plt_i,
-                         const float* __restrict__ ab, int P, int NB) {
+                         const float4* __restrict__ rec,
+                         const float4* __restrict__ pab,
+                         const int* __restrict__ extent, int P, int NB) {
   float inv[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) inv[k] = rt::slab_inv(sd[k]);
+  rt::Winner w = rt::winner_init(true);
   for (int b = 0; b < NB; ++b) {
-    const float* abb = ab + (long long)b * GROUP * AB_LANES;
-    const float* ti = plt_i + (long long)b * N_INT * P * GROUP;
-    for (int p = 0; p < GROUP; ++p) {
-      if (abb[p * AB_LANES + 6] == 0.0f) continue;      // padding page
-      float thi;
-      const float tlo = page_tlo(abb, p, so, inv, thi);
-      if (!((tlo <= thi) & (thi >= 0.0f))) continue;
-      for (int j = 0; j < P; ++j) {
-        const float* f = ti + (long long)j * GROUP + p;
-        auto col = [f, P](int lane_f) {
-          return f[(long long)lane_f * P * GROUP];
-        };
-        const rt::HitTerms h = rt::hit_predicate<false>(col, so, sd);
-        if (h.ok && col(rt::LANE_ID) != excl && h.t < rt::inf_f())
-          return true;
-      }
-    }
+    rt::bank_walk<true, true>(pab + (long long)b * GROUP * PAB4,
+                              rec + (long long)b * GROUP * P * REC4, P, so,
+                              sd, inv, excl, w, 0, nullptr, extent[b]);
+    if (w.id != 0.0f) return true;
   }
   return false;
 }
@@ -80,9 +71,9 @@ template <bool LIGHT>
 __global__ void __launch_bounds__(128)
 trace_shade_perlane_kernel(const float* __restrict__ st,
                            float* __restrict__ out, long long R,
-                           const float* __restrict__ plt_i,
-                           const float* __restrict__ plt_s,
-                           const float* __restrict__ ab, int P, int NB,
+                           const float4* __restrict__ rec,
+                           const float4* __restrict__ pab,
+                           const int* __restrict__ extent, int P, int NB,
                            int ray_chunk, const int* __restrict__ chunk_live,
                            uint32_t s0, uint32_t s1, bool fixed_rng,
                            float weight_cutoff, float lx, float ly,
@@ -109,12 +100,10 @@ trace_shade_perlane_kernel(const float* __restrict__ st,
   const bool valid = s[rt::ROW_ALIVE] != 0.0f;
   rt::Winner w = rt::winner_init(valid);
 
-  for (int b = 0; valid && b < NB; ++b) {
-    const float* abb = ab + (long long)b * GROUP * AB_LANES;
-    const float* ti = plt_i + (long long)b * N_INT * P * GROUP;
-    const float* ts = plt_s + (long long)b * N_SHD * P * GROUP;
-    rt::bank_pass<false, false>(abb, ti, ts, P, o, d, inv, 0.0f, w);
-  }
+  for (int b = 0; valid && b < NB; ++b)
+    rt::bank_walk<false, false>(pab + (long long)b * GROUP * PAB4,
+                                rec + (long long)b * GROUP * P * REC4, P, o,
+                                d, inv, 0.0f, w, 0, nullptr, extent[b]);
 
   const uint32_t lane = (uint32_t)(r - chunk * ray_chunk);
   bool shadowed = false;
@@ -142,7 +131,7 @@ trace_shade_perlane_kernel(const float* __restrict__ st,
       sd[k] = a[k] * inv;
       so[k] = fmaf(back ? -n[k] : n[k], off, p[k]);
     }
-    shadowed = occluded(so, sd, w.id, plt_i, ab, P, NB);
+    shadowed = occluded(so, sd, w.id, rec, pab, extent, P, NB);
   }
 
   float rv[3], rv_inv;
@@ -156,11 +145,11 @@ trace_shade_perlane_kernel(const float* __restrict__ st,
 }  // namespace
 
 extern "C" int rt_trace_shade_perlane(const float* st, float* out,
-                                      long long R, const float* plt_i,
-                                      const float* plt_s, const float* ab,
+                                      long long R, const float* rec,
+                                      const float* pab, const int* extent,
                                       int P, int NB, int ray_chunk,
-                                      const int* chunk_live, unsigned s0,
-                                      unsigned s1, int fixed_rng,
+                                      const int* chunk_live,
+                                      unsigned s0, unsigned s1, int fixed_rng,
                                       float weight_cutoff, int has_light,
                                       float lx, float ly, float lz, float l2,
                                       const unsigned* rsq,
@@ -170,7 +159,9 @@ extern "C" int rt_trace_shade_perlane(const float* st, float* out,
   auto kernel = has_light ? trace_shade_perlane_kernel<true>
                           : trace_shade_perlane_kernel<false>;
   kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      st, out, R, plt_i, plt_s, ab, P, NB, ray_chunk, chunk_live, s0, s1,
-      fixed_rng != 0, weight_cutoff, lx, ly, lz, l2, rsq, rsq14);
+      st, out, R, reinterpret_cast<const float4*>(rec),
+      reinterpret_cast<const float4*>(pab), extent, P, NB, ray_chunk,
+      chunk_live, s0, s1, fixed_rng != 0, weight_cutoff, lx, ly, lz, l2, rsq,
+      rsq14);
   return (int)cudaGetLastError();
 }

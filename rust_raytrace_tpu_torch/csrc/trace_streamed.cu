@@ -34,7 +34,7 @@
 // that one in (entry, index) order, which visits the banks in the same
 // order a visited mask would, for any NB.  Inside a bank it runs
 // rt::bank_walk (perlane.cuh) over the page-major records (rec, pab of
-// ops/intersect_streamed.py:streamed_records): six float4 a triangle, each
+// ops/intersect_perlane.py:page_records): six float4 a triangle, each
 // page's slab tested once a visit, candidates kept sorted in registers.
 // The winner is the lexicographic (t, id) minimum with exact pruning, so it
 // equals the TPU kernel's whatever the visit order; any-hit keeps the

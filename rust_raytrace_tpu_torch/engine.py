@@ -66,8 +66,8 @@ from .ops.cull import (chunk_bounds, chunk_bounds_octants, cull_mask_exact,
                        cull_mask_tmin, cull_mask_tmin_octants)
 from .ops.intersect import (fold_pages_origin, trace_chunks,
                             trace_shade_chunks)
-from .ops.intersect_perlane import (GROUP, MAX_BANKS, trace_perlane,
-                                    trace_shade_perlane,
+from .ops.intersect_perlane import (GROUP, MAX_BANKS, perlane_tables,
+                                    trace_perlane, trace_shade_perlane,
                                     upload_perlane_tables)
 from .ops.intersect_streamed import (trace_shade_bankmajor,
                                      trace_shade_streamed, trace_streamed,
@@ -527,15 +527,15 @@ class Engine(RayCaster):
         self.device = torch.device(device)
         dev = self.device
         self.PK = self.aabb_lo = self.aabb_hi = None
-        self.plt_i = self.plt_s = self.ab = None
-        #: the streamed regime's `StreamedTables` (the JAX layout and the
-        #: page-major records), else None
-        self.stables = None
+        #: the streamed regime's `StreamedTables` and the resident regime's
+        #: `PerlaneTables` (the JAX layout and the page-major records), or
+        #: None in the other regime
+        self.stables = self.ptables = None
         if self.streamed:
             self.stables = upload_streamed_tables(self.pages, dev)
         else:
-            self.plt_i, self.plt_s, self.ab = upload_perlane_tables(
-                self.pages, dev)
+            self.ptables = perlane_tables(*upload_perlane_tables(self.pages,
+                                                                 dev))
         if not self.streamed or not self._use_compact():
             # the union tables: the resident regime's wave 0 and the
             # legacy loop (which reads them in either regime)
@@ -650,8 +650,8 @@ class Engine(RayCaster):
             else:
                 rows = None
                 state = trace_shade_perlane(
-                    state, self.plt_i, self.plt_s, self.ab, seed, P, RB,
-                    fixed_rng, wc, chunk_live, self.light)
+                    state, self.ptables, seed, P, RB, fixed_rng, wc,
+                    chunk_live, self.light)
             if want_primary and wave == 0:
                 primary = rows[ROW_T:ROW_ID + 1]
             if not self._compacts_after(wave, maxdepth, ncompact):

@@ -267,21 +267,27 @@ def trace_chunks(ot, dt, PK, counts, plist, ptmin, page_size: int,
 PLAIN_PAIRS = {"cpu": 1 << 16, "cuda": 1 << 26}
 
 
-def nearest_hit_plain(O, D, PK, ray_chunk: int = 1024):
+def nearest_hit_plain(O, D, PK, ray_chunk: int = 1024, alive=None):
     """Plain torch version of `nearest_hit`.  Each ray is independent of
-    its chunk, so ray_chunk changes nothing here."""
+    its chunk, so ray_chunk changes nothing here; a ray that `alive` marks
+    dead gets (+inf, 0) and no test."""
     R = O.shape[0]
     dev = O.device
     best_t = torch.full((R,), torch.inf, dtype=torch.float32, device=dev)
     best_id = torch.zeros((R,), dtype=torch.float32, device=dev)
-    ot, dt = O.T, D.T
+    live = None if alive is None else torch.nonzero(alive).squeeze(1)
+    ot = (O if live is None else O[live]).T
+    dt = (D if live is None else D[live]).T
+    n = ot.shape[1]
     pk = PK[..., :USED_LANES]
     block = max(128, PLAIN_PAIRS.get(dev.type, 1 << 16) // PK.shape[1])
-    for r0 in range(0, R, block):
-        rays = slice(r0, min(R, r0 + block))
+    for r0 in range(0, n, block):
+        rays = slice(r0, min(n, r0 + block))
         o3 = tuple(ot[k, rays][None] for k in range(3))    # [1, n]
         d3 = tuple(dt[k, rays][None] for k in range(3))
-        bt, bi = best_t[rays], best_id[rays]
+        bt = torch.full((o3[0].shape[1],), torch.inf, dtype=torch.float32,
+                        device=dev)
+        bi = torch.zeros_like(bt)
         for page in pk:
 
             def col(f, page=page):
@@ -295,22 +301,27 @@ def nearest_hit_plain(O, D, PK, ray_chunk: int = 1024):
                                  & (gid < bi))
             bt = torch.where(upd, gmin, bt)
             bi = torch.where(upd, gid, bi)
-        best_t[rays], best_id[rays] = bt, bi
+        if live is None:
+            best_t[rays], best_id[rays] = bt, bi
+        else:
+            best_t[live[rays]], best_id[live[rays]] = bt, bi
     return best_t, best_id.to(torch.int32)
 
 
-def nearest_hit(O, D, PK, page_size: int, ray_chunk: int = 1024):
+def nearest_hit(O, D, PK, page_size: int, ray_chunk: int = 1024,
+                alive=None):
     """Nearest hit of every ray against every triangle (dense brute force).
 
     O, D: [R, 3] float32 ray origins and directions (d = 0: a padding ray,
-    which never hits); PK: [NP, P, 128] packed pages.  Returns (best_t [R]
-    float32, +inf on a miss; best_id [R] int32, 0 on a miss): the
-    lexicographic (t, id) minimum over all triangles, so the least t and,
-    on a tie, the least id.  ray_chunk is the TPU kernel's block of rays;
-    the winners do not depend on it."""
+    which never hits); PK: [NP, P, 128] packed pages; alive: optional [R]
+    bool, rays marked False are dead: they get (+inf, 0) and cost no test.
+    Returns (best_t [R] float32, +inf on a miss; best_id [R] int32, 0 on a
+    miss): the lexicographic (t, id) minimum over all triangles, so the
+    least t and, on a tie, the least id.  ray_chunk is the TPU kernel's
+    block of rays; the winners do not depend on it."""
     dev = O.device
     if dev.type == "cpu":
-        return nearest_hit_plain(O, D, PK, ray_chunk)
+        return nearest_hit_plain(O, D, PK, ray_chunk, alive)
     native.require(dev.type == "cuda",
                    f"nearest_hit: no kernel for device {dev}")
     R = O.shape[0]
@@ -318,10 +329,21 @@ def nearest_hit(O, D, PK, page_size: int, ray_chunk: int = 1024):
     native.check_tensor("O", O, dev, (R, 3), torch.float32)
     native.check_tensor("D", D, dev, (R, 3), torch.float32)
     native.check_tensor("PK", PK, dev, (NP, page_size, 128), torch.float32)
+    native.require(R < 2 ** 31, f"nearest_hit: {R} rays, at most 2^31 - 1")
     best_t = torch.empty((R,), dtype=torch.float32, device=dev)
     best_id = torch.empty((R,), dtype=torch.int32, device=dev)
+    live_list = count = None
+    if alive is not None:
+        native.check_tensor("alive", alive, dev, (R,), torch.bool)
+        # scratch: the indices of the live rays and their count
+        live_list = torch.empty((R,), dtype=torch.int32, device=dev)
+        count = torch.empty((1,), dtype=torch.int32, device=dev)
     if R:
-        native.NEAREST_HIT(O.data_ptr(), D.data_ptr(), R, PK.data_ptr(),
-                           page_size, NP, best_t.data_ptr(),
-                           best_id.data_ptr(), native.stream(dev))
+        native.NEAREST_HIT(O.data_ptr(), D.data_ptr(),
+                           0 if alive is None else alive.data_ptr(), R,
+                           PK.data_ptr(), page_size, NP, best_t.data_ptr(),
+                           best_id.data_ptr(),
+                           0 if live_list is None else live_list.data_ptr(),
+                           0 if count is None else count.data_ptr(),
+                           native.stream(dev))
     return best_t, best_id

@@ -8,7 +8,10 @@ Counterparts in `rust_raytrace_tpu/ops/intersect_perlane.py`:
 nearest or any-hit.  `trace_shade_perlane` and `trace_perlane` run the CUDA
 kernels `csrc/trace_shade_perlane.cu` and `csrc/trace_perlane.cu` on CUDA
 tensors and `trace_shade_perlane_plain` and `trace_perlane_plain` on CPU
-tensors.
+tensors.  B4's kernel reads the same triangles page-major (`PerlaneTables`:
+the records `page_records` builds on the device beside the per-lane
+tables, which B7, the plain versions and the CPU tests read); B7's still
+reads the per-lane tables.
 
 Each ray slab-tests the page AABBs of one bank (<= 128 pages) at a time,
 tests its nearest remaining page (ties to the lower page index), then drops
@@ -19,12 +22,14 @@ to which its two-pages-per-step form is equal.  The in-bank loop,
 as `rt::bank_pass` (csrc/perlane.cuh) is in CUDA.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..utils import native, xla_rsqrt
 from .cull import slab, slab_inv
-from .pages import PACK_LANES, PageTables
+from .pages import LANE_SCAT, PACK_LANES, PageTables
 from .intersect import (PAYLOAD_ROWS, lex_update, packed_hit_predicate,
                         payload_features)
 from .shade import (fma, norm2, rsqrt, scatter_rv, shade_state_rows,
@@ -84,6 +89,56 @@ def upload_perlane_tables(pages: PageTables, device):
     """`build_perlane_tables` as float32 tensors on `device`."""
     return tuple(torch.from_numpy(x).to(device)
                  for x in build_perlane_tables(pages))
+
+
+#: floats of a triangle's page-major record (the packed lanes 0..23) and of
+#: a page's AABB there (lanes 0..2 lo, 3..5 hi, 6 valid, 7 zero)
+REC_LANES = LANE_SCAT + 1
+PAB_LANES = 8
+
+
+def page_records(plt_i, plt_s, ab):
+    """The page-major records of per-lane tables of either layout
+    ([NB*17P, 128] or [NB, 17P, 128]), on their device: rec [NB*128, P,
+    24], where rec[b*128 + p, j] holds the packed lanes 0..23 of triangle j
+    of bank b's page p (features 0..16 from plt_i, 17..23 from plt_s; a
+    padding page is zero), and pab [NB*128, 8], each page's AABB row of
+    `ab` cut to 8 lanes.  32-bit word copies: -0 and NaN bits survive."""
+    NB = ab.shape[0] // GROUP
+    P = plt_i.numel() // (NB * N_INT * GROUP)
+    wi = plt_i.view(torch.int32).reshape(NB, N_INT, P, GROUP)
+    ws = plt_s.view(torch.int32).reshape(NB, N_SHD, P, GROUP)
+    rec = torch.cat([wi, ws], dim=1).permute(0, 3, 2, 1).reshape(
+        NB * GROUP, P, REC_LANES)
+    pab = ab.view(torch.int32)[:, :PAB_LANES]
+    return (rec.contiguous().view(torch.float32),
+            pab.contiguous().view(torch.float32))
+
+
+class PerlaneTables(NamedTuple):
+    """The resident regime's tables on one device, in both layouts.
+
+    plt_i, plt_s, ab: `upload_perlane_tables` (pages on lanes, the JAX
+    package's layout, which B7 and the plain versions read); rec [NB*128,
+    P, 24] and pab [NB*128, 8]: `page_records` of them (page-major, B4's
+    kernel's layout); extent [NB] int32: each bank's last valid page + 1
+    (the kernel slab-tests no page past it)."""
+    plt_i: torch.Tensor
+    plt_s: torch.Tensor
+    ab: torch.Tensor
+    rec: torch.Tensor
+    pab: torch.Tensor
+    extent: torch.Tensor
+
+
+def perlane_tables(plt_i, plt_s, ab) -> PerlaneTables:
+    """The per-lane tables with their page-major records and bank extents,
+    built on their device."""
+    valid = ab.reshape(-1, GROUP, ab.shape[-1])[..., 6] != 0.0
+    pages = torch.arange(1, GROUP + 1, dtype=torch.int32, device=ab.device)
+    extent = torch.where(valid, pages, 0).amax(dim=1).to(torch.int32)
+    return PerlaneTables(plt_i, plt_s, ab, *page_records(plt_i, plt_s, ab),
+                         extent)
 
 
 def bank_views(plt_i, plt_s, ab, P: int):
@@ -313,10 +368,13 @@ def shadow_feeler_plain(st, rows, seed, rays, ray_chunk: int,
     return (hitm & (srows[ROW_ID] != 0.0)).float()
 
 
-def trace_shade_perlane_plain(state, plt_i, plt_s, ab, seed, page_size: int,
-                              ray_chunk: int, fixed_rng: bool,
-                              weight_cutoff: float, chunk_live, light=None):
-    """Plain torch version of `trace_shade_perlane`."""
+def trace_shade_perlane_plain(state, tables: PerlaneTables, seed,
+                              page_size: int, ray_chunk: int,
+                              fixed_rng: bool, weight_cutoff: float,
+                              chunk_live, light=None):
+    """Plain torch version of `trace_shade_perlane`: reads the JAX layout
+    (tables.plt_i, plt_s, ab) only."""
+    plt_i, plt_s, ab = tables.plt_i, tables.plt_s, tables.ab
     out = state.clone()
     live = torch.repeat_interleave(chunk_live != 0, ray_chunk)
     rays = torch.nonzero(live).squeeze(1)
@@ -335,36 +393,37 @@ def trace_shade_perlane_plain(state, plt_i, plt_s, ab, seed, page_size: int,
     return out
 
 
-def trace_shade_perlane(state, plt_i, plt_s, ab, seed, page_size: int,
+def trace_shade_perlane(state, tables: PerlaneTables, seed, page_size: int,
                         ray_chunk: int, fixed_rng: bool, weight_cutoff: float,
                         chunk_live, light=None):
     """One bounce wave: per-ray trace, shade and state update.
 
-    state: [16, R] float32 ray state (ops/state.py); plt_i/plt_s/ab: the
-    per-lane tables (upload_perlane_tables); seed: the wave's two uint32 key
-    words; ray_chunk: the RNG chunk width (scatter_rv); chunk_live: [NC]
-    int32 flags — chunks flagged 0 hold no live ray and pass their state
-    through; light: optional (ox, oy, oz, len2) of the scene's light, which
-    runs the shadow feeler between trace and shade.  Returns the new state.
+    state: [16, R] float32 ray state (ops/state.py); tables: the resident
+    tables and their records (`perlane_tables`); seed: the wave's two
+    uint32 key words; ray_chunk: the RNG chunk width (scatter_rv);
+    chunk_live: [NC] int32 flags — chunks flagged 0 hold no live ray and
+    pass their state through; light: optional (ox, oy, oz, len2) of the
+    scene's light, which runs the shadow feeler between trace and shade.
+    Returns the new state.  The kernel reads the records, the plain
+    version the per-lane tables.
     """
     dev = state.device
     if dev.type == "cpu":
-        return trace_shade_perlane_plain(state, plt_i, plt_s, ab, seed,
-                                         page_size, ray_chunk, fixed_rng,
-                                         weight_cutoff, chunk_live, light)
+        return trace_shade_perlane_plain(state, tables, seed, page_size,
+                                         ray_chunk, fixed_rng, weight_cutoff,
+                                         chunk_live, light)
     native.require(dev.type == "cuda",
                    f"trace_shade_perlane: no kernel for device {dev}")
     R = state.shape[1]
     P = page_size
-    NB = ab.shape[0] // GROUP
+    NB = tables.ab.shape[0] // GROUP
     native.check_ray_chunk(R, ray_chunk)
     native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
-    native.check_tensor("plt_i", plt_i, dev, (NB * N_INT * P, GROUP),
+    native.check_tensor("rec", tables.rec, dev, (NB * GROUP, P, REC_LANES),
                         torch.float32)
-    native.check_tensor("plt_s", plt_s, dev, (NB * N_SHD * P, GROUP),
+    native.check_tensor("pab", tables.pab, dev, (NB * GROUP, PAB_LANES),
                         torch.float32)
-    native.check_tensor("ab", ab, dev, (NB * GROUP, PACK_LANES),
-                        torch.float32)
+    native.check_tensor("extent", tables.extent, dev, (NB,), torch.int32)
     native.check_tensor("chunk_live", chunk_live, dev, (R // ray_chunk,),
                         torch.int32)
     out = torch.empty_like(state)
@@ -373,8 +432,8 @@ def trace_shade_perlane(state, plt_i, plt_s, ab, seed, page_size: int,
                                                        for x in light)
     wide = xla_rsqrt.device_table(dev, wide=True)
     native.TRACE_SHADE_PERLANE(
-        state.data_ptr(), out.data_ptr(), R, plt_i.data_ptr(),
-        plt_s.data_ptr(), ab.data_ptr(), P, NB, ray_chunk,
+        state.data_ptr(), out.data_ptr(), R, tables.rec.data_ptr(),
+        tables.pab.data_ptr(), tables.extent.data_ptr(), P, NB, ray_chunk,
         chunk_live.data_ptr(), s0, s1, int(fixed_rng), float(weight_cutoff),
         int(light is not None), lx, ly, lz, l2,
         xla_rsqrt.device_table(dev).data_ptr(),

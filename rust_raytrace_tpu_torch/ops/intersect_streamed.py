@@ -20,9 +20,10 @@ the CPU tests and B12's finish read.  The plain versions take any number
 of banks; the CUDA kernels at most `native.MAX_STREAMED_BANKS` (4,096,
 about 117 million triangle slots at P = 224), because a block of B9 or
 B10 stages every bank's AABB in shared memory, 32 B each.  Beside them lie the
-same triangles page-major (`streamed_records`): one 96-byte record of the
-packed lanes 0..23 per triangle and one 32-byte AABB per page, which the
-CUDA walks of B9, B10 and B12's sweep read (csrc/perlane.cuh:bank_walk).
+same triangles page-major (`intersect_perlane.page_records`, which builds
+the resident regime's too): one 96-byte record of the packed lanes 0..23
+per triangle and one 32-byte AABB per page, which the CUDA walks of B9,
+B10 and B12's sweep read (csrc/perlane.cuh:bank_walk).
 Every ray walks the banks its slab test hits, the nearest remaining one
 first (ties to the lower index), skips a bank once its entry lies beyond
 the ray's best hit, and runs the per-lane page traversal
@@ -51,10 +52,10 @@ import torch
 
 from ..utils import native, xla_rsqrt
 from .cull import slab, slab_inv
-from .intersect_perlane import (GROUP, N_INT, N_SHD, bank_pass, bank_views,
-                                build_perlane_tables, winner_init,
-                                winner_rows)
-from .pages import LANE_SCAT, PACK_LANES, PageTables
+from .intersect_perlane import (GROUP, N_INT, N_SHD, PAB_LANES, REC_LANES,
+                                bank_pass, bank_views, build_perlane_tables,
+                                page_records, winner_init, winner_rows)
+from .pages import PACK_LANES, PageTables
 from .intersect import packed_hit_predicate, payload_features, PAYLOAD_ROWS
 from .shade import scatter_rv, shade_state_rows
 from .state import ROW_ALIVE, ROW_ID, STATE_ROWS, TRACE_ROWS
@@ -100,18 +101,12 @@ def build_streamed_tables(pages: PageTables):
             plt_s.reshape(NB, N_SHD * P, GROUP), ab, bank_ab)
 
 
-#: floats of a triangle's page-major record (the packed lanes 0..23) and of
-#: a page's AABB there (lanes 0..2 lo, 3..5 hi, 6 valid, 7 zero)
-REC_LANES = LANE_SCAT + 1
-PAB_LANES = 8
-
-
 class StreamedTables(NamedTuple):
     """The streamed regime's tables on one device, in both layouts.
 
     plt_i, plt_s, ab, bank_ab: `build_streamed_tables` (pages on lanes, the
     JAX package's layout); rec [NB*128, P, 24] and pab [NB*128, 8]:
-    `streamed_records` of them (page-major, the CUDA walks' layout)."""
+    `page_records` of them (page-major, the CUDA walks' layout)."""
     plt_i: torch.Tensor
     plt_s: torch.Tensor
     ab: torch.Tensor
@@ -120,30 +115,12 @@ class StreamedTables(NamedTuple):
     pab: torch.Tensor
 
 
-def streamed_records(plt_i, plt_s, ab):
-    """The page-major records of the per-lane tables, on their device:
-    rec [NB*128, P, 24], where rec[b*128 + p, j] holds the packed lanes
-    0..23 of triangle j of bank b's page p (features 0..16 from plt_i, 17..23
-    from plt_s; a padding page is zero), and pab [NB*128, 8], each page's
-    AABB row of `ab` cut to 8 lanes.  32-bit word copies: -0 and NaN bits
-    survive."""
-    NB = plt_i.shape[0]
-    P = plt_i.shape[1] // N_INT
-    wi = plt_i.view(torch.int32).reshape(NB, N_INT, P, GROUP)
-    ws = plt_s.view(torch.int32).reshape(NB, N_SHD, P, GROUP)
-    rec = torch.cat([wi, ws], dim=1).permute(0, 3, 2, 1).reshape(
-        NB * GROUP, P, REC_LANES)
-    pab = ab.view(torch.int32)[:, :PAB_LANES]
-    return (rec.contiguous().view(torch.float32),
-            pab.contiguous().view(torch.float32))
-
-
 def upload_streamed_tables(pages: PageTables, device) -> StreamedTables:
     """`build_streamed_tables` as float32 tensors on `device`, and their
     page-major records built there."""
     tabs = tuple(torch.from_numpy(x).to(device)
                  for x in build_streamed_tables(pages))
-    return StreamedTables(*tabs, *streamed_records(*tabs[:3]))
+    return StreamedTables(*tabs, *page_records(*tabs[:3]))
 
 
 def _trace_block(o, d, valid, views, bank_ab, excl, any_hit: bool):

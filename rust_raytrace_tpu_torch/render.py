@@ -6,14 +6,14 @@ Counterpart: `rust_raytrace_tpu/render.py` — `SceneTensors`/`upload_scene`,
 `trace_rays`, `RenderResult`, `RayCaster` and `WavefrontRenderer` with its
 camera (`_camera_rays_jit`, spp > 1 jitter included).
 
-Each wave traces every ray of the slab, dead ones included (their result is
-masked), with the nearest hit of one backend, then shades the active rays
-with per-triangle tables gathered by hit id, in [R, 3] rows.  Backends:
+Each wave traces the rays of the slab with the nearest hit of one backend,
+then shades the active rays with per-triangle tables gathered by hit id, in
+[R, 3] rows; the result of a dead ray is masked.  Backends:
 
   "kernel"    B11, the dense brute force (`ops.intersect.nearest_hit`): the
               CUDA kernel on CUDA tensors, its plain version on CPU tensors
               (the JAX package's "pallas", and "pallas_interpret" on the
-              CPU);
+              CPU); it skips the dead rays (the JAX backends trace them);
   "portable"  the page scan in torch ops (`ops.intersect_xla`, the JAX
               package's "xla");
   "auto"      "kernel".
@@ -194,9 +194,11 @@ def _shade_wave(st: SceneTensors, o, d, t, hid, accum, weight, alive, rv):
     return accum + contrib, weight, alive, o, d
 
 
-def _nearest(st: SceneTensors, o, d, backend: str, ray_chunk: int):
+def _nearest(st: SceneTensors, o, d, backend: str, ray_chunk: int, alive):
+    """The wave's nearest hits; the "kernel" backend skips the dead rays
+    (+inf, 0), whose results `shade_active` masks."""
     if backend == "kernel":
-        return nearest_hit(o, d, st.PK, st.page_size, ray_chunk)
+        return nearest_hit(o, d, st.PK, st.page_size, ray_chunk, alive=alive)
     if backend == "portable":
         return nearest_hit_xla(o, d, st.PK, st.page_size)
     raise ValueError(f"unknown backend {backend!r}")
@@ -220,7 +222,7 @@ def trace_rays(st: SceneTensors, o, d, key, maxdepth: int,
     wave_rays = []
     for wave in range(maxdepth):
         wave_rays.append(alive.sum(dtype=torch.int32))
-        t, hid = _nearest(st, o, d, backend, ray_chunk)
+        t, hid = _nearest(st, o, d, backend, ray_chunk, alive)
         if wave == 0:
             primary_t, primary_id = t, hid
         if fixed_rng:

@@ -197,7 +197,7 @@ TRACE_STREAMED = Kernel(
 
 NEAREST_HIT = Kernel(
     "nearest_hit", "rt_nearest_hit",
-    [P, P, I64, P, I32, I32, P, P, P],
+    [P, P, P, I64, P, I32, I32, P, P, P, P, P],
     "rust_raytrace_tpu_torch/csrc/nearest_hit.cu",
     "rust_raytrace_tpu/ops/intersect_pallas.py:163")
 

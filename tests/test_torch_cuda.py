@@ -84,8 +84,8 @@ def test_kernels_match_plain(wave0):
         _assert_states(st1, intersect.trace_shade_chunks_plain(
             *args, zero_origin=True))
         live = (st1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
-        args = (st1, eng.plt_i, eng.plt_s, eng.ab, fold_in(prng_key(3), 1),
-                P, RB, fixed, 1 / 512, live)
+        args = (st1, eng.ptables, fold_in(prng_key(3), 1), P, RB, fixed,
+                1 / 512, live)
         _assert_states(intersect_perlane.trace_shade_perlane(*args),
                        intersect_perlane.trace_shade_perlane_plain(*args))
 
@@ -214,8 +214,8 @@ def test_lights_kernels_match_plain(wave0, fixed):
     st1 = shade.shade(*args)
     _bitwise(st1, shade.shade_plain(*args))
     clive = (st1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
-    args = (st1, eng.plt_i, eng.plt_s, eng.ab, fold_in(key, 1), P, RB, fixed,
-            1 / 512, clive, LIGHT)
+    args = (st1, eng.ptables, fold_in(key, 1), P, RB, fixed, 1 / 512, clive,
+            LIGHT)
     _bitwise(intersect_perlane.trace_shade_perlane(*args),
              intersect_perlane.trace_shade_perlane_plain(*args))
 
@@ -387,8 +387,8 @@ def test_trace_perlane_matches_plain(dev, fixed):
     the plain versions."""
     scene, vp = _sphere_scene(False)
     eng = Engine(scene, page_size=8, ray_chunk=RB, device=dev)
-    assert not eng.streamed and eng.ab.shape[0] == 4 * 128
-    tabs = (eng.plt_i, eng.plt_s, eng.ab)
+    assert not eng.streamed and eng.ptables.ab.shape[0] == 4 * 128
+    tabs = eng.ptables[:3]
     st = _sphere_state(eng, vp, dev)
     o, d, alive = st[0:3], st[3:6], st[7]
     rows = intersect_perlane.trace_perlane(o, d, alive, *tabs, 8, RB)
@@ -674,3 +674,89 @@ def test_debug_ids_on_card_equal_cpu(dev):
     np.testing.assert_array_equal(got.primary_t.view(np.uint32),
                                   want.primary_t.view(np.uint32))
     np.testing.assert_array_equal(got.image, want.image)
+
+
+def _adversarial_rays(dev):
+    """B11's hard rays against the 4-bank sphere and floor at page size 8:
+    grazing rays along the floor's plane (md_n = 0 and subnormal md_n),
+    rays starting on the floor (num = +-0), rays through the sphere's
+    shared edges and vertices (exact t ties), d = 0 padding rays and
+    subnormal direction components; with a mask that kills a third."""
+    scene, _ = _sphere_scene(False)
+    g = np.random.default_rng(9)
+    rays = []
+    for _ in range(300):                  # grazing the floor plane y = -3
+        rays.append(([g.uniform(-5, 5), -3.0, g.uniform(-5, 20)],
+                     [g.uniform(-1, 1), g.choice([0.0, 1e-39, -1e-39]),
+                      g.uniform(0.2, 1)]))
+    for _ in range(300):                  # from the floor, upwards
+        rays.append(([g.uniform(-3, 3), -3.0, g.uniform(3, 9)],
+                     [g.uniform(-0.3, 0.3), 1.0, g.uniform(-0.3, 0.3)]))
+    for v in _sphere_vertices(600, g):    # at shared vertices and edges
+        rays.append(([0.0, 0.0, 0.0], list(v)))
+    rays += [([0.0, 0.0, 0.0], [0.0, 0.0, 0.0])] * 20
+    rays += [([0.0, 0.0, 0.0], [1e-40, 0.0, 1.0])] * 4
+    O = torch.tensor([r[0] for r in rays], dtype=torch.float32)
+    D = torch.tensor([r[1] for r in rays], dtype=torch.float32)
+    n = torch.linalg.norm(D, dim=1, keepdim=True)
+    D = torch.where(n > 0, D / torch.where(n > 0, n, 1.0), D)
+    alive = torch.from_numpy(g.uniform(size=len(rays)) > 0.33)
+    return scene, O.to(dev), D.contiguous().to(dev), alive.to(dev)
+
+
+def _sphere_vertices(n, g):
+    """n points on the 40x40 sphere's lat/lon grid (shared vertices) and
+    midway along its meridians (shared edges)."""
+    lat = g.integers(1, 40, n) * np.pi / 40
+    lon = g.integers(0, 40, n) * 2 * np.pi / 40
+    half = (g.uniform(size=n) < 0.5) * np.pi / 80
+    p = np.stack([2.5 * np.sin(lat + half) * np.cos(lon),
+                  2.5 * np.cos(lat + half),
+                  6.0 + 2.5 * np.sin(lat + half) * np.sin(lon)], -1)
+    return p.astype(np.float32)
+
+
+def test_nearest_hit_mask_and_adversarial_rays_match_plain(dev):
+    """B11 at page size 8 on the adversarial rays, with no mask, with a
+    mask and with every ray dead: t and id bitwise against the plain
+    version, dead rays (+inf, 0), one launch each."""
+    scene, O, D, alive = _adversarial_rays(dev)
+    wr = WavefrontRenderer(scene, page_size=8, device=dev)
+    PK = wr.tensors.PK
+    for live in (None, alive, torch.zeros_like(alive)):
+        native.reset_launch_counts()
+        t, i = intersect.nearest_hit(O, D, PK, 8, alive=live)
+        assert native.NEAREST_HIT.launches == 1
+        tp, ip = intersect.nearest_hit_plain(O, D, PK, alive=live)
+        torch.cuda.synchronize()
+        _bitwise(t, tp)
+        assert torch.equal(i, ip)
+        if live is None:
+            assert 0 < int((ip != 0).sum()) < O.shape[0]
+        else:
+            assert torch.isposinf(t[~live]).all() and not i[~live].any()
+
+
+@pytest.mark.parametrize("fixed", [True, False])
+def test_trace_shade_perlane_records_match_plain(dev, fixed):
+    """B4 over the page-major records of 4 resident banks, unlit and with
+    the feeler, on the camera wave and the wave after it (a dead chunk
+    among them): the state bitwise against the plain version, which reads
+    the per-lane tables."""
+    scene, vp = _sphere_scene(False)
+    eng = Engine(scene, page_size=8, ray_chunk=RB, device=dev)
+    assert not eng.streamed and eng.ptables.ab.shape[0] == 4 * 128
+    st = _sphere_state(eng, vp, dev)
+    key = prng_key(4)
+    wc = 0.0 if fixed else 1 / 512
+    for wave in (1, 2):
+        live = (st[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+        live[1::5] = 0
+        for light in (None, LIGHT):
+            args = (st, eng.ptables, fold_in(key, wave), 8, RB, fixed, wc,
+                    live, light)
+            native.reset_launch_counts()
+            got = intersect_perlane.trace_shade_perlane(*args)
+            assert native.TRACE_SHADE_PERLANE.launches == 1
+            _bitwise(got, intersect_perlane.trace_shade_perlane_plain(*args))
+        st = got

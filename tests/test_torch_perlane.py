@@ -18,8 +18,8 @@ from rust_raytrace_tpu.ops.intersect_perlane import (
 from rust_raytrace_tpu.ops.pages import build_pages_kd
 from rust_raytrace_tpu.scene import assemble
 from rust_raytrace_tpu_torch.ops.intersect_perlane import (
-    shadow_feeler_plain, trace_perlane_plain, trace_shade_perlane,
-    upload_perlane_tables)
+    perlane_tables, shadow_feeler_plain, trace_perlane_plain,
+    trace_shade_perlane, upload_perlane_tables)
 from rust_raytrace_tpu_torch.utils import native
 
 F32 = np.float32
@@ -99,7 +99,8 @@ def test_trace_shade_matches_pallas(banks, fixed_rng):
     chunk_live = torch.from_numpy(st[7].reshape(-1, RB).any(axis=1)
                                   .astype(np.int32))
     native.reset_launch_counts()
-    mine = trace_shade_perlane(torch.from_numpy(st), plt_i, plt_s, ab, seed,
+    mine = trace_shade_perlane(torch.from_numpy(st),
+                               perlane_tables(plt_i, plt_s, ab), seed,
                                page, RB, fixed_rng, 1 / 512,
                                chunk_live).numpy()
     assert native.TRACE_SHADE_PERLANE.launches == 0   # CPU: plain version
@@ -127,7 +128,8 @@ def test_trace_shade_with_light_matches_pallas(banks, fixed_rng):
     chunk_live = torch.from_numpy(st[7].reshape(-1, RB).any(axis=1)
                                   .astype(np.int32))
     native.reset_launch_counts()
-    mine = trace_shade_perlane(torch.from_numpy(st), plt_i, plt_s, ab, seed,
+    mine = trace_shade_perlane(torch.from_numpy(st),
+                               perlane_tables(plt_i, plt_s, ab), seed,
                                page, RB, fixed_rng, 1 / 512, chunk_live,
                                light=LIGHT).numpy()
     assert native.TRACE_SHADE_PERLANE.launches == 0   # CPU: plain version

@@ -210,9 +210,9 @@ def test_wavefront_wave_rays_equal_jax(fixed_rng, monkeypatch):
         vp, fixed_rng=fixed_rng)
     real_port = trender._nearest
 
-    def capture_port(st, o, d, backend, ray_chunk):
+    def capture_port(st, o, d, backend, ray_chunk, alive):
         got["port"].append((o.numpy().copy(), d.numpy().copy()))
-        return real_port(st, o, d, backend, ray_chunk)
+        return real_port(st, o, d, backend, ray_chunk, alive)
 
     monkeypatch.setattr(trender, "_nearest", capture_port)
     WavefrontRenderer(carry(jscene), backend="portable", ray_chunk=256,

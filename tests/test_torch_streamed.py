@@ -239,4 +239,4 @@ def test_regime_selection_equals_jax(cap, streamed):
                  device="cpu")
     assert (eng.streamed, eng.page_size) == (jeng.streamed, jeng.page_size)
     assert (eng.stables is not None) == eng.streamed
-    assert (eng.plt_i is None) == eng.streamed
+    assert (eng.ptables is None) == eng.streamed

@@ -1,4 +1,4 @@
-"""The streamed regime's page-major records (`streamed_records`, read by
+"""The streamed regime's page-major records (`page_records`, read by
 the CUDA walks of B9, B10 and B12's sweep) against the JAX-layout tables
 they are built from, word for word at every (bank, page, triangle,
 feature): on tests/test_torch_streamed.py's 4-bank sphere (page size 8),
@@ -20,6 +20,7 @@ from rust_raytrace_tpu.ops.intersect_streamed import (
 from rust_raytrace_tpu.ops.pages import build_pages_kd as jbuild_pages_kd
 from rust_raytrace_tpu.scene import assemble
 from rust_raytrace_tpu_torch.ops import intersect_streamed as st_
+from rust_raytrace_tpu_torch.ops.intersect_perlane import page_records
 from rust_raytrace_tpu_torch.ops.pages import build_pages_kd
 from rust_raytrace_tpu_torch.scene import (MATERIAL_FIELDS, TRIANGLE_FIELDS,
                                            scene_from_arrays)
@@ -94,7 +95,7 @@ def words(x):
 
 def _check_records(plt_i, plt_s, ab, rec, pab):
     """rec/pab hold exactly the words of plt_i/plt_s/ab, by a loop over
-    banks and features independent of streamed_records' permute."""
+    banks and features independent of page_records' permute."""
     wi, ws, wa = words(plt_i), words(plt_s), words(ab)
     wr, wp = words(rec), words(pab)
     NB = wi.shape[0]
@@ -147,7 +148,7 @@ def test_records_keep_negative_zero_and_nan_bits():
 
     plt_i, plt_s = table(N_INT * P), table(N_SHD * P)
     ab = table(GROUP).reshape(NB * GROUP, GROUP)
-    rec, pab = st_.streamed_records(plt_i, plt_s, ab)
+    rec, pab = page_records(plt_i, plt_s, ab)
     assert rec.dtype == pab.dtype == torch.float32
     _check_records(plt_i, plt_s, ab, rec, pab)
     assert np.isin(specials, words(rec)).all()
