@@ -8,9 +8,11 @@ The second form runs no smoke phase: it times kernels and the renders
 that run them in turns against a build of CSRC, the
 `rust_raytrace_tpu_torch/csrc/` of an earlier commit (`git archive COMMIT
 rust_raytrace_tpu_torch/csrc`).  TURNS_AGAINST names the commit, binds its
-C entry points and says what is timed: now commit cd7d8a8's B11 (no alive
-mask) and B4 (over the per-lane tables), on their waves and in the
-default, lit and WavefrontRenderer circles_2k renders.
+C entry points and says what is timed: now commit d2409a5's B1, B2 and B6
+(one block of 1,024 threads a chunk, the whole hit predicate a pair), on
+the whole circles_2k wave 0 (B6 on its camera rays and on the lit wave's
+shadow rays) at ray_chunk 1024, 2048 and 4096, and in the default, lit,
+legacy and ray_chunk 4096 circles_2k renders.
 
 The main paths: the unlit circles_2k render (B1, B2, B3, B4, B5); the lit
 one, circles_2k with the teapot preset's light (B1 twice at wave 0, B6
@@ -45,10 +47,15 @@ Phases, each fatal on failure:
      B2 and B4 (over the page-major records) on 64 chunks of a real
      circles_2k wave, then the lights path's B6 on those camera rays
      (folded pages), B6 on their shadow rays with self-exclusion, B8 with
-     the shadow mask and B4 with the feeler on the lit wave-1 state; B4
-     unlit and lit on the whole wave 1; B3 and B5 on the whole circles_2k
-     state after wave 0 (3,686,400 rays, cb 512, 7,200 chunks) and again
-     at the second boundary (after wave 1 on the survivor prefix:
+     the shadow mask and B4 with the feeler on the lit wave-1 state; B1,
+     B2 and B6 (camera rays, and shadow rays with self-exclusion) and the
+     lit wave 0's state on the whole wave 0, with the pages each chunk
+     visited and the pairs B2/B6 tested and needed (their bound counts
+     what the exact function needs on the visited pages), and the ptxas
+     reports of B1 and B2/B6; B4 unlit and lit on the whole wave 1; B3
+     and B5 on the whole circles_2k state after wave 0 (3,686,400 rays,
+     cb 512, 7,200 chunks) and again at the second boundary (after wave 1
+     on the survivor prefix:
      grid_live and dead_base > 0, B5 compared within the prefix); times of
      kernel and plain version, and of each kernel on the full wave, beside
      the least time the card could take (bound), and the time of the shadow
@@ -91,8 +98,9 @@ Phases, each fatal on failure:
      when it overflows), then with two buckets: bitwise, the round trip
      exact, timed in turns beside B3 and B5 on the same state; B1, B2, B6
      and B12a at ray_chunk 2048 and 4096 on 16 chunks against their plain
-     versions, and B1, B2 and B12a timed on whole waves at 1024, 2048 and
-     4096; the ptxas reports of B13, B14 and B2/B6 at 4 rays a thread;
+     versions, B1, B2 and B6 (camera and shadow rays) on the whole wave
+     there too, and B1, B2 and B12a timed on whole waves at 1024, 2048 and
+     4096; the ptxas reports of B13 and B14;
   4. golden: the 96x54 circles render under fixed_rng of the default
      (compacted) Engine, of WavefrontRenderer(backend="kernel") and of
      Engine(compact=False) is byte-equal to tests/goldens/circles_96x54.png;
@@ -208,6 +216,16 @@ HIT_FLOPS = 34
 PLANE_T_FLOPS = 14
 PLANE_DIST_FLOPS = 14
 UPDATE_FLOPS = 2
+#: the same on pages with a shared origin folded in (zero_origin: B2 and
+#: B6's camera rays): t is n.d, the division and the two tests; a plane
+#: distance s.d, the fma and the test
+PLANE_T_FOLDED_FLOPS = 8
+PLANE_DIST_FOLDED_FLOPS = 8
+#: bytes of a page slot that B2's and B6's predicate reads (lanes 0..16:
+#: the normal, the three side planes, the four offsets and the id), and of
+#: the payload lanes (17..23) that only a winner's slot is read for
+PRED_BYTES = 4 * (LANE_ID + 1)
+PAYLOAD_BYTES = 4 * (intersect.USED_LANES - LANE_ID - 1)
 #: float32 operations of one ray's shade (B0b: contributions, two
 #: normalizations with their Newton steps, reflection, selects)
 SHADE_FLOPS = 120
@@ -292,6 +310,20 @@ def _time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _time_plain_ms(fn) -> float:
+    """CUDA-event time of one fn() with no warm-up: a plain version is torch
+    ops (nothing to compile), it has just run for its check, and some take
+    seconds a call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def _bound(n_bytes: float, flops: float) -> dict:
@@ -637,19 +669,19 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
     results["bankmajor_prep"] = dict(
         rays=n, max_abs_err=errs["bankmajor_prep"],
         ms=_time_ms(lambda: st_.bankmajor_prep(*pre)),
-        plain_ms=_time_ms(lambda: st_.bankmajor_prep_plain(*pre), reps=1),
+        plain_ms=_time_plain_ms(lambda: st_.bankmajor_prep_plain(*pre)),
         **_bound(n * 40 + NB * (n // RB) * 4 + NB * 28,
                  int(valid.sum()) * NB * SLAB_FLOPS))
     results["bankmajor_sweep"] = dict(
         rays=n, max_abs_err=errs["bankmajor_sweep"],
         ms=_time_ms(lambda: st_.bankmajor_sweep(*swa)),
-        plain_ms=_time_ms(lambda: st_.bankmajor_sweep_plain(*swa), reps=1),
+        plain_ms=_time_plain_ms(lambda: st_.bankmajor_sweep_plain(*swa)),
         **_streamed_bound(eng, page_of, st2[0:3], st2[3:6], valid, sw_k[1],
                           52, feats=17))
     results["bankmajor_finish"] = dict(
         rays=n, max_abs_err=errs["bankmajor_finish"],
         ms=_time_ms(lambda: st_.bankmajor_finish(*fin)),
-        plain_ms=_time_ms(lambda: st_.bankmajor_finish_plain(*fin), reps=1),
+        plain_ms=_time_plain_ms(lambda: st_.bankmajor_finish_plain(*fin)),
         **_bound(n * 140 + int(hits.sum()) * 24 * 4,
                  int(valid.sum()) * SHADE_FLOPS
                  + int(hits.sum()) * HIT_FLOPS))
@@ -870,13 +902,12 @@ def streamed_kernels(dev, card, key, results, build_log):
         raise AssertionError(f"B10 any-hit: {int(((occ_k[1] != 0) != (occ_p[1] != 0)).sum())} occlusion bits differ")
     results[native.TRACE_STREAMED.name] = dict(
         rays=n, max_abs_err=err10, ms=_time_ms(lambda: ts(*cam)),
-        plain_ms=_time_ms(lambda: tsp(*cam), reps=1),
+        plain_ms=_time_plain_ms(lambda: tsp(*cam)),
         **_streamed_bound(eng, page_of, st0[0:3], st0[3:6], st0[7] != 0,
                           rows_k[1], 92),
         any_hit=dict(
             ms=_time_ms(lambda: ts(*sh, excl=excl, any_hit=True)),
-            plain_ms=_time_ms(lambda: tsp(*sh, excl=excl, any_hit=True),
-                              reps=1),
+            plain_ms=_time_plain_ms(lambda: tsp(*sh, excl=excl, any_hit=True)),
             **_streamed_bound(eng, page_of, so, sd, hit, occ_k[1], 96,
                               any_hit=True)))
     print(f"B10 on {N_CHECK_CHUNKS} chunks of synthetic_1m_2k: camera rays "
@@ -904,7 +935,7 @@ def streamed_kernels(dev, card, key, results, build_log):
     rows1 = ts(st1[0:3], st1[3:6], st1[7], tabs, P, RB)
     results[native.TRACE_SHADE_STREAMED.name] = dict(
         rays=n, max_abs_err=max(errs), ms=_time_ms(lambda: tss(*a1)),
-        plain_ms=_time_ms(lambda: tssp(*a1), reps=1),
+        plain_ms=_time_plain_ms(lambda: tssp(*a1)),
         **_streamed_bound(eng, page_of, st1[0:3], st1[3:6], st1[7] != 0,
                           rows1[1], 128, SHADE_FLOPS))
     print(f"B9 on {N_CHECK_CHUNKS} chunks of synthetic_1m_2k: wave 0 ("
@@ -1002,6 +1033,153 @@ def _b11_need(O, D, PK, best_t, best_id, live=None) -> dict:
                 + hits * (3 * PLANE_DIST_FLOPS + UPDATE_FLOPS))
 
 
+def union_wave(eng, full0, pk0, key, rc, lit_wave=False):
+    """B1, B6 and B2 on the whole 2560x1440 circles_2k wave 0 at ray_chunk
+    rc, each against its plain version (B1 with torch.equal, the others
+    bitwise): B1 on the camera rays, B6 on them (folded pages), B2 (its
+    plain version's shade step on the plain B6 rows); then the shadow rays
+    of their hits towards the teapot preset's light: B1 on them and B6 with
+    self-exclusion.  lit_wave: also the lit wave 0's new state (B8 on the
+    kernels' rows and shadow mask against its plain version on the plain
+    ones).  Returns the kernels' outputs and the plain traces' rows and
+    pages visited."""
+    P = eng.page_size
+    seed = fold_in(key, 0)
+
+    def cull_both(o, d, valid, label):
+        a = (o, d, valid, eng.aabb_lo, eng.aabb_hi, rc)
+        m, t = cull.cull_mask_exact(*a)
+        mp, tp = cull.cull_mask_exact_plain(*a)
+        if not (torch.equal(m, mp) and torch.equal(t, tp)):
+            raise AssertionError(f"B1 on {label} at ray_chunk {rc}: kernel "
+                                 f"and plain differ")
+        return page_lists(m, t)
+
+    lists = cull_both(full0[0:3], full0[3:6], full0[7] != 0,
+                      "the whole camera wave")
+    cam = (full0[0:3], full0[3:6], pk0, *lists)
+    rows = intersect.trace_chunks(*cam, P, rc, zero_origin=True)
+    rows_p, vis = intersect.trace_chunks_plain(*cam, rc, True,
+                                               return_visits=True)
+    _require_bitwise(f"B6 on the whole camera wave at ray_chunk {rc}", rows,
+                     rows_p)
+    st1 = intersect.trace_shade_chunks(full0, pk0, *lists, seed, P, rc,
+                                       False, 1 / 512, zero_origin=True)
+    _require_bitwise(f"B2 on the whole camera wave at ray_chunk {rc}", st1,
+                     intersect.shade_chunks_plain(full0, rows_p, seed, rc,
+                                                  False, 1 / 512))
+    so, sd, hit, excl = eng_mod.shadow_rays(full0, rows, key, 0, False,
+                                            LIGHT)
+    slists = cull_both(so, sd, hit, "the whole wave's shadow rays")
+    sh = (so, sd, eng.PK, *slists)
+    srows = intersect.trace_chunks(*sh, P, rc, excl=excl)
+    srows_p, svis = intersect.trace_chunks_plain(*sh, rc, excl=excl,
+                                                 return_visits=True)
+    _require_bitwise(f"B6 on the whole wave's shadow rays at ray_chunk {rc}",
+                     srows, srows_p)
+    w = dict(lists=lists, rows=rows, rows_p=rows_p, visits=vis, state1=st1,
+             shadow=sh, hit=hit, excl=excl, srows=srows, srows_p=srows_p,
+             svisits=svis)
+    if lit_wave:
+        live = torch.ones(full0.shape[1] // rc, dtype=torch.int32,
+                          device=full0.device)
+        shd = (hit & (srows[1] != 0)).float()
+        st1l = shade.shade(full0, rows, seed, rc, False, 1 / 512, live, shd)
+        _require_bitwise(
+            "the whole lit wave 0's state", st1l,
+            shade.shade_plain(full0, rows_p, seed, rc, False, 1 / 512, live,
+                              (hit & (srows_p[1] != 0)).float()))
+        w.update(shd=shd, state1_lit=st1l)
+    print(f"ray_chunk {rc}, the whole circles_2k wave 0 "
+          f"({int((full0[7] != 0).sum())} camera rays, {int(hit.sum())} "
+          f"shadow rays): B1 equal, B6 and B2 bitwise equal to their plain "
+          f"versions" + ("; the lit wave 0's state bitwise equal"
+                         if lit_wave else ""))
+    return w
+
+
+def _union_need(ot, dt, PK, counts, plist, visits, rows, ray_chunk: int,
+                zero_origin: bool = False, excl=None) -> dict:
+    """What B2's and B6's exact function needs on these rays, counted from
+    the plain version's own loop: `visits` [NC], the pages each chunk
+    visited before its chunk-wide exit, and `rows`, its winners.  Every
+    (valid ray, triangle) pair of the visited pages (the zero-normal
+    padding slots left out) pays the plane's t; a pair whose t >= 0 passes
+    the exclusion and beats the ray's final winner lexicographically pays
+    a plane distance (only a plane distance past 1 can reject it, whatever
+    the order of the visits); a winner its three and the update.  t as the
+    kernel and the plain version round it.  Returns the counts (and the
+    pairs the kernel tests: every slot of a visited page against every
+    lane of the chunk), the operations and the page bytes: the predicate
+    lanes of every page some chunk visits, once, and the payload lanes of
+    every winning triangle, once."""
+    RB = ray_chunk
+    NC = ot.shape[1] // RB
+    P = PK.shape[1]
+    pk = PK[..., :intersect.USED_LANES]
+    o = ot.reshape(3, NC, 1, RB)
+    d = dt.reshape(3, NC, 1, RB)
+    valid = ((d[0] != 0) | (d[1] != 0) | (d[2] != 0))
+    bt = rows[0].reshape(NC, 1, RB)
+    bi = rows[1].reshape(NC, 1, RB)
+    ex = None if excl is None else excl.reshape(NC, 1, RB)
+    pairs = cand = 0
+    step = max(1, (1 << 24) // (RB * P))
+    for c0 in range(0, NC, step):
+        v = visits[c0:c0 + step]
+        for k in range(int(v.max()) if v.numel() else 0):
+            c = c0 + torch.nonzero(v > k).squeeze(1)
+            page = pk[plist[c, k].long()]                 # [A, P, 24]
+
+            def col(f, page=page):
+                return page[:, :, f:f + 1]
+
+            def dot3(f, r):
+                return shade.fma(col(f + 2), r[2][c],
+                                 shade.fma(col(f), r[0][c],
+                                           col(f + 1) * r[1][c]))
+
+            md_n = dot3(LANE_N, d)
+            t = (col(LANE_NC) / md_n if zero_origin
+                 else (col(LANE_NC) - dot3(LANE_N, o)) / md_n)
+            ids = col(LANE_ID)
+            live = (col(LANE_N) != 0) | (col(LANE_N + 1) != 0) \
+                | (col(LANE_N + 2) != 0)
+            live = live & valid[c]
+            ok = live & (t >= 0) & ((t < bt[c]) | ((t == bt[c])
+                                                  & ~torch.isinf(t)
+                                                  & (ids < bi[c])))
+            if ex is not None:
+                ok = ok & (ids != ex[c])
+            pairs += int(live.sum())
+            cand += int(ok.sum())
+    hits = int((rows[1] != 0).sum())
+    seen = torch.arange(plist.shape[1], device=plist.device)[None] \
+        < visits[:, None]
+    pages = int(torch.unique(plist[seen]).numel())
+    winners = int(torch.unique(rows[1][rows[1] != 0]).numel())
+    t_f, d_f = ((PLANE_T_FOLDED_FLOPS, PLANE_DIST_FOLDED_FLOPS) if zero_origin
+                else (PLANE_T_FLOPS, PLANE_DIST_FLOPS))
+    return dict(pairs=pairs, candidates=cand, hits=hits, pages=pages,
+                winners=winners,
+                page_bytes=pages * P * PRED_BYTES + winners * PAYLOAD_BYTES,
+                valid=int(valid.sum()), tested=int(visits.sum()) * P * RB,
+                visits_mean=float(visits.float().mean()),
+                visits_max=int(visits.max()),
+                flops=pairs * t_f + cand * d_f
+                + hits * (3 * d_f + UPDATE_FLOPS))
+
+
+def _print_need(label, need, card):
+    print(f"{label}: pages visited per chunk mean {need['visits_mean']:.3f}"
+          f", max {need['visits_max']}; pairs tested {need['tested']}; "
+          f"needed: {need['pairs']} pairs' t (valid rays, nonzero slots), "
+          f"{need['candidates']} candidates' plane distance, "
+          f"{need['hits']} winners; read once: {need['pages']} pages' "
+          f"predicate lanes, {need['winners']} winning triangles' payload "
+          f"[{card}]")
+
+
 def wavefront_kernels(dev, card, key, results, build_log):
     """Phase 3 for the portable renderer: B11 on circles_2k at page size
     256 (WavefrontRenderer's default), bitwise against its plain version:
@@ -1076,15 +1254,15 @@ def wavefront_kernels(dev, card, key, results, build_log):
     results[native.NEAREST_HIT.name] = dict(
         rays=n, max_abs_err=0.0,
         ms=_time_ms(lambda: intersect.nearest_hit(Oc, Dc, st.PK, P)),
-        plain_ms=_time_ms(lambda: intersect.nearest_hit_plain(Oc, Dc, st.PK),
-                          reps=2),
+        plain_ms=_time_plain_ms(
+            lambda: intersect.nearest_hit_plain(Oc, Dc, st.PK)),
         **bound(Oc, Dc, None, won))
     Ob, Db, lb, won = checks["wave-1 bounce rays"]
     results[native.NEAREST_HIT.name]["wave1"] = dict(
         ms=_time_ms(lambda: intersect.nearest_hit(Ob, Db, st.PK, P,
                                                   alive=lb)),
-        plain_ms=_time_ms(lambda: intersect.nearest_hit_plain(
-            Ob, Db, st.PK, alive=lb), reps=2),
+        plain_ms=_time_plain_ms(lambda: intersect.nearest_hit_plain(
+            Ob, Db, st.PK, alive=lb)),
         **bound(Ob, Db, lb, won))
     for name, (O, D, live) in (("camera rays", (o, d, None)),
                                ("wave-1 bounce rays", (o1, d1, alive1))):
@@ -1183,8 +1361,8 @@ def cull_sorted_kernels(cases, card, results):
             rays=int(rays.numel()), pages=NP, pages_padded=NPpad,
             max_abs_err=0.0,
             ms=_time_ms(lambda: cull.cull_sorted(*args, chunk_live=live)),
-            plain_ms=_time_ms(lambda: cull.cull_sorted_plain(
-                *args, chunk_live=live), reps=2),
+            plain_ms=_time_plain_ms(lambda: cull.cull_sorted_plain(
+                *args, chunk_live=live)),
             **bound(rays.numel(), cv),
             ms_full=min(turns["B13"]), bound_ms_full=bf["bound_ms"],
             bound_by_full=bf["bound_by"], turns_full=turns,
@@ -1286,13 +1464,13 @@ def bucket_kernels(full1, card, results):
                   octants_overflow=bool(over8))
     results[native.COMPACT_BUCKETS.name] = dict(
         common, ms=min(fwd["B14a"]),
-        plain_ms=_time_ms(lambda: compact.compact_buckets_plain(
-            st, scratch, meta, cb), reps=2),
+        plain_ms=_time_plain_ms(lambda: compact.compact_buckets_plain(
+            st, scratch, meta, cb)),
         **b14a, turns=fwd)
     results[native.EXPAND_BUCKETS.name] = dict(
         common, ms=min(inv["B14b"]),
-        plain_ms=_time_ms(lambda: compact.expand_buckets_plain(
-            y, dead_k, code[None], meta, cb), reps=2),
+        plain_ms=_time_plain_ms(lambda: compact.expand_buckets_plain(
+            y, dead_k, code[None], meta, cb)),
         **b14b, turns=inv)
     print(f"B14 round trip at {R} rays: rows 8..15 of {n_a} live and {n_d} "
           f"retired lanes back, gaps 0; in turns B14a {fwd['B14a']} ms vs "
@@ -1302,13 +1480,14 @@ def bucket_kernels(full1, card, results):
 
 
 def ray_chunk_kernels(eng, full0, pk0, s_eng, card, key, results):
-    """Phase 3 for ray_chunk 2048 and 4096 (blocks of 1024 threads, each
-    owning 2 or 4 rays of the chunk): B1, B2, B6 (camera rays, and shadow
-    rays with self-exclusion) on 16 chunks of circles_2k's camera rays that
-    hit a page, and B12a on 16 chunks of synthetic_1m_2k's that enter a
-    bank (every fourth then flagged dead), against
-    their plain versions (B1 with torch.equal as at 1024, the others
-    bitwise); then B1, B2 and B12a timed on the whole wave at each
+    """Phase 3 for ray_chunk 2048 and 4096 (B1, B2 and B6 blocks of 512 or
+    1024 threads, each owning 2 or 4 rays of the chunk; B12a's 1024
+    threads): B1, B2, B6 (camera rays, and shadow rays with
+    self-exclusion) on 16 chunks of circles_2k's camera rays that hit a
+    page and on the whole wave (union_wave), and B12a on 16 chunks of
+    synthetic_1m_2k's that enter a bank (every fourth then flagged dead),
+    against their plain versions (B1 with torch.equal as at 1024, the
+    others bitwise); then B1, B2 and B12a timed on the whole wave at each
     ray_chunk beside 1024."""
     dev = full0.device
     R = full0.shape[1]
@@ -1333,6 +1512,7 @@ def ray_chunk_kernels(eng, full0, pk0, s_eng, card, key, results):
 
     for rc in (1024, 2048, 4096):
         if rc != 1024:
+            union_wave(eng, full0, pk0, key, rc)
             m_all, _ = cull.cull_mask_exact(full0[0:3], full0[3:6],
                                             full0[7] != 0, eng.aabb_lo,
                                             eng.aabb_hi, rc)
@@ -1682,12 +1862,13 @@ def main() -> int:
         return _bound(n * 25 + NP * 24 + nc * NP * 5,
                       int(valid.sum()) * NP * SLAB_FLOPS)
 
-    def b2_bound(n, counts, state):
-        # the first page of every chunk that has one: the early exit decides
-        # how many more (a lower bound on the pairs this data needs)
-        live = (counts > 0).repeat_interleave(RB) & (state[7] != 0)
-        return _bound(n * 128 + int((counts > 0).sum()) * P * 96,
-                      int(live.sum()) * P * HIT_FLOPS)
+    def b2_bound(n, need):
+        # bytes: the state in and out, the visited pages' predicate lanes
+        # and the winners' payload (_union_need); operations: what the
+        # exact function needs on the pages the chunk-wide exit visits and
+        # the shade
+        return _bound(n * 128 + need["page_bytes"],
+                      need["flops"] + need["valid"] * SHADE_FLOPS)
 
     def b4_bound(n, state, lit_=False):
         # what B4's rays need at least: bytes, the state in and out, the
@@ -1718,7 +1899,7 @@ def main() -> int:
         rays=int(st0.shape[1]),
         max_abs_err=float(_abs_diff(tmin_k, tmin_p).max()),
         ms=_time_ms(lambda: cull.cull_mask_exact(*args1)),
-        plain_ms=_time_ms(lambda: cull.cull_mask_exact_plain(*args1)),
+        plain_ms=_time_plain_ms(lambda: cull.cull_mask_exact_plain(*args1)),
         **b1_bound(st0.shape[1], alive))
 
     counts, plist, ptmin = page_lists(mask_k, tmin_k)
@@ -1730,13 +1911,18 @@ def main() -> int:
     st1_p = intersect.trace_shade_chunks_plain(*args2, zero_origin=True)
     torch.cuda.synchronize()
     err = _require_bitwise("B2", st1_k, st1_p)
+    cam_p, cam_vis = intersect.trace_chunks_plain(
+        st0[0:3], st0[3:6], pk0, counts, plist, ptmin, RB, True,
+        return_visits=True)
+    need_c = _union_need(st0[0:3], st0[3:6], pk0, counts, plist, cam_vis,
+                         cam_p, RB, True)
     results[native.TRACE_SHADE_UNION.name] = dict(
         rays=int(st0.shape[1]), max_abs_err=err,
         ms=_time_ms(lambda: intersect.trace_shade_chunks(
             *args2, zero_origin=True)),
-        plain_ms=_time_ms(lambda: intersect.trace_shade_chunks_plain(
-            *args2, zero_origin=True), reps=2),
-        **b2_bound(st0.shape[1], counts, st0))
+        plain_ms=_time_plain_ms(lambda: intersect.trace_shade_chunks_plain(
+            *args2, zero_origin=True)),
+        **b2_bound(st0.shape[1], need_c))
     print(f"B2 on {N_CHECK_CHUNKS} chunks: max |diff| {err}; "
           f"{int((st1_k[7] != 0).sum())} rays live after wave 0")
 
@@ -1750,21 +1936,19 @@ def main() -> int:
     results[native.TRACE_SHADE_PERLANE.name] = dict(
         rays=int(st0.shape[1]), max_abs_err=err,
         ms=_time_ms(lambda: intersect_perlane.trace_shade_perlane(*args4)),
-        plain_ms=_time_ms(
-            lambda: intersect_perlane.trace_shade_perlane_plain(*args4),
-            reps=2),
+        plain_ms=_time_plain_ms(
+            lambda: intersect_perlane.trace_shade_perlane_plain(*args4)),
         **b4_bound(st0.shape[1], st1_k))
     print(f"B4 on {N_CHECK_CHUNKS} chunks: max |diff| {err}; "
           f"{int((st2_k[7] != 0).sum())} rays live after wave 1")
 
     # the lights path's kernels on the same chunks, lit by the teapot
     # preset's light (live RNG, as the circles_2k renders)
-    def b6_bound(n, counts, valid, with_excl):
-        # as B2's: the first page of every chunk that has one
-        live = (counts > 0).repeat_interleave(RB) & valid
-        return _bound(n * (88 + 4 * with_excl)
-                      + int((counts > 0).sum()) * P * 96,
-                      int(live.sum()) * P * HIT_FLOPS)
+    def b6_bound(n, need, zero_origin, with_excl):
+        # as B2's, with the rays in (the directions only on folded pages),
+        # the excluded ids and the rows out, and no shade
+        return _bound(n * (12 * (2 - zero_origin) + 4 * with_excl + 64)
+                      + need["page_bytes"], need["flops"])
 
     def b8_bound(n, live):
         return _bound(n * (64 + 44 + 64 + 4), int(live.sum()) * SHADE_FLOPS)
@@ -1782,26 +1966,25 @@ def main() -> int:
 
     cam = (st0[0:3], st0[3:6], pk0, counts, plist, ptmin)
     rows_k = intersect.trace_chunks(*cam, P, RB, zero_origin=True)
-    err6 = _require_bitwise("B6 camera rays", rows_k,
-                            rows_plain(*cam, zero_origin=True))
+    err6 = _require_bitwise("B6 camera rays", rows_k, cam_p)
     sargs, hit, excl = shadow_inputs(st0, rows_k)
     srows_k = intersect.trace_chunks(*sargs, P, RB, excl=excl)
-    err6s = _require_bitwise("B6 shadow rays", srows_k,
-                             rows_plain(*sargs, excl=excl))
+    srows_p, sh_vis = intersect.trace_chunks_plain(
+        *sargs, RB, excl=excl, return_visits=True)
+    err6s = _require_bitwise("B6 shadow rays", srows_k, srows_p)
+    need_s = _union_need(*sargs[:5], sh_vis, srows_p, RB, excl=excl)
     shd = (hit & (srows_k[1] != 0)).float()
     results[native.TRACE_UNION_ROWS.name] = dict(
         rays=int(st0.shape[1]), max_abs_err=max(err6, err6s),
         ms=_time_ms(lambda: intersect.trace_chunks(*cam, P, RB,
                                                    zero_origin=True)),
-        plain_ms=_time_ms(lambda: rows_plain(*cam, zero_origin=True),
-                          reps=2),
-        **b6_bound(st0.shape[1], counts, st0[7] != 0, False),
+        plain_ms=_time_plain_ms(lambda: rows_plain(*cam, zero_origin=True)),
+        **b6_bound(st0.shape[1], need_c, True, False),
         shadow=dict(
             ms=_time_ms(lambda: intersect.trace_chunks(*sargs, P, RB,
                                                        excl=excl)),
-            plain_ms=_time_ms(lambda: rows_plain(*sargs, excl=excl),
-                              reps=2),
-            **b6_bound(st0.shape[1], sargs[3], hit, True)))
+            plain_ms=_time_plain_ms(lambda: rows_plain(*sargs, excl=excl)),
+            **b6_bound(st0.shape[1], need_s, False, True)))
     print(f"B6 on {N_CHECK_CHUNKS} chunks: camera rays and shadow rays "
           f"bitwise equal; {int(hit.sum())} hits, {int(shd.sum())} shadowed")
     ones = torch.ones(st0.shape[1] // RB, dtype=torch.int32, device=dev)
@@ -1811,7 +1994,7 @@ def main() -> int:
     results[native.SHADE.name] = dict(
         rays=int(st0.shape[1]), max_abs_err=err8,
         ms=_time_ms(lambda: shade.shade(*args8)),
-        plain_ms=_time_ms(lambda: shade.shade_plain(*args8), reps=2),
+        plain_ms=_time_plain_ms(lambda: shade.shade_plain(*args8)),
         **b8_bound(st0.shape[1], st0[7] != 0))
     print(f"B8 on {N_CHECK_CHUNKS} chunks: bitwise equal; "
           f"{int((st1l_k[7] != 0).sum())} rays live after wave 0")
@@ -1831,9 +2014,8 @@ def main() -> int:
         max_abs_err=max(err4l, results[native.TRACE_SHADE_PERLANE.name][
             "max_abs_err"]),
         ms=_time_ms(lambda: intersect_perlane.trace_shade_perlane(*args4l)),
-        plain_ms=_time_ms(
-            lambda: intersect_perlane.trace_shade_perlane_plain(*args4l),
-            reps=2),
+        plain_ms=_time_plain_ms(
+            lambda: intersect_perlane.trace_shade_perlane_plain(*args4l)),
         **b4_bound(st0.shape[1], st1l_k, lit_=True),
         feeler=True, unlit=unlit4)
     print(f"B4 with the shadow feeler on {N_CHECK_CHUNKS} chunks: bitwise "
@@ -1859,14 +2041,14 @@ def main() -> int:
     results[native.TRACE_PERLANE.name] = dict(
         rays=int(st0.shape[1]), max_abs_err=err7,
         ms=_time_ms(lambda: intersect_perlane.trace_perlane(*ray7)),
-        plain_ms=_time_ms(lambda: _plain_perlane_rows(*ray7), reps=2),
+        plain_ms=_time_plain_ms(lambda: _plain_perlane_rows(*ray7)),
         **_perlane_bound(eng, page_of_c, st1l_k[0:3], st1l_k[7] != 0,
                          rows7[1], 92),
         any_hit=dict(
             ms=_time_ms(lambda: intersect_perlane.trace_perlane(
                 *sh7, excl=excl7, any_hit=True)),
-            plain_ms=_time_ms(lambda: _plain_perlane_rows(
-                *sh7, excl=excl7, any_hit=True), reps=2),
+            plain_ms=_time_plain_ms(lambda: _plain_perlane_rows(
+                *sh7, excl=excl7, any_hit=True)),
             **_perlane_bound(eng, page_of_c, so7, hit7, occ7[1], 96,
                              any_hit=True)))
     print(f"B7 on {N_CHECK_CHUNKS} chunks of lit circles_2k's wave-1 rays "
@@ -1877,14 +2059,25 @@ def main() -> int:
     banks = perlane_banks(dev, key)
     _print_ptxas(built["log"], "B7", ("trace_perlane_kernel",))
 
-    # the kernels alone at full 2k size (3,600 chunks)
+    # the kernels alone at full 2k size (3,600 chunks): B1, B2 and B6
+    # (camera and shadow rays) and the lit wave 0 against their plain
+    # versions on the whole wave, and what B2/B6 need there
     alive_f = full0[7] != 0.0
-    fm, ft = cull.cull_mask_exact(full0[0:3], full0[3:6], alive_f,
-                                  eng.aabb_lo, eng.aabb_hi, RB)
-    fc, fpl, fpt = page_lists(fm, ft)
-    full1 = intersect.trace_shade_chunks(full0, pk0, fc, fpl, fpt,
-                                         fold_in(key, 0), P, RB, False,
-                                         1 / 512, zero_origin=True)
+    wv = union_wave(eng, full0, pk0, key, RB, lit_wave=True)
+    fc, fpl, fpt = wv["lists"]
+    full1 = wv["state1"]
+    need_f = _union_need(full0[0:3], full0[3:6], pk0, fc, fpl, wv["visits"],
+                         wv["rows_p"], RB, True)
+    _print_need("B2/B6 on the whole camera wave", need_f, card)
+    need_fs = _union_need(*wv["shadow"][:5], wv["svisits"], wv["srows_p"], RB,
+                          excl=wv["excl"])
+    _print_need("B6 on the whole wave's shadow rays", need_fs, card)
+    kept = ("pairs", "candidates", "hits", "tested", "visits_mean",
+            "visits_max", "pages", "winners")
+    results[native.TRACE_UNION_ROWS.name].update(
+        need_full={k: need_f[k] for k in kept})
+    results[native.TRACE_UNION_ROWS.name]["shadow"]["need_full"] = {
+        k: need_fs[k] for k in kept}
     flive = (full1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
     # B4 on the whole unlit wave 1, bitwise
     fargs4 = (full1, eng.ptables, fold_in(key, 1), P, RB, False, 1 / 512,
@@ -1901,7 +2094,7 @@ def main() -> int:
         native.TRACE_SHADE_UNION.name: (_time_ms(
             lambda: intersect.trace_shade_chunks(
                 full0, pk0, fc, fpl, fpt, fold_in(key, 0), P, RB, False,
-                1 / 512, zero_origin=True)), b2_bound(R, fc, full0)),
+                1 / 512, zero_origin=True)), b2_bound(R, need_f)),
         native.TRACE_SHADE_PERLANE.name: (_time_ms(
             lambda: intersect_perlane.trace_shade_perlane(*fargs4)),
             b4_bound(R, full1)),
@@ -1918,13 +2111,11 @@ def main() -> int:
     unlit4.update({k: results[native.TRACE_SHADE_PERLANE.name].pop(k)
                    for k in ("ms_full", "bound_ms_full", "bound_by_full")})
     fcam = (full0[0:3], full0[3:6], pk0, fc, fpl, fpt)
-    frows = intersect.trace_chunks(*fcam, P, RB, zero_origin=True)
-    fsargs, fhit, fexcl = shadow_inputs(full0, frows)
-    fsrows = intersect.trace_chunks(*fsargs, P, RB, excl=fexcl)
-    fshd = (fhit & (fsrows[1] != 0)).float()
+    frows = wv["rows"]
+    fsargs, fhit, fexcl = wv["shadow"], wv["hit"], wv["excl"]
+    fsrows, fshd, full1l = wv["srows"], wv["shd"], wv["state1_lit"]
     fones = torch.ones(R // RB, dtype=torch.int32, device=dev)
-    full1l = shade.shade(full0, frows, fold_in(key, 0), RB, False, 1 / 512,
-                         fones, fshd)
+    del wv
     flivel = (full1l[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
     # B4 with the feeler on the whole lit wave 1, bitwise
     fargs4l = (full1l, eng.ptables, fold_in(key, 1), P, RB, False, 1 / 512,
@@ -1938,11 +2129,11 @@ def main() -> int:
         "B6 camera rays": (results[native.TRACE_UNION_ROWS.name],
                            _time_ms(lambda: intersect.trace_chunks(
                                *fcam, P, RB, zero_origin=True)),
-                           b6_bound(R, fc, full0[7] != 0, False)),
+                           b6_bound(R, need_f, True, False)),
         "B6 shadow rays": (results[native.TRACE_UNION_ROWS.name]["shadow"],
                            _time_ms(lambda: intersect.trace_chunks(
                                *fsargs, P, RB, excl=fexcl)),
-                           b6_bound(R, fsargs[3], fhit, True)),
+                           b6_bound(R, need_fs, False, True)),
         "B8": (results[native.SHADE.name],
                _time_ms(lambda: shade.shade(full0, frows, fold_in(key, 0),
                                             RB, False, 1 / 512, fones, fshd)),
@@ -2045,8 +2236,8 @@ def main() -> int:
     results[native.COMPACT.name] = dict(
         rays=R, max_abs_err=err3,
         ms=_time_ms(lambda: compact.compact(full1, scratch, meta, cb)),
-        plain_ms=_time_ms(lambda: compact.compact_plain(full1, scratch, meta,
-                                                        cb), reps=2),
+        plain_ms=_time_plain_ms(
+            lambda: compact.compact_plain(full1, scratch, meta, cb)),
         **_bound((2 * R + 12 * n_a + 8 * n_d) * 4 + (16 * R + 8 * pad_d) * 4,
                  0))
     masks = torch.stack([full1[7], full1[11]])
@@ -2059,8 +2250,8 @@ def main() -> int:
     results[native.EXPAND.name] = dict(
         rays=R, max_abs_err=err5,
         ms=_time_ms(lambda: compact.expand(y, dead_k, masks, meta, cb)),
-        plain_ms=_time_ms(lambda: compact.expand_plain(y, dead_k, masks,
-                                                       meta, cb), reps=2),
+        plain_ms=_time_plain_ms(lambda: compact.expand_plain(y, dead_k, masks,
+                                                       meta, cb)),
         **_bound((2 * R + 4 * n_a + 4 * n_d) * 4 + 4 * R * 4, 0))
 
     # the second boundary, as the default schedule runs it: wave 1 (B4) on
@@ -2117,7 +2308,11 @@ def main() -> int:
     _print_ptxas(built["log"], "B13", ("cull_sorted_kernel",))
     _print_ptxas(built["log"], "B14", ("compact_buckets_kernel",
                                        "expand_buckets_kernel"))
-    _print_ptxas(built["log"], "B2/B6", ("trace_union_kernelILi4",))
+    for k, label, names in ((native.CULL, "B1/B13",
+                             ("cull_kernel", "cull_sorted_kernel")),
+                            (native.TRACE_UNION_ROWS, "B2/B6",
+                             ("trace_union_kernel",))):
+        results[k.name]["ptxas"] = _print_ptxas(built["log"], label, names)
     t_zero = _time_ms(lambda: torch.zeros_like(full1))
     for k in native.KERNELS:
         r = results[k.name]
@@ -2126,7 +2321,7 @@ def main() -> int:
               f"({r['bound_by']}) [{card}]")
     print(f"time torch.zeros [16, {R}] (inside B3's wrapper): {t_zero:.4f} ms "
           f"[{card}]")
-    del full0, full1, fm, ft, fc, fpl, fpt, out_k, out_p, dead, dead_k
+    del full0, full1, fc, fpl, fpt, out_k, out_p, dead, dead_k
     del dead_p, scratch, back_k, back_p, y, masks
 
     _phase("4 golden")
@@ -2685,155 +2880,135 @@ def main() -> int:
     return 0
 
 
-def cd7d8a8_wrappers(lib) -> dict:
-    """`nearest_hit` and `trace_shade_perlane` with the port's arguments,
-    launching the kernels of commit cd7d8a8's library `lib`: its B11 traces
-    every ray (the mask is not passed), its B4 reads the per-lane tables of
-    `tables`."""
+def d2409a5_wrappers(lib) -> dict:
+    """`cull_mask_exact`, `trace_shade_chunks` and `trace_chunks` with the
+    port's arguments, launching the kernels of commit d2409a5's library
+    `lib` (the same C entry points and arguments as now)."""
     def ok(err, name):
         if err != 0:
             raise RuntimeError(f"earlier build's {name}: CUDA error {err}")
 
-    def nearest(O, D, PK, page_size, ray_chunk=1024, alive=None):
-        R = O.shape[0]
-        t = torch.empty(R, dtype=torch.float32, device=O.device)
-        i = torch.empty(R, dtype=torch.int32, device=O.device)
-        ok(lib.rt_nearest_hit(O.data_ptr(), D.data_ptr(), R, PK.data_ptr(),
-                              page_size, PK.shape[0], t.data_ptr(),
-                              i.data_ptr(), native.stream(O.device)),
-           "rt_nearest_hit")
-        return t, i
+    def cull_mask(ot, dt, valid, blo, bhi, ray_chunk):
+        dev, R, NP = ot.device, ot.shape[1], blo.shape[0]
+        NC = R // ray_chunk
+        mask = torch.empty((NC, NP), dtype=torch.bool, device=dev)
+        tmin = torch.empty((NC, NP), dtype=torch.float32, device=dev)
+        ok(lib.rt_cull(ot.data_ptr(), dt.data_ptr(), ot.stride(0),
+                       valid.data_ptr(), blo.data_ptr(), bhi.data_ptr(), NP,
+                       NC, ray_chunk, mask.data_ptr(), tmin.data_ptr(),
+                       native.stream(dev)), "rt_cull")
+        return mask, tmin
 
-    def trace_shade(state, tables, seed, page_size, ray_chunk, fixed_rng,
-                    weight_cutoff, chunk_live, light=None):
+    def trace_shade(state, PK, counts, plist, ptmin, seed, page_size,
+                    ray_chunk, fixed_rng, weight_cutoff, zero_origin=False):
         dev = state.device
         out = torch.empty_like(state)
         s0, s1 = (int(w) for w in seed)
-        lx, ly, lz, l2 = (0.0,) * 4 if light is None else light
-        wide = xla_rsqrt.device_table(dev, wide=True)
-        ok(lib.rt_trace_shade_perlane(
-            state.data_ptr(), out.data_ptr(), state.shape[1],
-            tables.plt_i.data_ptr(), tables.plt_s.data_ptr(),
-            tables.ab.data_ptr(), page_size, tables.ab.shape[0] // 128,
-            ray_chunk, chunk_live.data_ptr(), s0, s1, int(fixed_rng),
-            float(weight_cutoff), int(light is not None), lx, ly, lz, l2,
-            xla_rsqrt.device_table(dev).data_ptr(),
-            0 if wide is None else wide.data_ptr(), native.stream(dev)),
-           "rt_trace_shade_perlane")
+        ok(lib.rt_trace_shade_union(
+            state.data_ptr(), out.data_ptr(), state.shape[1], PK.data_ptr(),
+            page_size, PK.shape[0], counts.data_ptr(), plist.data_ptr(),
+            ptmin.data_ptr(), s0, s1, int(fixed_rng), float(weight_cutoff),
+            int(zero_origin), ray_chunk,
+            xla_rsqrt.device_table(dev).data_ptr(), native.stream(dev)),
+           "rt_trace_shade_union")
         return out
 
-    return {"nearest_hit": nearest, "trace_shade_perlane": trace_shade}
+    def rows(ot, dt, PK, counts, plist, ptmin, page_size, ray_chunk,
+             zero_origin=False, excl=None):
+        dev, R = ot.device, ot.shape[1]
+        out = torch.empty((16, R), dtype=torch.float32, device=dev)
+        ok(lib.rt_trace_union_rows(
+            ot.data_ptr(), dt.data_ptr(), ot.stride(0), R,
+            0 if excl is None else excl.data_ptr(), PK.data_ptr(), page_size,
+            PK.shape[0], counts.data_ptr(), plist.data_ptr(),
+            ptmin.data_ptr(), int(zero_origin), ray_chunk, out.data_ptr(),
+            native.stream(dev)), "rt_trace_union_rows")
+        return out
+
+    return {"cull_mask_exact": cull_mask, "trace_shade_chunks": trace_shade,
+            "trace_chunks": rows}
 
 
-def _circles_wave1(eng, vp, key, light):
-    """The default Engine's wave-1 state of a 2560x1440 circles render
-    under live RNG and its chunk_live, unlit (B1, B2) or lit (B1, B6, the
-    shadow pass, B8)."""
-    dev, P = eng.device, eng.page_size
+def d2409a5_cases(dev, key):
+    """What `--turns` times against commit d2409a5: B1, B2 and B6 (camera
+    rays on the folded pages; the lit wave 0's shadow rays with their
+    self-exclusion) on the whole wave 0 of a 2560x1440 circles_2k render
+    under live RNG at ray_chunk 1024, 2048 and 4096, and the default, lit,
+    legacy (compact=False) and ray_chunk 4096 circles_2k renders.  Returns
+    (kernel cases: label -> (wrapper name, args, kwargs, the rays compared
+    or None, the new build's outputs elsewhere or None, bitwise: False
+    compares values, as torch.equal does, so that B1's zero entries may
+    differ in sign), renderers: label -> (renderer, viewport), the live
+    rays of the inputs)."""
+    scene, vp = circles.build(resolution="2k", maxdepth=5)
+    eng = Engine(scene, device=dev)
+    eng_lit = Engine(lit(circles.build(resolution="2k", maxdepth=5)[0]),
+                     device=dev)
+    eng_leg = Engine(scene, compact=False, device=dev)
+    eng_4k = Engine(scene, ray_chunk=4096, device=dev)
+    P = eng.page_size
     R0 = vp.width * vp.height
-    R = -(-R0 // RB) * RB
+    R = -(-R0 // 4096) * 4096
     o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
                                                            vp.height), R, dev)
     o, pk0 = eng._pinhole_fold(vp, o)
     alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
     full0 = torch.cat([o, d, alive0, alive0,
                        torch.zeros((8, R), device=dev)], dim=0)
-    lists = page_lists(*cull.cull_mask_exact(full0[0:3], full0[3:6],
-                                             full0[7] != 0, eng.aabb_lo,
-                                             eng.aabb_hi, RB))
-    seed = fold_in(key, 0)
-    if light is None:
-        full1 = intersect.trace_shade_chunks(full0, pk0, *lists, seed, P, RB,
-                                             False, 1 / 512, zero_origin=True)
-    else:
+    cases = {}
+    for rc in (RB, 2048, 4096):
+        at = "" if rc == RB else f" at ray_chunk {rc}"
+        a1 = (full0[0:3], full0[3:6], full0[7] != 0, eng.aabb_lo,
+              eng.aabb_hi, rc)
+        lists = page_lists(*cull.cull_mask_exact(*a1))
         rows = intersect.trace_chunks(full0[0:3], full0[3:6], pk0, *lists, P,
-                                      RB, zero_origin=True)
-        shd = eng_mod.shadow_mask(full0, rows, key, 0, False, light,
-                                  eng.aabb_lo, eng.aabb_hi, eng.PK, P, RB)
-        full1 = shade.shade(full0, rows, seed, RB, False, 1 / 512,
-                            torch.ones(R // RB, dtype=torch.int32,
-                                       device=dev), shd)
-    return full1, (full1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
-
-
-def cd7d8a8_cases(dev, key):
-    """What `--turns` times against commit cd7d8a8: B11 on
-    WavefrontRenderer circles_2k's camera wave and on its wave 1 (the new
-    build with the wave's alive mask, as trace_rays calls it: compared on
-    the live rays, its dead rays (+inf, 0)), B4 unlit and lit on the
-    default Engine's wave-1 states; the default Engine, the lit default
-    Engine and WavefrontRenderer(backend="kernel") on circles_2k.  Returns
-    (kernel cases: label -> (wrapper name, args, kwargs, the rays compared
-    or None, the new build's outputs elsewhere or None), renderers: label
-    -> (renderer, viewport), the live rays of each case's input)."""
-    scene, vp = circles.build(resolution="2k", maxdepth=5)
-    eng = Engine(scene, device=dev)
-    eng_lit = Engine(lit(circles.build(resolution="2k", maxdepth=5)[0]),
-                     device=dev)
-    wr = WavefrontRenderer(scene, device=dev)
-    st = wr.tensors
-    P = eng.page_size
-    o, d = render_mod.camera_rays(vp, key, dev)
-    R = o.shape[0]
-    t, hid = intersect.nearest_hit(o, d, st.PK, st.page_size)
-    _, _, alive1, o1, d1 = render_mod.shade_active(
-        st, o, d, t, hid, torch.ones(R, device=dev),
-        torch.ones(R, dtype=torch.bool, device=dev),
-        render_mod._random_unit_vec(fold_in(key, 0), R, dev))
-    full1, live1 = _circles_wave1(eng, vp, key, None)
-    full1l, live1l = _circles_wave1(eng_lit, vp, key, LIGHT)
-    seed1 = fold_in(key, 1)
-    cases = {
-        "B11 camera wave": ("nearest_hit", (o, d, st.PK, st.page_size), {},
-                            None, None),
-        "B11 wave 1 (new: masked)": ("nearest_hit",
-                                     (o1, d1, st.PK, st.page_size),
-                                     {"alive": alive1}, alive1,
-                                     (float("inf"), 0)),
-        "B4 unlit wave 1": ("trace_shade_perlane",
-                            (full1, eng.ptables, seed1, P, RB, False,
-                             1 / 512, live1), {}, None, None),
-        "B4 lit wave 1": ("trace_shade_perlane",
-                          (full1l, eng_lit.ptables, seed1, P, RB, False,
-                           1 / 512, live1l, LIGHT), {}, None, None),
-    }
+                                      rc, zero_origin=True)
+        so, sd, hit, excl = eng_mod.shadow_rays(full0, rows, key, 0, False,
+                                                LIGHT)
+        slists = page_lists(*cull.cull_mask_exact(so, sd, hit, eng.aabb_lo,
+                                                  eng.aabb_hi, rc))
+        cases.update({
+            f"B1 camera wave{at}": ("cull_mask_exact", a1, {}, None, None,
+                                    False),
+            f"B2 camera wave{at}": ("trace_shade_chunks",
+                                    (full0, pk0, *lists, fold_in(key, 0), P,
+                                     rc, False, 1 / 512),
+                                    {"zero_origin": True}, None, None, True),
+            f"B6 camera wave{at}": ("trace_chunks",
+                                    (full0[0:3], full0[3:6], pk0, *lists, P,
+                                     rc), {"zero_origin": True}, None, None,
+                                    True),
+            f"B6 shadow rays of the lit wave 0{at}": (
+                "trace_chunks", (so, sd, eng.PK, *slists, P, rc),
+                {"excl": excl}, None, None, True),
+        })
     renders = {"circles_2k": (eng, vp), "circles_2k lit": (eng_lit, vp),
-               "WavefrontRenderer circles_2k": (wr, vp)}
-    live = {"wr_wave1": int(alive1.sum()),
-            "b4_unlit_wave1": int((full1[7] != 0).sum()),
-            "b4_lit_wave1": int((full1l[7] != 0).sum()), "of": R}
+               "circles_2k legacy": (eng_leg, vp),
+               "circles_2k ray_chunk 4096": (eng_4k, vp)}
+    live = {"camera_rays": R0, "shadow_rays": int(hit.sum()), "of": R}
     return cases, renders, live
 
 
 #: `--turns`'s table, the one part of it that names an earlier commit:
 #: `commit`, whose csrc/ the tool builds (`git archive COMMIT
 #: rust_raytrace_tpu_torch/csrc`); `entries`, the C entry points of that
-#: build with their argument types (cd7d8a8's rt_nearest_hit has no mask,
-#: its rt_trace_shade_perlane reads the per-lane tables plt_i, plt_s, ab);
-#: `wrap(lib)`, the port's wrappers of those entry points; `patches`, the
-#: (module, name) under which the render paths look the wrappers up;
-#: `kernels`, the kernel functions whose ptxas reports it prints;
-#: `cases(dev, key)`, what it times.  The next redesign edits this table
-#: and the functions it names, not `turns`.
+#: build with their argument types (d2409a5's rt_cull, rt_trace_shade_union
+#: and rt_trace_union_rows take what the checkout's do); `wrap(lib)`, the
+#: port's wrappers of those entry points; `patches`, the (module, name)
+#: under which the render paths look the wrappers up; `kernels`, the kernel
+#: functions whose ptxas reports it prints; `cases(dev, key)`, what it
+#: times.  The next redesign edits this table and the functions it names,
+#: not `turns`.
 TURNS_AGAINST = SimpleNamespace(
-    commit="cd7d8a8",
-    entries={
-        "rt_nearest_hit": [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p],
-        "rt_trace_shade_perlane": [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint,
-            ctypes.c_uint, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
-    },
-    wrap=cd7d8a8_wrappers,
-    patches=((render_mod, "nearest_hit"), (eng_mod, "trace_shade_perlane")),
-    kernels=("nearest_hit_kernel", "trace_shade_perlane_kernel"),
-    cases=cd7d8a8_cases)
+    commit="d2409a5",
+    entries={"rt_cull": native.CULL.argtypes,
+             "rt_trace_shade_union": native.TRACE_SHADE_UNION.argtypes,
+             "rt_trace_union_rows": native.TRACE_UNION_ROWS.argtypes},
+    wrap=d2409a5_wrappers,
+    patches=((eng_mod, "cull_mask_exact"), (eng_mod, "trace_shade_chunks"),
+             (eng_mod, "trace_chunks")),
+    kernels=("cull_kernel", "trace_union_kernel"),
+    cases=d2409a5_cases)
 
 
 @contextlib.contextmanager
@@ -2849,11 +3024,19 @@ def patched(wrappers: dict):
             setattr(m, n, fn)
 
 
-def _words(out, rows):
-    """A wrapper's outputs as int32 words, on `rows` of each if given."""
+def _words(out, rows, bitwise=True):
+    """A wrapper's outputs as int32 words, on `rows` of each if given;
+    bitwise=False: values (a -0 as +0, a bool as 0 or 1)."""
     outs = out if isinstance(out, tuple) else (out,)
-    return torch.cat([(x if rows is None else x[..., rows]).reshape(-1).view(
-        torch.int32) for x in outs])
+    words = []
+    for x in outs:
+        x = (x if rows is None else x[..., rows]).reshape(-1)
+        if not bitwise and x.dtype == torch.bool:
+            x = x.to(torch.int32)
+        elif not bitwise and x.is_floating_point():
+            x = torch.where(x == 0, 0.0, x)
+        words.append(x.view(torch.int32))
+    return torch.cat(words)
 
 
 def turns(csrc: Path, out: Path) -> int:
@@ -2891,7 +3074,7 @@ def turns(csrc: Path, out: Path) -> int:
     cases, renders, live = T.cases(dev, prng_key(7))
     report.update(live_rays=live, kernels={}, renders={})
     print(f"live rays: {live}")
-    for label, (name, args, kw, rows, rest) in cases.items():
+    for label, (name, args, kw, rows, rest, bitwise) in cases.items():
         fns = {"new": lambda f=new[name]: f(*args, **kw),
                "earlier": lambda f=old[name]: f(*args, **kw)}
         a, b = fns["new"](), fns["earlier"]()
@@ -2901,7 +3084,7 @@ def turns(csrc: Path, out: Path) -> int:
                        for x, v in zip(outs, rest)):
                 raise AssertionError(f"{label}: the new build's rays off "
                                      f"the case's are not {rest}")
-        a, b = _words(a, rows), _words(b, rows)
+        a, b = _words(a, rows, bitwise), _words(b, rows, bitwise)
         if not torch.equal(a, b):
             raise AssertionError(f"{label}: the two builds differ in "
                                  f"{int((a != b).sum())} words")
@@ -2909,7 +3092,8 @@ def turns(csrc: Path, out: Path) -> int:
         report["kernels"][label] = tt
         print(f"{label}: new {tt['new'][0]:.4f} / {tt['new'][1]:.4f} ms, "
               f"earlier {tt['earlier'][0]:.4f} / {tt['earlier'][1]:.4f} ms "
-              f"(in turns; outputs bitwise equal) [{card}]")
+              f"(in turns; outputs {'bitwise' if bitwise else 'value'} "
+              f"equal) [{card}]")
 
     def best_render(e, rvp):
         e.render(rvp)

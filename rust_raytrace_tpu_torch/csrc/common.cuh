@@ -73,6 +73,14 @@ inline ChunkBlock chunk_block(int ray_chunk) {
   return {(per + 31) / 32 * 32, rpt};
 }
 
+// The same with a fixed rpt at every ray_chunk (B1, B2, B6): whole warps,
+// ceil(ray_chunk / rpt) threads rounded up (256 at ray_chunk 1024 and
+// rpt 4; 1024 at 4096).
+inline ChunkBlock chunk_block_fixed(int ray_chunk, int rpt) {
+  const int per = (ray_chunk + rpt - 1) / rpt;
+  return {(per + 31) / 32 * 32, rpt};
+}
+
 // Reciprocal direction for slab tests: +-BIG where a component is zero.
 __device__ __forceinline__ float slab_inv(float d) {
   return d != 0.0f ? 1.0f / d : (d >= 0.0f ? BIG : -BIG);

@@ -13,39 +13,47 @@
 // B13: the JAX engine uses the split form (B1, then a sort in XLA), and so
 // does the port's.
 //
-// Bound on this card: arithmetic and instruction throughput.  Each (ray,
-// page) pair costs ~26 flops against 24 bytes of AABB that every thread of
-// the block reads at the same address (an L1 broadcast); the rays are read
-// once.  At the main path's 3,600 chunks x 1,024 rays x 37 pages that is
-// ~3.5 GFLOP, far below a millisecond of the card's float rate, so launch
-// and reduction overhead dominate.  B13's rank adds NPpad^2 comparisons a
-// chunk, read from shared memory at one address per step (a broadcast).
+// Bound on this card: operations.  Each (ray, page) pair costs ~26 flops
+// (no multiply-add among them) against 24 bytes of AABB that every thread
+// of the block reads at one address; the rays are read once.  At the main
+// path's 3,600 chunks x 1,024 rays x 37 pages that is ~3.5 GFLOP, 0.053 ms
+// at the card's FMA-counted float rate.  What holds the kernel back is the
+// ALU pipe, which runs at half the float rate: the slab's ten min/max, the
+// entry's two, the hit's two compares and its fold come to ~15 of a pair's
+// ~27 issued instructions (SASS; PERF.md).  B13's rank adds NPpad^2 comparisons a chunk, read from
+// shared memory at one address per step (a broadcast).
 //
-// Design: one block per chunk, at most 1024 threads; a thread owns
-// ceil(ray_chunk / 1024) rays of the chunk (1, 2 or 4; ray_chunk up to
-// 4096), strided by the block size so that loads stay coalesced.  Pages
-// run in tiles of 32: a thread folds its own rays, each warp then reduces
-// a page with one ballot (OR) and a shuffle min and parks the result in
-// shared memory; after the tile, one thread per page folds the warps.  The
-// min of the entries does not depend on order (up to the sign of a zero
-// entry, which B13 writes as +0 as the TPU kernel's one-hot sum does), so
-// the result is deterministic.  B13 keeps the chunk's NPpad keys in
-// shared memory (4 * NPpad bytes), and each thread ranks its pages with a
-// loop over all keys: comparing floats, not their bits, so that -0 and +0
-// tie as in the TPU kernel.  The TPU's bank pre-slab and 128-page padding
-// only saved vector work on that chip and are not carried over: every page
-// is tested.
+// Design: one block per chunk, RPT = 4 rays a thread (256 threads at
+// ray_chunk 1024, 1024 at 4096), strided by the block size so that loads
+// stay coalesced.  A chunk with no valid ray (one block-wide vote) writes
+// mask 0 and tmin +inf without a slab test, as the TPU kernel's chunk_live
+// skip does.  Pages run in tiles of 32, their boxes staged once a block in
+// shared memory.  A thread folds its four rays into one (hit, entry) per
+// page in registers, 16 pages at a time (the hit bits a page, not a ray;
+// B1's miss entry is +inf, so its min is taken only on a hit); a
+// transposed butterfly then leaves lane l of a warp with page l's minimum
+// over the warp in 16 + 15 shuffles for 16 pages (the warp's OR of the hit
+// bits is one __reduce_or_sync a tile), and after one barrier the first
+// warp folds the block's warps, a page a lane.  The min of the entries
+// does not depend on order (up to the sign of a zero entry, which B13
+// writes as +0 as the TPU kernel's one-hot sum does), so the result is
+// deterministic.  B13 keeps the chunk's NPpad keys in shared memory (4 *
+// NPpad bytes), and each thread ranks its pages with a loop over all keys:
+// comparing floats, not their bits, so that -0 and +0 tie as in the TPU
+// kernel.  The TPU's bank pre-slab and 128-page padding only saved vector
+// work on that chip and are not carried over: every page is tested.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;
+constexpr int RPT = 4;             // rays a thread
+constexpr int TILE = 32;           // pages a tile
+constexpr int HALF = 16;           // pages folded in registers at once
 constexpr int MAX_WARPS = 32;
 constexpr float BIGT = 3.0e38f;    // B13's finite key of a missed page
 
 // The rays a thread owns: slot s is lane s * blockDim + threadIdx.x of the
 // chunk; slots past ray_chunk hold no ray.
-template <int RPT>
 struct ChunkRays {
   float o[RPT][3];
   float inv[RPT][3];
@@ -53,16 +61,16 @@ struct ChunkRays {
   bool in[RPT];
 };
 
-template <int RPT>
-__device__ __forceinline__ ChunkRays<RPT> load_rays(
+template <bool FULL>
+__device__ __forceinline__ ChunkRays load_rays(
     const float* __restrict__ ot, const float* __restrict__ dt,
     long long ray_stride, const unsigned char* __restrict__ valid,
     int chunk, int ray_chunk) {
-  ChunkRays<RPT> cr;
+  ChunkRays cr;
 #pragma unroll
   for (int s = 0; s < RPT; ++s) {
     const int l = s * blockDim.x + threadIdx.x;
-    cr.in[s] = l < ray_chunk;
+    cr.in[s] = FULL || l < ray_chunk;
     const long long r = (long long)chunk * ray_chunk + (cr.in[s] ? l : 0);
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -74,82 +82,135 @@ __device__ __forceinline__ ChunkRays<RPT> load_rays(
   return cr;
 }
 
-// Pages p0..p0+nt-1 against the chunk's rays: warp w's OR of the hits and
-// min of the entries (max(tlo, 0) on a hit, `miss` on a miss) of page
-// p0 + j land in s_any[w][j] and s_min[w][j].
-template <int RPT>
-__device__ __forceinline__ void reduce_tile(
-    const ChunkRays<RPT>& cr, const float* __restrict__ lo,
-    const float* __restrict__ hi, int p0, int nt, float miss,
-    unsigned (*s_any)[TILE], float (*s_min)[TILE]) {
-  const int warp = threadIdx.x >> 5;
-  for (int j = 0; j < nt; ++j) {
-    const int p = p0 + j;
-    const float blo[3] = {lo[3 * p], lo[3 * p + 1], lo[3 * p + 2]};
-    const float bhi[3] = {hi[3 * p], hi[3 * p + 1], hi[3 * p + 2]};
-    bool any = false;
-    float entry = rt::inf_f();
-#pragma unroll
-    for (int s = 0; s < RPT; ++s) {
-      if (!cr.in[s]) continue;
-      float tlo, thi;
-      rt::slab(blo, bhi, cr.o[s], cr.inv[s], tlo, thi);
-      const bool hit = (tlo <= thi) & (thi >= 0.0f) & cr.v[s];
-      any |= hit;
-      entry = fminf(entry, hit ? fmaxf(tlo, 0.0f) : miss);
-    }
-    const unsigned wany = __any_sync(0xffffffffu, any);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      entry = fminf(entry, __shfl_xor_sync(0xffffffffu, entry, off));
-    if ((threadIdx.x & 31) == 0) {
-      s_any[warp][j] = wany;
-      s_min[warp][j] = entry;
-    }
-  }
-}
+// Shared memory of one tile: the page boxes (lo, hi as two float4 a page)
+// and each warp's hit bits and per-page minima.
+struct TileSmem {
+  float4 box[TILE][2];
+  unsigned any[MAX_WARPS];
+  float min[MAX_WARPS][TILE];
+};
 
-// After reduce_tile and a barrier: page p0 + threadIdx.x's (hit, min).
-__device__ __forceinline__ bool fold_page(unsigned (*s_any)[TILE],
-                                          float (*s_min)[TILE], float& m) {
-  const int nwarps = blockDim.x >> 5;
-  unsigned any = 0;
+// Pages p0..p0+nt-1 against the chunk's rays, with `miss` the entry of a
+// ray that misses (MISS_INF: miss is +inf, so a miss leaves the minimum as
+// it is); every thread of the block calls it.  Returns, on thread
+// t < nt, whether a valid ray of the chunk hits page p0 + t, and in m the
+// min over the chunk's rays of max(tlo, 0) on a hit and `miss` on a miss.
+// Two barriers: after the staging and before the fold.
+template <bool FULL, bool MISS_INF>
+__device__ __forceinline__ bool tile_reduce(const ChunkRays& cr,
+                                            const float* __restrict__ lo,
+                                            const float* __restrict__ hi,
+                                            int p0, int nt, float miss,
+                                            TileSmem& sm, float& m) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < nt) {
+    const int p = p0 + tid;
+    sm.box[tid][0] = make_float4(lo[3 * p], lo[3 * p + 1], lo[3 * p + 2],
+                                 0.0f);
+    sm.box[tid][1] = make_float4(hi[3 * p], hi[3 * p + 1], hi[3 * p + 2],
+                                 0.0f);
+  }
+  __syncthreads();
+  unsigned any = 0u;
+#pragma unroll
+  for (int h0 = 0; h0 < TILE; h0 += HALF) {
+    float e[HALF];
+#pragma unroll
+    for (int j = 0; j < HALF; ++j) {
+      e[j] = rt::inf_f();
+      if (h0 + j < nt) {
+        const float4 a = sm.box[h0 + j][0], b = sm.box[h0 + j][1];
+        const float blo[3] = {a.x, a.y, a.z};
+        const float bhi[3] = {b.x, b.y, b.z};
+        bool page_hit = false;
+#pragma unroll
+        for (int s = 0; s < RPT; ++s) {
+          if (!FULL && !cr.in[s]) continue;
+          float tlo, thi;
+          rt::slab(blo, bhi, cr.o[s], cr.inv[s], tlo, thi);
+          const bool hit = (tlo <= thi) & (thi >= 0.0f) & cr.v[s];
+          page_hit |= hit;
+          if (MISS_INF) {
+            if (hit) e[j] = fminf(e[j], fmaxf(tlo, 0.0f));
+          } else {
+            e[j] = fminf(e[j], hit ? fmaxf(tlo, 0.0f) : miss);
+          }
+        }
+        any |= page_hit ? 1u << (h0 + j) : 0u;
+      }
+    }
+    // fold lane l with lane l ^ 16, then a transposed butterfly over lane
+    // bits 3..0: lane l ends with page h0 + (l & 15)'s minimum of the warp
+#pragma unroll
+    for (int j = 0; j < HALF; ++j)
+      e[j] = fminf(e[j], __shfl_xor_sync(0xffffffffu, e[j], 16));
+#pragma unroll
+    for (int b = HALF / 2; b >= 1; b >>= 1) {
+      const bool up = (lane & b) != 0;
+#pragma unroll
+      for (int i = 0; i < b; ++i) {
+        const float send = up ? e[i] : e[i + b];
+        const float keep = up ? e[i + b] : e[i];
+        e[i] = fminf(keep, __shfl_xor_sync(0xffffffffu, send, b));
+      }
+    }
+    if (lane < HALF) sm.min[warp][h0 + lane] = e[0];
+  }
+  any = __reduce_or_sync(0xffffffffu, any);
+  if (lane == 0) sm.any[warp] = any;
+  __syncthreads();
+  bool hit = false;
   m = rt::inf_f();
-  for (int w = 0; w < nwarps; ++w) {
-    any |= s_any[w][threadIdx.x];
-    m = fminf(m, s_min[w][threadIdx.x]);
+  if (tid < nt) {
+    const int nwarps = blockDim.x >> 5;
+    unsigned bits = 0u;
+    float m2 = rt::inf_f();
+    for (int w = 0; w < nwarps; w += 2) {      // two chains, whole warps
+      bits |= sm.any[w] | sm.any[w + 1 < nwarps ? w + 1 : w];
+      m = fminf(m, sm.min[w][tid]);
+      m2 = fminf(m2, sm.min[w + 1 < nwarps ? w + 1 : w][tid]);
+    }
+    m = fminf(m, m2);
+    hit = (bits >> tid) & 1u;
   }
-  return any != 0;
+  return hit;
 }
 
-template <int RPT>
+// FULL: every slot holds a ray (ray_chunk a multiple of RPT * 32).
+template <bool FULL>
 __global__ void __launch_bounds__(1024)
 cull_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
             long long ray_stride, const unsigned char* __restrict__ valid,
             const float* __restrict__ lo, const float* __restrict__ hi,
             int np, int ray_chunk, unsigned char* __restrict__ mask,
             float* __restrict__ tmin) {
-  __shared__ unsigned s_any[MAX_WARPS][TILE];
-  __shared__ float s_min[MAX_WARPS][TILE];
+  __shared__ TileSmem sm;
   const int chunk = blockIdx.x;
-  const ChunkRays<RPT> cr =
-      load_rays<RPT>(ot, dt, ray_stride, valid, chunk, ray_chunk);
+  const ChunkRays cr =
+      load_rays<FULL>(ot, dt, ray_stride, valid, chunk, ray_chunk);
+  bool mine = false;
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) mine |= cr.v[s];
+  if (!__syncthreads_or(mine)) {               // no valid ray: no page hit
+    for (int p = threadIdx.x; p < np; p += blockDim.x) {
+      mask[(long long)chunk * np + p] = 0;
+      tmin[(long long)chunk * np + p] = rt::inf_f();
+    }
+    return;
+  }
   for (int p0 = 0; p0 < np; p0 += TILE) {
     const int nt = min(TILE, np - p0);
-    reduce_tile<RPT>(cr, lo, hi, p0, nt, rt::inf_f(), s_any, s_min);
-    __syncthreads();
+    float m;
+    const bool any =
+        tile_reduce<FULL, true>(cr, lo, hi, p0, nt, rt::inf_f(), sm, m);
     if ((int)threadIdx.x < nt) {
-      float m;
-      const bool any = fold_page(s_any, s_min, m);
       const long long out = (long long)chunk * np + p0 + threadIdx.x;
       mask[out] = any ? 1 : 0;
       tmin[out] = any ? m : rt::inf_f();
     }
-    __syncthreads();
   }
 }
 
-template <int RPT>
 __global__ void __launch_bounds__(1024)
 cull_sorted_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
                    long long ray_stride,
@@ -160,8 +221,7 @@ cull_sorted_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
                    int* __restrict__ counts, int* __restrict__ plist,
                    float* __restrict__ ptmin) {
   extern __shared__ float s_key[];             // [npad]
-  __shared__ unsigned s_any[MAX_WARPS][TILE];
-  __shared__ float s_min[MAX_WARPS][TILE];
+  __shared__ TileSmem sm;
   __shared__ int s_hits;
   const int chunk = blockIdx.x;
   const int tid = threadIdx.x;
@@ -176,20 +236,17 @@ cull_sorted_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
     return;
   }
   if (tid == 0) s_hits = 0;
-  const ChunkRays<RPT> cr =
-      load_rays<RPT>(ot, dt, ray_stride, valid, chunk, ray_chunk);
-  __syncthreads();
+  const ChunkRays cr =
+      load_rays<false>(ot, dt, ray_stride, valid, chunk, ray_chunk);
   for (int p0 = 0; p0 < np; p0 += TILE) {
     const int nt = min(TILE, np - p0);
-    reduce_tile<RPT>(cr, lo, hi, p0, nt, BIGT, s_any, s_min);
-    __syncthreads();
+    float m;
+    const bool any = tile_reduce<false, false>(cr, lo, hi, p0, nt, BIGT, sm,
+                                               m);
     if (tid < nt) {
-      float m;
-      const bool any = fold_page(s_any, s_min, m);
       s_key[p0 + tid] = any ? (m == 0.0f ? 0.0f : m) : BIGT;
       if (any) atomicAdd(&s_hits, 1);
     }
-    __syncthreads();
   }
   for (int p = np + tid; p < npad; p += blockDim.x) s_key[p] = BIGT;
   __syncthreads();
@@ -212,10 +269,10 @@ extern "C" int rt_cull(const float* ot, const float* dt, long long ray_stride,
                        const unsigned char* valid, const float* lo,
                        const float* hi, int np, int nc, int ray_chunk,
                        unsigned char* mask, float* tmin, void* stream) {
-  const rt::ChunkBlock b = rt::chunk_block(ray_chunk);
-  auto kernel = b.rpt == 1 ? cull_kernel<1>
-                           : (b.rpt == 2 ? cull_kernel<2> : cull_kernel<4>);
-  kernel<<<nc, b.threads, 0, (cudaStream_t)stream>>>(
+  const int threads = rt::chunk_block_fixed(ray_chunk, RPT).threads;
+  auto kernel = ray_chunk == RPT * threads ? cull_kernel<true>
+                                           : cull_kernel<false>;
+  kernel<<<nc, threads, 0, (cudaStream_t)stream>>>(
       ot, dt, ray_stride, valid, lo, hi, np, ray_chunk, mask, tmin);
   return (int)cudaGetLastError();
 }
@@ -227,17 +284,15 @@ extern "C" int rt_cull_sorted(const float* ot, const float* dt,
                               int ray_chunk, const int* chunk_live,
                               int* counts, int* plist, float* ptmin,
                               void* stream) {
-  const rt::ChunkBlock b = rt::chunk_block(ray_chunk);
-  auto kernel = b.rpt == 1 ? cull_sorted_kernel<1>
-                           : (b.rpt == 2 ? cull_sorted_kernel<2>
-                                         : cull_sorted_kernel<4>);
+  const int threads = rt::chunk_block_fixed(ray_chunk, RPT).threads;
+  auto kernel = cull_sorted_kernel;
   const size_t smem = (size_t)npad * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<nc, b.threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<nc, threads, smem, (cudaStream_t)stream>>>(
       ot, dt, ray_stride, valid, lo, hi, np, npad, ray_chunk, chunk_live,
       counts, plist, ptmin);
   return (int)cudaGetLastError();

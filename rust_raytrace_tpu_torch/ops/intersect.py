@@ -121,10 +121,38 @@ def fold_pages_origin(PK: torch.Tensor, origin) -> torch.Tensor:
     return out
 
 
+#: (ray, triangle) pairs of one page step the plain union trace holds at
+#: once: blocks of whole chunks (chunks are independent) keep the float64
+#: temporaries of a whole 2560x1440 wave within device memory
+PLAIN_UNION_PAIRS = 1 << 26
+
+
 def trace_chunks_plain(ot, dt, PK, counts, plist, ptmin, ray_chunk: int,
-                       zero_origin: bool = False, excl=None):
-    """Plain torch version of `trace_chunks`."""
+                       zero_origin: bool = False, excl=None,
+                       return_visits: bool = False):
+    """Plain torch version of `trace_chunks`.  return_visits: also return
+    the pages each chunk visited before its early exit ([NC] int32)."""
     RB = ray_chunk
+    R = ot.shape[1]
+    NC = R // RB
+    dev = ot.device
+    P = PK.shape[1]
+    rows = torch.zeros((TRACE_ROWS, R), dtype=torch.float32, device=dev)
+    visits = torch.zeros(NC, dtype=torch.int32, device=dev)
+    step = max(1, PLAIN_UNION_PAIRS // (RB * P))
+    for c0 in range(0, NC, step):
+        c1 = min(NC, c0 + step)
+        rays = slice(c0 * RB, c1 * RB)
+        rows[:, rays], visits[c0:c1] = _trace_chunk_block(
+            ot[:, rays], dt[:, rays], PK, counts[c0:c1], plist[c0:c1],
+            ptmin[c0:c1], RB, zero_origin,
+            None if excl is None else excl[rays])
+    return (rows, visits) if return_visits else rows
+
+
+def _trace_chunk_block(ot, dt, PK, counts, plist, ptmin, RB: int,
+                       zero_origin: bool, excl):
+    """`trace_chunks_plain` of whole chunks: (rows, pages visited)."""
     R = ot.shape[1]
     NC = R // RB
     dev = ot.device
@@ -137,12 +165,14 @@ def trace_chunks_plain(ot, dt, PK, counts, plist, ptmin, ray_chunk: int,
     payload = torch.zeros((len(PAYLOAD_ROWS), NC, RB), dtype=torch.float32,
                           device=dev)
     done = torch.zeros(NC, dtype=torch.bool, device=dev)
+    visits = torch.zeros(NC, dtype=torch.int32, device=dev)
     pk = PK[..., :USED_LANES]
     n_max = int(counts.max()) if NC else 0
     for k in range(n_max):
         c = torch.nonzero((counts > k) & ~done).squeeze(1)
         if c.numel() == 0:
             break
+        visits[c] += 1
         page = pk[plist[c, k].long()]                     # [A, P, 24]
 
         def col(f, page=page):
@@ -169,7 +199,7 @@ def trace_chunks_plain(ot, dt, PK, counts, plist, ptmin, ray_chunk: int,
     rows[ROW_ID] = best_id.reshape(R)
     for i, r in enumerate(PAYLOAD_ROWS):
         rows[r] = payload[i].reshape(R)
-    return rows
+    return rows, visits
 
 
 def trace_shade_chunks_plain(state, PK, counts, plist, ptmin, seed,
@@ -178,9 +208,29 @@ def trace_shade_chunks_plain(state, PK, counts, plist, ptmin, seed,
     """Plain torch version of `trace_shade_chunks`."""
     rows = trace_chunks_plain(state[0:3], state[3:6], PK, counts, plist,
                               ptmin, ray_chunk, zero_origin)
+    return shade_chunks_plain(state, rows, seed, ray_chunk, fixed_rng,
+                              weight_cutoff)
+
+
+def shade_chunks_plain(state, rows, seed, ray_chunk: int, fixed_rng: bool,
+                       weight_cutoff: float):
+    """`trace_shade_chunks_plain`'s shade step: the new state from the
+    winner rows [16, R] of its trace step (`trace_chunks_plain`), the
+    scatter hash keyed on each ray's lane within its chunk."""
     rays = torch.arange(state.shape[1], device=state.device)
     rv = scatter_rv(seed, rays, ray_chunk, fixed_rng)
     return shade_state_rows(state, rows, rv, weight_cutoff)
+
+
+def _check_lists(PK, counts, plist, ptmin, page_size: int, NC: int, dev):
+    """The pages and page lists B2 and B6 take; the kernel copies PK's
+    records 16 bytes at a time, so PK must be 16-byte aligned."""
+    NP = PK.shape[0]
+    native.check_tensor("PK", PK, dev, (NP, page_size, 128), torch.float32)
+    native.require(PK.data_ptr() % 16 == 0, "PK: want 16-byte alignment")
+    native.check_tensor("counts", counts, dev, (NC,), torch.int32)
+    native.check_tensor("plist", plist, dev, (NC, NP), torch.int32)
+    native.check_tensor("ptmin", ptmin, dev, (NC, NP), torch.float32)
 
 
 def trace_shade_chunks(state, PK, counts, plist, ptmin, seed,
@@ -206,10 +256,7 @@ def trace_shade_chunks(state, PK, counts, plist, ptmin, seed,
     NC = R // ray_chunk
     native.check_ray_chunk(R, ray_chunk)
     native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
-    native.check_tensor("PK", PK, dev, (NP, page_size, 128), torch.float32)
-    native.check_tensor("counts", counts, dev, (NC,), torch.int32)
-    native.check_tensor("plist", plist, dev, (NC, NP), torch.int32)
-    native.check_tensor("ptmin", ptmin, dev, (NC, NP), torch.float32)
+    _check_lists(PK, counts, plist, ptmin, page_size, NC, dev)
     out = torch.empty_like(state)
     s0, s1 = (int(w) for w in seed)
     native.TRACE_SHADE_UNION(
@@ -245,10 +292,7 @@ def trace_chunks(ot, dt, PK, counts, plist, ptmin, page_size: int,
     native.check_tensor("dt", dt, dev, (3, R), torch.float32, False)
     native.require(ot.stride(0) == dt.stride(0),
                    "ot and dt need one row stride")
-    native.check_tensor("PK", PK, dev, (NP, page_size, 128), torch.float32)
-    native.check_tensor("counts", counts, dev, (NC,), torch.int32)
-    native.check_tensor("plist", plist, dev, (NC, NP), torch.int32)
-    native.check_tensor("ptmin", ptmin, dev, (NC, NP), torch.float32)
+    _check_lists(PK, counts, plist, ptmin, page_size, NC, dev)
     if excl is not None:
         native.check_tensor("excl", excl, dev, (R,), torch.float32)
     out = torch.empty((TRACE_ROWS, R), dtype=torch.float32, device=dev)

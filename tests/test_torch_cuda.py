@@ -661,6 +661,50 @@ def test_ray_chunk_kernels_match_plain(dev, rc):
     np.testing.assert_array_equal(img, ref)
 
 
+@pytest.mark.parametrize("rc", [96, 1024, 2048, 3072, 4096])
+def test_union_exit_kernels_match_plain(dev, rc):
+    """B1, B6 and B2 on tests/union_exit_cases.py's inputs (copies of a
+    triangle tied in two pages, winners on a chunk's last visited page,
+    zero-normal slots mid-page, a chunk of invalid rays, a chunk whose
+    count is 0, 37 pages): camera rays on folded pages, rays from
+    scattered origins, each with and without the exclusion of the nearest
+    triangle, against their plain versions bitwise (B1's tmin with
+    torch.equal).  ray_chunk 96 leaves B1's last warp part empty (its
+    kernel with slot checks) and 3072 gives B2/B6 three rays of four
+    slots a thread."""
+    import union_exit_cases as U
+
+    for zero_origin, with_excl in ((True, False), (True, True),
+                                   (False, False), (False, True)):
+        c = U.case(rc, zero_origin, with_excl)
+        ot, dt = c["ot"].to(dev), c["dt"].to(dev)
+        lo = torch.from_numpy(c["pages"].aabb_lo).to(dev)
+        hi = torch.from_numpy(c["pages"].aabb_hi).to(dev)
+        args = (ot, dt, (dt != 0).any(dim=0), lo, hi, rc)
+        mask, tmin = cull.cull_mask_exact(*args)
+        mask_p, tmin_p = cull.cull_mask_exact_plain(*args)
+        assert torch.equal(mask, mask_p) and torch.equal(tmin, tmin_p)
+        assert not mask[U.DEAD_CHUNK].any()
+        lists = [x.to(dev) for x in (c["counts"], c["plist"], c["ptmin"])]
+        pk = c["pk"].to(dev)
+        excl = None if c["excl"] is None else c["excl"].to(dev)
+        rows = intersect.trace_chunks(ot, dt, pk, *lists, U.P, rc,
+                                      zero_origin, excl)
+        _bitwise(rows, intersect.trace_chunks_plain(ot, dt, pk, *lists, rc,
+                                                    zero_origin, excl))
+        if with_excl:
+            continue
+        st = torch.zeros((16, ot.shape[1]), device=dev)
+        st[0:3], st[3:6] = ot, dt
+        st[6] = 0.5
+        st[7] = (dt != 0).any(dim=0).float()
+        a2 = (st, pk, *lists, fold_in(prng_key(3), 0), U.P, rc, False,
+              1 / 512)
+        _bitwise(intersect.trace_shade_chunks(*a2, zero_origin=zero_origin),
+                 intersect.trace_shade_chunks_plain(
+                     *a2, zero_origin=zero_origin))
+
+
 def test_debug_ids_on_card_equal_cpu(dev):
     """circles at 48x27, whose centre row's rays run exactly through
     shared triangle edges: the card's debug render (primary ids and t, the
