@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --turns CSRC [--out FILE]
+    python3 chip_smoke.py --scene-build
 
 The second form runs no smoke phase: it times kernels and the renders
 that run them in turns against a build of CSRC, the
 `rust_raytrace_tpu_torch/csrc/` of an earlier commit (`git archive COMMIT
 rust_raytrace_tpu_torch/csrc`).  TURNS_AGAINST names the commit, binds its
-C entry points and says what is timed: now commit d2409a5's B1, B2 and B6
-(one block of 1,024 threads a chunk, the whole hit predicate a pair), on
-the whole circles_2k wave 0 (B6 on its camera rays and on the lit wave's
-shadow rays) at ray_chunk 1024, 2048 and 4096, and in the default, lit,
-legacy and ray_chunk 4096 circles_2k renders.
+C entry points and says what is timed: now commit 69120d0's B1 and B2
+(before their chunk_live and grid_live skips), on the whole circles_2k
+wave 0 at ray_chunk 1024, and in the default circles_2k render.
+
+The third form times synthetic_1m_2k's host build alone (the scene and
+its Engine's pages and tables) and says whether the native scene pipeline
+took it; run it with RUST_RAYTRACE_NO_NATIVE=1 for the numpy build.
 
 The main paths: the unlit circles_2k render (B1, B2, B3, B4, B5); the lit
 one, circles_2k with the teapot preset's light (B1 twice at wave 0, B6
@@ -29,7 +32,13 @@ waves, B3, B5); circles_2k through render_banded (the unlit path's
 kernels, band by band); the per-lane shadow pass
 (engine.shadow_mask_perlane, B7 any-hit) on lit circles_2k's wave-1 rows;
 circles_2k through Engine(ray_chunk=4096) (the unlit path's kernels, the
-chunk-block ones B1 and B2 at 4 rays a thread); and the command line
+chunk-block ones B1 and B2 at 4 rays a thread); circles_2k past a lowered
+table_slot_cap with streamed=False (the union bounce waves: B1 with
+chunk_live and B2 with chunk_live and grid_live on every bounce wave, B3,
+B5; no per-lane tables), through Engine(bounce_chunk=512) (the unlit
+path's kernels, the bounce waves at 512-ray chunks) and through
+render_sharded over 2 shards of the card (the unlit path's kernels, once
+a shard); and the command line
 (`python -m rust_raytrace_tpu_torch.cli`, run in process, its slow runs
 each in a process of its own): render circles_2k (the unlit path), with
 --band-rows, with --backend simple (B11) and with --debug-csv (the debug
@@ -41,11 +50,15 @@ package: phase 3 drives them directly.
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc compiles csrc/*.cu into build/kernels/ (hash-cached, one
-     nvcc per source, all started together);
+     nvcc per source, all started together), and g++ the port's native
+     scene pipeline into build/host/ (utils/host_native), which must load;
   3. kernels against their plain torch versions on the card, at the main
      paths' shapes (ray_chunk 1024, page size 56, 37 pages), bitwise: B1,
      B2 and B4 (over the page-major records) on 64 chunks of a real
-     circles_2k wave, then the lights path's B6 on those camera rays
+     circles_2k wave, B1 with chunk_live and B2 with chunk_live and
+     grid_live on those chunks' wave-1 state (chunks with no live ray and
+     every eighth chunk flagged dead, grid_live 48: the chunks B2 passes
+     through keep their state words), then the lights path's B6 on those camera rays
      (folded pages), B6 on their shadow rays with self-exclusion, B8 with
      the shadow mask and B4 with the feeler on the lit wave-1 state; B1,
      B2 and B6 (camera rays, and shadow rays with self-exclusion) and the
@@ -60,7 +73,9 @@ Phases, each fatal on failure:
      kernel and plain version, and of each kernel on the full wave, beside
      the least time the card could take (bound), and the time of the shadow
      pass's bulk random draw (threefry glue); then the streamed kernels on
-     the synthetic_1m_2k tables (page size 224, 35 banks in device memory; the
+     the synthetic_1m_2k tables (its scene built on the host by the native
+     scene pipeline's make_triangles and kd_order, which must be taken,
+     their seconds printed; page size 224, 35 banks in device memory; the
      page-major records built on the card checked word for word against
      the per-lane tables and the pages' packed lanes) on
      64 chunks of its camera rays, spread over the chunks that hit the
@@ -115,7 +130,10 @@ Phases, each fatal on failure:
      an equal float image); shadow_mask_perlane vs shadow_mask on lit
      circles' wave-1 rows (at most 0.01% of lanes); render_banded in three
      bands vs render() (0 pixels, equal wave_rays); Engine(ray_chunk=4096)
-     on circles, kernel vs plain path (at most 0.01%);
+     on circles, kernel vs plain path (at most 0.01%); the same on circles
+     at 640x360 past a lowered table_slot_cap with streamed=False (the
+     union bounce waves), through Engine(bounce_chunk=512) and through
+     render_sharded(n_devices=2);
   6. circles_2k (2560x1440, maxdepth 5, live RNG): the default Engine after
      its autotune (the planned schedule printed) and Engine(ncompact=0),
      three timed renders each, in turns; then the lit default Engine, three
@@ -134,7 +152,12 @@ Phases, each fatal on failure:
      in three bands of 480 rows, three timed renders and one fixed_rng
      render byte-equal to render()'s; circles_2k through
      Engine(ray_chunk=4096), three timed renders after a warm-up, its
-     Mrays/s beside the default's; the command line in process (the
+     Mrays/s beside the default's; circles_2k through the union bounce
+     waves (a lowered cap, streamed=False: B1 and B2 five launches a
+     render, B3, B5, none of B4, B6, B8-B12), Engine(bounce_chunk=512) and
+     render_sharded(n_devices=2) (B1 and B2 once a shard), one timed render
+     after a warm-up each, each fixed_rng image byte-equal to the default
+     Engine's; the command line in process (the
      `--debug-csv` render and the two diffs were started in processes of
      their own before phase 5, and have ended before phase 6 starts):
      `render
@@ -148,8 +171,8 @@ Phases, each fatal on failure:
      each render's ms and Mrays/s printed; every kernel of each path must
      have launched in its renders and no kernel of another path (counts
      set to 0 just before each render);
-  7. profile: one default, one ncompact=0, one lit, one WavefrontRenderer
-     and one legacy circles_2k render and one unlit, one bank-major and one
+  7. profile: one default, one ncompact=0, one lit, one WavefrontRenderer,
+     one legacy and one union-bounce circles_2k render and one unlit, one bank-major and one
      lit synthetic_1m_2k render under torch.profiler (the card's time per
      kernel and copy, by kind with B11, B9 and B12a-c apart, its busy
      share; the bank-major render must hold one B12b grid a wave >= 2) and
@@ -190,7 +213,7 @@ from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
 from rust_raytrace_tpu_torch.ops.pages import LANE_ID, LANE_N, LANE_NC
 from rust_raytrace_tpu_torch.render import WavefrontRenderer
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
-from rust_raytrace_tpu_torch.utils import native, png, xla_rsqrt
+from rust_raytrace_tpu_torch.utils import host_native, native, png, xla_rsqrt
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key, uniform
 
 DEVICE = "cuda"
@@ -257,6 +280,19 @@ BANK_MAJOR_PATH = ("trace_shade_streamed", "bankmajor_prep",
 BANK_MAJOR_KERNELS = ("bankmajor_prep", "bankmajor_sweep", "bankmajor_finish")
 #: the per-lane shadow pass (engine.shadow_mask_perlane): B7 alone
 PERLANE_SHADOW_PATH = ("trace_perlane",)
+#: a scene past the resident tables' cap with streamed=False: every wave
+#: culls (B1, with chunk_live on the bounce waves) and runs B2 (with
+#: chunk_live and grid_live there), compacted between waves
+UNION_BOUNCE_PATH = ("cull_mask_exact", "trace_shade_chunks", "compact",
+                     "expand")
+NOT_UNION_BOUNCE = ("trace_shade_perlane", "trace_chunks", "shade",
+                    "trace_shade_streamed", "trace_streamed", "nearest_hit",
+                    "trace_perlane", "bankmajor_prep", "bankmajor_sweep",
+                    "bankmajor_finish")
+#: the Engine's union bounce waves, bounce_chunk and render_sharded shard
+#: counts in phases 5 and 6
+BOUNCE_CHUNK = 512
+SHARDS = 2
 #: the phase-5 resolution of the synthetic_1m sphere (the plain path walks
 #: the 35 banks with many small torch ops)
 STREAMED_CHECK_RES = (640, 360)
@@ -845,11 +881,16 @@ def streamed_kernels(dev, card, key, results, build_log):
     N_CHECK_CHUNKS chunks spread over those whose camera rays hit the
     sphere, and on whole waves.  Returns (scene, its default Engine,
     viewport)."""
+    calls0 = dict(host_native.calls)
     t0 = time.perf_counter()
     scene = synthetic_1m_scene()
     t1 = time.perf_counter()
     eng = Engine(scene, device=dev)
     t2 = time.perf_counter()
+    took = {k: host_native.calls[k] - calls0[k] for k in calls0}
+    if not (took["make_triangles"] == 1 and took["kd_order"] == 1):
+        raise AssertionError(f"synthetic_1m_2k's build did not take the "
+                             f"native scene pipeline: {took}")
     tabs = eng.stables
     P = eng.page_size
     NB = tabs[0].shape[0]
@@ -861,7 +902,8 @@ def streamed_kernels(dev, card, key, results, build_log):
     print(f"synthetic_1m_2k: {len(scene.tris) - 1} triangles, "
           f"{eng.pages.num_pages} pages of {P}, {NB} banks, streamed tables "
           f"{mb:.1f} MB and page-major records {mb_rec:.1f} MB on the card; "
-          f"host: scene {t1 - t0:.1f} s, Engine {t2 - t1:.1f} s")
+          f"host: scene {t1 - t0:.3f} s, Engine {t2 - t1:.3f} s (the native "
+          f"scene pipeline's make_triangles and kd_order) [{card}]")
     _check_records(eng)
     page_of = _page_of(eng, len(scene.tris) - 1, dev)
     vp = synthetic_view((2560, 1440))
@@ -1779,6 +1821,80 @@ def cli_phase(dev, card, slow):
 
 
 #: the kernels' function names in csrc/*.cu
+class _Sharded:
+    """`render` of an Engine as its render_sharded over SHARDS shards."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    def render(self, v, **kw):
+        return self.eng.render_sharded(v, n_devices=SHARDS, **kw)
+
+
+def last_paths(dev) -> dict:
+    """The Engine's last paths, label -> maker of a renderer of a scene:
+    the union bounce waves (a table_slot_cap below the scene's page slots,
+    streamed=False: no per-lane tables), bounce_chunk and render_sharded
+    over SHARDS shards of the card."""
+    def union(sc):
+        e = Engine(sc, table_slot_cap=len(sc.tris) - 1, streamed=False,
+                   device=dev)
+        if e.streamed or e.ptables is not None or e.PK is None:
+            raise AssertionError("the union bounce Engine holds per-lane "
+                                 "or streamed tables")
+        return e
+
+    return {"union bounce waves (streamed=False past a lowered cap)": union,
+            f"bounce_chunk {BOUNCE_CHUNK}": lambda sc: Engine(
+                sc, bounce_chunk=BOUNCE_CHUNK, device=dev),
+            f"sharded render_sharded(n_devices={SHARDS})": lambda sc:
+                _Sharded(Engine(sc, device=dev))}
+
+
+def union_flags(eng, st1, key, results):
+    """B1 with chunk_live and B2 with chunk_live and grid_live (the union
+    bounce waves) on the check chunks' wave-1 state, bitwise against their
+    plain versions: the chunks with no live ray and every eighth chunk
+    flagged dead, grid_live 3/4 of the chunks; the chunks B2 passes
+    through must keep their state words."""
+    dev = st1.device
+    n = st1.shape[1] // RB
+    alive = st1[7] != 0
+    idx = torch.arange(n, device=dev)
+    flags = (alive.reshape(n, RB).any(dim=1) & (idx % 8 != 3)).to(torch.int32)
+    gl = torch.tensor(3 * n // 4, dtype=torch.int32, device=dev)
+    a1 = (st1[0:3], st1[3:6], alive, eng.aabb_lo, eng.aabb_hi, RB)
+    mk, tk = cull.cull_mask_exact(*a1, chunk_live=flags)
+    mp, tp = cull.cull_mask_exact_plain(*a1, chunk_live=flags)
+    torch.cuda.synchronize()
+    if not (torch.equal(mk, mp) and torch.equal(tk, tp)):
+        raise AssertionError("B1 with chunk_live: kernel and plain differ")
+    if mk[flags == 0].any():
+        raise AssertionError("B1 with chunk_live: a dead chunk hit a page")
+    lists = page_lists(mk, tk)
+    a2 = (st1, eng.PK, *lists, fold_in(key, 1), eng.page_size, RB, False,
+          1 / 512)
+    kw = dict(chunk_live=flags, grid_live=gl)
+    out_k = intersect.trace_shade_chunks(*a2, **kw)
+    _require_bitwise("B2 with chunk_live and grid_live", out_k,
+                     intersect.trace_shade_chunks_plain(*a2, **kw))
+    passed = ((flags == 0) | (idx >= gl)).repeat_interleave(RB)
+    if not torch.equal(out_k[:, passed].view(torch.int32),
+                       st1[:, passed].view(torch.int32)):
+        raise AssertionError("B2 with flags: a passed-through chunk changed")
+    results[native.CULL.name]["chunk_live"] = dict(
+        ms=_time_ms(lambda: cull.cull_mask_exact(*a1, chunk_live=flags)),
+        dead_chunks=int((flags == 0).sum()))
+    results[native.TRACE_SHADE_UNION.name]["chunk_live_grid_live"] = dict(
+        ms=_time_ms(lambda: intersect.trace_shade_chunks(*a2, **kw)),
+        dead_chunks=int((flags == 0).sum()), grid_live=int(gl))
+    print(f"B1 with chunk_live and B2 with chunk_live and grid_live on "
+          f"{n} chunks of the wave-1 state ({int((flags == 0).sum())} "
+          f"flagged dead, grid_live {int(gl)}): bitwise equal to the plain "
+          f"versions; {int(passed.sum())} lanes passed through word for "
+          f"word")
+
+
 PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
                 "trace_shade_perlane_kernel", "expand_kernel",
                 "shade_kernel", "trace_streamed_kernel", "live_list_kernel",
@@ -1826,6 +1942,14 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
     native.library()
+    try:
+        hb = host_native.build()
+    except RuntimeError as e:
+        raise AssertionError(f"the native scene pipeline did not build: {e}")
+    if not host_native.available():
+        raise AssertionError("the native scene pipeline does not load")
+    print(f"host build: {hb['seconds']:.1f} s -> {hb['path']} (g++ "
+          f"{' '.join(host_native.GXX_FLAGS)})")
 
     _phase("3 kernels")
     # 3. kernels against their plain versions at main-path shapes
@@ -1941,6 +2065,7 @@ def main() -> int:
         **b4_bound(st0.shape[1], st1_k))
     print(f"B4 on {N_CHECK_CHUNKS} chunks: max |diff| {err}; "
           f"{int((st2_k[7] != 0).sum())} rays live after wave 1")
+    union_flags(eng, st1_k, key, results)
 
     # the lights path's kernels on the same chunks, lit by the teapot
     # preset's light (live RNG, as the circles_2k renders)
@@ -2392,6 +2517,12 @@ def main() -> int:
                     rc_vp, fixed_rng=True).image,
                 lambda: Engine(rc_scene, ray_chunk=4096, device=dev).render(
                     rc_vp, fixed_rng=True).image)
+    # the Engine's last paths: the union bounce waves past a lowered cap,
+    # bounce_chunk and render_sharded
+    for label, make in last_paths(dev).items():
+        check_paths(f"circles {label}",
+                    lambda: make(rc_scene).render(rc_vp, fixed_rng=True).image,
+                    lambda: make(rc_scene).render(rc_vp, fixed_rng=True).image)
     s_vp5 = synthetic_view(STREAMED_CHECK_RES)
     for label in ("unlit", "lit"):
         if label == "lit":
@@ -2659,15 +2790,15 @@ def main() -> int:
 
     # 6d. the portable renderer on circles_2k at its defaults (page size
     # 256, ray chunk 1024, slabs of 2^20 rays): B11 every wave of every slab
-    def timed(label, renderer, tvp, path, absent, warm=True):
-        """Three renders after a warm-up, launch counts summed over them;
+    def timed(label, renderer, tvp, path, absent, warm=True, reps=3):
+        """`reps` renders after a warm-up, launch counts summed over them;
         fails unless every kernel of `path` launched and none of
         `absent`."""
         if warm:
             renderer.render(tvp)
             torch.cuda.synchronize()
         runs, counts = [], {k.name: 0 for k in native.KERNELS}
-        for _ in range(3):
+        for _ in range(reps):
             torch.cuda.synchronize()
             native.reset_launch_counts()
             runs.append(renderer.render(tvp))
@@ -2686,7 +2817,7 @@ def main() -> int:
               f"{[round(r.seconds, 6) for r in runs]}, rays_traced "
               f"{best.rays_traced}, {best.mrays_per_sec:.3f} Mrays/s, "
               f"wave_rays {best.wave_rays.tolist()} [{card}]")
-        print(f"launches in the 3 {label} renders: {counts}")
+        print(f"launches in the {reps} {label} renders: {counts}")
         missing = [k for k in path if counts[k] == 0]
         other = [k for k in absent if counts[k]]
         if missing or other:
@@ -2796,6 +2927,40 @@ def main() -> int:
           f"1024) {d_best.mrays_per_sec:.3f} Mrays/s [{card}]")
     del eng_rc
 
+    # 6l. the Engine's last paths at full width, one timed render after a
+    # warm-up each: the union bounce waves (circles_2k past a lowered cap,
+    # streamed=False), bounce_chunk and render_sharded; each fixed_rng
+    # image byte-equal to the default Engine's (full_f, 6i)
+    last_launches, last_engines = {}, {}
+    for label, make in last_paths(dev).items():
+        e = make(scene)
+        path, absent = ((UNION_BOUNCE_PATH, NOT_UNION_BOUNCE)
+                        if "union" in label else
+                        (UNLIT_PATH, ("nearest_hit", "trace_perlane",
+                                      "trace_chunks", "shade",
+                                      "trace_shade_streamed",
+                                      "trace_streamed")
+                         + BANK_MAJOR_KERNELS))
+        _, counts = timed(f"circles_2k {label}", e, vp, path, absent,
+                          reps=1)
+        want = {"union": {"cull_mask_exact": vp.maxdepth,
+                          "trace_shade_chunks": vp.maxdepth},
+                "sharded": {"cull_mask_exact": SHARDS,
+                            "trace_shade_chunks": SHARDS}}
+        for k, n in want.get(label.split()[0], {}).items():
+            if counts[k] != n:
+                raise AssertionError(f"{label}: {counts[k]} {k} launches in "
+                                     f"a render, not {n}")
+        f_img = e.render(vp, fixed_rng=True).image
+        n_px = int((f_img != full_f.image).any(axis=-1).sum())
+        print(f"circles_2k fixed_rng, {label} vs the default Engine: {n_px} "
+              f"pixels differ")
+        if n_px:
+            raise AssertionError(f"{label} differs from the default Engine "
+                                 f"under fixed_rng")
+        last_launches[label.split()[0]] = counts
+        last_engines[label.split()[0]] = e
+
     # 6k. the command line on the card
     cli_launches = cli_phase(dev, card, slow_cli)
 
@@ -2805,6 +2970,7 @@ def main() -> int:
                          ("lit", eng_l, vp),
                          ("WavefrontRenderer", wr, w_vp),
                          ("legacy", eng_leg, vp),
+                         ("union bounce waves", last_engines["union"], vp),
                          ("synthetic_1m_2k", eng_s, s_vp),
                          ("synthetic_1m_2k bank-major", eng_bm, s_vp),
                          ("synthetic_1m_2k lit", eng_sl, s_vp)):
@@ -2852,7 +3018,10 @@ def main() -> int:
              "legacy": leg_launches, "spp4": q4_launches,
              "debug": dbg_launches, "bank_major": bm_launches,
              "perlane_shadow": perlane_launches, "banded": band_launches,
-             "ray_chunk_4096": rc_launches, "cli": cli_launches}
+             "ray_chunk_4096": rc_launches, "cli": cli_launches,
+             "union_bounce": last_launches["union"],
+             "bounce_chunk": last_launches["bounce_chunk"],
+             "sharded": last_launches["sharded"]}
     main_path = {"trace_shade_streamed": "streamed",
                  "trace_streamed": "streamed_lit",
                  "nearest_hit": "wavefront",
@@ -2880,15 +3049,18 @@ def main() -> int:
     return 0
 
 
-def d2409a5_wrappers(lib) -> dict:
-    """`cull_mask_exact`, `trace_shade_chunks` and `trace_chunks` with the
-    port's arguments, launching the kernels of commit d2409a5's library
-    `lib` (the same C entry points and arguments as now)."""
+def c69120d0_wrappers(lib) -> dict:
+    """`cull_mask_exact` and `trace_shade_chunks` with the port's
+    arguments, launching the kernels of commit 69120d0's library `lib`,
+    whose rt_cull and rt_trace_shade_union take no chunk_live or
+    grid_live (the cases time wave 0, which passes none)."""
     def ok(err, name):
         if err != 0:
             raise RuntimeError(f"earlier build's {name}: CUDA error {err}")
 
-    def cull_mask(ot, dt, valid, blo, bhi, ray_chunk):
+    def cull_mask(ot, dt, valid, blo, bhi, ray_chunk, chunk_live=None):
+        if chunk_live is not None:
+            raise ValueError("69120d0's B1 takes no chunk_live")
         dev, R, NP = ot.device, ot.shape[1], blo.shape[0]
         NC = R // ray_chunk
         mask = torch.empty((NC, NP), dtype=torch.bool, device=dev)
@@ -2900,7 +3072,10 @@ def d2409a5_wrappers(lib) -> dict:
         return mask, tmin
 
     def trace_shade(state, PK, counts, plist, ptmin, seed, page_size,
-                    ray_chunk, fixed_rng, weight_cutoff, zero_origin=False):
+                    ray_chunk, fixed_rng, weight_cutoff, zero_origin=False,
+                    chunk_live=None, grid_live=None):
+        if chunk_live is not None or grid_live is not None:
+            raise ValueError("69120d0's B2 takes no chunk_live or grid_live")
         dev = state.device
         out = torch.empty_like(state)
         s0, s1 = (int(w) for w in seed)
@@ -2913,102 +3088,68 @@ def d2409a5_wrappers(lib) -> dict:
            "rt_trace_shade_union")
         return out
 
-    def rows(ot, dt, PK, counts, plist, ptmin, page_size, ray_chunk,
-             zero_origin=False, excl=None):
-        dev, R = ot.device, ot.shape[1]
-        out = torch.empty((16, R), dtype=torch.float32, device=dev)
-        ok(lib.rt_trace_union_rows(
-            ot.data_ptr(), dt.data_ptr(), ot.stride(0), R,
-            0 if excl is None else excl.data_ptr(), PK.data_ptr(), page_size,
-            PK.shape[0], counts.data_ptr(), plist.data_ptr(),
-            ptmin.data_ptr(), int(zero_origin), ray_chunk, out.data_ptr(),
-            native.stream(dev)), "rt_trace_union_rows")
-        return out
-
-    return {"cull_mask_exact": cull_mask, "trace_shade_chunks": trace_shade,
-            "trace_chunks": rows}
+    return {"cull_mask_exact": cull_mask, "trace_shade_chunks": trace_shade}
 
 
-def d2409a5_cases(dev, key):
-    """What `--turns` times against commit d2409a5: B1, B2 and B6 (camera
-    rays on the folded pages; the lit wave 0's shadow rays with their
-    self-exclusion) on the whole wave 0 of a 2560x1440 circles_2k render
-    under live RNG at ray_chunk 1024, 2048 and 4096, and the default, lit,
-    legacy (compact=False) and ray_chunk 4096 circles_2k renders.  Returns
-    (kernel cases: label -> (wrapper name, args, kwargs, the rays compared
-    or None, the new build's outputs elsewhere or None, bitwise: False
-    compares values, as torch.equal does, so that B1's zero entries may
-    differ in sign), renderers: label -> (renderer, viewport), the live
-    rays of the inputs)."""
+def c69120d0_cases(dev, key):
+    """What `--turns` times against commit 69120d0: B1 and B2 (camera rays
+    on the folded pages, no flags: the instances wave 0 runs) on the whole
+    wave 0 of a 2560x1440 circles_2k render under live RNG at ray_chunk
+    1024, and the default circles_2k render.  Returns (kernel cases: label
+    -> (wrapper name, args, kwargs, the rays compared or None, the new
+    build's outputs elsewhere or None, bitwise: False compares values, as
+    torch.equal does, so that B1's zero entries may differ in sign),
+    renderers: label -> (renderer, viewport), the live rays of the
+    inputs)."""
     scene, vp = circles.build(resolution="2k", maxdepth=5)
     eng = Engine(scene, device=dev)
-    eng_lit = Engine(lit(circles.build(resolution="2k", maxdepth=5)[0]),
-                     device=dev)
-    eng_leg = Engine(scene, compact=False, device=dev)
-    eng_4k = Engine(scene, ray_chunk=4096, device=dev)
     P = eng.page_size
     R0 = vp.width * vp.height
-    R = -(-R0 // 4096) * 4096
+    R = -(-R0 // RB) * RB
     o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
                                                            vp.height), R, dev)
     o, pk0 = eng._pinhole_fold(vp, o)
     alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
     full0 = torch.cat([o, d, alive0, alive0,
                        torch.zeros((8, R), device=dev)], dim=0)
-    cases = {}
-    for rc in (RB, 2048, 4096):
-        at = "" if rc == RB else f" at ray_chunk {rc}"
-        a1 = (full0[0:3], full0[3:6], full0[7] != 0, eng.aabb_lo,
-              eng.aabb_hi, rc)
-        lists = page_lists(*cull.cull_mask_exact(*a1))
-        rows = intersect.trace_chunks(full0[0:3], full0[3:6], pk0, *lists, P,
-                                      rc, zero_origin=True)
-        so, sd, hit, excl = eng_mod.shadow_rays(full0, rows, key, 0, False,
-                                                LIGHT)
-        slists = page_lists(*cull.cull_mask_exact(so, sd, hit, eng.aabb_lo,
-                                                  eng.aabb_hi, rc))
-        cases.update({
-            f"B1 camera wave{at}": ("cull_mask_exact", a1, {}, None, None,
-                                    False),
-            f"B2 camera wave{at}": ("trace_shade_chunks",
-                                    (full0, pk0, *lists, fold_in(key, 0), P,
-                                     rc, False, 1 / 512),
-                                    {"zero_origin": True}, None, None, True),
-            f"B6 camera wave{at}": ("trace_chunks",
-                                    (full0[0:3], full0[3:6], pk0, *lists, P,
-                                     rc), {"zero_origin": True}, None, None,
-                                    True),
-            f"B6 shadow rays of the lit wave 0{at}": (
-                "trace_chunks", (so, sd, eng.PK, *slists, P, rc),
-                {"excl": excl}, None, None, True),
-        })
-    renders = {"circles_2k": (eng, vp), "circles_2k lit": (eng_lit, vp),
-               "circles_2k legacy": (eng_leg, vp),
-               "circles_2k ray_chunk 4096": (eng_4k, vp)}
-    live = {"camera_rays": R0, "shadow_rays": int(hit.sum()), "of": R}
-    return cases, renders, live
+    a1 = (full0[0:3], full0[3:6], full0[7] != 0, eng.aabb_lo, eng.aabb_hi,
+          RB)
+    lists = page_lists(*cull.cull_mask_exact(*a1))
+    cases = {
+        "B1 camera wave": ("cull_mask_exact", a1, {}, None, None, False),
+        "B2 camera wave": ("trace_shade_chunks",
+                           (full0, pk0, *lists, fold_in(key, 0), P, RB,
+                            False, 1 / 512),
+                           {"zero_origin": True}, None, None, True),
+    }
+    renders = {"circles_2k": (eng, vp)}
+    return cases, renders, {"camera_rays": R0, "of": R}
 
 
 #: `--turns`'s table, the one part of it that names an earlier commit:
 #: `commit`, whose csrc/ the tool builds (`git archive COMMIT
 #: rust_raytrace_tpu_torch/csrc`); `entries`, the C entry points of that
-#: build with their argument types (d2409a5's rt_cull, rt_trace_shade_union
-#: and rt_trace_union_rows take what the checkout's do); `wrap(lib)`, the
-#: port's wrappers of those entry points; `patches`, the (module, name)
-#: under which the render paths look the wrappers up; `kernels`, the kernel
-#: functions whose ptxas reports it prints; `cases(dev, key)`, what it
-#: times.  The next redesign edits this table and the functions it names,
-#: not `turns`.
+#: build with their argument types (69120d0's rt_cull and
+#: rt_trace_shade_union lack the checkout's flag pointers); `wrap(lib)`,
+#: the port's wrappers of those entry points; `patches`, the (module,
+#: name) under which the render paths look the wrappers up; `kernels`, the
+#: kernel functions whose ptxas reports it prints; `cases(dev, key)`, what
+#: it times.  The next redesign edits this table and the functions it
+#: names, not `turns`.
 TURNS_AGAINST = SimpleNamespace(
-    commit="d2409a5",
-    entries={"rt_cull": native.CULL.argtypes,
-             "rt_trace_shade_union": native.TRACE_SHADE_UNION.argtypes,
-             "rt_trace_union_rows": native.TRACE_UNION_ROWS.argtypes},
-    wrap=d2409a5_wrappers,
-    patches=((eng_mod, "cull_mask_exact"), (eng_mod, "trace_shade_chunks"),
-             (eng_mod, "trace_chunks")),
+    commit="69120d0",
+    entries={"rt_cull": native.CULL.argtypes[:9] + native.CULL.argtypes[10:],
+             "rt_trace_shade_union":
+                 native.TRACE_SHADE_UNION.argtypes[:16]
+                 + native.TRACE_SHADE_UNION.argtypes[18:]},
+    wrap=c69120d0_wrappers,
+    patches=((eng_mod, "cull_mask_exact"), (eng_mod, "trace_shade_chunks")),
     kernels=("cull_kernel", "trace_union_kernel"),
-    cases=d2409a5_cases)
+    cases=c69120d0_cases)
+
+
+#: launches a `--turns` kernel timing averages
+TURNS_REPS = 50
 
 
 @contextlib.contextmanager
@@ -3039,6 +3180,32 @@ def _words(out, rows, bitwise=True):
     return torch.cat(words)
 
 
+def scene_build() -> int:
+    """`--scene-build`: synthetic_1m_2k's host build, timed: the scene
+    (make_triangles), then its Engine on the card (the KD page order, the
+    pages and the streamed tables, uploaded)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    card = _card()
+    lib_s = None
+    if not os.environ.get("RUST_RAYTRACE_NO_NATIVE"):
+        lib_s = host_native.build()["seconds"]
+    native_ok = host_native.available()
+    t0 = time.perf_counter()
+    scene = synthetic_1m_scene()
+    t1 = time.perf_counter()
+    eng = Engine(scene, device=torch.device(DEVICE))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"synthetic_1m_2k host build ({'native scene pipeline' if native_ok else 'numpy'}, "
+          f"calls {host_native.calls}): scene {t1 - t0:.3f} s, Engine "
+          f"{t2 - t1:.3f} s, {len(scene.tris) - 1} triangles, "
+          f"{eng.pages.num_pages} pages of {eng.page_size}; the library's "
+          f"g++ build {lib_s} s [{card}]")
+    return 0
+
+
 def turns(csrc: Path, out: Path) -> int:
     """`--turns CSRC`: the kernels and renders of TURNS_AGAINST.cases in
     turns against a build of CSRC, the csrc/ of TURNS_AGAINST.commit, whose
@@ -3047,8 +3214,8 @@ def turns(csrc: Path, out: Path) -> int:
 
     Kernels: each case first checks the two builds' outputs equal bit for
     bit (on the rays the case names, the new build's other rays holding
-    the case's values), then CUDA events, 5 launches after a warm-up,
-    rounds new, earlier, new, earlier.  Renders (live RNG, key 0): best of
+    the case's values), then CUDA events, TURNS_REPS launches after a
+    warm-up, rounds new, earlier, new, earlier.  Renders (live RNG, key 0): best of
     three after a warm-up each round, the earlier build's kernels patched
     in; images byte-equal.  Prints the card, both builds' ptxas reports and
     every number, and writes them as JSON to `out`."""
@@ -3088,7 +3255,11 @@ def turns(csrc: Path, out: Path) -> int:
         if not torch.equal(a, b):
             raise AssertionError(f"{label}: the two builds differ in "
                                  f"{int((a != b).sum())} words")
-        tt = _in_turns(fns)
+        # 50 launches a timing: the first launch's wrapper time (the
+        # checkout's validates its arguments, the earlier build's bare
+        # wrapper does not) falls inside the events and would otherwise
+        # weigh on the mean
+        tt = _in_turns(fns, reps=TURNS_REPS)
         report["kernels"][label] = tt
         print(f"{label}: new {tt['new'][0]:.4f} / {tt['new'][1]:.4f} ms, "
               f"earlier {tt['earlier'][0]:.4f} / {tt['earlier'][1]:.4f} ms "
@@ -3134,6 +3305,9 @@ if __name__ == "__main__":
                          "of CSRC, the csrc/ of its commit")
     ap.add_argument("--out", type=Path, default=Path("build/turns.json"),
                     help="JSON file for --turns's numbers")
+    ap.add_argument("--scene-build", action="store_true",
+                    help="instead of the smoke run, time synthetic_1m_2k's "
+                         "host build")
     ap.add_argument("--cli", nargs=argparse.REMAINDER, metavar="ARGV",
                     help="run the command line's main(ARGV) and print, as "
                          "the last line, what run_cli returns as JSON (the "
@@ -3143,6 +3317,8 @@ if __name__ == "__main__":
         if args.cli is not None:
             print(json.dumps(run_cli(args.cli)))
             rc = 0
+        elif args.scene_build:
+            rc = scene_build()
         else:
             rc = main() if args.turns is None else turns(args.turns, args.out)
     finally:

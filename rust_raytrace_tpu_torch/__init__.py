@@ -7,7 +7,8 @@ modules it needs are copies under the same relative names.
 
 Layout (each module names its JAX counterpart):
   engine        Engine: the compacted and legacy wave loops (spp >= 1,
-                debug buffers, walk_one_ray) and their host helpers
+                debug buffers, walk_one_ray, render_banded,
+                render_sharded) and their host helpers
   cli           the command line: render, diff, tune (--device cuda|cpu)
   render        WavefrontRenderer (the portable renderer: backends
                 "kernel" = B11, "portable" = the page scan), RenderResult,
@@ -31,6 +32,9 @@ Layout (each module names its JAX counterpart):
   utils/rng     jax.random-equal threefry keys
   utils/xla_rsqrt  the host CPU's rsqrtps table
   utils/native  nvcc build + ctypes binding + launch counts of csrc/*.cu
+  utils/host_native  g++ build + ctypes binding of native/scene_pipeline.cc
+                (the JAX package's C++ scene pipeline, copied byte for byte)
+  parallel/sharding  render_sharded's image-tile data parallelism
   utils/progress  progress / run statistics (copy)
   csrc/         the CUDA kernels (sm_90a) and the rsqrt table capture (C)
 

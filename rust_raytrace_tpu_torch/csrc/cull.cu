@@ -26,9 +26,11 @@
 // Design: one block per chunk, RPT = 4 rays a thread (256 threads at
 // ray_chunk 1024, 1024 at 4096), strided by the block size so that loads
 // stay coalesced.  A chunk with no valid ray (one block-wide vote) writes
-// mask 0 and tmin +inf without a slab test, as the TPU kernel's chunk_live
-// skip does.  Pages run in tiles of 32, their boxes staged once a block in
-// shared memory.  A thread folds its four rays into one (hit, entry) per
+// mask 0 and tmin +inf without a slab test, and so does a chunk that the
+// optional chunk_live flags mark 0 (the TPU kernel's chunk_live skip: the
+// bounce waves of the union path, cull_pallas.py:271-277), before it loads
+// a ray; the kernel without flags (wave 0) is a separate instance.  Pages
+// run in tiles of 32, their boxes staged once a block in shared memory.  A thread folds its four rays into one (hit, entry) per
 // page in registers, 16 pages at a time (the hit bits a page, not a ray;
 // B1's miss entry is +inf, so its min is taken only on a hit); a
 // transposed butterfly then leaves lane l of a warp with page l's minimum
@@ -176,26 +178,38 @@ __device__ __forceinline__ bool tile_reduce(const ChunkRays& cr,
   return hit;
 }
 
-// FULL: every slot holds a ray (ray_chunk a multiple of RPT * 32).
-template <bool FULL>
+// Mask 0 and tmin +inf for every page of a chunk that hits none.
+__device__ __forceinline__ void empty_chunk(int chunk, int np,
+                                            unsigned char* __restrict__ mask,
+                                            float* __restrict__ tmin) {
+  for (int p = threadIdx.x; p < np; p += blockDim.x) {
+    mask[(long long)chunk * np + p] = 0;
+    tmin[(long long)chunk * np + p] = rt::inf_f();
+  }
+}
+
+// FULL: every slot holds a ray (ray_chunk a multiple of RPT * 32).  FLAGS:
+// chunk_live[chunk] == 0 skips the chunk.
+template <bool FULL, bool FLAGS>
 __global__ void __launch_bounds__(1024)
 cull_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
             long long ray_stride, const unsigned char* __restrict__ valid,
             const float* __restrict__ lo, const float* __restrict__ hi,
-            int np, int ray_chunk, unsigned char* __restrict__ mask,
-            float* __restrict__ tmin) {
+            int np, int ray_chunk, const int* __restrict__ chunk_live,
+            unsigned char* __restrict__ mask, float* __restrict__ tmin) {
   __shared__ TileSmem sm;
   const int chunk = blockIdx.x;
+  if (FLAGS && chunk_live[chunk] == 0) {       // a retired chunk
+    empty_chunk(chunk, np, mask, tmin);
+    return;
+  }
   const ChunkRays cr =
       load_rays<FULL>(ot, dt, ray_stride, valid, chunk, ray_chunk);
   bool mine = false;
 #pragma unroll
   for (int s = 0; s < RPT; ++s) mine |= cr.v[s];
   if (!__syncthreads_or(mine)) {               // no valid ray: no page hit
-    for (int p = threadIdx.x; p < np; p += blockDim.x) {
-      mask[(long long)chunk * np + p] = 0;
-      tmin[(long long)chunk * np + p] = rt::inf_f();
-    }
+    empty_chunk(chunk, np, mask, tmin);
     return;
   }
   for (int p0 = 0; p0 < np; p0 += TILE) {
@@ -265,15 +279,21 @@ cull_sorted_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
 
 }  // namespace
 
+// chunk_live: [nc] int flags, or null (every chunk live).
 extern "C" int rt_cull(const float* ot, const float* dt, long long ray_stride,
                        const unsigned char* valid, const float* lo,
                        const float* hi, int np, int nc, int ray_chunk,
-                       unsigned char* mask, float* tmin, void* stream) {
+                       const int* chunk_live, unsigned char* mask,
+                       float* tmin, void* stream) {
   const int threads = rt::chunk_block_fixed(ray_chunk, RPT).threads;
-  auto kernel = ray_chunk == RPT * threads ? cull_kernel<true>
-                                           : cull_kernel<false>;
+  const bool full = ray_chunk == RPT * threads;
+  auto kernel = chunk_live ? (full ? cull_kernel<true, true>
+                                   : cull_kernel<false, true>)
+                           : (full ? cull_kernel<true, false>
+                                   : cull_kernel<false, false>);
   kernel<<<nc, threads, 0, (cudaStream_t)stream>>>(
-      ot, dt, ray_stride, valid, lo, hi, np, ray_chunk, mask, tmin);
+      ot, dt, ray_stride, valid, lo, hi, np, ray_chunk, chunk_live, mask,
+      tmin);
   return (int)cudaGetLastError();
 }
 

@@ -48,6 +48,16 @@
 // kernel's at any ray_chunk.  The scatter hash keys on the ray's lane
 // within the chunk and on ray_chunk, not on the block.  B2 and B6 are one
 // template over SHADE and EXCL, so they share the page loop.
+//
+// B2's bounce waves (the union path of a scene past the resident tables'
+// cap) take the TPU kernel's two skips (intersect_pallas.py:520-545): a
+// chunk that chunk_live marks 0 passes its state through untouched, and
+// the chunks at or past the device scalar grid_live (the compacted
+// survivor prefix, clipped to at least 1 as the TPU grid is) keep their
+// bits.  Both copy the chunk's state as 32-bit words, so -0 and NaN
+// lanes survive; the host never reads grid_live.  The instance without
+// them (SKIP false: wave 0, where every chunk is live) is the program
+// above with no flag read.
 #include "common.cuh"
 
 namespace {
@@ -95,8 +105,10 @@ __device__ __forceinline__ float plane_dist(float a, float b, float c,
 // o_rows/d_rows: three rows each, row_stride floats apart.  SHADE: st is the
 // [16, R] state (its rows 0..5 are o_rows/d_rows) and out the new state;
 // otherwise out gets the [16, R] winner rows.  EXCL: excl[r] may not win.
-// RPT: the rays of the chunk each thread owns.
-template <int RPT, bool ZERO_ORIGIN, bool SHADE, bool EXCL>
+// RPT: the rays of the chunk each thread owns.  SKIP (with SHADE only):
+// the pass-through of a retired chunk (chunk_live[chunk] == 0, when
+// chunk_live is given) or of a chunk at or past *grid_live (when given).
+template <int RPT, bool ZERO_ORIGIN, bool SHADE, bool EXCL, bool SKIP>
 __global__ void __launch_bounds__(1024)
 trace_union_kernel(const float* __restrict__ o_rows,
                    const float* __restrict__ d_rows, long long row_stride,
@@ -108,10 +120,25 @@ trace_union_kernel(const float* __restrict__ o_rows,
                    const float* __restrict__ st, float* __restrict__ out,
                    uint32_t s0, uint32_t s1, bool fixed_rng,
                    float weight_cutoff, int ray_chunk,
-                   const uint32_t* __restrict__ rsq) {
+                   const uint32_t* __restrict__ rsq,
+                   const int* __restrict__ chunk_live,
+                   const int* __restrict__ grid_live) {
   extern __shared__ float4 s_page[];           // [2][P][TRI4]
   const int chunk = blockIdx.x;
   const int bd = blockDim.x;
+  if constexpr (SKIP) {
+    bool pass = chunk_live != nullptr && chunk_live[chunk] == 0;
+    if (grid_live != nullptr) pass |= chunk >= max(*grid_live, 1);
+    if (pass) {                                // the state, word for word
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(st);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(out);
+      const long long r0 = (long long)chunk * ray_chunk;
+      for (int i = 0; i < rt::STATE_ROWS; ++i)
+        for (int l = threadIdx.x; l < ray_chunk; l += bd)
+          dst[i * R + r0 + l] = src[i * R + r0 + l];
+      return;
+    }
+  }
   const int n = counts[chunk];
   const int* pl = plist + (long long)chunk * NP;
   const float* ptm = ptmin + (long long)chunk * NP;
@@ -242,15 +269,16 @@ trace_union_kernel(const float* __restrict__ o_rows,
   }
 }
 
-template <int RPT, bool ZERO_ORIGIN, bool SHADE, bool EXCL>
+template <int RPT, bool ZERO_ORIGIN, bool SHADE, bool EXCL, bool SKIP>
 int launch_rpt(const float* o_rows, const float* d_rows, long long row_stride,
                long long R, const float* excl, const float* pk, int P, int NP,
                const int* counts, const int* plist, const float* ptmin,
                const float* st, float* out, uint32_t s0, uint32_t s1,
                int fixed_rng, float weight_cutoff, int ray_chunk,
-               const uint32_t* rsq, cudaStream_t stream) {
+               const uint32_t* rsq, const int* chunk_live,
+               const int* grid_live, cudaStream_t stream) {
   const size_t smem = (size_t)2 * P * TRI4 * sizeof(float4);
-  auto kernel = trace_union_kernel<RPT, ZERO_ORIGIN, SHADE, EXCL>;
+  auto kernel = trace_union_kernel<RPT, ZERO_ORIGIN, SHADE, EXCL, SKIP>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -260,33 +288,38 @@ int launch_rpt(const float* o_rows, const float* d_rows, long long row_stride,
   const int threads = rt::chunk_block_fixed(ray_chunk, RPT).threads;
   kernel<<<nc, threads, smem, stream>>>(
       o_rows, d_rows, row_stride, R, excl, pk, P, NP, counts, plist, ptmin,
-      st, out, s0, s1, fixed_rng != 0, weight_cutoff, ray_chunk, rsq);
+      st, out, s0, s1, fixed_rng != 0, weight_cutoff, ray_chunk, rsq,
+      chunk_live, grid_live);
   return (int)cudaGetLastError();
 }
 
 // Rays a thread: 2 on folded pages (camera rays, coherent: the pairs'
 // chains of two rays interleave), 1 with ray origins (scattered rays keep
 // more warps in flight), more where 1024 threads would not hold the chunk.
-template <bool ZERO_ORIGIN, bool SHADE, bool EXCL>
+template <bool ZERO_ORIGIN, bool SHADE, bool EXCL, bool SKIP = false>
 int launch(const float* o_rows, const float* d_rows, long long row_stride,
            long long R, const float* excl, const float* pk, int P, int NP,
            const int* counts, const int* plist, const float* ptmin,
            const float* st, float* out, uint32_t s0, uint32_t s1,
            int fixed_rng, float weight_cutoff, int ray_chunk,
-           const uint32_t* rsq, cudaStream_t stream) {
+           const uint32_t* rsq, const int* chunk_live, const int* grid_live,
+           cudaStream_t stream) {
   const int base = ZERO_ORIGIN ? 2 : 1;
   const int need = (ray_chunk + 1023) / 1024;
   const int rpt = need > base ? need : base;
-  auto fn = rpt == 1 ? launch_rpt<1, ZERO_ORIGIN, SHADE, EXCL>
-                     : (rpt == 2 ? launch_rpt<2, ZERO_ORIGIN, SHADE, EXCL>
-                                 : launch_rpt<4, ZERO_ORIGIN, SHADE, EXCL>);
+  auto fn =
+      rpt == 1 ? launch_rpt<1, ZERO_ORIGIN, SHADE, EXCL, SKIP>
+               : (rpt == 2 ? launch_rpt<2, ZERO_ORIGIN, SHADE, EXCL, SKIP>
+                           : launch_rpt<4, ZERO_ORIGIN, SHADE, EXCL, SKIP>);
   return fn(o_rows, d_rows, row_stride, R, excl, pk, P, NP, counts, plist,
             ptmin, st, out, s0, s1, fixed_rng, weight_cutoff, ray_chunk, rsq,
-            stream);
+            chunk_live, grid_live, stream);
 }
 
 }  // namespace
 
+// chunk_live: [nc] int flags, or null; grid_live: a device int, or null.
+// With both null the kernel reads no flag (wave 0).
 extern "C" int rt_trace_shade_union(const float* st, float* out, long long R,
                                     const float* pk, int P, int NP,
                                     const int* counts, const int* plist,
@@ -294,12 +327,16 @@ extern "C" int rt_trace_shade_union(const float* st, float* out, long long R,
                                     unsigned s1, int fixed_rng,
                                     float weight_cutoff, int zero_origin,
                                     int ray_chunk, const unsigned* rsq,
-                                    void* stream) {
-  auto fn = zero_origin ? launch<true, true, false>
-                        : launch<false, true, false>;
+                                    const int* chunk_live,
+                                    const int* grid_live, void* stream) {
+  const bool skip = chunk_live != nullptr || grid_live != nullptr;
+  auto fn = zero_origin ? (skip ? launch<true, true, false, true>
+                                : launch<true, true, false>)
+                        : (skip ? launch<false, true, false, true>
+                                : launch<false, true, false>);
   return fn(st, st + 3 * R, R, R, nullptr, pk, P, NP, counts, plist, ptmin,
             st, out, s0, s1, fixed_rng, weight_cutoff, ray_chunk, rsq,
-            (cudaStream_t)stream);
+            chunk_live, grid_live, (cudaStream_t)stream);
 }
 
 extern "C" int rt_trace_union_rows(const float* ot, const float* dt,
@@ -314,6 +351,6 @@ extern "C" int rt_trace_union_rows(const float* ot, const float* dt,
                         : (excl ? launch<false, false, true>
                                 : launch<false, false, false>);
   return fn(ot, dt, row_stride, R, excl, pk, P, NP, counts, plist, ptmin,
-            nullptr, out, 0u, 0u, 0, 0.0f, ray_chunk, nullptr,
-            (cudaStream_t)stream);
+            nullptr, out, 0u, 0u, 0, 0.0f, ray_chunk, nullptr, nullptr,
+            nullptr, (cudaStream_t)stream);
 }

@@ -25,7 +25,7 @@ self-exclusion) -> shade (B8); a lit scene's bounce waves run B4 with the
 shadow feeler fused.
 
 A scene past the resident tables' cap (`table_slot_cap` triangle slots)
-takes the streamed regime: no cull and no pinhole fold; every wave, wave 0
+takes the streamed regime by default: no cull and no pinhole fold; every wave, wave 0
 included, runs the bank-worklist trace + shade (B9), or, with a light or
 for debug rows at wave 0, the bank-worklist trace to winner rows (B10) ->
 (lit: the shadow rays through B10's any-hit mode with self-exclusion,
@@ -41,17 +41,25 @@ the scatter vectors of jax.random.uniform; lit, its own shadow pass
 (`legacy_shadow_mask`).  The kernels run on CUDA tensors and their plain
 torch versions on CPU tensors (`device=`).
 
+With `streamed=False` such a scene keeps the union tables and no per-lane
+ones, and every bounce wave runs as wave 0 does: cull (B1, with the
+chunks whose rays have all retired flagged dead) -> sort -> union trace +
+shade (B2, which passes the dead chunks and those past the compacted
+survivor prefix through), or, lit or for debug rows, B6 rows -> the
+shadow pass -> B8.  `bounce_chunk` runs the waves from 1 on at that ray
+chunk in either loop.
+
 `render_banded` renders the image in horizontal bands of whole tiles,
 each band the same tile-major stream positions the full render emits,
-through the same wave loop.  `shadow_mask_perlane` is the per-lane branch
-of the shadow pass (B7 any-hit with self-exclusion), which the JAX wave
-loop takes only under its probe arguments; no Engine path calls it.
-
-What this engine does not run yet raises NotImplementedError naming the
-ROADMAP item that brings it: `render_sharded` (A11), bounce_chunk, and the
-union-kernel bounce waves of a scene past the cap with streamed=False.
+through the same wave loop; `render_sharded` splits the tile-order rays
+into equal shards over a list of devices (`parallel.sharding`), each
+running this wave loop under its own key.  `shadow_mask_perlane` is the
+per-lane branch of the shadow pass (B7 any-hit with self-exclusion), which
+the JAX wave loop takes only under its probe arguments; no Engine path
+calls it.
 """
 
+import copy
 import math
 import time
 from types import SimpleNamespace
@@ -85,8 +93,6 @@ from .utils.rng import fold_in, prng_key, threefry2x32, uniform
 
 F32 = np.float32
 
-#: rays whose throughput falls below this retire (0.0 under fixed_rng)
-WEIGHT_CUTOFF = 1 / 512
 #: page-table slots (pages x page size) the resident regime holds; a scene
 #: past it takes the streamed regime
 TABLE_SLOT_CAP = 262144
@@ -455,21 +461,42 @@ def quantize_u8(img: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.trunc(x), 0.0, 255.0).to(torch.uint8)
 
 
+def _check_chunks(R: int, *chunks) -> None:
+    """Every ray chunk of a render must divide its padded ray count."""
+    for rb in chunks:
+        if rb <= 0 or R % rb:
+            raise ValueError(f"ray chunk {rb} does not divide the {R} rays "
+                             f"of the render")
+
+
 class Engine(RayCaster):
     """Culled, compacted wavefront renderer.
 
     scene: a `scene.Scene`, lit when `scene.lights` is set (a shadow ray
     from every hit; see `shadow_mask`); device: where the scene and the
     rays live ("cuda" runs the kernels; "cpu" their plain versions).  The
-    other arguments mean what they mean for the JAX Engine, whose defaults
-    the port fixes: the page size adapts to the scene (auto_pages) and
-    primary rays start at the pinhole (pinhole_origin).
+    other arguments mean what they mean for the JAX Engine, with its
+    defaults.  The JAX Engine's `nbuf`, `interpret`, `gate_frac`,
+    `wave0_fused_lights`, `wave0_skippable` and `profile_skip` are TPU
+    means or were measured out on the TPU; this Engine takes none of them
+    (README, "The PyTorch/CUDA port").
+
+    weight_cutoff: a ray whose throughput falls to it retires (0.0 under
+    fixed_rng).  auto_pages: the page size adapts to the scene
+    (auto_page_size; a scene of more than table_slot_cap triangles gets
+    pages of at least STREAMED_PAGE_SIZE); False keeps page_size.
+    pinhole_origin: primary rays start at the pinhole, whose position is
+    folded into the wave-0 page scalars (`fold_pages_origin`); False keeps
+    their image-plane origins and wave 0 reads the unfolded pages.
+    bounce_chunk: the ray chunk of the waves from 1 on (0: ray_chunk); it
+    must divide the padded ray count.  The scatter hash keys on the chunk
+    and lane, so under live RNG it changes the bits, as in the JAX Engine.
 
     streamed: None (the default) takes the streamed regime exactly when the
     scene's pages do not fit the resident tables (more than MAX_BANKS banks
-    or table_slot_cap slots); True forces it on any scene.  A scene of more
-    than table_slot_cap triangles gets pages of at least
-    STREAMED_PAGE_SIZE; a smaller one the adaptive size (auto_page_size).
+    or table_slot_cap slots); True forces it on any scene; False keeps the
+    resident regime's union tables on any scene, and past the cap the
+    bounce waves run the union kernels (see the module docstring).
 
     ncompact: None (the default) compacts after waves 0 and 1 and, on a
     CUDA device, replans the schedule once from the first render's wave
@@ -495,11 +522,13 @@ class Engine(RayCaster):
                  ncompact=None, streamed=None,
                  table_slot_cap: int = TABLE_SLOT_CAP,
                  bank_major: bool = False, compact: bool = True,
-                 exact_cull: bool = True, device="cuda"):
-        if bounce_chunk != 0:
-            raise NotImplementedError(
-                "bounce_chunk != 0: ROADMAP 'Engine knobs'")
+                 exact_cull: bool = True, weight_cutoff: float = 1 / 512,
+                 auto_pages: bool = True, pinhole_origin: bool = True,
+                 device="cuda"):
         self.bank_major = bool(bank_major)
+        self.bounce_chunk = bounce_chunk
+        self.weight_cutoff = weight_cutoff
+        self.pinhole_origin = pinhole_origin
         self.compact = compact
         self.exact_cull = exact_cull
         self._auto_schedule = ncompact is None
@@ -509,9 +538,9 @@ class Engine(RayCaster):
             ncompact = tuple(bool(b) for b in ncompact)
         self.ncompact = ncompact
         n_tris = max(len(scene.tris) - 1, 1)
-        if n_tris <= table_slot_cap:
+        if auto_pages and n_tris <= table_slot_cap:
             page_size = auto_page_size(n_tris, page_size)
-        else:
+        elif auto_pages:
             # no page size fits such a scene in the resident tables
             page_size = max(page_size, STREAMED_PAGE_SIZE)
         self.pages = build_pages_kd(scene.tris, page_size=page_size)
@@ -520,20 +549,18 @@ class Engine(RayCaster):
                          and slots <= table_slot_cap)
         self.streamed = (not fits_resident) if streamed is None \
             else bool(streamed)
-        if not (self.streamed or fits_resident):
-            raise NotImplementedError(
-                f"streamed=False with {self.pages.num_pages} pages x "
-                f"{page_size}: the union-kernel bounce waves, ROADMAP A8")
-        self.device = torch.device(device)
-        dev = self.device
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
         self.PK = self.aabb_lo = self.aabb_hi = None
         #: the streamed regime's `StreamedTables` and the resident regime's
         #: `PerlaneTables` (the JAX layout and the page-major records), or
-        #: None in the other regime
+        #: None in the other regime and past the cap with streamed=False
         self.stables = self.ptables = None
         if self.streamed:
             self.stables = upload_streamed_tables(self.pages, dev)
-        else:
+        elif fits_resident:
             self.ptables = perlane_tables(*upload_perlane_tables(self.pages,
                                                                  dev))
         if not self.streamed or not self._use_compact():
@@ -552,6 +579,30 @@ class Engine(RayCaster):
         self.ray_chunk = ray_chunk
         self._perm_cache = {}
         self._pk0_cache = {}
+        self._replicas = {}
+
+    def _replica(self, dev) -> "Engine":
+        """This Engine with its tables on `dev` (itself on its own device),
+        made once a device: a shard of `render_sharded` runs there."""
+        dev = torch.device(dev)
+        if dev == self.device:
+            return self
+        if dev not in self._replicas:
+            def move(t):
+                return None if t is None else t.to(dev)
+
+            rep = copy.copy(self)
+            rep.device = dev
+            rep.PK, rep.aabb_lo, rep.aabb_hi = (
+                move(t) for t in (self.PK, self.aabb_lo, self.aabb_hi))
+            for name in ("ptables", "stables"):
+                tabs = getattr(self, name)
+                setattr(rep, name, None if tabs is None
+                        else type(tabs)(*(move(t) for t in tabs)))
+            rep._pk0_cache = {}
+            rep._replicas = {}
+            self._replicas[dev] = rep
+        return self._replicas[dev]
 
     def _use_compact(self) -> bool:
         """The compacted wave loop, or the legacy one (the JAX
@@ -578,7 +629,10 @@ class Engine(RayCaster):
         """Re-anchor primary rays at the pinhole and fold it into the page
         scalars (cached per camera).  Returns (o, pk0); pk0 is None when
         the render reads no union pages at wave 0 (the streamed regime's
-        compacted loop: its kernels take the true origins)."""
+        compacted loop: its kernels take the true origins), and (o, None)
+        as given with pinhole_origin=False."""
+        if not self.pinhole_origin:
+            return o, None
         cam = torch.from_numpy(np.asarray(v.cam, F32).copy()).to(self.device)
         o = cam[:, None].expand(o.shape).contiguous()
         if self.PK is None:
@@ -589,69 +643,57 @@ class Engine(RayCaster):
         return o, self._pk0_cache[cam_key]
 
     def _render_waves(self, state, key, maxdepth: int, fixed_rng: bool, pk0,
-                      ray_chunk=None, ncompact=None,
+                      ray_chunk=None, bounce_chunk=None, ncompact=None,
                       want_primary: bool = False):
         """The wave loop of _render_device_compact.  Returns (accumulated
         color [3, R] in the original lane order, per-wave live counts as
         tensors, primary [2, R] rows (t, id) of wave 0 or None, cull0 =
         wave 0's (counts, plist) or None).  want_primary runs wave 0
         unfused (trace to winner rows, then B8) and keeps its rows and, in
-        the resident regime, its page lists.  No host sync: counts, offsets
-        and prefixes stay on the device (the plain versions on the CPU do
+        the resident regime, its page lists.  ray_chunk and bounce_chunk
+        default to the Engine's.  No host sync: counts, offsets and
+        prefixes stay on the device (the plain versions on the CPU do
         sync)."""
         R = state.shape[1]
         RB = self.ray_chunk if ray_chunk is None else ray_chunk
-        P = self.page_size
+        rb_bounce = (self.bounce_chunk if bounce_chunk is None
+                     else bounce_chunk) or RB
+        _check_chunks(R, RB, rb_bounce)
         cb = pick_cb(R)
-        wc = 0.0 if fixed_rng else WEIGHT_CUTOFF
+        wc = 0.0 if fixed_rng else self.weight_cutoff
         dev = state.device
         dead_arr = dead_base = None
         prefix = None          # lane extent of the state's content (None: R)
+        grid_live = None       # its chunks at the bounce chunk (None: all)
         boundaries = []        # (meta, masks, prefix before the boundary)
         wave_counts = []
         primary = cull0 = None
         for wave in range(maxdepth):
+            rb_w = rb_bounce if wave else RB
             alive = state[ROW_ALIVE] != 0.0
             wave_counts.append(alive.sum(dtype=torch.int32))
             seed = fold_in(key, wave)
             # chunks whose rays have all retired pass through
-            chunk_live = (alive.reshape(R // RB, RB).any(dim=1)
+            chunk_live = (alive.reshape(R // rb_w, rb_w).any(dim=1)
                           .to(torch.int32) if wave else
-                          torch.ones(R // RB, dtype=torch.int32, device=dev))
+                          torch.ones(R // rb_w, dtype=torch.int32, device=dev))
             if self.streamed:
                 state, rows = self._streamed_wave(
-                    state, key, wave, seed, fixed_rng, wc, chunk_live, RB,
+                    state, key, wave, seed, fixed_rng, wc, chunk_live, rb_w,
                     want_primary and wave == 0)
-            elif wave == 0:
-                mask, tmin = cull_mask_exact(state[0:3], state[3:6], alive,
-                                             self.aabb_lo, self.aabb_hi, RB)
-                counts, plist, ptmin = page_lists(mask, tmin)
-                zo = pk0 is not None
-                pk = pk0 if zo else self.PK
-                rows = None
-                if self.light is None and not want_primary:
-                    state = trace_shade_chunks(state, pk, counts, plist,
-                                               ptmin, seed, P, RB, fixed_rng,
-                                               wc, zero_origin=zo)
-                else:
-                    # unfused: the shadow pass (lit) runs between trace and
-                    # shade, and debug keeps the rows
-                    rows = trace_chunks(state[0:3], state[3:6], pk, counts,
-                                        plist, ptmin, P, RB, zero_origin=zo)
-                    shd = None
-                    if self.light is not None:
-                        shd = shadow_mask(state, rows, key, wave, fixed_rng,
-                                          self.light, self.aabb_lo,
-                                          self.aabb_hi, self.PK, P, RB)
-                    state = shade(state, rows, seed, RB, fixed_rng, wc,
-                                  chunk_live, shd)
-                if want_primary:
-                    cull0 = (counts, plist)
+            elif wave == 0 or self.ptables is None:
+                state, rows, cull = self._union_wave(
+                    state, key, wave, seed, fixed_rng, wc, pk0,
+                    chunk_live if wave else None,
+                    grid_live if wave else None, rb_w,
+                    want_primary and wave == 0)
+                if want_primary and wave == 0:
+                    cull0 = cull
             else:
                 rows = None
                 state = trace_shade_perlane(
-                    state, self.ptables, seed, P, RB, fixed_rng, wc,
-                    chunk_live, self.light)
+                    state, self.ptables, seed, self.page_size, rb_w,
+                    fixed_rng, wc, chunk_live, self.light)
             if want_primary and wave == 0:
                 primary = rows[ROW_T:ROW_ID + 1]
             if not self._compacts_after(wave, maxdepth, ncompact):
@@ -671,12 +713,60 @@ class Engine(RayCaster):
                    if prefix is None else prefix)
             prefix = torch.where(skip, old, total_a)
             dead_base = torch.where(skip, dead_base, dead_end)
+            # the next waves' chunks of the survivor prefix (the JAX loop's
+            # grid_live, planned at the bounce chunk)
+            nc_next = R // rb_bounce
+            old_nc = (torch.full((), nc_next, dtype=torch.int32, device=dev)
+                      if grid_live is None else grid_live)
+            grid_live = torch.where(
+                skip, old_nc, torch.clamp((total_a + rb_bounce - 1)
+                                          // rb_bounce, max=nc_next)
+            ).to(torch.int32)
         # rows 8..11 (accum + retired flag) back to the original lanes; each
         # step writes only the prefix the next one reads, the last all lanes
         y = state[ROW_ACC:ROW_ACC + 4]
         for meta, masks, before in reversed(boundaries):
             y = expand(y, dead_arr, masks, meta, cb, grid_live=before)
         return y[0:3], wave_counts, primary, cull0
+
+    def _union_wave(self, state, key, wave: int, seed, fixed_rng: bool,
+                    wc: float, pk0, chunk_live, grid_live, RB: int,
+                    want_rows: bool):
+        """One wave over the union tables: the resident regime's wave 0, and
+        every wave of a scene past the cap with streamed=False.  Cull (B1),
+        a stable sort, then B2, or with a light, or when the rows are wanted
+        (debug), B6 to winner rows, the shadow pass (lit) and B8.  Wave 0
+        runs on the folded pages when pk0 is given, and takes no skip flags
+        (chunk_live and grid_live None: B1 and B2 without them); a bounce
+        wave's retired chunks and those past the survivor prefix pass
+        through.  Returns (state, rows or None, (counts, plist))."""
+        P = self.page_size
+        alive = state[ROW_ALIVE] != 0.0
+        mask, tmin = cull_mask_exact(state[0:3], state[3:6], alive,
+                                     self.aabb_lo, self.aabb_hi, RB,
+                                     chunk_live=chunk_live)
+        counts, plist, ptmin = page_lists(mask, tmin)
+        zo = wave == 0 and pk0 is not None
+        pk = pk0 if zo else self.PK
+        if self.light is None and not want_rows:
+            state = trace_shade_chunks(state, pk, counts, plist, ptmin, seed,
+                                       P, RB, fixed_rng, wc, zero_origin=zo,
+                                       chunk_live=chunk_live,
+                                       grid_live=grid_live)
+            return state, None, (counts, plist)
+        # unfused: the shadow pass (lit) runs between trace and shade, and
+        # debug keeps the rows
+        rows = trace_chunks(state[0:3], state[3:6], pk, counts, plist, ptmin,
+                            P, RB, zero_origin=zo)
+        shd = None
+        if self.light is not None:
+            shd = shadow_mask(state, rows, key, wave, fixed_rng, self.light,
+                              self.aabb_lo, self.aabb_hi, self.PK, P, RB)
+        if chunk_live is None:
+            chunk_live = torch.ones(state.shape[1] // RB, dtype=torch.int32,
+                                    device=state.device)
+        state = shade(state, rows, seed, RB, fixed_rng, wc, chunk_live, shd)
+        return state, rows, (counts, plist)
 
     def _streamed_wave(self, state, key, wave: int, seed, fixed_rng: bool,
                        wc: float, chunk_live, RB: int, want_rows: bool):
@@ -706,19 +796,22 @@ class Engine(RayCaster):
         Each wave: the masked rays, a cull (B1; with exact_cull=False the
         chunk-bound cull at wave 0 and the octant cull after), a stable
         sort, B6 to winner rows (zero_origin on the folded pages at wave
-        0), the shadow pass when lit, `shade_rows`, and the weight cutoff.
-        Returns (accum [3, R], wave counts, primary [2, R] or None)."""
+        0), the shadow pass when lit, `shade_rows`, and the weight cutoff;
+        the waves from 1 on at the bounce chunk.  Returns (accum [3, R],
+        wave counts, primary [2, R] or None)."""
         R = o.shape[1]
-        RB = self.ray_chunk
         P = self.page_size
         dev = o.device
-        wc = 0.0 if fixed_rng else WEIGHT_CUTOFF
+        wc = 0.0 if fixed_rng else self.weight_cutoff
+        _check_chunks(R, self.ray_chunk, self.bounce_chunk or self.ray_chunk)
         accum = torch.zeros((3, R), dtype=torch.float32, device=dev)
         weight = torch.ones((R,), dtype=torch.float32, device=dev)
         alive = alive0
         wave_counts = []
         primary = None
         for wave in range(maxdepth):
+            RB = self.ray_chunk if wave == 0 or not self.bounce_chunk \
+                else self.bounce_chunk
             wave_counts.append(alive.sum(dtype=torch.int32))
             o_m = torch.where(alive[None], o, 0.0)
             d_m = torch.where(alive[None], d, 0.0)
@@ -776,7 +869,7 @@ class Engine(RayCaster):
         o, pk0 = self._pinhole_fold(v, o)
         alive0 = torch.arange(R, device=dev) < R0
         img, wave_counts, primary, cull0 = self._dispatch(
-            v, o, d, alive0, key, fixed_rng, debug, quant, pk0)
+            v.maxdepth, spp, o, d, alive0, key, fixed_rng, debug, quant, pk0)
         img_h = img.cpu().numpy()
         wave_counts = torch.stack(wave_counts).cpu().numpy()
         perm = self._perm(v, tile)
@@ -809,13 +902,14 @@ class Engine(RayCaster):
         quantum = max(self.ray_chunk, 128)
         return quantum * spp // math.gcd(quantum, spp)
 
-    def _dispatch(self, v: Viewport, o, d, alive0, key, fixed_rng: bool,
-                  debug: bool, quant: bool, pk0):
+    def _dispatch(self, maxdepth: int, spp: int, o, d, alive0, key,
+                  fixed_rng: bool, debug: bool, quant: bool, pk0):
         """The device render of prepared rays (JAX: `_dispatch_device`),
-        shared by render() and render_banded(): the compacted or the legacy
-        wave loop, then on the device the box filter and u8 quantization
-        where quant.  Returns (image [3, R] float32 or [3, R // spp] u8,
-        per-wave live counts as tensors, primary rows or None, cull0)."""
+        shared by render(), render_banded() and each shard of
+        render_sharded(): the compacted or the legacy wave loop, then on
+        the device the box filter and u8 quantization where quant.  Returns
+        (image [3, R] float32 or [3, R // spp] u8, per-wave live counts as
+        tensors, primary rows or None, cull0)."""
         cull0 = None
         if self._use_compact():
             R = o.shape[1]
@@ -825,13 +919,13 @@ class Engine(RayCaster):
                  torch.zeros((STATE_ROWS - ROW_ACC, R), dtype=torch.float32,
                              device=o.device)], dim=0)
             img, wave_counts, primary, cull0 = self._render_waves(
-                state, key, v.maxdepth, fixed_rng, pk0, want_primary=debug)
+                state, key, maxdepth, fixed_rng, pk0, want_primary=debug)
         else:
             img, wave_counts, primary = self._render_legacy(
-                o, d, alive0, key, v.maxdepth, fixed_rng, pk0, debug)
+                o, d, alive0, key, maxdepth, fixed_rng, pk0, debug)
         if quant:
-            if v.samples_per_pixel > 1:
-                img = box_filter(img, v.samples_per_pixel)
+            if spp > 1:
+                img = box_filter(img, spp)
             img = quantize_u8(img)
         return img, wave_counts, primary, cull0
 
@@ -869,7 +963,8 @@ class Engine(RayCaster):
         """Single-pixel probe (Viewport::walk_one_ray, raytrace.rs:1442-1455)
         through the compacted wave loop: the pixel's ray (its image-plane
         origin, no pinhole fold) rides lane 0 of one 128-lane chunk, with
-        ray_chunk 128 and a compaction after every wave but the last, the
+        ray_chunk 128 on every wave (bounce_chunk too, as in JAX) and a
+        compaction after every wave but the last, the
         wave 0 unfused, and the scene's shadow pass when lit.  Under
         fixed_rng (the default) the probed pixel equals render()'s bitwise;
         with live RNG it is an independent sample (the scatter hash keys on
@@ -885,7 +980,7 @@ class Engine(RayCaster):
         state[ROW_W:ROW_ALIVE + 1, 0] = 1.0          # weight, alive
         img, wave_counts, primary, _ = self._render_waves(
             state, key, v.maxdepth, fixed_rng, None, ray_chunk=R,
-            ncompact=-1, want_primary=True)
+            bounce_chunk=0, ncompact=-1, want_primary=True)
         wave_rays = torch.stack(wave_counts).cpu().numpy()
         primary_h = primary.cpu().numpy()
         return RenderResult(
@@ -939,8 +1034,9 @@ class Engine(RayCaster):
             o, d = camera_rays_tiled(v, tile, Rpad, dev, key, q_base=q0)
             o, pk0 = self._pinhole_fold(v, o)
             alive0 = torch.arange(Rpad, device=dev) < Rb0
-            img, wc, _, _ = self._dispatch(v, o, d, alive0, fold_in(key, bi),
-                                           fixed_rng, False, quant, pk0)
+            img, wc, _, _ = self._dispatch(v.maxdepth, spp, o, d, alive0,
+                                           fold_in(key, bi), fixed_rng, False,
+                                           quant, pk0)
             band = SimpleNamespace(height=bh, width=v.width)
             out[r0:r0 + bh] = _assemble_host_image(
                 img.cpu().numpy(), band, perm_full[q0:q0 + Rb0] - q0, spp,
@@ -960,5 +1056,55 @@ class Engine(RayCaster):
                 progress._stat(f"Wave{i}Rays", "count").add(int(n))
         return result
 
-    def render_sharded(self, v: Viewport, **kw):
-        raise NotImplementedError("render_sharded: ROADMAP A11")
+    def render_sharded(self, v: Viewport, mesh=None, n_devices=None,
+                       key=None, fixed_rng: bool = False, progress=None,
+                       debug: bool = False,
+                       quantize: bool = True) -> RenderResult:
+        """Render `v` data-parallel over image tiles
+        (`parallel.sharding.engine_render_sharded`): the tile-order rays in
+        equal shards over `mesh`, a list of devices (default:
+        `make_mesh(n_devices)` of this Engine's device type), each shard
+        through this Engine's own wave loop under the key fold_in(key,
+        shard index).  Under fixed_rng the image is byte-equal to render()'s
+        at any shard count; under live RNG each shard's scatter keys on its
+        own compacted layout, as on the JAX package's mesh.  debug returns
+        the primary t and id buffers (each shard records its wave-0 slice),
+        as render() assembles them; the wave counts are summed over the
+        shards.  No autotune: the schedule is the Engine's."""
+        from .parallel.sharding import engine_render_sharded, make_mesh
+
+        if mesh is None:
+            mesh = make_mesh(n_devices, None if self.device.type == "cuda"
+                             else [self.device])
+        n = len(mesh)
+        key = prng_key(0) if key is None else np.asarray(key, np.uint32)
+        spp = v.samples_per_pixel
+        t0 = time.perf_counter()
+
+        tile = pick_tile(v.width, v.height)
+        R0 = v.height * v.width * spp
+        # each shard: whole chunks, 128-lane groups and sample groups
+        quantum = n * self._quantum(spp)
+        R = -(-R0 // quantum) * quantum
+        quant = quantize and device_quantizable(spp)
+        o, d = camera_rays_tiled(v, tile, R, self.device, key)
+        o, pk0 = self._pinhole_fold(v, o)
+        alive0 = torch.arange(R, device=self.device) < R0
+        img, wave_counts, primary = engine_render_sharded(
+            self, o, d, alive0, key, mesh, v.maxdepth, fixed_rng=fixed_rng,
+            spp=spp, pk0=pk0, quantize=quant, want_primary=debug)
+        perm = self._perm(v, tile)
+        img = _assemble_host_image(img.cpu().numpy(), v, perm, spp, quant,
+                                   want_u8=quantize and not quant)
+        pt = pid = None
+        if debug:
+            pt, pid, _, _ = self._debug_buffers(v, perm, primary, None,
+                                                self.ray_chunk)
+        wave_counts = wave_counts.cpu().numpy()
+        result = RenderResult(image=img, rays_traced=int(wave_counts.sum()),
+                              wave_rays=wave_counts, primary_t=pt,
+                              primary_id=pid,
+                              seconds=time.perf_counter() - t0)
+        if progress is not None:
+            progress.update_wavefront(result)
+        return result

@@ -1,8 +1,10 @@
 """Triangle primitive tables and procedural geometry.
 
 The torch port's copy of `rust_raytrace_tpu/geometry.py`: numpy only, so the
-port imports nothing of the JAX package. The C++ fast path of
-`make_triangles` is not carried: the port always takes the numpy path.
+port imports nothing of the JAX package.  `make_triangles` takes the C++
+fast path of its own copy of the scene pipeline (`utils/host_native`) for
+parts of 1,024 or more triangles whenever the library loads, as the JAX
+package does, so both packages build a scene with the same bits.
 
 The reference's `Triangle` (`raytrace_lib/src/raytrace.rs:326-337`) is stored in
 a precomputed intersection-friendly form — NOT as three vertices:
@@ -89,6 +91,19 @@ def make_triangles(points: np.ndarray, surface: Surface,
     points = np.asarray(points, dtype=F32)
     n = points.shape[0]
 
+    # C++ fast path (the same math; its float bits are the JAX package's)
+    from .utils import host_native
+    if n >= 1024 and host_native.available():
+        nat = host_native.make_triangles_native(points)
+        if nat is not None:
+            incenter, norm, sides, side_lens, bounding_r2 = nat
+            return TriangleArrays(
+                corners=points, incenter=incenter, norm=norm,
+                bounding_r2=bounding_r2, sides=sides, side_lens=side_lens,
+                edge_thickness=np.full(n, edge_thickness, dtype=F32),
+                materials=MaterialTable.broadcast(surface, n),
+            )
+
     a, b, c = points[:, 0], points[:, 1], points[:, 2]
     incenter = (a + b + c) / F32(3.0)
 
@@ -134,45 +149,54 @@ def make_sphere(orig, r: float, lat_lon, surface: Surface,
     half-cell `smudge` on odd rows and the pole rows emitting only one triangle
     per cell.  (The reference's per-triangle debug `println!` spam at
     raytrace.rs:514-516 is intentionally not reproduced.)
+
+    The JAX package builds each cell with float32 scalars in a loop over
+    rows and columns; here each row is one set of float32 array operations
+    over its columns: the same operations element by element, so the same
+    bits (tests/test_torch_host_native.py), ~100x faster at the 708x708
+    sphere of synthetic_1m_2k.
     """
     orig = np.asarray(orig, dtype=F32)
     num_lat, num_lon = lat_lon
     assert num_lat % 2 == 0
 
-    tris = []
+    rows = []
     frac_pi_2 = F32(np.pi / 2)
+    lon = np.arange(num_lon, dtype=F32)
     for lat_idx in range(num_lat):
-        for lon_idx in range(num_lon):
-            if lat_idx % 2 == 0:
-                phi1 = -(F32(lat_idx) / F32(num_lat) * PI - frac_pi_2)
-                phi23 = -(F32(lat_idx + 1) / F32(num_lat) * PI - frac_pi_2)
-            else:
-                phi1 = -(F32(lat_idx + 1) / F32(num_lat) * PI - frac_pi_2)
-                phi23 = -(F32(lat_idx) / F32(num_lat) * PI - frac_pi_2)
+        if lat_idx % 2 == 0:
+            phi1 = -(F32(lat_idx) / F32(num_lat) * PI - frac_pi_2)
+            phi23 = -(F32(lat_idx + 1) / F32(num_lat) * PI - frac_pi_2)
+        else:
+            phi1 = -(F32(lat_idx + 1) / F32(num_lat) * PI - frac_pi_2)
+            phi23 = -(F32(lat_idx) / F32(num_lat) * PI - frac_pi_2)
 
-            smudge = F32(0.0) if lat_idx % 2 == 0 else F32(0.5)
-            theta1 = (F32(lon_idx) + smudge) / F32(num_lon) * 2 * PI
-            theta2 = (F32(lon_idx) + F32(0.5) + smudge) / F32(num_lon) * 2 * PI
-            theta3 = (F32(lon_idx) - F32(0.5) + smudge) / F32(num_lon) * 2 * PI
-            theta4 = (F32(lon_idx) + F32(1.0) + smudge) / F32(num_lon) * 2 * PI
+        smudge = F32(0.0) if lat_idx % 2 == 0 else F32(0.5)
+        theta1 = (lon + smudge) / F32(num_lon) * 2 * PI
+        theta2 = (lon + F32(0.5) + smudge) / F32(num_lon) * 2 * PI
+        theta3 = (lon - F32(0.5) + smudge) / F32(num_lon) * 2 * PI
+        theta4 = (lon + F32(1.0) + smudge) / F32(num_lon) * 2 * PI
 
-            def at(phi, theta):
-                sphi, cphi = np.sin(phi, dtype=F32), np.cos(phi, dtype=F32)
-                return orig + np.asarray(
-                    [r * sphi,
-                     r * cphi * np.cos(theta, dtype=F32),
-                     r * cphi * np.sin(theta, dtype=F32)], dtype=F32)
+        def at(phi, theta):
+            sphi, cphi = np.sin(phi, dtype=F32), np.cos(phi, dtype=F32)
+            return orig + np.stack(
+                [np.full(theta.shape, r * sphi),
+                 r * cphi * np.cos(theta, dtype=F32),
+                 r * cphi * np.sin(theta, dtype=F32)], axis=-1).astype(F32)
 
-            p1 = at(phi1, theta1)
-            p4 = at(phi1, theta4)
-            p2 = at(phi23, theta2)
-            p3 = at(phi23, theta3)
+        p1 = at(phi1, theta1)
+        p4 = at(phi1, theta4)
+        p2 = at(phi23, theta2)
+        p3 = at(phi23, theta3)
 
-            tris.append([p1, p2, p3])
-            if lat_idx != 0 and lat_idx != num_lat - 1:
-                tris.append([p1, p2, p4])
+        # a cell's triangles in the loop's order: (p1, p2, p3), then
+        # (p1, p2, p4) off the pole rows
+        cell = [np.stack([p1, p2, p3], axis=1)]
+        if lat_idx != 0 and lat_idx != num_lat - 1:
+            cell.append(np.stack([p1, p2, p4], axis=1))
+        rows.append(np.stack(cell, axis=1).reshape(-1, 3, 3))
 
-    return make_triangles(np.asarray(tris, dtype=F32), surface, edge_thickness)
+    return make_triangles(np.concatenate(rows), surface, edge_thickness)
 
 
 def make_disk(orig, norm, r: float, d: float, num_tris: int,

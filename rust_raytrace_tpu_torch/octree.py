@@ -2,10 +2,10 @@
 "BoundingBox" spatial index (raytrace_lib/src/raytrace.rs:612-1101).
 
 The torch port's copy of `rust_raytrace_tpu/octree.py`: numpy only, so the
-port imports nothing of the JAX package.  The C++ build of the JAX package
-(native/scene_pipeline.cc) is not carried: the port always builds the tree
-with the vectorized numpy build, which that package keeps as its fallback
-and test oracle.
+port imports nothing of the JAX package.  `build_bounding_box` takes the
+C++ build of the port's own copy of the scene pipeline (`utils/host_native`)
+when the library loads, as the JAX package does; the vectorized numpy build
+is the fallback and test oracle.
 
 The production TPU render path does NOT traverse this tree (divergent per-ray
 tree walks don't map to a 8x128 SIMD machine); it uses KD pages + packet
@@ -153,16 +153,48 @@ def box_contains_polygon(orig, len2, tris: TriangleArrays,
 
 
 def build_bounding_box(tris: TriangleArrays, orig, len2: float,
-                       maxdepth: int, minobjs: int) -> Octree:
+                       maxdepth: int, minobjs: int,
+                       use_native: bool = True) -> Octree:
     """Reference `build_bounding_box` (raytrace.rs:790-845): triangles 1..N-1
     filtered recursively into octants; leaf when < minobjs or depth maxed.
+
+    Uses the C++ build (`utils/host_native`) when use_native and the
+    library loads; the vectorized-numpy build below is the fallback.
     """
+    if use_native:
+        from .utils import host_native
+        if host_native.available():
+            flat = host_native.build_octree_native(tris, orig, len2, maxdepth,
+                                                   minobjs)
+            if flat is not None:
+                if flat["root"] < 0:
+                    raise ValueError("no triangles inside the root box")
+                return _from_flat(flat, flat["root"])
+
     refvec = np.arange(1, len(tris), dtype=np.int64)
     node = _build_helper(tris, refvec, np.asarray(orig, dtype=F32),
                          F32(len2), 0, maxdepth, minobjs)
     if node is None:
         raise ValueError("no triangles inside the root box")
     return node
+
+
+def _from_flat(flat: dict, i: int) -> Octree:
+    """The Octree of node i of the native build's flat arrays."""
+    if flat["num_children"][i] == 0:
+        s = int(flat["leaf_start"][i])
+        c = int(flat["leaf_count"][i])
+        return Octree(orig=flat["node_orig"][i].copy(),
+                      len2=float(flat["node_len2"][i]),
+                      depth=int(flat["node_depth"][i]),
+                      tri_indices=flat["leaf_tris"][s:s + c].copy())
+    cs = int(flat["children_start"][i])
+    nc = int(flat["num_children"][i])
+    kids = [_from_flat(flat, int(flat["child_indices"][cs + j]))
+            for j in range(nc)]
+    return Octree(orig=flat["node_orig"][i].copy(),
+                  len2=float(flat["node_len2"][i]),
+                  depth=int(flat["node_depth"][i]), children=kids)
 
 
 def _build_helper(tris, objs, orig, len2, depth, maxdepth, minobjs):

@@ -70,24 +70,30 @@ def _chunk_page_reduce(ot, dt, valid, blo, bhi, ray_chunk: int,
     return mask, emin
 
 
-def cull_mask_exact_plain(ot, dt, valid, blo, bhi, ray_chunk: int):
+def cull_mask_exact_plain(ot, dt, valid, blo, bhi, ray_chunk: int,
+                          chunk_live=None):
     """Plain torch version of `cull_mask_exact`."""
     mask, emin = _chunk_page_reduce(ot, dt, valid, blo, bhi, ray_chunk,
                                     torch.inf)
+    if chunk_live is not None:
+        mask = mask & (chunk_live != 0)[:, None]
     return mask, torch.where(mask, emin, torch.inf)
 
 
-def cull_mask_exact(ot, dt, valid, blo, bhi, ray_chunk: int):
+def cull_mask_exact(ot, dt, valid, blo, bhi, ray_chunk: int,
+                    chunk_live=None):
     """Which pages each ray chunk can hit, and its nearest entry distance.
 
     ot, dt: [3, R] float32 (rows of the ray state are fine: the last dim
-    must be contiguous); valid: [R] bool; blo/bhi: [NP, 3] page AABBs.
-    Returns ([NC, NP] bool mask, [NC, NP] float32 tmin, +inf on a miss),
-    NC = R // ray_chunk.
+    must be contiguous); valid: [R] bool; blo/bhi: [NP, 3] page AABBs;
+    chunk_live: optional [NC] int32 flags, a chunk marked 0 gets an empty
+    mask with no slab test (None: every chunk live).  Returns ([NC, NP]
+    bool mask, [NC, NP] float32 tmin, +inf on a miss), NC = R // ray_chunk.
     """
     dev = ot.device
     if dev.type == "cpu":
-        return cull_mask_exact_plain(ot, dt, valid, blo, bhi, ray_chunk)
+        return cull_mask_exact_plain(ot, dt, valid, blo, bhi, ray_chunk,
+                                     chunk_live)
     native.require(dev.type == "cuda",
                    f"cull_mask_exact: no kernel for device {dev}")
     R = ot.shape[1]
@@ -101,10 +107,14 @@ def cull_mask_exact(ot, dt, valid, blo, bhi, ray_chunk: int):
     native.check_tensor("blo", blo, dev, (NP, 3), torch.float32)
     native.check_tensor("bhi", bhi, dev, (NP, 3), torch.float32)
     NC = R // ray_chunk
+    if chunk_live is not None:
+        native.check_tensor("chunk_live", chunk_live, dev, (NC,),
+                            torch.int32)
     mask = torch.empty((NC, NP), dtype=torch.bool, device=dev)
     tmin = torch.empty((NC, NP), dtype=torch.float32, device=dev)
     native.CULL(ot.data_ptr(), dt.data_ptr(), ot.stride(0), valid.data_ptr(),
                 blo.data_ptr(), bhi.data_ptr(), NP, NC, ray_chunk,
+                0 if chunk_live is None else chunk_live.data_ptr(),
                 mask.data_ptr(), tmin.data_ptr(), native.stream(dev))
     return mask, tmin
 

@@ -204,12 +204,36 @@ def _trace_chunk_block(ot, dt, PK, counts, plist, ptmin, RB: int,
 
 def trace_shade_chunks_plain(state, PK, counts, plist, ptmin, seed,
                              page_size: int, ray_chunk: int, fixed_rng: bool,
-                             weight_cutoff: float, zero_origin: bool = False):
-    """Plain torch version of `trace_shade_chunks`."""
+                             weight_cutoff: float, zero_origin: bool = False,
+                             chunk_live=None, grid_live=None):
+    """Plain torch version of `trace_shade_chunks`: the passed-through
+    chunks keep their state by a select, which copies bits."""
+    skip = skipped_chunks(state.shape[1] // ray_chunk, chunk_live, grid_live,
+                          state.device)
+    if skip is not None:
+        counts = torch.where(skip, 0, counts)      # no page to trace
     rows = trace_chunks_plain(state[0:3], state[3:6], PK, counts, plist,
                               ptmin, ray_chunk, zero_origin)
-    return shade_chunks_plain(state, rows, seed, ray_chunk, fixed_rng,
-                              weight_cutoff)
+    out = shade_chunks_plain(state, rows, seed, ray_chunk, fixed_rng,
+                             weight_cutoff)
+    if skip is None:
+        return out
+    keep = skip.repeat_interleave(ray_chunk)[None]
+    return torch.where(keep, state, out)
+
+
+def skipped_chunks(NC: int, chunk_live, grid_live, device):
+    """[NC] bool, the chunks B2 passes through: those chunk_live marks 0
+    and those at or past grid_live (at least 1, as the TPU kernel's grid);
+    None when neither is given."""
+    if chunk_live is None and grid_live is None:
+        return None
+    skip = torch.zeros(NC, dtype=torch.bool, device=device)
+    if chunk_live is not None:
+        skip |= chunk_live == 0
+    if grid_live is not None:
+        skip |= torch.arange(NC, device=device) >= grid_live.clamp(min=1)
+    return skip
 
 
 def shade_chunks_plain(state, rows, seed, ray_chunk: int, fixed_rng: bool,
@@ -235,20 +259,26 @@ def _check_lists(PK, counts, plist, ptmin, page_size: int, NC: int, dev):
 
 def trace_shade_chunks(state, PK, counts, plist, ptmin, seed,
                        page_size: int, ray_chunk: int, fixed_rng: bool,
-                       weight_cutoff: float, zero_origin: bool = False):
+                       weight_cutoff: float, zero_origin: bool = False,
+                       chunk_live=None, grid_live=None):
     """One wave over culled page lists: trace, shade and state update.
 
     state: [16, R] float32 ray state (ops/state.py; with zero_origin, rows
     0..2 hold the true origin the shade needs, and PK is the folded copy);
     PK: [NP, P, 128] packed pages; counts: [NC] int32; plist: [NC, NP]
     int32, pages front to back; ptmin: [NC, NP] float32 matching entry
-    bounds; seed: the wave's two uint32 key words.  Returns the new state.
+    bounds; seed: the wave's two uint32 key words.  The bounce waves' skips
+    (both None at wave 0): chunk_live, optional [NC] int32 flags, a chunk
+    marked 0 passes its state through untouched; grid_live, an optional
+    int32 scalar tensor on the state's device, the chunks at or past it
+    (at least 1) keep their state bits.  Returns the new state.
     """
     dev = state.device
     if dev.type == "cpu":
         return trace_shade_chunks_plain(state, PK, counts, plist, ptmin, seed,
                                         page_size, ray_chunk, fixed_rng,
-                                        weight_cutoff, zero_origin)
+                                        weight_cutoff, zero_origin,
+                                        chunk_live, grid_live)
     native.require(dev.type == "cuda",
                    f"trace_shade_chunks: no kernel for device {dev}")
     R = state.shape[1]
@@ -257,13 +287,20 @@ def trace_shade_chunks(state, PK, counts, plist, ptmin, seed,
     native.check_ray_chunk(R, ray_chunk)
     native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
     _check_lists(PK, counts, plist, ptmin, page_size, NC, dev)
+    if chunk_live is not None:
+        native.check_tensor("chunk_live", chunk_live, dev, (NC,),
+                            torch.int32)
+    if grid_live is not None:
+        native.check_tensor("grid_live", grid_live, dev, (), torch.int32)
     out = torch.empty_like(state)
     s0, s1 = (int(w) for w in seed)
     native.TRACE_SHADE_UNION(
         state.data_ptr(), out.data_ptr(), R, PK.data_ptr(), page_size, NP,
         counts.data_ptr(), plist.data_ptr(), ptmin.data_ptr(), s0, s1,
         int(fixed_rng), float(weight_cutoff), int(zero_origin), ray_chunk,
-        xla_rsqrt.device_table(dev).data_ptr(), native.stream(dev))
+        xla_rsqrt.device_table(dev).data_ptr(),
+        0 if chunk_live is None else chunk_live.data_ptr(),
+        0 if grid_live is None else grid_live.data_ptr(), native.stream(dev))
     return out
 
 

@@ -186,6 +186,12 @@ def morton_order(tris: TriangleArrays) -> np.ndarray:
     leaf they touch, raytrace.rs:790-845), Morton pages reference each
     triangle exactly once.
     """
+    from ..utils import host_native
+    if len(tris) >= 1024 and host_native.available():
+        nat = host_native.morton_order_native(tris.incenter)
+        if nat is not None:
+            return nat
+
     c = tris.incenter[1:]
     lo = c.min(axis=0)
     span = np.maximum(c.max(axis=0) - lo, 1e-20)
@@ -218,9 +224,17 @@ def kd_order(tris: TriangleArrays, page_size: int) -> np.ndarray:
     subdivision (build_bounding_box, raytrace.rs:790-845) without its
     triangle duplication.  Sentinel slot 0 stays excluded (raytrace.rs:791).
 
-    The JAX package also has a native C++ path (rt_kd_order), an exact
-    behavioral copy of this one; the port takes the numpy path only.
+    The native C++ path (rt_kd_order, `utils/host_native`), taken from
+    1,024 triangles on as in the JAX package, is an exact behavioral copy
+    of this one: the same stable sorts, the same float32 cost arithmetic,
+    the same first-wins tie rule.
     """
+    from ..utils import host_native
+    if len(tris) >= 1024 and host_native.available():
+        nat = host_native.kd_order_native(tris.incenter, page_size)
+        if nat is not None:
+            return nat
+
     c = tris.incenter
 
     out = []

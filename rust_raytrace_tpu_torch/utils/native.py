@@ -148,12 +148,13 @@ class Kernel:
 
 CULL = Kernel(
     "cull_mask_exact", "rt_cull",
-    [P, P, I64, P, P, P, I32, I32, I32, P, P, P],
+    [P, P, I64, P, P, P, I32, I32, I32, P, P, P, P],
     "rust_raytrace_tpu_torch/csrc/cull.cu",
     "rust_raytrace_tpu/ops/cull_pallas.py:271")
 TRACE_SHADE_UNION = Kernel(
     "trace_shade_chunks", "rt_trace_shade_union",
-    [P, P, I64, P, I32, I32, P, P, P, U32, U32, I32, F32, I32, I32, P, P],
+    [P, P, I64, P, I32, I32, P, P, P, U32, U32, I32, F32, I32, I32, P, P, P,
+     P],
     "rust_raytrace_tpu_torch/csrc/trace_shade_union.cu",
     "rust_raytrace_tpu/ops/intersect_pallas.py:520")
 TRACE_SHADE_PERLANE = Kernel(

@@ -804,3 +804,47 @@ def test_trace_shade_perlane_records_match_plain(dev, fixed):
             assert native.TRACE_SHADE_PERLANE.launches == 1
             _bitwise(got, intersect_perlane.trace_shade_perlane_plain(*args))
         st = got
+
+
+@pytest.mark.parametrize("rc", [1024, 2048])
+def test_union_flag_kernels_match_plain(dev, rc):
+    """B1 with chunk_live and B2 with chunk_live and grid_live (the union
+    bounce waves) on tests/union_exit_cases.py's flagged case, bitwise
+    against their plain versions: a flagged chunk's cull is empty, and the
+    chunks B2 passes through keep their state words, -0 and NaN included;
+    the kernels launched (no fallback to the plain versions)."""
+    import union_exit_cases as U
+
+    c = U.flags_case(rc)
+    st = torch.from_numpy(c["state"]).to(dev)
+    lo = torch.from_numpy(c["pages"].aabb_lo).to(dev)
+    hi = torch.from_numpy(c["pages"].aabb_hi).to(dev)
+    flags = torch.from_numpy(c["chunk_live"]).to(dev)
+    flags_b1 = flags.clone()
+    flags_b1[3] = 0
+    args = (st[0:3], st[3:6], st[7] != 0, lo, hi, rc)
+    native.reset_launch_counts()
+    mask, tmin = cull.cull_mask_exact(*args, chunk_live=flags_b1)
+    assert native.CULL.launches == 1
+    mask_p, tmin_p = cull.cull_mask_exact_plain(*args, chunk_live=flags_b1)
+    assert torch.equal(mask, mask_p) and torch.equal(tmin, tmin_p)
+    assert not mask[3].any() and torch.isinf(tmin[3]).all()
+    gl = torch.tensor(U.GRID_LIVE, dtype=torch.int32, device=dev)
+    for fixed in (True, False):
+        args = (st, torch.from_numpy(c["PK"]).to(dev), c["counts"].to(dev),
+                c["plist"].to(dev), c["ptmin"].to(dev),
+                np.asarray([5, 123], np.uint32), U.P, rc, fixed, 1 / 512)
+        native.reset_launch_counts()
+        got = intersect.trace_shade_chunks(*args, chunk_live=flags,
+                                           grid_live=gl)
+        assert native.TRACE_SHADE_UNION.launches == 1
+        want = intersect.trace_shade_chunks_plain(*args, chunk_live=flags,
+                                                  grid_live=gl)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        words = got.view(torch.int32).cpu().numpy()
+        src = c["state"].view(np.int32)
+        for ch in range(U.NC):
+            if U.LIVE_FLAGS[ch] == 0 or ch >= U.GRID_LIVE:
+                lanes = slice(ch * rc, (ch + 1) * rc)
+                np.testing.assert_array_equal(words[:, lanes],
+                                              src[:, lanes])

@@ -201,20 +201,33 @@ def test_cpu_engine_keeps_the_default_schedule(small):
 
 
 def test_engine_rejects_what_the_slice_does_not_run(small):
-    _, scene, _ = small
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(scene, device="cpu", bounce_chunk=256)
+    """bounce_chunk renders (ROADMAP A3, ported): under fixed_rng the
+    chunking of the bounce waves changes no bit, so the image is the
+    default Engine's."""
+    _, scene, vp = small
+    eng = Engine(scene, device="cpu", ray_chunk=256, bounce_chunk=128)
+    res = eng.render(vp, fixed_rng=True)
+    ref = Engine(scene, device="cpu", ray_chunk=256).render(vp,
+                                                            fixed_rng=True)
+    np.testing.assert_array_equal(res.image, ref.image)
+    np.testing.assert_array_equal(res.wave_rays, ref.wave_rays)
 
 
 def test_engine_rejects_streamed_regime(small):
     """A scene whose page tables pass the resident cap takes the streamed
     regime (ROADMAP A8, ported), with the bank-major sweep too (B12,
-    ported); what the port still rejects there is the JAX Engine's
-    union-kernel fallback (streamed=False past the cap)."""
-    _, scene, _ = small
+    ported); with streamed=False past the cap it keeps the union tables
+    and its bounce waves run the union kernels (A3, ported), which under
+    fixed_rng render the streamed regime's image."""
+    _, scene, vp = small
     assert Engine(scene, table_slot_cap=1000, device="cpu").streamed
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Engine(scene, table_slot_cap=1000, streamed=False, device="cpu")
+    union = Engine(scene, table_slot_cap=1000, streamed=False,
+                   ray_chunk=RB, device="cpu")
+    assert not union.streamed and union.ptables is None
+    np.testing.assert_array_equal(
+        union.render(vp, fixed_rng=True).image,
+        Engine(scene, table_slot_cap=1000, ray_chunk=RB,
+               device="cpu").render(vp, fixed_rng=True).image)
     eng = Engine(scene, streamed=True, bank_major=True, device="cpu")
     assert eng.streamed and eng.bank_major
 
@@ -222,8 +235,7 @@ def test_engine_rejects_streamed_regime(small):
 def test_engine_rejects_lights():
     """A lit scene renders since the lights path (ROADMAP A5) was ported,
     and so does it at spp > 1 (A6), with debug buffers (A7) and in bands
-    (A10); what it still rejects is what every scene does: sharded renders
-    (A11)."""
+    (A10), and sharded over image tiles (A11)."""
     scene, vp = circles.build(resolution=(8, 8))
     scene.lights = LightSource(orig=np.asarray([0.0, 5.0, 6.0], np.float32),
                                len2=0.5)
@@ -237,15 +249,15 @@ def test_engine_rejects_lights():
     banded = eng.render_banded(vp, fixed_rng=True)
     np.testing.assert_array_equal(banded.image,
                                   eng.render(vp, fixed_rng=True).image)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        eng.render_sharded(vp, fixed_rng=True)
+    sharded = eng.render_sharded(vp, n_devices=2, fixed_rng=True)
+    np.testing.assert_array_equal(sharded.image, banded.image)
 
 
 def test_render_rejects_spp_and_debug(small):
     """spp > 1 (ROADMAP A6) and debug buffers (A7) render: u8 at
     spp 2 and 3 (host-quantized), the primary buffers and candidate sets;
-    so do banded renders (A10) at spp 3; the bounce_chunk knob and sharded
-    renders are still rejected."""
+    so do banded renders (A10) at spp 3, the bounce_chunk knob (A3) and
+    sharded renders (A11), at spp 3 too."""
     _, scene, vp = small
     eng = Engine(scene, ray_chunk=RB, device="cpu")
     for spp in (2, 3):
@@ -261,7 +273,9 @@ def test_render_rejects_spp_and_debug(small):
     assert dbg.primary_t.shape == (vp.height, vp.width)
     assert dbg.primary_chunk.shape == (vp.height, vp.width)
     assert len(dbg.chunk_tris) == -(-vp.width * vp.height // RB)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(scene, device="cpu", bounce_chunk=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        eng.render_sharded(vp)
+    bounced = Engine(scene, device="cpu", ray_chunk=RB,
+                     bounce_chunk=RB // 2).render(vp2, fixed_rng=True)
+    np.testing.assert_array_equal(bounced.image, res.image)
+    sharded = eng.render_sharded(vp2, n_devices=2, fixed_rng=True)
+    np.testing.assert_array_equal(sharded.image, res.image)
+    np.testing.assert_array_equal(sharded.wave_rays, res.wave_rays)

@@ -56,6 +56,9 @@ PORT_MODULES = [
     "rust_raytrace_tpu_torch.utils.raydebug",
     "rust_raytrace_tpu_torch.utils.term_display",
     "rust_raytrace_tpu_torch.utils.tracelog",
+    "rust_raytrace_tpu_torch.utils.host_native",
+    "rust_raytrace_tpu_torch.parallel",
+    "rust_raytrace_tpu_torch.parallel.sharding",
 ]
 
 

@@ -55,12 +55,15 @@ PKGS = {
 
 @pytest.fixture(scope="module", autouse=True)
 def _jax_octree_in_numpy():
-    """The JAX package builds octrees in C++ where its native library
-    builds, else in numpy; the port always takes the numpy build, so the
-    JAX side is held to it here."""
+    """Both packages build octrees in C++ where their native library
+    builds, else in numpy, and the two builds differ; both are held to the
+    numpy build here (tests/test_torch_host_native.py holds the two C++
+    builds equal)."""
     import rust_raytrace_tpu.utils.native as jnative
+    from rust_raytrace_tpu_torch.utils import host_native
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(host_native, "available", lambda: False)
         yield
 
 

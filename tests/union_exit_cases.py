@@ -141,3 +141,35 @@ def case(rc, zero_origin, with_excl=False):
         excl = torch.where(drop, first, 0.0)
     return dict(o=o, d=d, ot=ot, dt=dt, pk=pk, counts=counts, plist=plist,
                 ptmin=ptmin, excl=excl, pages=pages, PK=PK)
+
+
+#: the flagged case's chunks: chunk_live marks LIVE_FLAGS, grid_live is
+#: GRID_LIVE (chunks 3 and 4 lie past it)
+LIVE_FLAGS = (1, 0, 1, 1, 1)
+GRID_LIVE = 3
+
+
+def flags_case(rc):
+    """B1 and B2 with their bounce-wave flags: the scattered-origin case of
+    `case(rc, False)`, a state of those rays (weights, accumulated color,
+    chunk 2's rays retired), chunk_live LIVE_FLAGS and grid_live GRID_LIVE.
+    The state words of chunks 1 and 4 (passed through) hold -0 and NaNs of
+    two payloads, which a float copy could change."""
+    c = case(rc, False)
+    R = NC * rc
+    rng = np.random.default_rng(rc + 1)
+    st = np.zeros((16, R), F32)
+    st[0:3], st[3:6] = c["o"], c["d"]
+    st[6] = rng.uniform(0.1, 1.0, R)
+    st[7] = (c["d"] != 0).any(axis=0)
+    st[7, 2 * rc:3 * rc] = 0.0
+    st[8:11] = rng.uniform(0, 0.5, (3, R))
+    words = st.view(np.uint32)
+    for ch in (1, 4):
+        lanes = slice(ch * rc, ch * rc + 64)
+        words[8, lanes] = 0x80000000                 # -0
+        words[9, lanes] = 0x7FC00001                 # quiet NaN, payload 1
+        words[10, lanes] = 0xFFC0BEEF                # negative NaN
+    c.update(state=st, chunk_live=np.asarray(LIVE_FLAGS, np.int32),
+             grid_live=GRID_LIVE)
+    return c
