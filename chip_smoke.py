@@ -4,18 +4,26 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --turns CSRC [--out FILE]
     python3 chip_smoke.py --scene-build
+    python3 chip_smoke.py --counts [--out FILE]
 
 The second form runs no smoke phase: it times kernels and the renders
 that run them in turns against a build of CSRC, the
 `rust_raytrace_tpu_torch/csrc/` of an earlier commit (`git archive COMMIT
 rust_raytrace_tpu_torch/csrc`).  TURNS_AGAINST names the commit, binds its
-C entry points and says what is timed: now commit 69120d0's B1 and B2
-(before their chunk_live and grid_live skips), on the whole circles_2k
-wave 0 at ray_chunk 1024, and in the default circles_2k render.
+C entry points and says what is timed: now commit bc44eef's B9 (the
+per-thread walk), B12a and B10, B9 on the whole waves 0, 1 and 2 of
+synthetic_1m_2k, B12a on its wave-2 state and B10 on its camera and
+shadow rays, and the unlit
+synthetic_1m_2k render (default and bank-major) and the default
+circles_2k render.
 
 The third form times synthetic_1m_2k's host build alone (the scene and
 its Engine's pages and tables) and says whether the native scene pipeline
 took it; run it with RUST_RAYTRACE_NO_NATIVE=1 for the numpy build.
+
+The fourth runs only B9's whole-wave checks and its counting phase (see
+phase 3) on synthetic_1m_2k, its numbers also as JSON to `--out`
+(default `build/counts.json`).
 
 The main paths: the unlit circles_2k render (B1, B2, B3, B4, B5); the lit
 one, circles_2k with the teapot preset's light (B1 twice at wave 0, B6
@@ -65,7 +73,9 @@ Phases, each fatal on failure:
      lit wave 0's state on the whole wave 0, with the pages each chunk
      visited and the pairs B2/B6 tested and needed (their bound counts
      what the exact function needs on the visited pages), and the ptxas
-     reports of B1 and B2/B6; B4 unlit and lit on the whole wave 1; B3
+     reports of B1 and B2/B6; B2 with chunk_live and grid_live on the
+     whole wave-1 state compacted as the union bounce waves compact it,
+     timed beside the bound of what its exact function needs there; B4 unlit and lit on the whole wave 1; B3
      and B5 on the whole circles_2k state after wave 0 (3,686,400 rays,
      cb 512, 7,200 chunks) and again at the second boundary (after wave 1
      on the survivor prefix:
@@ -82,7 +92,15 @@ Phases, each fatal on failure:
      sphere: B10 nearest (all 16 rows), B10 any-hit
      with self-exclusion on their shadow rays (the occlusion bit), B9 on
      the wave-0 state with dead chunks and on the wave-1 state, under live
-     and fixed RNG, all bitwise, and each timed on the full wave; then B11
+     and fixed RNG, all bitwise, and each timed on the full wave; B9 on
+     the whole waves 0, 1 and 2 (wave 2 as `_wave2_state` makes it) under
+     fixed and live RNG, bitwise against its plain version; the counting
+     phase (B9's counting instance on each whole wave: per traced ray the
+     mean and p99 of its bank steps, bank-, group- and page-box slab
+     tests, bank visits, pages and triangles, the triangle loop's
+     active-lane share and the lanes a ray the list picked, its state
+     bitwise equal); B9 on the whole wave 2 timed beside its bound; then
+     B11
      (t and id) on 64 chunks of circles_2k's camera rays and wave-1 rays at
      the WavefrontRenderer's page size 256, with no mask and with the
      wave's alive mask, and on the whole camera wave (no mask) and the
@@ -346,6 +364,24 @@ def _time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int = 20) -> float:
+    """The card's time of fn() (the sum of its kernels' device intervals,
+    torch.profiler) over reps calls, after one warm-up: a small kernel's
+    time without its wrapper's host time, which CUDA events around
+    back-to-back calls also count when the host is the slower."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(spans) / 1e3 / reps
 
 
 def _time_plain_ms(fn) -> float:
@@ -630,6 +666,147 @@ def _wave2_state(eng, full0, key, fixed: bool):
     return st
 
 
+def _synthetic_wave0(eng, vp, dev):
+    """synthetic_1m_2k's wave-0 state [16, R] (tile-order camera rays, the
+    pinhole origin folded)."""
+    R0 = vp.width * vp.height
+    R = -(-R0 // RB) * RB
+    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
+                                                           vp.height), R, dev)
+    o, _ = eng._pinhole_fold(vp, o)
+    alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
+    return torch.cat([o, d, alive0, alive0,
+                      torch.zeros((8, R), device=dev)], dim=0)
+
+
+def _streamed_waves(eng, full0, key, fixed: bool = False) -> dict:
+    """synthetic_1m_2k's whole waves 0, 1 and 2 as B9 takes them: label ->
+    B9's arguments (wave 1 is B9's output of wave 0 with the chunks that
+    hold a live ray, wave 2 `_wave2_state`)."""
+    dev = full0.device
+    R = full0.shape[1]
+    tabs, P = eng.stables, eng.page_size
+    wc = 0.0 if fixed else 1 / 512
+    ones = torch.ones(R // RB, dtype=torch.int32, device=dev)
+    a0 = (full0, tabs, fold_in(key, 0), P, RB, fixed, wc, ones)
+    full1 = intersect_streamed.trace_shade_streamed(*a0)
+    full2 = _wave2_state(eng, full0, key, fixed)
+    waves = {"wave 0": a0}
+    for w, st in ((1, full1), (2, full2)):
+        live = (st[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
+        waves[f"wave {w}"] = (st, tabs, fold_in(key, w), P, RB, fixed, wc,
+                              live)
+    return waves
+
+
+def streamed_counts(waves: dict, card) -> dict:
+    """The counting phase: B9's counting instance on each wave of `waves`,
+    its state bitwise equal to B9's; per traced ray (a live ray that enters
+    a bank box) the mean and the 99th percentile of each count (bank
+    selection steps, bank-box, group-box and page-box slab tests, bank
+    visits, pages and triangles tested), with the triangle loop's
+    active-lane share (lanes testing a triangle over 32 lanes a warp
+    iteration) and the lanes a ray the trace grid took."""
+    ist = intersect_streamed
+    report = {}
+    for label, args in waves.items():
+        b9 = ist.trace_shade_streamed(*args)
+        new, cnt, lanes = ist.trace_shade_streamed_counts(*args)
+        _require_bitwise(f"B9's counting instance, {label}", new, b9)
+        st, cl = args[0], args[-1]
+        live = (st[7] != 0) & torch.repeat_interleave(cl != 0, RB)
+        traced = cnt[1] != 0
+        c = cnt[:, traced].double()
+        row = {"live_rays": int(live.sum()), "traced_rays": int(traced.sum()),
+               "lanes": lanes}
+        for i, name in enumerate(ist.COUNT_ROWS[:7]):
+            row[name] = {"mean": float(c[i].mean()),
+                         "p99": float(torch.quantile(c[i], 0.99))}
+        led = float(c[7].sum())
+        row["active_share"] = float(c[8].sum()) / (32 * led) if led else None
+        report[label] = row
+        print(f"counts of B9, synthetic_1m_2k {label} ({row['live_rays']} "
+              f"live rays, {row['traced_rays']} traced, {lanes} lanes a "
+              f"ray; mean / p99 a traced ray): " + ", ".join(
+                  f"{n} {row[n]['mean']:.3f} / {row[n]['p99']:.0f}"
+                  for n in ist.COUNT_ROWS[:7])
+              + f"; triangle loop active-lane share "
+              f"{row['active_share']:.4f} [{card}]")
+    return report
+
+
+def b9_whole_waves(eng, full0, key, card):
+    """B9 bitwise against its plain version on synthetic_1m_2k's whole
+    waves 0, 1 and 2 under fixed and live RNG (the plain version in blocks
+    of 2^17 rays, which the card's memory holds: 8x fewer torch launches
+    than its default).  Returns the plain version's ms by wave under live
+    RNG and the waves of live RNG (`_streamed_waves`)."""
+    ist = intersect_streamed
+    plain_ms = {}
+    saved = ist._PLAIN_RAYS
+    ist._PLAIN_RAYS = 1 << 17
+    try:
+        for fixed in (True, False):
+            waves = _streamed_waves(eng, full0, key, fixed)
+            for label, args in waves.items():
+                got = ist.trace_shade_streamed(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = ist.trace_shade_streamed_plain(*args)
+                torch.cuda.synchronize()
+                plain_ms[label] = (time.perf_counter() - t0) * 1e3
+                _require_bitwise(f"B9 whole {label}, fixed_rng {fixed}", got,
+                                 want)
+                print(f"B9 on the whole synthetic_1m_2k {label} (fixed_rng "
+                      f"{fixed}; {int((args[0][7] != 0).sum())} live rays in "
+                      f"{int(args[-1].sum())} live chunks) bitwise equal to "
+                      f"its plain version ({plain_ms[label]:.1f} ms) "
+                      f"[{card}]")
+    finally:
+        ist._PLAIN_RAYS = saved
+    return plain_ms, waves
+
+
+def counts_only(out: Path) -> int:
+    """`--counts`: the counting phase alone, on synthetic_1m_2k, after
+    B9's whole-wave checks against its plain version; the numbers also
+    to `out` as JSON."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device(DEVICE)
+    card = _card()
+    print(card)
+    built = native.build()
+    _print_ptxas(built["log"], "B9", ("stream_list_kernel",
+                                      "stream_trace_kernel"))
+    eng = Engine(synthetic_1m_scene(), device=dev)
+    full0 = _synthetic_wave0(eng, synthetic_view((2560, 1440)), dev)
+    plain_ms, waves = b9_whole_waves(eng, full0, prng_key(7), card)
+    report = {"card": card, "plain_ms": plain_ms,
+              "counts": streamed_counts(waves, card)}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    return 0
+
+
+def _b12a_bound(st, chunk_live, NB: int) -> dict:
+    """The least time the card could take for B12a on the state st with
+    `chunk_live` (None: every chunk live), counting what the function
+    needs: the winner init (12 B a lane), the alive word of a live
+    chunk's lanes (4 B) and the o and d rows of its valid rays (24 B), the
+    gm words (4 B a bank and chunk) and the bank AABBs (28 B each);
+    operations, the slab test of every bank for each valid ray of a live
+    chunk."""
+    R = st.shape[1]
+    live = (torch.ones(R, dtype=torch.bool, device=st.device)
+            if chunk_live is None
+            else torch.repeat_interleave(chunk_live != 0, RB))
+    valid = int((live & (st[7] != 0)).sum())
+    return _bound(R * 12 + int(live.sum()) * 4 + valid * 24
+                  + NB * (R // RB) * 4 + NB * 28, valid * NB * SLAB_FLOPS)
+
+
 def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
     """Phase 3 for the bank-major sweep (B12) on synthetic_1m_2k: the
     wave-2 state of the default schedule (after waves 0-1 and their
@@ -706,8 +883,7 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
         rays=n, max_abs_err=errs["bankmajor_prep"],
         ms=_time_ms(lambda: st_.bankmajor_prep(*pre)),
         plain_ms=_time_plain_ms(lambda: st_.bankmajor_prep_plain(*pre)),
-        **_bound(n * 40 + NB * (n // RB) * 4 + NB * 28,
-                 int(valid.sum()) * NB * SLAB_FLOPS))
+        **_b12a_bound(st2, cl, NB))
     results["bankmajor_sweep"] = dict(
         rays=n, max_abs_err=errs["bankmajor_sweep"],
         ms=_time_ms(lambda: st_.bankmajor_sweep(*swa)),
@@ -736,8 +912,7 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
     full = {
         "bankmajor_prep": (
             lambda: st_.bankmajor_prep(full2, tabs[3], NB, RB, flive),
-            _bound(R * 40 + NB * (R // RB) * 4 + NB * 28,
-                   int(fvalid.sum()) * NB * SLAB_FLOPS)),
+            _b12a_bound(full2, flive, NB)),
         "bankmajor_sweep": (
             lambda: st_.bankmajor_sweep(full2, fwin, fgm, fcount, forder,
                                         tabs, P, RB),
@@ -752,12 +927,14 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
     }
     for name, (fn, bound) in full.items():
         ms = _time_ms(fn)
-        results[name].update(ms_full=ms, bound_ms_full=bound["bound_ms"],
+        dms = _device_ms(fn)
+        results[name].update(ms_full=ms, device_ms_full=dms,
+                             bound_ms_full=bound["bound_ms"],
                              bound_by_full=bound["bound_by"])
         print(f"time {name} (whole wave-2 state of synthetic_1m_2k, "
               f"{R // RB} chunks, {int(flive.sum())} live): kernel "
-              f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}) [{card}]")
+              f"{ms:.4f} ms (device time {dms:.4f} ms), bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]")
     # one grid a sweep call: on the whole wave-2 state, and on an empty
     # wave (every chunk dead, as wave 4 of synthetic_1m_2k)
     dead = torch.zeros_like(flive)
@@ -778,10 +955,18 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
     _require_bitwise("B12b on an empty wave", out[0], ewin)
     t_empty = _time_ms(lambda: st_.bankmajor_sweep(full2, ewin, egm, ecount,
                                                    eorder, tabs, P, RB))
+    # B12a on the empty wave: the winner init and zero gm words alone
+    t_prep_empty = _device_ms(lambda: st_.bankmajor_prep(
+        full2, tabs.bank_ab, NB, RB, dead))
+    b_prep_empty = _b12a_bound(full2, dead, NB)
     print(f"B12b: one grid a sweep call (profiler: wave 2 "
           f"{n_sweeps['wave 2'][0]}, empty wave {n_sweeps['empty'][0]}); "
-          f"the empty wave's sweep {t_empty:.4f} ms [{card}]")
+          f"the empty wave's sweep {t_empty:.4f} ms; B12a on the empty wave "
+          f"(device time) {t_prep_empty:.4f} ms, bound "
+          f"{b_prep_empty['bound_ms']:.4f} ms [{card}]")
     results["bankmajor_sweep"]["empty_wave_ms"] = t_empty
+    results["bankmajor_prep"]["empty_wave"] = dict(
+        device_ms=t_prep_empty, **b_prep_empty)
     chain_bound = _streamed_bound(eng, page_of, full2[0:3], full2[3:6],
                                   fvalid, fsw[1], 128, SHADE_FLOPS)
     t_glue = _time_ms(lambda: st_.bankmajor_order(fgm))
@@ -1031,7 +1216,28 @@ def streamed_kernels(dev, card, key, results, build_log):
           f"{int((full1[7] != 0).sum())} live rays, "
           f"{int((frows1[1] != 0).sum())} hits")
     del fso, fsd, fhit, fexcl, fsh, focc, full1, frows1, frows
-    _print_ptxas(build_log, "B9/B10", ("trace_streamed_kernel",))
+    # B9 on the whole waves 0-2 against its plain version, the counting
+    # phase, and wave 2's time beside its bound
+    res9 = results[native.TRACE_SHADE_STREAMED.name]
+    res9["whole_wave_plain_ms"], waves = b9_whole_waves(eng, full0, key,
+                                                        card)
+    res9["counts"] = streamed_counts(waves, card)
+    fa2 = waves["wave 2"]
+    full2 = fa2[0]
+    frows2 = ts(full2[0:3], full2[3:6], full2[7], tabs, P, RB,
+                chunk_live=fa2[-1])
+    bound2 = _streamed_bound(eng, page_of, full2[0:3], full2[3:6],
+                             full2[7] != 0, frows2[1], 128, SHADE_FLOPS)
+    ms2 = _time_ms(lambda: tss(*fa2))
+    res9["wave2"] = dict(ms_full=ms2, bound_ms_full=bound2["bound_ms"],
+                         bound_by_full=bound2["bound_by"])
+    print(f"time B9 wave 2 (full synthetic_1m_2k wave, {R // RB} chunks, "
+          f"{int(fa2[-1].sum())} live): kernel {ms2:.4f} ms, bound "
+          f"{bound2['bound_ms']:.4f} ms ({bound2['bound_by']}) [{card}]")
+    del waves, fa2, full2, frows2
+    _print_ptxas(build_log, "B9/B10", ("trace_streamed_kernel",
+                                       "stream_list_kernel",
+                                       "stream_trace_kernel"))
     bankmajor_kernels(eng, page_of, full0, card, key, results, build_log)
     return scene, eng, vp
 
@@ -1210,6 +1416,55 @@ def _union_need(ot, dt, PK, counts, plist, visits, rows, ray_chunk: int,
                 visits_max=int(visits.max()),
                 flops=pairs * t_f + cand * d_f
                 + hits * (3 * d_f + UPDATE_FLOPS))
+
+
+def union_bounce(eng, st1, key, card, results) -> None:
+    """B2 on a union bounce wave: circles_2k's whole wave-1 state compacted
+    as the union bounce waves compact it at the first boundary (B3), then
+    B1 with chunk_live and B2 with chunk_live and grid_live, as the Engine
+    runs them past the resident tables' cap with streamed=False; B2 timed
+    beside the bound of what its exact function needs there (`_union_need`
+    on the plain trace's visits and winners, the dead lanes' directions
+    zeroed)."""
+    dev = st1.device
+    R = st1.shape[1]
+    cb = compact.pick_cb(R)
+    dead = compact.make_dead_array(R, dev, 2, cb)
+    base = torch.zeros((), dtype=torch.int32, device=dev)
+    meta, total_a, skip, _ = compact.compact_meta(st1[7], st1[11], cb, base,
+                                                  R)
+    st, _ = compact.compact(st1, dead, meta, cb)
+    nc = R // RB
+    prefix = torch.where(skip, torch.full((), nc, dtype=torch.int32,
+                                          device=dev),
+                         torch.clamp((total_a + RB - 1) // RB, max=nc)
+                         ).to(torch.int32)
+    alive = st[7] != 0
+    live = alive.reshape(-1, RB).any(dim=1).to(torch.int32)
+    a1 = (st[0:3], st[3:6], alive, eng.aabb_lo, eng.aabb_hi, RB)
+    lists = page_lists(*cull.cull_mask_exact(*a1, chunk_live=live))
+    a2 = (st, eng.PK, *lists, fold_in(key, 1), eng.page_size, RB, False,
+          1 / 512)
+    kw = dict(chunk_live=live, grid_live=prefix)
+    ms = _time_ms(lambda: intersect.trace_shade_chunks(*a2, **kw))
+    dm = torch.where(alive[None], st[3:6], 0.0)
+    rows_p, vis = intersect.trace_chunks_plain(st[0:3], dm, eng.PK, *lists,
+                                               RB, return_visits=True)
+    need = _union_need(st[0:3], dm, eng.PK, lists[0], lists[1], vis, rows_p,
+                       RB)
+    _print_need("B2 on the union bounce wave 1", need, card)
+    bound = _bound(R * 128 + need["page_bytes"],
+                   need["flops"] + need["valid"] * SHADE_FLOPS)
+    results[native.TRACE_SHADE_UNION.name]["union_bounce"] = dict(
+        ms=ms, live_rays=int(alive.sum()), live_chunks=int(live.sum()),
+        grid_live=int(prefix), **bound,
+        need={k: need[k] for k in ("pairs", "candidates", "hits", "tested",
+                                   "visits_mean", "visits_max", "pages",
+                                   "winners")})
+    print(f"time B2 on the union bounce wave 1 (circles_2k, compacted: "
+          f"{int(alive.sum())} live rays in {int(live.sum())} chunks, "
+          f"grid_live {int(prefix)} chunks): kernel {ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) [{card}]")
 
 
 def _print_need(label, need, card):
@@ -1897,7 +2152,8 @@ def union_flags(eng, st1, key, results):
 
 PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
                 "trace_shade_perlane_kernel", "expand_kernel",
-                "shade_kernel", "trace_streamed_kernel", "live_list_kernel",
+                "shade_kernel", "trace_streamed_kernel", "stream_list_kernel",
+                "stream_trace_kernel", "live_list_kernel",
                 "nearest_hit_kernel", "trace_perlane_kernel", "bm_prep_kernel",
                 "bm_sweep_kernel", "bm_finish_kernel", "cull_sorted_kernel",
                 "compact_buckets_kernel", "expand_buckets_kernel")
@@ -2203,6 +2459,7 @@ def main() -> int:
         need_full={k: need_f[k] for k in kept})
     results[native.TRACE_UNION_ROWS.name]["shadow"]["need_full"] = {
         k: need_fs[k] for k in kept}
+    union_bounce(eng, full1, key, card, results)
     flive = (full1[7] != 0).reshape(-1, RB).any(dim=1).to(torch.int32)
     # B4 on the whole unlit wave 1, bitwise
     fargs4 = (full1, eng.ptables, fold_in(key, 1), P, RB, False, 1 / 512,
@@ -2987,11 +3244,13 @@ def main() -> int:
         if b11:
             print(f"  of which B11 (live_list_kernel and nearest_hit_kernel)"
                   f" {b11:.3f} ms")
-        kinds = {k: sum(ms for n, ms in per_name.items() if pat in n)
-                 for k, pat in (("B9", "trace_streamed_kernel<true"),
-                                ("B12a", "bm_prep_kernel"),
-                                ("B12b", "bm_sweep_kernel"),
-                                ("B12c", "bm_finish_kernel"))}
+        kinds = {k: sum(ms for n, ms in per_name.items()
+                        if any(p in n for p in pats))
+                 for k, pats in (("B9", ("stream_list_kernel",
+                                         "stream_trace_kernel")),
+                                 ("B12a", ("bm_prep_kernel",)),
+                                 ("B12b", ("bm_sweep_kernel",)),
+                                 ("B12c", ("bm_finish_kernel",)))}
         if kinds["B9"] or kinds["B12b"]:
             print("  of which " + ", ".join(f"{k} {ms:.3f} ms"
                                             for k, ms in kinds.items()))
@@ -3049,103 +3308,130 @@ def main() -> int:
     return 0
 
 
-def c69120d0_wrappers(lib) -> dict:
-    """`cull_mask_exact` and `trace_shade_chunks` with the port's
-    arguments, launching the kernels of commit 69120d0's library `lib`,
-    whose rt_cull and rt_trace_shade_union take no chunk_live or
-    grid_live (the cases time wave 0, which passes none)."""
+def cbc44eef_wrappers(lib) -> dict:
+    """`trace_shade_streamed` and `bankmajor_prep` with the port's
+    arguments, launching the kernels of commit bc44eef's library `lib`:
+    its B9 (the per-thread walk, one thread a lane of the state), whose
+    rt_trace_shade_streamed takes no group boxes and no scratch, and its
+    B12a."""
     def ok(err, name):
         if err != 0:
             raise RuntimeError(f"earlier build's {name}: CUDA error {err}")
 
-    def cull_mask(ot, dt, valid, blo, bhi, ray_chunk, chunk_live=None):
-        if chunk_live is not None:
-            raise ValueError("69120d0's B1 takes no chunk_live")
-        dev, R, NP = ot.device, ot.shape[1], blo.shape[0]
-        NC = R // ray_chunk
-        mask = torch.empty((NC, NP), dtype=torch.bool, device=dev)
-        tmin = torch.empty((NC, NP), dtype=torch.float32, device=dev)
-        ok(lib.rt_cull(ot.data_ptr(), dt.data_ptr(), ot.stride(0),
-                       valid.data_ptr(), blo.data_ptr(), bhi.data_ptr(), NP,
-                       NC, ray_chunk, mask.data_ptr(), tmin.data_ptr(),
-                       native.stream(dev)), "rt_cull")
-        return mask, tmin
-
-    def trace_shade(state, PK, counts, plist, ptmin, seed, page_size,
-                    ray_chunk, fixed_rng, weight_cutoff, zero_origin=False,
-                    chunk_live=None, grid_live=None):
-        if chunk_live is not None or grid_live is not None:
-            raise ValueError("69120d0's B2 takes no chunk_live or grid_live")
+    def b9(state, tables, seed, page_size, ray_chunk, fixed_rng,
+           weight_cutoff, chunk_live):
         dev = state.device
         out = torch.empty_like(state)
         s0, s1 = (int(w) for w in seed)
-        ok(lib.rt_trace_shade_union(
-            state.data_ptr(), out.data_ptr(), state.shape[1], PK.data_ptr(),
-            page_size, PK.shape[0], counts.data_ptr(), plist.data_ptr(),
-            ptmin.data_ptr(), s0, s1, int(fixed_rng), float(weight_cutoff),
-            int(zero_origin), ray_chunk,
-            xla_rsqrt.device_table(dev).data_ptr(), native.stream(dev)),
-           "rt_trace_shade_union")
+        ok(lib.rt_trace_shade_streamed(
+            state.data_ptr(), out.data_ptr(), state.shape[1],
+            tables.rec.data_ptr(), tables.pab.data_ptr(),
+            tables.bank_ab.data_ptr(), page_size, tables.plt_i.shape[0],
+            ray_chunk, chunk_live.data_ptr(), s0, s1, int(fixed_rng),
+            float(weight_cutoff), xla_rsqrt.device_table(dev).data_ptr(),
+            native.stream(dev)), "rt_trace_shade_streamed")
         return out
 
-    return {"cull_mask_exact": cull_mask, "trace_shade_chunks": trace_shade}
+    def prep(state, bank_ab, NB, ray_chunk, chunk_live=None):
+        dev = state.device
+        R = state.shape[1]
+        win = torch.empty((intersect_streamed.WIN_ROWS, R),
+                          dtype=torch.float32, device=dev)
+        gm = torch.empty((NB, R // ray_chunk), dtype=torch.int32, device=dev)
+        ok(lib.rt_bm_prep(state.data_ptr(), R, bank_ab.data_ptr(), NB,
+                          ray_chunk,
+                          0 if chunk_live is None else chunk_live.data_ptr(),
+                          win.data_ptr(), gm.data_ptr(), native.stream(dev)),
+           "rt_bm_prep")
+        return win, gm
+
+    def b10(ot, dt, alive, tables, page_size, ray_chunk, chunk_live=None,
+            excl=None, any_hit=False):
+        dev = ot.device
+        R = ot.shape[1]
+        out = torch.empty((16, R), dtype=torch.float32, device=dev)
+        ok(lib.rt_trace_streamed(
+            ot.data_ptr(), dt.data_ptr(), ot.stride(0), alive.data_ptr(), R,
+            0 if excl is None else excl.data_ptr(), int(any_hit),
+            tables.rec.data_ptr(), tables.pab.data_ptr(),
+            tables.bank_ab.data_ptr(), page_size, tables.plt_i.shape[0],
+            ray_chunk, 0 if chunk_live is None else chunk_live.data_ptr(),
+            out.data_ptr(), native.stream(dev)), "rt_trace_streamed")
+        return out
+
+    return {"trace_shade_streamed": b9, "bankmajor_prep": prep,
+            "trace_streamed": b10}
 
 
-def c69120d0_cases(dev, key):
-    """What `--turns` times against commit 69120d0: B1 and B2 (camera rays
-    on the folded pages, no flags: the instances wave 0 runs) on the whole
-    wave 0 of a 2560x1440 circles_2k render under live RNG at ray_chunk
-    1024, and the default circles_2k render.  Returns (kernel cases: label
-    -> (wrapper name, args, kwargs, the rays compared or None, the new
-    build's outputs elsewhere or None, bitwise: False compares values, as
-    torch.equal does, so that B1's zero entries may differ in sign),
-    renderers: label -> (renderer, viewport), the live rays of the
-    inputs)."""
+def cbc44eef_cases(dev, key):
+    """What `--turns` times against commit bc44eef: B9 on the whole waves
+    0, 1 and 2 of a 2560x1440 synthetic_1m_2k render under live RNG
+    (`_streamed_waves`), B12a on the whole wave-2 state and B10 on the
+    camera rays (nearest) and their shadow rays (any-hit), outputs
+    bitwise; the unlit synthetic_1m_2k render through the default Engine
+    and through Engine(bank_major=True), and the default circles_2k render
+    (no kernel of its path changed).  Returns (kernel cases: label ->
+    (wrapper name, args, kwargs, the rays compared or None, the new
+    build's outputs elsewhere or None, bitwise), renderers: label ->
+    (renderer, viewport), the live rays of each wave)."""
+    s_scene = synthetic_1m_scene()
+    eng = Engine(s_scene, device=dev)
+    s_vp = synthetic_view((2560, 1440))
+    waves = _streamed_waves(eng, _synthetic_wave0(eng, s_vp, dev), key)
+    cases = {f"B9 {label}": ("trace_shade_streamed", args, {}, None, None,
+                             True) for label, args in waves.items()}
+    st2, live2 = waves["wave 2"][0], waves["wave 2"][-1]
+    NB = eng.stables.plt_i.shape[0]
+    cases["B12a wave-2 state"] = ("bankmajor_prep",
+                                  (st2, eng.stables.bank_ab, NB, RB, live2),
+                                  {}, None, None, True)
+    # B10 (its kernel refactored beside the new B9, its walk unchanged):
+    # the camera rays' nearest rows and their shadow rays' any-hit rows
+    full0 = waves["wave 0"][0]
+    cam = (full0[0:3], full0[3:6], full0[7], eng.stables, eng.page_size, RB)
+    rows = intersect_streamed.trace_streamed(*cam)
+    so, sd, hit, excl = eng_mod.shadow_rays(full0, rows, key, 0, False,
+                                            LIGHT)
+    cases["B10 camera rays"] = ("trace_streamed", cam, {}, None, None, True)
+    cases["B10 any-hit shadow rays"] = (
+        "trace_streamed", (so, sd, hit.float(), eng.stables, eng.page_size,
+                           RB), {"excl": excl, "any_hit": True}, None, None,
+        True)
     scene, vp = circles.build(resolution="2k", maxdepth=5)
-    eng = Engine(scene, device=dev)
-    P = eng.page_size
-    R0 = vp.width * vp.height
-    R = -(-R0 // RB) * RB
-    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
-                                                           vp.height), R, dev)
-    o, pk0 = eng._pinhole_fold(vp, o)
-    alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
-    full0 = torch.cat([o, d, alive0, alive0,
-                       torch.zeros((8, R), device=dev)], dim=0)
-    a1 = (full0[0:3], full0[3:6], full0[7] != 0, eng.aabb_lo, eng.aabb_hi,
-          RB)
-    lists = page_lists(*cull.cull_mask_exact(*a1))
-    cases = {
-        "B1 camera wave": ("cull_mask_exact", a1, {}, None, None, False),
-        "B2 camera wave": ("trace_shade_chunks",
-                           (full0, pk0, *lists, fold_in(key, 0), P, RB,
-                            False, 1 / 512),
-                           {"zero_origin": True}, None, None, True),
-    }
-    renders = {"circles_2k": (eng, vp)}
-    return cases, renders, {"camera_rays": R0, "of": R}
+    renders = {"synthetic_1m_2k": (eng, s_vp),
+               "synthetic_1m_2k bank-major": (
+                   Engine(s_scene, bank_major=True, device=dev), s_vp),
+               "circles_2k": (Engine(scene, device=dev), vp)}
+    live = {label: int((args[0][7] != 0).sum())
+            for label, args in waves.items()}
+    return cases, renders, live
 
 
 #: `--turns`'s table, the one part of it that names an earlier commit:
 #: `commit`, whose csrc/ the tool builds (`git archive COMMIT
 #: rust_raytrace_tpu_torch/csrc`); `entries`, the C entry points of that
-#: build with their argument types (69120d0's rt_cull and
-#: rt_trace_shade_union lack the checkout's flag pointers); `wrap(lib)`,
-#: the port's wrappers of those entry points; `patches`, the (module,
-#: name) under which the render paths look the wrappers up; `kernels`, the
-#: kernel functions whose ptxas reports it prints; `cases(dev, key)`, what
-#: it times.  The next redesign edits this table and the functions it
-#: names, not `turns`.
+#: build with their argument types (bc44eef's rt_trace_shade_streamed lacks
+#: the checkout's group boxes and scratch); `wrap(lib)`, the port's
+#: wrappers of those entry points; `patches`, the (module, name) under
+#: which the render paths look the wrappers up; `kernels`, the kernel
+#: functions whose ptxas reports it prints; `cases(dev, key)`, what it
+#: times.  The next redesign edits this table and the functions it names,
+#: not `turns`.
 TURNS_AGAINST = SimpleNamespace(
-    commit="69120d0",
-    entries={"rt_cull": native.CULL.argtypes[:9] + native.CULL.argtypes[10:],
-             "rt_trace_shade_union":
-                 native.TRACE_SHADE_UNION.argtypes[:16]
-                 + native.TRACE_SHADE_UNION.argtypes[18:]},
-    wrap=c69120d0_wrappers,
-    patches=((eng_mod, "cull_mask_exact"), (eng_mod, "trace_shade_chunks")),
-    kernels=("cull_kernel", "trace_union_kernel"),
-    cases=c69120d0_cases)
+    commit="bc44eef",
+    entries={"rt_trace_shade_streamed":
+                 native.TRACE_SHADE_STREAMED.argtypes[:5]
+                 + native.TRACE_SHADE_STREAMED.argtypes[6:16]
+                 + native.TRACE_SHADE_STREAMED.argtypes[18:],
+             "rt_bm_prep": native.BM_PREP.argtypes,
+             "rt_trace_streamed": native.TRACE_STREAMED.argtypes},
+    wrap=cbc44eef_wrappers,
+    patches=((eng_mod, "trace_shade_streamed"),
+             (intersect_streamed, "bankmajor_prep"),
+             (intersect_streamed, "trace_streamed")),
+    kernels=("trace_streamed_kernel", "stream_list_kernel",
+             "stream_trace_kernel", "bm_prep_kernel"),
+    cases=cbc44eef_cases)
 
 
 #: launches a `--turns` kernel timing averages
@@ -3215,7 +3501,8 @@ def turns(csrc: Path, out: Path) -> int:
     Kernels: each case first checks the two builds' outputs equal bit for
     bit (on the rays the case names, the new build's other rays holding
     the case's values), then CUDA events, TURNS_REPS launches after a
-    warm-up, rounds new, earlier, new, earlier.  Renders (live RNG, key 0): best of
+    warm-up, rounds new, earlier, new, earlier, and each build's device
+    time a call (`_device_ms`).  Renders (live RNG, key 0): best of
     three after a warm-up each round, the earlier build's kernels patched
     in; images byte-equal.  Prints the card, both builds' ptxas reports and
     every number, and writes them as JSON to `out`."""
@@ -3260,11 +3547,13 @@ def turns(csrc: Path, out: Path) -> int:
         # wrapper does not) falls inside the events and would otherwise
         # weigh on the mean
         tt = _in_turns(fns, reps=TURNS_REPS)
-        report["kernels"][label] = tt
+        dt = {b: _device_ms(fn) for b, fn in fns.items()}
+        report["kernels"][label] = dict(tt, device_ms=dt)
         print(f"{label}: new {tt['new'][0]:.4f} / {tt['new'][1]:.4f} ms, "
               f"earlier {tt['earlier'][0]:.4f} / {tt['earlier'][1]:.4f} ms "
               f"(in turns; outputs {'bitwise' if bitwise else 'value'} "
-              f"equal) [{card}]")
+              f"equal); device time a call new {dt['new']:.4f}, earlier "
+              f"{dt['earlier']:.4f} ms [{card}]")
 
     def best_render(e, rvp):
         e.render(rvp)
@@ -3303,11 +3592,17 @@ if __name__ == "__main__":
                     help="instead of the smoke run, time the kernels and "
                          "renders of TURNS_AGAINST in turns against a build "
                          "of CSRC, the csrc/ of its commit")
-    ap.add_argument("--out", type=Path, default=Path("build/turns.json"),
-                    help="JSON file for --turns's numbers")
+    ap.add_argument("--out", type=Path,
+                    help="JSON file for the numbers of --turns (default "
+                         "build/turns.json) or --counts (default "
+                         "build/counts.json)")
     ap.add_argument("--scene-build", action="store_true",
                     help="instead of the smoke run, time synthetic_1m_2k's "
                          "host build")
+    ap.add_argument("--counts", action="store_true",
+                    help="instead of the smoke run, run B9's whole-wave "
+                         "checks and its counting phase alone, on "
+                         "synthetic_1m_2k")
     ap.add_argument("--cli", nargs=argparse.REMAINDER, metavar="ARGV",
                     help="run the command line's main(ARGV) and print, as "
                          "the last line, what run_cli returns as JSON (the "
@@ -3319,8 +3614,11 @@ if __name__ == "__main__":
             rc = 0
         elif args.scene_build:
             rc = scene_build()
+        elif args.counts:
+            rc = counts_only(args.out or Path("build/counts.json"))
         else:
-            rc = main() if args.turns is None else turns(args.turns, args.out)
+            rc = main() if args.turns is None else turns(
+                args.turns, args.out or Path("build/turns.json"))
     finally:
         for proc in _CHILDREN:
             proc.kill()

@@ -4,8 +4,10 @@
 // layout), for B7 (trace_perlane.cu) over the resident tables, banks in
 // index order.  rt::bank_walk walks the page-major records: the resident
 // regime's for B4 (trace_shade_perlane.cu), banks in index order, and the
-// streamed regime's for B9/B10 (trace_streamed.cu), banks on a per-ray
-// worklist, and B12's sweep (trace_bankmajor.cu), one bank per item.
+// streamed regime's for B10 (trace_streamed.cu), banks on a per-ray
+// worklist, and B12's sweep (trace_bankmajor.cu), one bank per item.  (B9
+// walks the same records in the same order with a warp a ray,
+// trace_streamed.cu.)
 //
 // Counterpart: rust_raytrace_tpu/ops/intersect_perlane.py:_group and
 // ops/intersect_streamed.py:_bank_group_pass — each ray slab-tests the bank's

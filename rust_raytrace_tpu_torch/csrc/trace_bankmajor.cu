@@ -25,14 +25,19 @@
 //
 // Design.
 //   prep: one block per chunk, at most 1024 threads, each owning
-//     ceil(ray_chunk / 1024) rays.  Each thread writes its lanes' winner
-//     init (t = +inf on valid lanes, -inf on invalid ones; id and slot 0)
-//     and slab-tests its rays against the bank AABBs, staged
-//     in shared memory 128 banks at a time; warp ballots and a shared
-//     atomicOr set bit g of gm[bank, chunk] when some ray of the chunk's
-//     128-lane group g enters the bank.  The TPU's lane sort by primary
-//     bank (_primary_bank_sort) and its inverse map are dropped: they only
-//     made the TPU's 128-lane groups bank-homogeneous and round-trip
+//     ceil(ray_chunk / 1024) rays.  A chunk flagged dead writes only its
+//     lanes' winner init (t = -inf, id and slot 0) and zero gm words: it
+//     reads no state row and tests no slab.  In a live chunk each thread
+//     writes its lanes' winner init (t = +inf on valid lanes, -inf on
+//     invalid ones) and slab-tests its valid rays against the bank AABBs,
+//     staged in shared memory BANK_TILE banks at a time, 32 banks a mask
+//     word in registers; a warp ORs each word over its 32 lanes
+//     (__reduce_or_sync, the lanes of one 128-lane group) and writes it to
+//     shared memory once; then thread b of the block sets bit g of gm[b, c]
+//     from the words of group g's warps.  So a bank costs a warp no ballot
+//     and no atomic.  The TPU's lane sort by primary bank
+//     (_primary_bank_sort) and its inverse map are dropped: they only made
+//     the TPU's 128-lane groups bank-homogeneous and round-trip
 //     bit-exactly.
 //   glue (torch, [NB, NC] only): each bank's demanding chunks first, in
 //     chunk order, and their count (ops/intersect_streamed.py).
@@ -79,9 +84,12 @@ using rt::REC4;
 constexpr int WIN_T = 0;
 constexpr int WIN_ID = 1;
 constexpr int WIN_SLOT = 2;
-// bank AABBs a prep block stages at once; floats per staged AABB row
-constexpr int BANK_TILE = 128;
+// bank AABBs a prep block stages at once (a multiple of 32: whole mask
+// words); floats per staged AABB row; a chunk's lane-warps at the largest
+// ray_chunk (utils/native.py MAX_RAY_CHUNK = 4096)
+constexpr int BANK_TILE = 256;
 constexpr int BOX = 8;
+constexpr int LANE_WARPS = 4096 / 32;
 
 __device__ __forceinline__ void load_ray(const float* __restrict__ st,
                                          long long R, long long r, float o[3],
@@ -109,57 +117,89 @@ __device__ __forceinline__ bool enters(const float* __restrict__ box,
 // B12a.  Block c = chunk c, at most 1024 threads (rt::chunk_block): a
 // thread owns RPT lanes of the chunk, slot s at lane s * blockDim + tid.
 // blockDim is a multiple of 32 and lanes run in whole warps, so the 32
-// lanes of a warp's slot lie in one 128-lane group: one ballot per warp
-// and slot decides its group's bit, for 8 to 32 groups at ray_chunk 1024
-// to 4096 (bit 31 of the int32 mask included).
+// lanes of a warp's slot lie in one 128-lane group: its lane-warp (lane /
+// 32) w belongs to group w / 4, for 8 to 32 groups at ray_chunk 1024 to
+// 4096 (bit 31 of the int32 mask included).  The bank AABBs are staged
+// two float4 each.
 template <int RPT>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(1024, RPT == 1 ? 2 : 1)
 bm_prep_kernel(const float* __restrict__ st, long long R,
                const float* __restrict__ bank_ab, int NB, int NC,
                int ray_chunk, const int* __restrict__ chunk_live,
                float* __restrict__ win, int* __restrict__ gm) {
-  __shared__ float s_box[BANK_TILE * BOX];
-  __shared__ int s_gm[BANK_TILE];
-  const int tid = threadIdx.x;
+  __shared__ float4 s_box[BANK_TILE * 2];
+  __shared__ uint32_t s_or[LANE_WARPS][BANK_TILE / 32];
+  const int tid = threadIdx.x, lane = tid & 31;
   const int c = blockIdx.x;
-  const bool live = chunk_live == nullptr || chunk_live[c] != 0;
+  const long long r0 = (long long)c * ray_chunk;
+  if (chunk_live != nullptr && chunk_live[c] == 0) {
+    for (int l = tid; l < ray_chunk; l += blockDim.x) {
+      win[WIN_T * R + r0 + l] = -rt::inf_f();
+      win[WIN_ID * R + r0 + l] = 0.0f;
+      win[WIN_SLOT * R + r0 + l] = 0.0f;
+    }
+    for (int b = tid; b < NB; b += blockDim.x) gm[(long long)b * NC + c] = 0;
+    return;
+  }
   bool valid[RPT];
-  float o[RPT][3], d[RPT][3], inv[RPT][3];
-  unsigned gbit[RPT];
+  float o[RPT][3], inv[RPT][3];
 #pragma unroll
   for (int s = 0; s < RPT; ++s) {
     const int l = s * blockDim.x + tid;
-    const bool in = l < ray_chunk;
-    const long long r = (long long)c * ray_chunk + (in ? l : 0);
-    valid[s] = in && live && st[rt::ROW_ALIVE * R + r] != 0.0f;
-    if (in) {
+    const long long r = r0 + l;
+    valid[s] = l < ray_chunk && st[rt::ROW_ALIVE * R + r] != 0.0f;
+    if (l < ray_chunk) {
       win[WIN_T * R + r] = valid[s] ? rt::inf_f() : -rt::inf_f();
       win[WIN_ID * R + r] = 0.0f;
       win[WIN_SLOT * R + r] = 0.0f;
     }
-    load_ray(st, R, r, o[s], d[s], inv[s]);
-    gbit[s] = 1u << ((in ? l : 0) / GROUP);
+    if (valid[s]) {
+      float d[3];
+      load_ray(st, R, r, o[s], d, inv[s]);
+    }
   }
+  const int G = ray_chunk / GROUP;
+  float* sb = reinterpret_cast<float*>(s_box);
   for (int b0 = 0; b0 < NB; b0 += BANK_TILE) {
     const int n = min(BANK_TILE, NB - b0);
-    for (int i = tid; i < n * 7; i += blockDim.x)
-      s_box[(i / 7) * BOX + i % 7] =
-          bank_ab[(long long)(b0 + i / 7) * AB_LANES + i % 7];
-    for (int i = tid; i < n; i += blockDim.x) s_gm[i] = 0;
+    for (int i = tid; i < n * BOX; i += blockDim.x)
+      sb[i] = i % BOX == 7
+          ? 0.0f : bank_ab[(long long)(b0 + i / BOX) * AB_LANES + i % BOX];
     __syncthreads();
-    for (int b = 0; b < n; ++b) {
-      const float* box = s_box + b * BOX;
+    for (int w = 0; w < (n + 31) / 32; ++w) {
 #pragma unroll
       for (int s = 0; s < RPT; ++s) {
-        const bool hit = valid[s] && box[6] != 0.0f &&
-                         enters(box, o[s], inv[s], rt::inf_f());
-        if (__ballot_sync(0xffffffffu, hit) != 0u && (tid & 31) == 0)
-          atomicOr(&s_gm[b], (int)gbit[s]);
+        uint32_t bits = 0u;
+        if (valid[s]) {
+          const int m = min(32, n - w * 32);
+          for (int j = 0; j < m; ++j) {
+            const float4 a = s_box[2 * (w * 32 + j)];
+            const float4 e = s_box[2 * (w * 32 + j) + 1];
+            const float lo[3] = {a.x, a.y, a.z};
+            const float hi[3] = {a.w, e.x, e.y};
+            float tlo, thi;
+            rt::slab(lo, hi, o[s], inv[s], tlo, thi);
+            if ((e.z != 0.0f) & (tlo <= thi) & (thi >= 0.0f))
+              bits |= 1u << j;
+          }
+        }
+        bits = __reduce_or_sync(0xffffffffu, bits);
+        const int lw = (s * blockDim.x + tid) / 32;
+        if (lane == 0 && lw * 32 < ray_chunk) s_or[lw][w] = bits;
       }
     }
     __syncthreads();
-    for (int i = tid; i < n; i += blockDim.x)
-      gm[(long long)(b0 + i) * NC + c] = s_gm[i];
+    for (int b = tid; b < n; b += blockDim.x) {
+      int m = 0;
+      for (int g = 0; g < G; ++g) {
+        const uint32_t* q = &s_or[4 * g][b >> 5];
+        const uint32_t any = q[0] | q[BANK_TILE / 32] |
+                             q[2 * (BANK_TILE / 32)] |
+                             q[3 * (BANK_TILE / 32)];
+        m |= (int)((any >> (b & 31)) & 1u) << g;
+      }
+      gm[(long long)(b0 + b) * NC + c] = m;
+    }
     __syncthreads();
   }
 }

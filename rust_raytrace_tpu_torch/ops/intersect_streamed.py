@@ -23,7 +23,8 @@ B10 stages every bank's AABB in shared memory, 32 B each.  Beside them lie the
 same triangles page-major (`intersect_perlane.page_records`, which builds
 the resident regime's too): one 96-byte record of the packed lanes 0..23
 per triangle and one 32-byte AABB per page, which the CUDA walks of B9,
-B10 and B12's sweep read (csrc/perlane.cuh:bank_walk).
+B10 and B12's sweep read (csrc/perlane.cuh:bank_walk; B9's walk by a warp
+a ray in csrc/trace_streamed.cu), and B9's group boxes of 8 pages.
 Every ray walks the banks its slab test hits, the nearest remaining one
 first (ties to the lower index), skips a bank once its entry lies beyond
 the ray's best hit, and runs the per-lane page traversal
@@ -106,21 +107,54 @@ class StreamedTables(NamedTuple):
 
     plt_i, plt_s, ab, bank_ab: `build_streamed_tables` (pages on lanes, the
     JAX package's layout); rec [NB*128, P, 24] and pab [NB*128, 8]:
-    `page_records` of them (page-major, the CUDA walks' layout)."""
+    `page_records` of them (page-major, the CUDA walks' layout); gab
+    [NB*128 / PAGES_A_BOX, 8]: `group_boxes(pab)`, B9's first level of page
+    culling."""
     plt_i: torch.Tensor
     plt_s: torch.Tensor
     ab: torch.Tensor
     bank_ab: torch.Tensor
     rec: torch.Tensor
     pab: torch.Tensor
+    gab: torch.Tensor
+
+
+#: pages a group box holds (consecutive pages of one bank)
+PAGES_A_BOX = 8
+
+
+def group_boxes(pab):
+    """The group boxes of the page boxes pab [NB*128, 8] (lanes 0..2 lo,
+    3..5 hi, 6 valid), on their device: [NB*128 / PAGES_A_BOX, 8], box g
+    the exact float minimum of the lo lanes and maximum of the hi lanes of
+    pages g * PAGES_A_BOX ... over the valid ones (a NaN bound counts as
+    unbounded), lane 6 1.0 when one is valid (else lo +inf, hi -inf and
+    lane 6 0), lane 7 0.  Slab arithmetic is monotone in the bounds under
+    round to nearest, so a page (lo <= hi, as every page of the tables)
+    whose slab test passes passes its group box's: B9 skips the pages of a
+    group that fails (tests/test_torch_streamed_walk.py holds it on -0,
+    NaN and padding bounds)."""
+    g = pab.reshape(-1, PAGES_A_BOX, PAB_LANES)
+    valid = (g[..., 6] != 0.0)[..., None]
+    inf = torch.tensor(torch.inf, dtype=pab.dtype, device=pab.device)
+    lo, hi = g[..., 0:3], g[..., 3:6]
+    lo = torch.where(valid, torch.where(torch.isnan(lo), -inf, lo), inf)
+    hi = torch.where(valid, torch.where(torch.isnan(hi), inf, hi), -inf)
+    out = torch.zeros((g.shape[0], PAB_LANES), dtype=pab.dtype,
+                      device=pab.device)
+    out[:, 0:3] = lo.amin(dim=1)
+    out[:, 3:6] = hi.amax(dim=1)
+    out[:, 6] = valid[:, :, 0].any(dim=1).to(pab.dtype)
+    return out
 
 
 def upload_streamed_tables(pages: PageTables, device) -> StreamedTables:
     """`build_streamed_tables` as float32 tensors on `device`, and their
-    page-major records built there."""
+    page-major records and group boxes built there."""
     tabs = tuple(torch.from_numpy(x).to(device)
                  for x in build_streamed_tables(pages))
-    return StreamedTables(*tabs, *page_records(*tabs[:3]))
+    rec, pab = page_records(*tabs[:3])
+    return StreamedTables(*tabs, rec, pab, group_boxes(pab))
 
 
 def _trace_block(o, d, valid, views, bank_ab, excl, any_hit: bool):
@@ -259,6 +293,28 @@ def trace_shade_streamed(state, tables: StreamedTables, seed,
                                           weight_cutoff, chunk_live)
     native.require(dev.type == "cuda",
                    f"trace_shade_streamed: no kernel for device {dev}")
+    out, args, _scratch = _b9_args(state, tables, seed, page_size,
+                                   ray_chunk, fixed_rng, weight_cutoff,
+                                   chunk_live)
+    native.TRACE_SHADE_STREAMED(*args, native.stream(dev))
+    return out
+
+
+#: the rows of `trace_shade_streamed_counts`'s counts
+#: (csrc/trace_streamed.cu Count)
+COUNT_ROWS = ("bank_steps", "bank_tests", "bank_visits", "group_tests",
+              "page_tests", "pages", "tris", "led", "lane_iters")
+
+
+def _b9_args(state, tables: StreamedTables, seed, page_size: int,
+             ray_chunk: int, fixed_rng: bool, weight_cutoff: float,
+             chunk_live):
+    """Validate B9's arguments on the card; returns (out, the C entry's
+    arguments up to and including its scratch, the scratch): the live list
+    [R] int32 and its three counters (the list's length, the trace grid's
+    claims, the listed rays that start outside every bank box they enter),
+    which must outlive the launch's enqueueing."""
+    dev = state.device
     R = state.shape[1]
     P = page_size
     NB = tables.plt_i.shape[0]
@@ -268,13 +324,42 @@ def trace_shade_streamed(state, tables: StreamedTables, seed,
     native.check_tensor("chunk_live", chunk_live, dev, (R // ray_chunk,),
                         torch.int32)
     out = torch.empty_like(state)
+    scratch = torch.empty(R, dtype=torch.int32, device=dev)
+    count = torch.zeros(3, dtype=torch.int32, device=dev)
     s0, s1 = (int(w) for w in seed)
-    native.TRACE_SHADE_STREAMED(
-        state.data_ptr(), out.data_ptr(), R, tables.rec.data_ptr(),
-        tables.pab.data_ptr(), tables.bank_ab.data_ptr(), P, NB, ray_chunk,
-        chunk_live.data_ptr(), s0, s1, int(fixed_rng), float(weight_cutoff),
-        xla_rsqrt.device_table(dev).data_ptr(), native.stream(dev))
-    return out
+    return out, (state.data_ptr(), out.data_ptr(), R, tables.rec.data_ptr(),
+                 tables.pab.data_ptr(), tables.gab.data_ptr(),
+                 tables.bank_ab.data_ptr(), P, NB,
+                 ray_chunk, chunk_live.data_ptr(), s0, s1, int(fixed_rng),
+                 float(weight_cutoff), xla_rsqrt.device_table(dev).data_ptr(),
+                 scratch.data_ptr(), count.data_ptr()), (scratch, count)
+
+
+def trace_shade_streamed_counts(state, tables: StreamedTables, seed,
+                                page_size: int, ray_chunk: int,
+                                fixed_rng: bool, weight_cutoff: float,
+                                chunk_live):
+    """B9's counting instance, on the card only: `trace_shade_streamed`'s
+    result, [len(COUNT_ROWS), R] int32 counts of each traced ray's work at
+    its lane, 0 elsewhere (bank selection steps, bank-box slab tests, bank
+    visits, group-box and page-box slab tests, pages and triangles tested,
+    and the triangle-loop iterations the ray's lanes led and ran, so that
+    lane_iters / (32 * led) is the loop's active-lane share), and the lanes
+    a ray the trace grid took: 16 where more than half the listed rays
+    start outside every bank box they enter, else 32.  No render path
+    calls it."""
+    dev = state.device
+    native.require(dev.type == "cuda",
+                   f"trace_shade_streamed_counts: no kernel for device {dev}")
+    out, args, (_, count) = _b9_args(state, tables, seed, page_size,
+                                     ray_chunk, fixed_rng, weight_cutoff,
+                                     chunk_live)
+    cnt = torch.zeros((len(COUNT_ROWS), state.shape[1]), dtype=torch.int32,
+                      device=dev)
+    native.TRACE_SHADE_STREAMED_COUNTS(*args, cnt.data_ptr(),
+                                       native.stream(dev))
+    listed, _, outside = count.tolist()
+    return out, cnt, 16 if 2 * outside > listed else 32
 
 
 def _check_tables(dev, P: int, NB: int, tables: StreamedTables) -> None:
@@ -290,6 +375,8 @@ def _check_tables(dev, P: int, NB: int, tables: StreamedTables) -> None:
                         torch.float32)
     native.check_tensor("pab", tables.pab, dev, (NB * GROUP, PAB_LANES),
                         torch.float32)
+    native.check_tensor("gab", tables.gab, dev,
+                        (NB * GROUP // PAGES_A_BOX, PAB_LANES), torch.float32)
     native.require(NB <= native.MAX_STREAMED_BANKS,
                    f"{NB} banks: the streamed kernels stage at most "
                    f"{native.MAX_STREAMED_BANKS} bank AABBs")

@@ -187,7 +187,16 @@ EXPAND = Kernel(
 
 TRACE_SHADE_STREAMED = Kernel(
     "trace_shade_streamed", "rt_trace_shade_streamed",
-    [P, P, I64, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P, P],
+    [P, P, I64, P, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P, P, P,
+     P],
+    "rust_raytrace_tpu_torch/csrc/trace_streamed.cu",
+    "rust_raytrace_tpu/ops/intersect_streamed.py:687")
+#: B9's counting instance (chip_smoke.py's counting phase).  No render
+#: path launches it, so it is not in KERNELS
+TRACE_SHADE_STREAMED_COUNTS = Kernel(
+    "trace_shade_streamed_counts", "rt_trace_shade_streamed_counts",
+    [P, P, I64, P, P, P, P, I32, I32, I32, P, U32, U32, I32, F32, P, P, P,
+     P, P],
     "rust_raytrace_tpu_torch/csrc/trace_streamed.cu",
     "rust_raytrace_tpu/ops/intersect_streamed.py:687")
 TRACE_STREAMED = Kernel(

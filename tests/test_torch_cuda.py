@@ -848,3 +848,57 @@ def test_union_flag_kernels_match_plain(dev, rc):
                 lanes = slice(ch * rc, (ch + 1) * rc)
                 np.testing.assert_array_equal(words[:, lanes],
                                               src[:, lanes])
+
+
+@pytest.mark.parametrize("fixed", [True, False])
+@pytest.mark.parametrize("flags", ["live", "all", "camera", "inside"])
+def test_streamed_walk_kernels_match_plain(dev, fixed, flags):
+    """B9 on tests/streamed_walk_cases.py's inputs (a triangle and its copy
+    in two banks and two pages, zero-normal slots mid-page, rays from
+    inside the sphere inside several bank boxes, a chunk with no live ray
+    whose words hold -0 and NaNs, dead lanes in live chunks): the kernel
+    against its plain version bitwise, chunk_live as the state says, every
+    chunk flagged live, only the camera rays' chunk (whose rays start
+    outside every bank box: the trace grid takes 16 lanes a ray) and only
+    the chunk of rays from inside the sphere (32 lanes); its counting
+    instance equal to it."""
+    import streamed_walk_cases as W
+
+    tabs, st, cl = W.torch_case(dev)
+    if flags == "all":
+        cl = torch.ones_like(cl)
+    elif flags in ("camera", "inside"):
+        keep = W.CAMERA_CHUNK if flags == "camera" else W.INSIDE_CHUNK
+        cl = (torch.arange(W.NC, device=dev) == keep).to(torch.int32)
+    args = (st, tabs, np.asarray([321, 654], np.uint32), W.P, W.RB, fixed,
+            0.0 if fixed else 1 / 512, cl)
+    out = intersect_streamed.trace_shade_streamed(*args)
+    _bitwise(out, intersect_streamed.trace_shade_streamed_plain(*args))
+    got, cnt, lanes = intersect_streamed.trace_shade_streamed_counts(*args)
+    _bitwise(got, out)
+    if flags in ("camera", "inside"):
+        assert lanes == (16 if flags == "camera" else 32)
+    traced = cnt[1] != 0
+    assert traced.any() and (cnt[:, ~traced] == 0).all()
+    assert (cnt[5, traced] * W.P == cnt[6, traced]).all()
+
+
+@pytest.mark.parametrize("rc", [1024, 2048, 4096])
+def test_bankmajor_prep_walk_case_matches_plain(dev, rc):
+    """B12a on tests/streamed_walk_cases.py's state at ray_chunk 1024 (its
+    chunk with no live ray flagged dead) and, over the same rays, at 2048
+    and 4096 (every chunk live): winner init and group demand bitwise
+    against its plain version, and with chunk_live None."""
+    import streamed_walk_cases as W
+
+    tabs, st, cl = W.torch_case(dev)
+    NB = tabs.plt_i.shape[0]
+    if rc != W.RB:
+        st = torch.cat([st, st[:, :(-st.shape[1]) % rc]], dim=1)
+        cl = torch.ones(st.shape[1] // rc, dtype=torch.int32, device=dev)
+    for flags in (cl, None):
+        args = (st, tabs.bank_ab, NB, rc, flags)
+        win, gm = intersect_streamed.bankmajor_prep(*args)
+        win_p, gm_p = intersect_streamed.bankmajor_prep_plain(*args)
+        _bitwise(win, win_p)
+        assert torch.equal(gm, gm_p) and bool((gm != 0).any())
