@@ -472,12 +472,25 @@ PLAIN = {"cull_mask_exact": cull.cull_mask_exact_plain,
          "trace_streamed": intersect_streamed.trace_streamed_plain}
 
 
-def _plain_perlane_rows(ot, dt, alive, plt_i, plt_s, ab, page_size,
-                        ray_chunk, chunk_live=None, excl=None,
-                        any_hit=False):
+def _plain_perlane_rows(ot, dt, alive, tables, page_size, ray_chunk,
+                        chunk_live=None, excl=None, any_hit=False):
     return intersect_perlane.trace_perlane_plain(
-        ot, dt, alive, plt_i, plt_s, ab, page_size, excl, any_hit, ray_chunk,
+        ot, dt, alive, *tables[:3], page_size, excl, any_hit, ray_chunk,
         chunk_live)
+
+
+def _plain_perlane_whole(ot, dt, alive, tables, page_size, excl=None,
+                         any_hit=False, block=1 << 18):
+    """`trace_perlane_plain` on a whole wave, in blocks of `block` rays (its
+    gathers hold 17 * P floats a ray of a step)."""
+    R = ot.shape[1]
+    out = torch.empty((16, R), dtype=torch.float32, device=ot.device)
+    for i in range(0, R, block):
+        s = slice(i, min(R, i + block))
+        out[:, s] = intersect_perlane.trace_perlane_plain(
+            ot[:, s], dt[:, s], alive[s], *tables[:3], page_size,
+            None if excl is None else excl[s], any_hit)
+    return out
 
 
 PLAIN["trace_shade_bankmajor"] = intersect_streamed.trace_shade_bankmajor_plain
@@ -1019,14 +1032,14 @@ def perlane_banks(dev, key):
     NB = eng.ptables.ab.shape[0] // 128
     if eng.streamed or NB < 2:
         raise AssertionError(f"B7 scene: streamed {eng.streamed}, {NB} banks")
-    tabs = eng.ptables[:3]
+    tabs = eng.ptables
     vp = synthetic_view((2560, 1440))
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
     o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
                                                            vp.height), R, dev)
     alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)
-    frows = intersect_perlane.trace_perlane(o, d, alive0, *tabs, P, RB)
+    frows = intersect_perlane.trace_perlane(o, d, alive0, tabs, P, RB)
     hit_chunks = torch.nonzero((frows[1] != 0).reshape(-1, RB).any(dim=1))
     pick = torch.linspace(0, hit_chunks.numel() - 1, N_CHECK_CHUNKS,
                           device=dev).round().long()
@@ -1035,18 +1048,25 @@ def perlane_banks(dev, key):
     a = alive0[rays][None]
     st0 = torch.cat([o[:, rays], d[:, rays], a, a,
                      torch.zeros((8, rays.numel()), device=dev)])
-    cam = (st0[0:3], st0[3:6], st0[7], *tabs, P, RB)
+    cam = (st0[0:3], st0[3:6], st0[7], tabs, P, RB)
     rows0 = intersect_perlane.trace_perlane(*cam)
     _require_bitwise("B7 camera rays, several banks", rows0,
                      _plain_perlane_rows(*cam))
+    live = torch.ones(st0.shape[1] // RB, dtype=torch.int32, device=dev)
+    live[2::5] = 0
+    rows0d = intersect_perlane.trace_perlane(*cam, chunk_live=live)
+    _require_bitwise("B7 camera rays with dead chunks, several banks",
+                     rows0d, _plain_perlane_rows(*cam, chunk_live=live))
+    if (rows0d.reshape(16, -1, RB)[:, live == 0] != 0).any():
+        raise AssertionError("B7: a dead chunk's rows are not zero")
     ones = torch.ones(st0.shape[1] // RB, dtype=torch.int32, device=dev)
     st1 = shade.shade(st0, rows0, fold_in(key, 0), RB, False, 1 / 512, ones)
-    w1 = (st1[0:3], st1[3:6], st1[7], *tabs, P, RB)
+    w1 = (st1[0:3], st1[3:6], st1[7], tabs, P, RB)
     rows1 = intersect_perlane.trace_perlane(*w1)
     _require_bitwise("B7 wave-1 rays, several banks", rows1,
                      _plain_perlane_rows(*w1))
     so, sd, hit, excl = eng_mod.shadow_rays(st1, rows1, key, 1, False, LIGHT)
-    sh = (so, sd, hit.float(), *tabs, P, RB)
+    sh = (so, sd, hit.float(), tabs, P, RB)
     occ = intersect_perlane.trace_perlane(*sh, excl=excl, any_hit=True)
     occ_p = _plain_perlane_rows(*sh, excl=excl, any_hit=True)
     if not torch.equal(occ[1] != 0, occ_p[1] != 0):
@@ -1055,7 +1075,8 @@ def perlane_banks(dev, key):
     print(f"B7 on a resident sphere of {len(scene.tris) - 1} triangles, "
           f"{eng.pages.num_pages} pages of {P} in {NB} banks, "
           f"{N_CHECK_CHUNKS} chunks: camera rays ({int((rows0[1] != 0).sum())}"
-          f" hits) and wave-1 rays ({int((rows1[1] != 0).sum())} hits) "
+          f" hits; again with every fifth chunk dead) and wave-1 rays "
+          f"({int((rows1[1] != 0).sum())} hits) "
           f"bitwise equal; any-hit occlusion bits equal ({int(hit.sum())} "
           f"shadow rays, {int((occ[1] != 0).sum())} occluded)")
     return eng, o, d, alive0 != 0, rays
@@ -1641,26 +1662,31 @@ def cull_sorted_kernels(cases, card, results):
             raise AssertionError(f"B13 {label}: the whole wave disagrees "
                                  f"with B1 + stable sort")
 
-        def bound(n_rays, v):
+        def bound(n_rays, v, c, pt):
             # the rays once (o, d, valid), the page boxes, the outputs; the
-            # slab tests of the valid rays and one comparison per pair of
-            # padded pages of a chunk
+            # slab tests of the valid rays and the rank's comparisons as
+            # the kernel makes them: h^2 + NPpad a chunk of h hit pages,
+            # NPpad^2 a chunk with a hit key not below BIGT
             nc = n_rays // RB
+            j = torch.arange(NPpad, device=dev)[None]
+            slow = ((j < c[:, None]) & ~(pt < cull.BIGT)).any(dim=1)
+            ranks = int(torch.where(slow, NPpad ** 2,
+                                    c.long() ** 2 + NPpad).sum())
             return _bound(n_rays * 25 + NP * 24 + nc * (NPpad * 8 + 4),
-                          int(v.sum()) * NP * SLAB_FLOPS + nc * NPpad ** 2)
+                          int(v.sum()) * NP * SLAB_FLOPS + ranks)
 
         turns = _in_turns({
             "B13": lambda: cull.cull_sorted(*full),
             "B1 + sort": lambda: page_lists(*cull.cull_mask_exact(*full))})
         b1_ms = _time_ms(lambda: cull.cull_mask_exact(*full))
-        bf = bound(R, valid)
+        bf = bound(R, valid, counts, ptmin)
         entry = dict(
             rays=int(rays.numel()), pages=NP, pages_padded=NPpad,
             max_abs_err=0.0,
             ms=_time_ms(lambda: cull.cull_sorted(*args, chunk_live=live)),
             plain_ms=_time_plain_ms(lambda: cull.cull_sorted_plain(
                 *args, chunk_live=live)),
-            **bound(rays.numel(), cv),
+            **bound(rays.numel(), cv, *got[0::2]),
             ms_full=min(turns["B13"]), bound_ms_full=bf["bound_ms"],
             bound_by_full=bf["bound_by"], turns_full=turns,
             b1_alone_ms_full=b1_ms)
@@ -1676,6 +1702,77 @@ def cull_sorted_kernels(cases, card, results):
         else:
             res[label] = entry
     results[native.CULL_SORTED.name] = res
+
+
+def _b13_branch_case(dev):
+    """Four chunks of 1,024 rays against 40 page boxes: chunk 0 random
+    rays (some with a zero direction component) and boxes, every hit key
+    below BIGT (the kernel's fast path); chunk 1 rays d = (0, 0, 1), half
+    from the origin and half from y = 2e9, against far pages 37 (entered
+    beyond BIGT by the first half only: key BIGT) and 38 (by all: key
+    3.2e38) and page 39, whose x = 0 plane holds their origins (key 0), so
+    it takes the all-pairs rank; chunk 2 flagged dead; chunk 3 with no
+    valid ray (tests/cull_sorted_cases.py builds the same for the tests).
+    No key can be NaN: a hit needs tlo <= thi."""
+    rc, nc, n_pages = 1024, 4, 40
+    rng = np.random.default_rng(5)
+    o = rng.uniform(-1.0, 1.0, (3, nc * rc)).astype(np.float32)
+    d = rng.normal(size=(3, nc * rc)).astype(np.float32)
+    d[0, :64] = 0.0
+    valid = rng.uniform(size=nc * rc) > 0.2
+    c = rng.uniform(-24.0, 24.0, (n_pages, 3)).astype(np.float32)
+    h = rng.uniform(0.2, 1.0, (n_pages, 3)).astype(np.float32)
+    blo, bhi = c - h, c + h
+    o[:, rc:2 * rc] = 0.0
+    o[1, rc + rc // 2:2 * rc] = 2e9
+    d[:, rc:2 * rc] = np.asarray([[0.0], [0.0], [1.0]], np.float32)
+    valid[rc:2 * rc] = True
+    blo[37], bhi[37] = (3.2e8, -1e9, -1.0), (3.3e8, 1e9, 3.35e38)
+    blo[38], bhi[38] = (3.2e8, -1e10, -1.0), (3.3e8, 1e10, 3.35e38)
+    blo[39], bhi[39] = (0.0, -1.0, -1.0), (1.0, 1.0, 6.0)
+    valid[3 * rc:] = False
+    live = np.asarray([1, 1, 0, 1], np.int32)
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (o, d, valid, blo, bhi, live)), rc
+
+
+def cull_sorted_branches(dev, results):
+    """B13's fast path and its all-pairs branch, each bitwise against the
+    plain version on `_b13_branch_case`; the case holds what each branch
+    is for: chunk 0's plain page order is the fast rank's, chunk 1's is
+    not (a hit key equal to BIGT ties its page with the missed ones, and
+    one beyond BIGT sorts after them)."""
+    (o, d, valid, blo, bhi, live), rc = _b13_branch_case(dev)
+    args = (o, d, valid, blo, bhi, rc)
+    got = cull.cull_sorted(*args, chunk_live=live)
+    want = cull.cull_sorted_plain(*args, chunk_live=live)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("B13 branch case: counts or plist differ")
+    _require_bitwise("B13 branch case ptmin", got[2], want[2])
+    mask = cull.cull_mask_exact_plain(*args)[0]
+    NPpad = want[1].shape[1]
+    for c, fast_expected in ((0, True), (1, False)):
+        key = torch.empty(NPpad, device=dev)
+        key[want[1][c].long()] = want[2][c]
+        m = torch.zeros(NPpad, dtype=torch.bool, device=dev)
+        m[:blo.shape[0]] = mask[c]
+        pages = torch.arange(NPpad, device=dev)
+        order = sorted(pages[m].tolist(), key=lambda p: (float(key[p]), p))
+        fast = torch.tensor(order + pages[~m].tolist(), device=dev)
+        hit_keys = key[m]
+        if fast_expected != bool((hit_keys < cull.BIGT).all()) or (
+                fast_expected != torch.equal(fast, want[1][c].long())):
+            raise AssertionError(f"B13 branch case: chunk {c} does not "
+                                 f"take the path it is built for")
+    results[native.CULL_SORTED.name]["branches"] = dict(
+        chunks=4, max_abs_err=0.0,
+        all_pairs_keys=[float(k) for k in want[2][1][:int(want[0][1])]
+                        if k >= cull.BIGT])
+    print(f"B13 branch case: the fast-path chunk ({int(want[0][0])} hit "
+          f"pages) and the all-pairs chunk ({int(want[0][1])} hit pages, "
+          f"hit keys {float(cull.BIGT):g} and "
+          f"{float(want[2][1][:int(want[0][1])].max()):g} among them), a "
+          f"dead chunk and one with no valid ray: bitwise equal")
 
 
 def bucket_kernels(full1, card, results):
@@ -2154,7 +2251,8 @@ PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
                 "trace_shade_perlane_kernel", "expand_kernel",
                 "shade_kernel", "trace_streamed_kernel", "stream_list_kernel",
                 "stream_trace_kernel", "live_list_kernel",
-                "nearest_hit_kernel", "trace_perlane_kernel", "bm_prep_kernel",
+                "nearest_hit_kernel", "perlane_walk_kernel", "perlane_list_kernel",
+                "perlane_trace_kernel", "bm_prep_kernel",
                 "bm_sweep_kernel", "bm_finish_kernel", "cull_sorted_kernel",
                 "compact_buckets_kernel", "expand_buckets_kernel")
 
@@ -2216,7 +2314,7 @@ def main() -> int:
     tb = eng.ptables
     print(f"circles_2k: {len(scene.tris) - 1} triangles, {NP} pages of {P}, "
           f"{tb.ab.shape[0] // 128} bank(s); page-major records "
-          f"{sum(t.numel() * 4 for t in tb[3:]) / 1e6:.6f} MB beside "
+          f"{sum(t.numel() * 4 for t in (tb.rec, tb.pab)) / 1e6:.6f} MB beside "
           f"{sum(t.numel() * 4 for t in tb[:3]) / 1e6:.6f} MB of per-lane "
           f"tables on the card")
     tile = eng_mod.pick_tile(vp.width, vp.height)
@@ -2235,7 +2333,6 @@ def main() -> int:
     key = prng_key(7)
     results = {}
     page_of_c = _page_of(eng, len(scene.tris) - 1, dev)
-    tabs7 = tb[:3]
 
     def b1_bound(n, valid):
         nc = n // RB
@@ -2259,7 +2356,7 @@ def main() -> int:
         # hit test
         valid = state[7] != 0
         ids = intersect_perlane.trace_perlane(state[0:3], state[3:6],
-                                              state[7], *tabs7, P, RB)[1]
+                                              state[7], tb, P, RB)[1]
         hits = int((valid & (ids != 0)).sum())
         pages = torch.unique(page_of_c[ids[valid & (ids != 0)].long()])
         return _bound(n * 128 + NP * 32 + pages.numel() * P * 96,
@@ -2387,7 +2484,7 @@ def main() -> int:
         "B4 with light", st2l_k,
         intersect_perlane.trace_shade_perlane_plain(*args4l))
     rows1 = intersect_perlane.trace_perlane_plain(
-        st1l_k[0:3], st1l_k[3:6], st1l_k[7], *tabs7, P)
+        st1l_k[0:3], st1l_k[3:6], st1l_k[7], *tb[:3], P)
     hits1 = int(((st1l_k[7] != 0) & (rows1[1] != 0)).sum())
     unlit4 = {k: results[native.TRACE_SHADE_PERLANE.name][k]
               for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -2407,13 +2504,13 @@ def main() -> int:
     # B7 (trace_perlane, the trace of the per-lane shadow pass) on the same
     # chunks' lit wave-1 rays: nearest rows, then any-hit with each ray's
     # own triangle excluded on their shadow rays
-    ray7 = (st1l_k[0:3], st1l_k[3:6], st1l_k[7], *tabs7, P, RB)
+    ray7 = (st1l_k[0:3], st1l_k[3:6], st1l_k[7], tb, P, RB)
     rows7 = intersect_perlane.trace_perlane(*ray7)
     err7 = _require_bitwise("B7 lit wave-1 rays", rows7,
                             _plain_perlane_rows(*ray7))
     so7, sd7, hit7, excl7 = eng_mod.shadow_rays(st1l_k, rows7, key, 1, False,
                                                 LIGHT)
-    sh7 = (so7, sd7, hit7.float(), *tabs7, P, RB)
+    sh7 = (so7, sd7, hit7.float(), tb, P, RB)
     occ7 = intersect_perlane.trace_perlane(*sh7, excl=excl7, any_hit=True)
     occ7_p = _plain_perlane_rows(*sh7, excl=excl7, any_hit=True)
     n_bits = int(((occ7[1] != 0) != (occ7_p[1] != 0)).sum())
@@ -2540,12 +2637,30 @@ def main() -> int:
 
     # B7 on the full lit wave 1, and the per-lane shadow pass
     # (shadow_mask_perlane, B7's path) beside the B1/B6 one on its rows
-    fray7 = (full1l[0:3], full1l[3:6], full1l[7], *tabs7, P, RB)
+    fray7 = (full1l[0:3], full1l[3:6], full1l[7], tb, P, RB)
     frows7 = intersect_perlane.trace_perlane(*fray7)
     fso7, fsd7, fhit7, fexcl7 = eng_mod.shadow_rays(full1l, frows7, key, 1,
                                                     False, LIGHT)
-    fsh7 = (fso7, fsd7, fhit7.float(), *tabs7, P, RB)
+    fsh7 = (fso7, fsd7, fhit7.float(), tb, P, RB)
     focc7 = intersect_perlane.trace_perlane(*fsh7, excl=fexcl7, any_hit=True)
+    # the whole wave against the plain version: nearest, all 16 rows
+    # bitwise; any-hit with self-exclusion, the occlusion bits (and the
+    # words of its rows that differ: only the bit is contractual, C5)
+    _require_bitwise("B7 nearest, the whole lit wave 1", frows7,
+                     _plain_perlane_whole(*fray7[:5]))
+    focc7_p = _plain_perlane_whole(*fsh7[:5], excl=fexcl7, any_hit=True)
+    n_bits = int(((focc7[1] != 0) != (focc7_p[1] != 0)).sum())
+    n_words = int((focc7.view(torch.int32) != focc7_p.view(torch.int32))
+                  .sum())
+    print(f"B7 on the whole lit circles_2k wave 1 "
+          f"({int((full1l[7] != 0).sum())} live rays): nearest rows bitwise "
+          f"equal ({int((frows7[1] != 0).sum())} hits); any-hit on its "
+          f"{int(fhit7.sum())} shadow rays: {n_bits} occlusion bits differ "
+          f"({int((focc7[1] != 0).sum())} occluded), {n_words} row words")
+    if n_bits:
+        raise AssertionError(f"B7 any-hit, the whole wave: {n_bits} "
+                             f"occlusion bits differ")
+    del focc7_p
     for name, res, fn, bound in (
             ("B7 nearest, lit wave-1 rays",
              results[native.TRACE_PERLANE.name],
@@ -2567,17 +2682,17 @@ def main() -> int:
     spass = (full1l, frows7, key, 1, False, LIGHT)
     torch.cuda.synchronize()
     native.reset_launch_counts()
-    smask7 = eng_mod.shadow_mask_perlane(*spass, *tabs7, P, RB)
+    smask7 = eng_mod.shadow_mask_perlane(*spass, tb, P, RB)
     torch.cuda.synchronize()
     perlane_launches = _counts()
     smask6 = eng_mod.shadow_mask(*spass, eng.aabb_lo, eng.aabb_hi, eng.PK, P,
                                  RB)
     n_lanes = int((smask7 != smask6).sum())
-    t7 = [_time_ms(lambda: eng_mod.shadow_mask_perlane(*spass, *tabs7, P,
+    t7 = [_time_ms(lambda: eng_mod.shadow_mask_perlane(*spass, tb, P,
                                                        RB), reps=3)]
     t6 = [_time_ms(lambda: eng_mod.shadow_mask(
         *spass, eng.aabb_lo, eng.aabb_hi, eng.PK, P, RB), reps=3)]
-    t7.append(_time_ms(lambda: eng_mod.shadow_mask_perlane(*spass, *tabs7,
+    t7.append(_time_ms(lambda: eng_mod.shadow_mask_perlane(*spass, tb,
                                                            P, RB), reps=3))
     t6.append(_time_ms(lambda: eng_mod.shadow_mask(
         *spass, eng.aabb_lo, eng.aabb_hi, eng.PK, P, RB), reps=3))
@@ -2684,6 +2799,7 @@ def main() -> int:
                                    eng.aabb_lo, eng.aabb_hi, rays),
         "4-bank sphere camera rays": (b_o, b_d, b_valid, b_eng.aabb_lo,
                                       b_eng.aabb_hi, b_rays)}, card, results)
+    cull_sorted_branches(dev, results)
     del banks, b_eng, b_o, b_d, b_valid, b_rays
     bucket_kernels(full1, card, results)
     ray_chunk_kernels(eng, full0, pk0, eng_s, card, key, results)
@@ -2840,11 +2956,11 @@ def main() -> int:
     cst1 = shade.shade(cst0, crows0, fold_in(ckey, 0), RB, True, 0.0,
                        torch.ones(cR // RB, dtype=torch.int32, device=dev),
                        cshd0)
-    ctabs = ec.ptables[:3]
+    ctabs = ec.ptables
     crows1 = intersect_perlane.trace_perlane(cst1[0:3], cst1[3:6], cst1[7],
-                                             *ctabs, cP, RB)
+                                             ctabs, cP, RB)
     cm7 = eng_mod.shadow_mask_perlane(cst1, crows1, ckey, 1, True, LIGHT,
-                                      *ctabs, cP, RB)
+                                      ctabs, cP, RB)
     cm6 = eng_mod.shadow_mask(cst1, crows1, ckey, 1, True, LIGHT, ec.aabb_lo,
                               ec.aabb_hi, ec.PK, cP, RB)
     n_lanes = int((cm7 != cm6).sum())
@@ -3308,130 +3424,177 @@ def main() -> int:
     return 0
 
 
-def cbc44eef_wrappers(lib) -> dict:
-    """`trace_shade_streamed` and `bankmajor_prep` with the port's
-    arguments, launching the kernels of commit bc44eef's library `lib`:
-    its B9 (the per-thread walk, one thread a lane of the state), whose
-    rt_trace_shade_streamed takes no group boxes and no scratch, and its
-    B12a."""
+def ca0d7908_wrappers(lib) -> dict:
+    """`trace_perlane` and `cull_sorted` with the port's arguments,
+    launching the kernels of commit a0d7908's library `lib`: its B7 (one
+    thread a lane of the wave over the per-lane tables, whose
+    rt_trace_perlane takes plt_i, plt_s and ab) and its B13 (the all-pairs
+    rank)."""
     def ok(err, name):
         if err != 0:
             raise RuntimeError(f"earlier build's {name}: CUDA error {err}")
 
-    def b9(state, tables, seed, page_size, ray_chunk, fixed_rng,
-           weight_cutoff, chunk_live):
-        dev = state.device
-        out = torch.empty_like(state)
-        s0, s1 = (int(w) for w in seed)
-        ok(lib.rt_trace_shade_streamed(
-            state.data_ptr(), out.data_ptr(), state.shape[1],
-            tables.rec.data_ptr(), tables.pab.data_ptr(),
-            tables.bank_ab.data_ptr(), page_size, tables.plt_i.shape[0],
-            ray_chunk, chunk_live.data_ptr(), s0, s1, int(fixed_rng),
-            float(weight_cutoff), xla_rsqrt.device_table(dev).data_ptr(),
-            native.stream(dev)), "rt_trace_shade_streamed")
-        return out
-
-    def prep(state, bank_ab, NB, ray_chunk, chunk_live=None):
-        dev = state.device
-        R = state.shape[1]
-        win = torch.empty((intersect_streamed.WIN_ROWS, R),
-                          dtype=torch.float32, device=dev)
-        gm = torch.empty((NB, R // ray_chunk), dtype=torch.int32, device=dev)
-        ok(lib.rt_bm_prep(state.data_ptr(), R, bank_ab.data_ptr(), NB,
-                          ray_chunk,
-                          0 if chunk_live is None else chunk_live.data_ptr(),
-                          win.data_ptr(), gm.data_ptr(), native.stream(dev)),
-           "rt_bm_prep")
-        return win, gm
-
-    def b10(ot, dt, alive, tables, page_size, ray_chunk, chunk_live=None,
-            excl=None, any_hit=False):
+    def b7(ot, dt, alive, tables, page_size, ray_chunk, chunk_live=None,
+           excl=None, any_hit=False):
         dev = ot.device
         R = ot.shape[1]
         out = torch.empty((16, R), dtype=torch.float32, device=dev)
-        ok(lib.rt_trace_streamed(
+        ok(lib.rt_trace_perlane(
             ot.data_ptr(), dt.data_ptr(), ot.stride(0), alive.data_ptr(), R,
             0 if excl is None else excl.data_ptr(), int(any_hit),
-            tables.rec.data_ptr(), tables.pab.data_ptr(),
-            tables.bank_ab.data_ptr(), page_size, tables.plt_i.shape[0],
+            tables.plt_i.data_ptr(), tables.plt_s.data_ptr(),
+            tables.ab.data_ptr(), page_size, tables.ab.shape[0] // 128,
             ray_chunk, 0 if chunk_live is None else chunk_live.data_ptr(),
-            out.data_ptr(), native.stream(dev)), "rt_trace_streamed")
+            out.data_ptr(), native.stream(dev)), "rt_trace_perlane")
         return out
 
-    return {"trace_shade_streamed": b9, "bankmajor_prep": prep,
-            "trace_streamed": b10}
+    def b13(ot, dt, valid, blo, bhi, ray_chunk, chunk_live=None):
+        dev = ot.device
+        NP = blo.shape[0]
+        NPpad = -(-NP // 128) * 128
+        NC = ot.shape[1] // ray_chunk
+        counts = torch.empty((NC,), dtype=torch.int32, device=dev)
+        plist = torch.empty((NC, NPpad), dtype=torch.int32, device=dev)
+        ptmin = torch.empty((NC, NPpad), dtype=torch.float32, device=dev)
+        ok(lib.rt_cull_sorted(
+            ot.data_ptr(), dt.data_ptr(), ot.stride(0), valid.data_ptr(),
+            blo.data_ptr(), bhi.data_ptr(), NP, NPpad, NC, ray_chunk,
+            0 if chunk_live is None else chunk_live.data_ptr(),
+            counts.data_ptr(), plist.data_ptr(), ptmin.data_ptr(),
+            native.stream(dev)), "rt_cull_sorted")
+        return counts, plist, ptmin
+
+    return {"trace_perlane": b7, "cull_sorted": b13}
 
 
-def cbc44eef_cases(dev, key):
-    """What `--turns` times against commit bc44eef: B9 on the whole waves
-    0, 1 and 2 of a 2560x1440 synthetic_1m_2k render under live RNG
-    (`_streamed_waves`), B12a on the whole wave-2 state and B10 on the
-    camera rays (nearest) and their shadow rays (any-hit), outputs
-    bitwise; the unlit synthetic_1m_2k render through the default Engine
-    and through Engine(bank_major=True), and the default circles_2k render
-    (no kernel of its path changed).  Returns (kernel cases: label ->
-    (wrapper name, args, kwargs, the rays compared or None, the new
-    build's outputs elsewhere or None, bitwise), renderers: label ->
-    (renderer, viewport), the live rays of each wave)."""
-    s_scene = synthetic_1m_scene()
-    eng = Engine(s_scene, device=dev)
-    s_vp = synthetic_view((2560, 1440))
-    waves = _streamed_waves(eng, _synthetic_wave0(eng, s_vp, dev), key)
-    cases = {f"B9 {label}": ("trace_shade_streamed", args, {}, None, None,
-                             True) for label, args in waves.items()}
-    st2, live2 = waves["wave 2"][0], waves["wave 2"][-1]
-    NB = eng.stables.plt_i.shape[0]
-    cases["B12a wave-2 state"] = ("bankmajor_prep",
-                                  (st2, eng.stables.bank_ab, NB, RB, live2),
-                                  {}, None, None, True)
-    # B10 (its kernel refactored beside the new B9, its walk unchanged):
-    # the camera rays' nearest rows and their shadow rays' any-hit rows
-    full0 = waves["wave 0"][0]
-    cam = (full0[0:3], full0[3:6], full0[7], eng.stables, eng.page_size, RB)
-    rows = intersect_streamed.trace_streamed(*cam)
-    so, sd, hit, excl = eng_mod.shadow_rays(full0, rows, key, 0, False,
-                                            LIGHT)
-    cases["B10 camera rays"] = ("trace_streamed", cam, {}, None, None, True)
-    cases["B10 any-hit shadow rays"] = (
-        "trace_streamed", (so, sd, hit.float(), eng.stables, eng.page_size,
-                           RB), {"excl": excl, "any_hit": True}, None, None,
-        True)
+def _occlusion(out):
+    """Any-hit rows compared by their occlusion bit only (C5)."""
+    return (out[1] != 0).to(torch.int32)
+
+
+def ca0d7908_cases(dev, key, old):
+    """What `--turns` times against commit a0d7908 (`old`: its wrappers):
+    B7 on four whole waves, nearest rows bitwise between the builds and
+    any-hit by the occlusion bit: the lit circles_2k wave-1 rows (B1, B6,
+    the B1/B6 shadow pass and B8 on the camera wave), their shadow rays
+    (any-hit with self-exclusion), the camera rays of the 4-bank sphere
+    of `perlane_banks` and its wave-1 rays; each also in the new build's
+    three forms (the per-thread walk, 16 and 32 lanes a listed ray); the
+    per-lane shadow pass (`shadow_mask_perlane`, B7's path) beside the
+    B1/B6 one on the circles rows; B13 on the circles_2k and sphere camera
+    waves beside the split form (B1, then `page_lists`) and B1 alone; and
+    the default circles_2k render, whose path neither kernel is on.
+    Returns (kernel cases: label -> {"fns": build -> fn, "same": the
+    builds whose outputs must equal "new"'s, "key": what is compared},
+    renderers: label -> (renderer, viewport), the live rays of each
+    B7 wave)."""
     scene, vp = circles.build(resolution="2k", maxdepth=5)
-    renders = {"synthetic_1m_2k": (eng, s_vp),
-               "synthetic_1m_2k bank-major": (
-                   Engine(s_scene, bank_major=True, device=dev), s_vp),
-               "circles_2k": (Engine(scene, device=dev), vp)}
-    live = {label: int((args[0][7] != 0).sum())
-            for label, args in waves.items()}
-    return cases, renders, live
+    eng = Engine(scene, device=dev)
+    P = eng.page_size
+    R0 = vp.width * vp.height
+    R = -(-R0 // RB) * RB
+    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
+                                                           vp.height), R, dev)
+    o, pk0 = eng._pinhole_fold(vp, o)
+    alive = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
+    full0 = torch.cat([o, d, alive, alive, torch.zeros((8, R), device=dev)])
+    lists = page_lists(*cull.cull_mask_exact(
+        full0[0:3], full0[3:6], full0[7] != 0, eng.aabb_lo, eng.aabb_hi, RB))
+    rows0 = intersect.trace_chunks(full0[0:3], full0[3:6], pk0, *lists, P,
+                                   RB, zero_origin=True)
+    shd0 = eng_mod.shadow_mask(full0, rows0, key, 0, False, LIGHT,
+                               eng.aabb_lo, eng.aabb_hi, eng.PK, P, RB)
+    ones = torch.ones(R // RB, dtype=torch.int32, device=dev)
+    st1 = shade.shade(full0, rows0, fold_in(key, 0), RB, False, 1 / 512, ones,
+                      shd0)
+    del rows0, shd0, lists
+    tb = eng.ptables
+    ray1 = (st1[0:3], st1[3:6], st1[7], tb, P, RB)
+    rows1 = intersect_perlane.trace_perlane(*ray1)
+    so, sd, hit, excl = eng_mod.shadow_rays(st1, rows1, key, 1, False, LIGHT)
+    sh1 = (so, sd, hit.float(), tb, P, RB)
+    # the 4-bank sphere's camera rays and wave-1 rays
+    b_eng, b_o, b_d, b_valid, _ = perlane_banks(dev, key)
+    bP = b_eng.page_size
+    b_alive = b_valid.to(torch.float32)[None]
+    b_st0 = torch.cat([b_o, b_d, b_alive, b_alive,
+                       torch.zeros((8, b_o.shape[1]), device=dev)])
+    b_cam = (b_st0[0:3], b_st0[3:6], b_st0[7], b_eng.ptables, bP, RB)
+    b_st1 = shade.shade(b_st0, intersect_perlane.trace_perlane(*b_cam),
+                        fold_in(key, 0), RB, False, 1 / 512, ones)
+    b_w1 = (b_st1[0:3], b_st1[3:6], b_st1[7], b_eng.ptables, bP, RB)
+
+    def b7_case(args, kw):
+        fns = {"new": lambda: intersect_perlane.trace_perlane(*args, **kw),
+               "earlier": lambda: old["trace_perlane"](*args, **kw)}
+        for lanes in (1, 16, 32):
+            fns[f"lanes {lanes}"] = (
+                lambda n=lanes: intersect_perlane._trace_perlane_kernel(
+                    *args, **kw, lanes=n))
+        return {"fns": fns, "same": tuple(fns)[1:],
+                "key": _occlusion if kw.get("any_hit") else None}
+
+    cases = {
+        "B7 nearest, lit circles_2k wave-1 rows": b7_case(ray1, {}),
+        "B7 any-hit, their shadow rays": b7_case(
+            sh1, {"excl": excl, "any_hit": True}),
+        "B7 nearest, 4-bank sphere camera rays": b7_case(b_cam, {}),
+        "B7 nearest, 4-bank sphere wave-1 rays": b7_case(b_w1, {})}
+
+    spass = (st1, rows1, key, 1, False, LIGHT)
+
+    def shadow_earlier():
+        with patched(old):
+            return eng_mod.shadow_mask_perlane(*spass, tb, P, RB)
+
+    cases["per-lane shadow pass, lit circles_2k wave-1 rows"] = {
+        "fns": {"new": lambda: eng_mod.shadow_mask_perlane(*spass, tb, P,
+                                                           RB),
+                "earlier": shadow_earlier,
+                "B1/B6 pass": lambda: eng_mod.shadow_mask(
+                    *spass, eng.aabb_lo, eng.aabb_hi, eng.PK, P, RB)},
+        "same": ("earlier",), "key": None}
+    for label, full in (
+            ("circles_2k", (full0[0:3], full0[3:6], full0[7] != 0,
+                            eng.aabb_lo, eng.aabb_hi, RB)),
+            ("4-bank sphere", (b_o, b_d, b_valid, b_eng.aabb_lo,
+                               b_eng.aabb_hi, RB))):
+        cases[f"B13 {label} camera wave"] = {
+            "fns": {"new": lambda a=full: cull.cull_sorted(*a),
+                    "earlier": lambda a=full: old["cull_sorted"](*a),
+                    "B1 + sort": lambda a=full: page_lists(
+                        *cull.cull_mask_exact(*a)),
+                    "B1 alone": lambda a=full: cull.cull_mask_exact(*a)},
+            "same": ("earlier",), "key": None}
+    live = {"lit circles_2k wave 1": int((st1[7] != 0).sum()),
+            "their shadow rays": int(hit.sum()),
+            "4-bank sphere camera rays": int(b_valid.sum()),
+            "4-bank sphere wave 1": int((b_st1[7] != 0).sum())}
+    return cases, {"circles_2k": (eng, vp)}, live
 
 
 #: `--turns`'s table, the one part of it that names an earlier commit:
 #: `commit`, whose csrc/ the tool builds (`git archive COMMIT
 #: rust_raytrace_tpu_torch/csrc`); `entries`, the C entry points of that
-#: build with their argument types (bc44eef's rt_trace_shade_streamed lacks
-#: the checkout's group boxes and scratch); `wrap(lib)`, the port's
-#: wrappers of those entry points; `patches`, the (module, name) under
-#: which the render paths look the wrappers up; `kernels`, the kernel
-#: functions whose ptxas reports it prints; `cases(dev, key)`, what it
-#: times.  The next redesign edits this table and the functions it names,
-#: not `turns`.
+#: build with their argument types (a0d7908's rt_trace_perlane takes the
+#: per-lane tables); `wrap(lib)`, the port's wrappers of those entry
+#: points; `patches`, the (module, name) under which the render paths look
+#: the wrappers up; `kernels`, the kernel functions whose ptxas reports it
+#: prints; `cases(dev, key, wrappers)`, what it times.  The next redesign
+#: edits this table and the functions it names, not `turns`.
 TURNS_AGAINST = SimpleNamespace(
-    commit="bc44eef",
-    entries={"rt_trace_shade_streamed":
-                 native.TRACE_SHADE_STREAMED.argtypes[:5]
-                 + native.TRACE_SHADE_STREAMED.argtypes[6:16]
-                 + native.TRACE_SHADE_STREAMED.argtypes[18:],
-             "rt_bm_prep": native.BM_PREP.argtypes,
-             "rt_trace_streamed": native.TRACE_STREAMED.argtypes},
-    wrap=cbc44eef_wrappers,
-    patches=((eng_mod, "trace_shade_streamed"),
-             (intersect_streamed, "bankmajor_prep"),
-             (intersect_streamed, "trace_streamed")),
-    kernels=("trace_streamed_kernel", "stream_list_kernel",
-             "stream_trace_kernel", "bm_prep_kernel"),
-    cases=cbc44eef_cases)
+    commit="a0d7908",
+    entries={"rt_trace_perlane": [native.P, native.P, native.I64, native.P,
+                                  native.I64, native.P, native.I32, native.P,
+                                  native.P, native.P, native.I32, native.I32,
+                                  native.I32, native.P, native.P, native.P],
+             "rt_cull_sorted": native.CULL_SORTED.argtypes},
+    wrap=ca0d7908_wrappers,
+    patches=((eng_mod, "trace_perlane"), (cull, "cull_sorted")),
+    kernels=("trace_perlane_kernel", "perlane_walk_kernel",
+             "perlane_list_kernel", "perlane_trace_kernel",
+             "cull_sorted_kernel"),
+    cases=ca0d7908_cases)
 
 
 #: launches a `--turns` kernel timing averages
@@ -3498,11 +3661,12 @@ def turns(csrc: Path, out: Path) -> int:
     entry points TURNS_AGAINST binds; every other kernel is the
     checkout's in both builds.
 
-    Kernels: each case first checks the two builds' outputs equal bit for
-    bit (on the rays the case names, the new build's other rays holding
-    the case's values), then CUDA events, TURNS_REPS launches after a
-    warm-up, rounds new, earlier, new, earlier, and each build's device
-    time a call (`_device_ms`).  Renders (live RNG, key 0): best of
+    Kernels: each case first checks the outputs of the builds it names
+    equal to the new build's, bit for bit or by the case's key (any-hit
+    rows by the occlusion bit), then times every function of the case
+    (the two builds and the case's other forms) with CUDA events,
+    TURNS_REPS launches after a warm-up, in turns, two rounds, and each
+    one's device time a call (`_device_ms`).  Renders (live RNG, key 0): best of
     three after a warm-up each round, the earlier build's kernels patched
     in; images byte-equal.  Prints the card, both builds' ptxas reports and
     every number, and writes them as JSON to `out`."""
@@ -3524,24 +3688,18 @@ def turns(csrc: Path, out: Path) -> int:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     old = T.wrap(lib)
-    new = {n: getattr(m, n) for m, n in T.patches}
-    cases, renders, live = T.cases(dev, prng_key(7))
+    cases, renders, live = T.cases(dev, prng_key(7), old)
     report.update(live_rays=live, kernels={}, renders={})
     print(f"live rays: {live}")
-    for label, (name, args, kw, rows, rest, bitwise) in cases.items():
-        fns = {"new": lambda f=new[name]: f(*args, **kw),
-               "earlier": lambda f=old[name]: f(*args, **kw)}
-        a, b = fns["new"](), fns["earlier"]()
-        if rest is not None:
-            outs = a if isinstance(a, tuple) else (a,)
-            if not all(bool((x[..., ~rows] == v).all())
-                       for x, v in zip(outs, rest)):
-                raise AssertionError(f"{label}: the new build's rays off "
-                                     f"the case's are not {rest}")
-        a, b = _words(a, rows, bitwise), _words(b, rows, bitwise)
-        if not torch.equal(a, b):
-            raise AssertionError(f"{label}: the two builds differ in "
-                                 f"{int((a != b).sum())} words")
+    for label, case in cases.items():
+        fns = case["fns"]
+        key = case["key"] or (lambda x: _words(x, None))
+        want = key(fns["new"]())
+        for b in case["same"]:
+            got = key(fns[b]())
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: {b} and new differ in "
+                                     f"{int((got != want).sum())} words")
         # 50 launches a timing: the first launch's wrapper time (the
         # checkout's validates its arguments, the earlier build's bare
         # wrapper does not) falls inside the events and would otherwise
@@ -3549,11 +3707,11 @@ def turns(csrc: Path, out: Path) -> int:
         tt = _in_turns(fns, reps=TURNS_REPS)
         dt = {b: _device_ms(fn) for b, fn in fns.items()}
         report["kernels"][label] = dict(tt, device_ms=dt)
-        print(f"{label}: new {tt['new'][0]:.4f} / {tt['new'][1]:.4f} ms, "
-              f"earlier {tt['earlier'][0]:.4f} / {tt['earlier'][1]:.4f} ms "
-              f"(in turns; outputs {'bitwise' if bitwise else 'value'} "
-              f"equal); device time a call new {dt['new']:.4f}, earlier "
-              f"{dt['earlier']:.4f} ms [{card}]")
+        print(f"{label} (in turns, ms; {', '.join(case['same'])} equal to "
+              f"new{' by the occlusion bit' if case['key'] else ''}): "
+              + "; ".join(f"{b} {v[0]:.4f} / {v[1]:.4f}, device "
+                          f"{dt[b]:.4f}" for b, v in tt.items())
+              + f" [{card}]")
 
     def best_render(e, rvp):
         e.render(rvp)

@@ -20,8 +20,10 @@
 // at the card's FMA-counted float rate.  What holds the kernel back is the
 // ALU pipe, which runs at half the float rate: the slab's ten min/max, the
 // entry's two, the hit's two compares and its fold come to ~15 of a pair's
-// ~27 issued instructions (SASS; PERF.md).  B13's rank adds NPpad^2 comparisons a chunk, read from
-// shared memory at one address per step (a broadcast).
+// ~27 issued instructions (SASS; PERF.md).  B13's rank adds about h^2 +
+// NPpad comparisons a chunk of h hit pages (NPpad^2 on the rare chunk that
+// takes the all-pairs branch), read from shared memory at one address per
+// step (a broadcast).
 //
 // Design: one block per chunk, RPT = 4 rays a thread (256 threads at
 // ray_chunk 1024, 1024 at 4096), strided by the block size so that loads
@@ -39,10 +41,22 @@
 // warp folds the block's warps, a page a lane.  The min of the entries
 // does not depend on order (up to the sign of a zero entry, which B13
 // writes as +0 as the TPU kernel's one-hot sum does), so the result is
-// deterministic.  B13 keeps the chunk's NPpad keys in shared memory (4 *
-// NPpad bytes), and each thread ranks its pages with a loop over all keys:
-// comparing floats, not their bits, so that -0 and +0 tie as in the TPU
-// kernel.  The TPU's bank pre-slab and 128-page padding only saved vector
+// deterministic.  B13 runs B1's instance (FULL where B1 takes it) and B1's
+// vote that skips a chunk with no valid ray (its keys all BIGT: count 0,
+// plist in page order, ptmin BIGT).  Its keys and hit bits (one warp
+// ballot a tile, no atomics) go to shared memory; a warp scan of the
+// bits' popcounts gives the hit count h and each page's hit or missed
+// pages before it.  Where every hit key is below BIGT (a hit key is the
+// least max(tlo, 0) with a missing ray's BIGT in the min, so it exceeds
+// BIGT only where every ray of the chunk hits beyond it), a missed or
+// padding page takes rank h + the missed pages before it, with no
+// comparison, and the hit pages, compacted in page order, rank among the
+// h hit keys only: what the all-pairs (key, page) rank gives there.  A
+// chunk whose vote finds a hit key not below BIGT (equal to it, beyond
+// it, or NaN) takes the all-pairs rank over all NPpad keys instead, in
+// the same kernel.  Both compare floats, not their bits, so that -0 and
+// +0 tie as in the TPU kernel, and write plist and ptmin once each.
+// The TPU's bank pre-slab and 128-page padding only saved vector
 // work on that chip and are not carried over: every page is tested.
 #include "common.cuh"
 
@@ -225,6 +239,18 @@ cull_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
   }
 }
 
+// B13's shared memory past the tile's: the chunk's keys [npad] (BIGT for a
+// missed or padding page), its hit bits [npad / 32], their popcounts'
+// exclusive prefix [npad / 32], and the hit pages' keys and pages in page
+// order [np] each.
+__host__ __device__ constexpr size_t sorted_smem(int np, int npad) {
+  return sizeof(float) * ((size_t)npad + 2 * (size_t)(npad / 32) +
+                          2 * (size_t)np);
+}
+
+// FULL: every slot holds a ray (ray_chunk a multiple of RPT * 32), as B1's
+// instance.  chunk_live == null: every chunk live.
+template <bool FULL>
 __global__ void __launch_bounds__(1024)
 cull_sorted_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
                    long long ray_stride,
@@ -234,11 +260,17 @@ cull_sorted_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
                    const int* __restrict__ chunk_live,
                    int* __restrict__ counts, int* __restrict__ plist,
                    float* __restrict__ ptmin) {
-  extern __shared__ float s_key[];             // [npad]
+  extern __shared__ float s_dyn[];
   __shared__ TileSmem sm;
   __shared__ int s_hits;
+  const int nw = npad / 32;
+  float* s_key = s_dyn;
+  unsigned* s_bits = reinterpret_cast<unsigned*>(s_key + npad);
+  int* s_pre = reinterpret_cast<int*>(s_bits + nw);
+  float* s_hk = reinterpret_cast<float*>(s_pre + nw);
+  int* s_hp = reinterpret_cast<int*>(s_hk + np);
   const int chunk = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
   int* pl = plist + (long long)chunk * npad;
   float* pt = ptmin + (long long)chunk * npad;
   if (chunk_live != nullptr && chunk_live[chunk] == 0) {
@@ -249,32 +281,99 @@ cull_sorted_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
     if (tid == 0) counts[chunk] = 0;
     return;
   }
-  if (tid == 0) s_hits = 0;
   const ChunkRays cr =
-      load_rays<false>(ot, dt, ray_stride, valid, chunk, ray_chunk);
+      load_rays<FULL>(ot, dt, ray_stride, valid, chunk, ray_chunk);
+  bool mine = false;
+#pragma unroll
+  for (int s = 0; s < RPT; ++s) mine |= cr.v[s];
+  if (!__syncthreads_or(mine)) {     // no valid ray: every key BIGT
+    for (int p = tid; p < npad; p += blockDim.x) {
+      pl[p] = p;
+      pt[p] = BIGT;
+    }
+    if (tid == 0) counts[chunk] = 0;
+    return;
+  }
+  // the cull: warp 0 holds a tile's pages, and ballots its hit bits; a hit
+  // key that is not below BIGT sends the chunk to the all-pairs rank
+  bool slow = false;
   for (int p0 = 0; p0 < np; p0 += TILE) {
     const int nt = min(TILE, np - p0);
     float m;
-    const bool any = tile_reduce<false, false>(cr, lo, hi, p0, nt, BIGT, sm,
-                                               m);
-    if (tid < nt) {
-      s_key[p0 + tid] = any ? (m == 0.0f ? 0.0f : m) : BIGT;
-      if (any) atomicAdd(&s_hits, 1);
+    const bool any =
+        tile_reduce<FULL, false>(cr, lo, hi, p0, nt, BIGT, sm, m);
+    if (tid < 32) {
+      const bool hit = tid < nt && any;
+      const float key = hit ? (m == 0.0f ? 0.0f : m) : BIGT;
+      if (tid < nt) s_key[p0 + tid] = key;
+      const unsigned bits = __ballot_sync(0xffffffffu, hit);
+      if (tid == 0) s_bits[p0 / TILE] = bits;
+      slow |= hit && !(key < BIGT);
     }
   }
   for (int p = np + tid; p < npad; p += blockDim.x) s_key[p] = BIGT;
-  __syncthreads();
-  for (int p = tid; p < npad; p += blockDim.x) {
-    const float k = s_key[p];
-    int rank = 0;
-    for (int q = 0; q < npad; ++q) {
-      const float kq = s_key[q];
-      rank += (kq < k) | ((kq == k) & (q < p));
+  for (int w = (np + 31) / 32 + tid; w < nw; w += blockDim.x) s_bits[w] = 0u;
+  slow = __syncthreads_or(slow);
+  // the hit count and each word's hits before it (warp 0's scan)
+  if (tid < 32) {
+    int carry = 0;
+    for (int w0 = 0; w0 < nw; w0 += 32) {
+      const int w = w0 + lane;
+      const int v = w < nw ? __popc(s_bits[w]) : 0;
+      int incl = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      if (w < nw) s_pre[w] = carry + incl - v;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
     }
-    pl[rank] = p;
+    if (lane == 0) s_hits = carry;
+  }
+  __syncthreads();
+  const int h = s_hits;
+  if (tid == 0) counts[chunk] = h;
+  if (slow) {
+    // every pair of padded pages, comparing floats (not bits), so that -0
+    // and +0 tie as in the TPU kernel
+    for (int p = tid; p < npad; p += blockDim.x) {
+      const float k = s_key[p];
+      int rank = 0;
+      for (int q = 0; q < npad; ++q) {
+        const float kq = s_key[q];
+        rank += (kq < k) | ((kq == k) & (q < p));
+      }
+      pl[rank] = p;
+      pt[rank] = k;
+    }
+    return;
+  }
+  // every hit key < BIGT: a missed or padding page takes rank h + the
+  // missed pages before it; the hit pages, compacted in page order, rank
+  // among themselves
+  for (int p = tid; p < npad; p += blockDim.x) {
+    const unsigned bits = s_bits[p >> 5];
+    const int before = s_pre[p >> 5] + __popc(bits & ((1u << (p & 31)) - 1u));
+    if ((bits >> (p & 31)) & 1u) {
+      s_hk[before] = s_key[p];
+      s_hp[before] = p;
+    } else {
+      pl[h + p - before] = p;
+      pt[h + p - before] = BIGT;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < h; i += blockDim.x) {
+    const float k = s_hk[i];
+    int rank = 0;
+    for (int j = 0; j < h; ++j) {
+      const float kj = s_hk[j];
+      rank += (kj < k) | ((kj == k) & (j < i));
+    }
+    pl[rank] = s_hp[i];
     pt[rank] = k;
   }
-  if (tid == 0) counts[chunk] = s_hits;
 }
 
 }  // namespace
@@ -305,8 +404,9 @@ extern "C" int rt_cull_sorted(const float* ot, const float* dt,
                               int* counts, int* plist, float* ptmin,
                               void* stream) {
   const int threads = rt::chunk_block_fixed(ray_chunk, RPT).threads;
-  auto kernel = cull_sorted_kernel;
-  const size_t smem = (size_t)npad * sizeof(float);
+  auto kernel = ray_chunk == RPT * threads ? cull_sorted_kernel<true>
+                                           : cull_sorted_kernel<false>;
+  const size_t smem = sorted_smem(np, npad);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,13 +1,12 @@
-// The per-bank traversals of <= 128 pages.
+// The per-bank traversals of <= 128 pages, over page-major records.
 //
-// rt::bank_pass walks the per-lane tables (pages on lanes, the TPU's
-// layout), for B7 (trace_perlane.cu) over the resident tables, banks in
-// index order.  rt::bank_walk walks the page-major records: the resident
-// regime's for B4 (trace_shade_perlane.cu), banks in index order, and the
-// streamed regime's for B10 (trace_streamed.cu), banks on a per-ray
-// worklist, and B12's sweep (trace_bankmajor.cu), one bank per item.  (B9
-// walks the same records in the same order with a warp a ray,
-// trace_streamed.cu.)
+// rt::bank_walk is one thread's walk of a bank: the resident regime's for
+// B4 (trace_shade_perlane.cu), banks in index order, and the streamed
+// regime's for B10 (trace_streamed.cu), banks on a per-ray worklist, and
+// B12's sweep (trace_bankmajor.cu), one bank per item.  The group walk
+// below (rt::group_bank, rt::group_bank_any) is a group of G lanes' walk of
+// one ray: B9's (trace_streamed.cu), banks on the same worklist, and B7's
+// (trace_perlane.cu), banks in index order.
 //
 // Counterpart: rust_raytrace_tpu/ops/intersect_perlane.py:_group and
 // ops/intersect_streamed.py:_bank_group_pass — each ray slab-tests the bank's
@@ -15,22 +14,28 @@
 // index), and drops every page whose entry lies beyond its best hit.  The
 // winner is the lexicographic (t, id) minimum, so the visit order of banks
 // and pages does not change it (exact pruning only); any-hit returns the
-// first hit in that same visit order, so both walks keep it exactly.
+// first hit in its visit order (only the occlusion bit is contractual,
+// ROADMAP C5).
 //
-// Why the walks left the TPU layout.  Pages on lanes
-// ([17P, 128] a bank) suit the TPU's 128-lane vectors: one vector load
+// Why every walk left the TPU layout.  Pages on lanes ([17P, 128] a bank,
+// the JAX package's per-lane tables, which the plain versions and B12's
+// finish still read) suit the TPU's 128-lane vectors: one vector load
 // reads one feature of 128 pages.  A CUDA thread tests one page at a time,
 // so there a triangle costs 17 scalar loads one feature row (P * 512 B,
 // 114,688 B at P = 224) apart, each in its own 32-byte sector, and each
-// selection step re-runs the slab test of every remaining page.  At 1M
-// triangles the 68 MB of plt_i do not fit the 50 MB L2, so those sectors
-// come from device memory.  bank_walk reads a triangle as one 96-byte
-// record of six float4 (the predicate's 17 lanes in the first five; the
-// sixth only for a winner's payload), and the threads of a warp on one page
-// read one address; it slab-tests the bank's pages once per visit and keeps
-// its candidates in a short sorted list.  What bounds it now: the hit
-// predicate's arithmetic (an IEEE division a triangle) on the pages a ray
-// visits, and divergence, each thread walking its own number of pages.
+// selection step re-ran the slab test of every remaining page (the last
+// such walk, B7's, left it in PR 13: PERF.md).  At 1M triangles the 68 MB
+// of plt_i do not fit the 50 MB L2, so those sectors come from device
+// memory.  The walks here read a triangle as one 96-byte record of six
+// float4 (the predicate's 17 lanes in the first five; the sixth only for a
+// winner's payload).  bank_walk slab-tests a bank's pages once per visit
+// and keeps its candidates in a short sorted list; what bounds it is the
+// hit predicate's arithmetic (an IEEE division a triangle) on the pages a
+// ray visits, and divergence, each thread walking its own number of pages.
+// The group walk takes that divergence away: a ray's lanes test its group
+// boxes and page boxes side by side, pick its next page by shuffles, and
+// stride the page's triangles over the lanes, reading its records as one
+// contiguous stream.
 #pragma once
 
 #include "common.cuh"
@@ -41,19 +46,6 @@ constexpr int GROUP = 128;   // pages per bank
 constexpr int N_INT = 17;    // intersect features per triangle (plt_i)
 constexpr int N_SHD = 7;     // shade features per triangle (plt_s)
 constexpr int AB_LANES = 128;
-
-// Slab interval of page p of a bank's AABB rows `abb` (lanes 0..2 lo, 3..5
-// hi, 6 valid; rows 128 floats apart): returns tlo, writes thi.
-__device__ __forceinline__ float page_tlo(const float* __restrict__ abb,
-                                          int p, const float o[3],
-                                          const float inv[3], float& thi) {
-  const float* a = abb + p * AB_LANES;
-  const float lo[3] = {a[0], a[1], a[2]};
-  const float hi[3] = {a[3], a[4], a[5]};
-  float tlo;
-  slab(lo, hi, o, inv, tlo, thi);
-  return tlo;
-}
 
 // The payload of the winning triangle j of page p of a bank (f points at its
 // plt_i lane, f = ti + j*128 + p; g at its plt_s lane) for the hit terms h.
@@ -71,76 +63,6 @@ __device__ __forceinline__ void winner_payload(const float* __restrict__ f,
   w.c2 = g[4 * fs];
   w.alpha = g[5 * fs];
   w.scat = g[6 * fs];
-}
-
-// One bank's traversal for the ray (o, d) with slab reciprocals inv: abb the
-// bank's page AABB rows, ti/ts its plt_i/plt_s slabs ([17P, 128] and
-// [7P, 128], pages on lanes).  Updates the winner w in place.  EXCL: the
-// triangle ex may not win (a shadow ray's own).  ANY_HIT: return at the
-// first triangle that hits, with t and id only (the occlusion query: only
-// id != 0 is meaningful, ROADMAP C5).
-template <bool ANY_HIT, bool EXCL>
-__device__ __forceinline__ void bank_pass(const float* __restrict__ abb,
-                                          const float* __restrict__ ti,
-                                          const float* __restrict__ ts, int P,
-                                          const float o[3], const float d[3],
-                                          const float inv[3], float ex,
-                                          Winner& w) {
-  uint32_t hit[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    uint32_t bits = 0;
-    for (int j = 0; j < 32; ++j) {
-      const int p = q * 32 + j;
-      if (abb[p * AB_LANES + 6] == 0.0f) continue;   // padding page
-      float thi;
-      const float tlo = page_tlo(abb, p, o, inv, thi);
-      if ((tlo <= thi) & (thi >= 0.0f)) bits |= 1u << j;
-    }
-    hit[q] = bits;
-  }
-
-  while (true) {
-    // drop pages entered beyond the best hit; pick the nearest of the rest
-    float kmin = inf_f();
-    int pidx = GROUP;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t m = hit[q];
-      while (m) {
-        const int j = __ffs(m) - 1;
-        m &= m - 1;
-        const int p = q * 32 + j;
-        float thi;
-        const float tlo = page_tlo(abb, p, o, inv, thi);
-        if (tlo > w.t) {
-          hit[q] &= ~(1u << j);
-        } else if (tlo < kmin) {
-          kmin = tlo;
-          pidx = p;
-        }
-      }
-    }
-    if (pidx == GROUP) return;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (q == (pidx >> 5)) hit[q] &= ~(1u << (pidx & 31));
-
-    for (int j = 0; j < P; ++j) {
-      const float* f = ti + (long long)j * GROUP + pidx;
-      auto col = [f, P](int lane_f) {
-        return f[(long long)lane_f * P * GROUP];
-      };
-      const HitTerms h = hit_predicate<false>(col, o, d);
-      const float id = col(LANE_ID);
-      if (h.ok && (!EXCL || id != ex) && lex_better(h.t, id, w)) {
-        w.t = h.t;
-        w.id = id;
-        if (ANY_HIT) return;
-        winner_payload(f, ts + (long long)j * GROUP + pidx, P, h, w);
-      }
-    }
-  }
 }
 
 // ---- the streamed regime's page-major walk ----
@@ -230,15 +152,18 @@ __device__ __forceinline__ void cand_fill(Cands& c, uint32_t hit[4],
 // One bank's traversal over the page-major records for the ray (o, d) with
 // slab reciprocals inv: box the bank's 128 page boxes (PAB4 float4 each,
 // device or shared memory), rec its records ([128, P] records of REC4
-// float4).  Same contract as bank_pass: the winner w updated in place, EXCL
-// the excluded triangle ex, ANY_HIT a return at the first hit.  SLOT:
+// float4).  Updates the winner w in place.  EXCL: the triangle ex may not
+// win (a shadow ray's own).  ANY_HIT: return at the first triangle that
+// hits, with t and id only (the occlusion query: only id != 0 is
+// meaningful, ROADMAP C5).  SLOT:
 // record the winner's slot (slot_base + page * P + triangle) in *slot
 // instead of its payload (B12's sweep extracts the payload once, at the
 // end).  n_pages: the bank's pages past it are padding (invalid), so
 // their slab tests are skipped.
 //
-// The visit order is bank_pass's: the least (tlo, page) of the slab-hit
-// pages not yet visited, while its tlo <= w.t.  The slab tests run
+// The visit order is the per-lane traversal's (the TPU kernel's
+// one-page-per-step loop): the least (tlo, page) of the slab-hit pages not
+// yet visited, while its tlo <= w.t.  The slab tests run
 // once; the CAND least keys sit in registers in order, and only when more
 // pages than that were entered is the mask re-tested once the list runs
 // dry.  A popped page entered beyond w.t ends the bank: every page left,
@@ -332,6 +257,302 @@ __device__ __forceinline__ void bank_walk(const float4* __restrict__ box,
       }
     }
   }
+}
+
+// ---- the group walk: G lanes a ray ----
+//
+// Lane gl (0..G-1) of a group of G lanes (G = 16 or 32; the group's lanes
+// gm of its warp, group grp = lane / G) walks one ray with the others.
+// Banks: the caller's order.  In a bank the group first slab-tests the
+// BANK_BOXES group boxes of BOX_PAGES pages (ops/intersect_perlane.py
+// group_boxes: a page whose slab test passes passes its group's), then the
+// page boxes of the groups that pass, GROUP / G a lane, and keeps each
+// page's entry in registers; each step takes the least (entry, page) by
+// shuffles.  A page's P triangles are strided over the lanes, so a group
+// reads a page's records as one contiguous stream; each lane first
+// computes the plane's t from two float4, and only a t that could win goes
+// on to the plane distances (two more float4) and the id (a fifth), the
+// predicate's own arithmetic (the hit test needs all three distances
+// <= 1, so the order of the tests changes nothing).  The page's winner is
+// the lexicographic (t, id) minimum of the lanes' by shuffles (a copy of a
+// triangle within a page: the lower slot, as a scan in slot order keeps),
+// and the walk prunes with it after each page.  The winner's page and slot
+// are kept; `record_payload` re-tests that triangle for its payload.  That
+// order matters for the bits: a page box whose entry rounds past an
+// equal-t copy's hit is pruned, as the plain versions and the TPU kernels
+// prune it, so pages go in the plain (entry, page) order exactly.
+
+constexpr int NO_KEY = 0x7fffffff;
+// pages a group box holds (ops/intersect_perlane.py PAGES_A_BOX), and
+// group boxes a bank
+constexpr int BOX_PAGES = 8;
+constexpr int BANK_BOXES = GROUP / BOX_PAGES;
+
+// Work counters of one ray, kept by B9's counting instance (a diagnostic;
+// chip_smoke.py's counting phase; trace_streamed.cu stores them).
+// bank_steps: bank selection steps (the last, which finds none, included);
+// bank_tests: bank-box slab tests; bank_visits; group_tests: group-box slab
+// tests; page_tests: page-box slab tests; pages: pages whose triangles were
+// tested; tris: triangles tested (P a page); led: the triangle-loop
+// iterations that the ray's lanes led (the lowest active lane of a warp's
+// converged set, so summed over rays the iterations the warps issued);
+// lane_iters: the triangle-loop iterations the ray's lanes ran.
+// lane_iters / (32 * led) over a wave is the triangle loop's active-lane
+// share.
+constexpr int N_COUNT = 9;
+struct Count {
+  int bank_steps, bank_tests, bank_visits, group_tests, page_tests, pages,
+      tris, led, lane_iters;
+};
+
+// The n <= 32 low bits set.
+__device__ __forceinline__ constexpr uint32_t low_bits(int n) {
+  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
+}
+
+// The lexicographic (t, id) order of rt::lex_better on bare values.
+__device__ __forceinline__ bool lex_less(float t, float id, float bt,
+                                         float bid) {
+  return (t < bt) | ((t == bt) & !isinf(t) & (id < bid));
+}
+
+// The least (key, index) over a group of G lanes (mask gm), in every lane.
+template <int G>
+__device__ __forceinline__ void group_min(unsigned gm, float& k, int& i) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) {
+    const float ok = __shfl_xor_sync(gm, k, m);
+    const int oi = __shfl_xor_sync(gm, i, m);
+    if ((ok < k) | ((ok == k) & (oi < i))) {
+      k = ok;
+      i = oi;
+    }
+  }
+}
+
+template <int G>
+__device__ __forceinline__ int group_sum(unsigned gm, int v) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) v += __shfl_xor_sync(gm, v, m);
+  return v;
+}
+
+// Whether a box (PAB4 float4) counts for the walk: slab-hit, valid and
+// entered no later than t_max; tlo its entry.
+__device__ __forceinline__ bool box_entered(const float4* b, const float o[3],
+                                            const float inv[3], float t_max,
+                                            float& tlo) {
+  float thi;
+  bool valid;
+  tlo = box_tlo(b, o, inv, thi, valid);
+  return valid & (tlo <= thi) & (thi >= 0.0f) & (tlo <= t_max);
+}
+
+// One page of P triangles for the group's ray: lane gl tests slots gl, gl
+// + G, ...; returns, in every lane, whether the group's least (t, id)
+// beats (wt, wid), and then sets wt, wid and the winning slot wj.  EXCL:
+// the triangle ex may not win.
+template <int G, bool COUNT, bool EXCL>
+__device__ __forceinline__ bool group_page(const float4* __restrict__ page,
+                                           int P, int gl, unsigned gm,
+                                           const float o[3], const float d[3],
+                                           float ex, float& wt, float& wid,
+                                           int& wj, Count& c) {
+  float lt = wt, lid = wid;
+  int lj = NO_KEY;
+  for (int j = gl; j < P; j += G) {
+    if (COUNT) {
+      const unsigned am = __activemask();
+      c.lane_iters += 1;
+      if ((int)(threadIdx.x & 31) == __ffs(am) - 1) c.led += 1;
+    }
+    const float4* r4 = page + j * REC4;
+    // lanes 0..3 (n, s0.x) and 12..15 (nc, s0c, s1c, s2c)
+    const float4 a = __ldg(r4), e = __ldg(r4 + 3);
+    // rt::hit_predicate's t: (nc - n.o) / (n.d)
+    const float md_n = fmaf(a.z, d[2], fmaf(a.x, d[0], a.y * d[1]));
+    const float t =
+        (e.x - fmaf(a.z, o[2], fmaf(a.x, o[0], a.y * o[1]))) / md_n;
+    if (!((t >= 0.0f) & ((t < lt) | ((t == lt) & !isinf(t))))) continue;
+    // lanes 4..11: the rest of s0, s1, s2
+    const float4 b = __ldg(r4 + 1), q = __ldg(r4 + 2);
+    const float dv0 =
+        fmaf(t, fmaf(b.y, d[2], fmaf(a.w, d[0], b.x * d[1])),
+             fmaf(b.y, o[2], fmaf(a.w, o[0], b.x * o[1]))) - e.y;
+    const float dv1 =
+        fmaf(t, fmaf(q.x, d[2], fmaf(b.z, d[0], b.w * d[1])),
+             fmaf(q.x, o[2], fmaf(b.z, o[0], b.w * o[1]))) - e.z;
+    const float dv2 =
+        fmaf(t, fmaf(q.w, d[2], fmaf(q.y, d[0], q.z * d[1])),
+             fmaf(q.w, o[2], fmaf(q.y, o[0], q.z * o[1]))) - e.w;
+    if (!((dv0 <= 1.0f) & (dv1 <= 1.0f) & (dv2 <= 1.0f))) continue;
+    const float id = __ldg(r4 + 4).x;         // lane 16
+    if (EXCL && id == ex) continue;
+    if (lex_less(t, id, lt, lid)) {
+      lt = t;
+      lid = id;
+      lj = j;
+    }
+  }
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) {
+    const float ot = __shfl_xor_sync(gm, lt, m);
+    const float oid = __shfl_xor_sync(gm, lid, m);
+    const int oj = __shfl_xor_sync(gm, lj, m);
+    if (lex_less(ot, oid, lt, lid) |
+        ((ot == lt) & (oid == lid) & (oj < lj))) {
+      lt = ot;
+      lid = oid;
+      lj = oj;
+    }
+  }
+  if (lj == NO_KEY) return false;
+  wt = lt;
+  wid = lid;
+  wj = lj;
+  return true;
+}
+
+// The bits, over the group's lanes, of a bank's group boxes that the ray
+// (o, inv) enters no later than t_max: bit k for box k.
+template <int G>
+__device__ __forceinline__ uint32_t group_pass(const float4* __restrict__ gbox,
+                                               int gl, int grp, unsigned gm,
+                                               const float o[3],
+                                               const float inv[3],
+                                               float t_max) {
+  uint32_t pass = 0u;
+#pragma unroll
+  for (int k0 = 0; k0 < BANK_BOXES; k0 += G) {
+    float tlo;
+    const bool in = k0 + gl < BANK_BOXES &&
+                    box_entered(gbox + (k0 + gl) * PAB4, o, inv, t_max, tlo);
+    const uint32_t bal = __ballot_sync(gm, in);
+    pass |= ((bal >> (grp * G)) & low_bits(G)) << k0;
+  }
+  return pass;
+}
+
+// One bank for the group's ray (nearest hit): its BANK_BOXES group boxes
+// slab-tested, then the page boxes of the groups that pass, GROUP / G a
+// lane, then the pages in (entry, page) order while the nearest is entered
+// no later than wt.  box, gbox, rec: the bank's page boxes, group boxes and
+// records; page_base: its first page over all banks; wpage: the winner's
+// page over all banks.
+template <int G, bool COUNT, bool EXCL>
+__device__ __forceinline__ void group_bank(
+    const float4* __restrict__ box, const float4* __restrict__ gbox,
+    const float4* __restrict__ rec, int P, int page_base, int gl, int grp,
+    unsigned gm, const float o[3], const float d[3], const float inv[3],
+    float ex, float& wt, float& wid, int& wpage, int& wj, Count& c) {
+  constexpr int PPL = GROUP / G;
+  const uint32_t pass = group_pass<G>(gbox, gl, grp, gm, o, inv, wt);
+  if (COUNT) {
+    c.group_tests += BANK_BOXES;
+    c.page_tests += BOX_PAGES * __popc(pass);
+  }
+  float ptl[PPL];
+#pragma unroll
+  for (int q = 0; q < PPL; ++q) {
+    const int p = gl + G * q;
+    float tlo;
+    ptl[q] = ((pass >> (p / BOX_PAGES)) & 1u) &&
+                     box_entered(box + p * PAB4, o, inv, wt, tlo)
+        ? tlo : inf_f();
+  }
+  while (true) {
+    float kt = inf_f();
+    int kp = NO_KEY;
+#pragma unroll
+    for (int q = 0; q < PPL; ++q)
+      if (ptl[q] < kt) {
+        kt = ptl[q];
+        kp = gl + G * q;
+      }
+    group_min<G>(gm, kt, kp);
+    if ((kp == NO_KEY) | (kt > wt)) return;
+#pragma unroll
+    for (int q = 0; q < PPL; ++q)
+      if (gl + G * q == kp) ptl[q] = inf_f();
+    if (COUNT) {
+      c.pages += 1;
+      c.tris += P;
+    }
+    if (group_page<G, COUNT, EXCL>(rec + (long long)kp * P * REC4, P, gl, gm,
+                                   o, d, ex, wt, wid, wj, c))
+      wpage = page_base + kp;
+  }
+}
+
+// One bank for the group's ray (any hit), with the same arguments:
+// every page that the ray's slab test enters, in index order, until one
+// holds a hit; returns whether one did, with wt, wid, wpage and wj its
+// least (t, id).  That is the plain version's any-hit order (the lowest
+// slab-hit page first), so the t and id are its too.
+template <int G, bool EXCL>
+__device__ __forceinline__ bool group_bank_any(
+    const float4* __restrict__ box, const float4* __restrict__ gbox,
+    const float4* __restrict__ rec, int P, int page_base, int gl, int grp,
+    unsigned gm, const float o[3], const float d[3], const float inv[3],
+    float ex, float& wt, float& wid, int& wpage, int& wj) {
+  constexpr int PPL = GROUP / G;
+  const uint32_t pass = group_pass<G>(gbox, gl, grp, gm, o, inv, inf_f());
+  if (pass == 0u) return false;
+  uint32_t hit[4] = {0u, 0u, 0u, 0u};      // bit p & 31 of word p >> 5
+#pragma unroll
+  for (int q = 0; q < PPL; ++q) {
+    const int p = gl + G * q;
+    float tlo;
+    const bool in = ((pass >> (p / BOX_PAGES)) & 1u) &&
+                    box_entered(box + p * PAB4, o, inv, inf_f(), tlo);
+    const uint32_t bal = (__ballot_sync(gm, in) >> (grp * G)) & low_bits(G);
+    hit[(G * q) >> 5] |= bal << ((G * q) & 31);
+  }
+  Count c = {};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    uint32_t m = hit[w];
+    while (m) {
+      const int p = 32 * w + __ffs(m) - 1;
+      m &= m - 1;
+      if (group_page<G, false, EXCL>(rec + (long long)p * P * REC4, P, gl,
+                                     gm, o, d, ex, wt, wid, wj, c)) {
+        wpage = page_base + p;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// The winner w's payload from its record (slot wj of page wpage of rec):
+// the triangle re-tested for its hit terms, hence the face bits of its
+// win, and its lanes as rt::bank_walk stores them.
+__device__ __forceinline__ void record_payload(const float4* __restrict__ rec,
+                                               int wpage, int wj, int P,
+                                               const float o[3],
+                                               const float d[3], Winner& w) {
+  const float4* r4 = rec + ((long long)wpage * P + wj) * REC4;
+  float f[4 * REC4];
+#pragma unroll
+  for (int q = 0; q < REC4; ++q) {
+    const float4 v = __ldg(r4 + q);
+    f[4 * q] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
+  }
+  auto col = [&f](int lane_f) { return f[lane_f]; };
+  const HitTerms h = hit_predicate<false>(col, o, d);
+  w.n0 = f[LANE_N];
+  w.n1 = f[LANE_N + 1];
+  w.n2 = f[LANE_N + 2];
+  w.enc = encode_face(h, f[LANE_ET], f[LANE_KIND]);
+  w.c0 = f[LANE_COLOR];
+  w.c1 = f[LANE_COLOR + 1];
+  w.c2 = f[LANE_COLOR + 2];
+  w.alpha = f[LANE_ALPHA];
+  w.scat = f[LANE_SCAT];
 }
 
 }  // namespace rt

@@ -353,16 +353,17 @@ def shadow_mask_streamed(state, rows, key, wave: int, fixed_rng: bool, light,
 
 
 def shadow_mask_perlane(state, rows, key, wave: int, fixed_rng: bool, light,
-                        plt_i, plt_s, ab, page_size: int, ray_chunk: int):
-    """The shadow pass of a wave over the resident per-lane tables (JAX:
-    the per-lane branch of `_shadow_mask`): `shadow_rays`, then B7's
-    any-hit mode with each ray's own triangle excluded (shadow rays are
-    scattered, so no packet cull).  plt_i/plt_s/ab: `upload_perlane_tables`.
-    Returns the [R] float32 mask.  Like the JAX wave loop, which reaches
-    this branch only under its probe arguments, no Engine path calls it."""
+                        tables, page_size: int, ray_chunk: int):
+    """The shadow pass of a wave over the resident tables (JAX: the
+    per-lane branch of `_shadow_mask`): `shadow_rays`, then B7's any-hit
+    mode with each ray's own triangle excluded (shadow rays are scattered,
+    so no packet cull).  tables: `perlane_tables` (the Engine's
+    `ptables`).  Returns the [R] float32 mask.  Like the JAX wave loop,
+    which reaches this branch only under its probe arguments, no Engine
+    path calls it."""
     so, sd, hit, excl = shadow_rays(state, rows, key, wave, fixed_rng, light)
-    srows = trace_perlane(so, sd, hit.float(), plt_i, plt_s, ab, page_size,
-                          ray_chunk, excl=excl, any_hit=True)
+    srows = trace_perlane(so, sd, hit.float(), tables, page_size, ray_chunk,
+                          excl=excl, any_hit=True)
     return (hit & (srows[ROW_ID] != 0.0)).float()
 
 

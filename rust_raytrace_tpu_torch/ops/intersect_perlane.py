@@ -8,18 +8,18 @@ Counterparts in `rust_raytrace_tpu/ops/intersect_perlane.py`:
 nearest or any-hit.  `trace_shade_perlane` and `trace_perlane` run the CUDA
 kernels `csrc/trace_shade_perlane.cu` and `csrc/trace_perlane.cu` on CUDA
 tensors and `trace_shade_perlane_plain` and `trace_perlane_plain` on CPU
-tensors.  B4's kernel reads the same triangles page-major (`PerlaneTables`:
-the records `page_records` builds on the device beside the per-lane
-tables, which B7, the plain versions and the CPU tests read); B7's still
-reads the per-lane tables.
+tensors.  Both kernels read the same triangles page-major
+(`PerlaneTables`: the records, page boxes and group boxes built on the
+device beside the per-lane tables, which the plain versions and the CPU
+tests read).
 
 Each ray slab-tests the page AABBs of one bank (<= 128 pages) at a time,
 tests its nearest remaining page (ties to the lower page index), then drops
 every page whose entry lies beyond its best hit; the cut carries across
 banks.  That is the visit order of the TPU kernel's one-page-per-step loop,
 to which its two-pages-per-step form is equal.  The in-bank loop,
-`bank_pass`, is also the streamed regime's (ops/intersect_streamed.py),
-as `rt::bank_pass` (csrc/perlane.cuh) is in CUDA.
+`bank_pass`, is also the streamed regime's (ops/intersect_streamed.py);
+the CUDA walks keep its order (csrc/perlane.cuh).
 """
 
 from typing import NamedTuple
@@ -115,30 +115,64 @@ def page_records(plt_i, plt_s, ab):
             pab.contiguous().view(torch.float32))
 
 
+#: pages a group box holds (consecutive pages of one bank)
+PAGES_A_BOX = 8
+
+
+def group_boxes(pab):
+    """The group boxes of the page boxes pab [NB*128, 8] (lanes 0..2 lo,
+    3..5 hi, 6 valid), on their device: [NB*128 / PAGES_A_BOX, 8], box g
+    the exact float minimum of the lo lanes and maximum of the hi lanes of
+    pages g * PAGES_A_BOX ... over the valid ones (a NaN bound counts as
+    unbounded), lane 6 1.0 when one is valid (else lo +inf, hi -inf and
+    lane 6 0), lane 7 0.  Slab arithmetic is monotone in the bounds under
+    round to nearest, so a page (lo <= hi, as every page of the tables)
+    whose slab test passes passes its group box's: the group walks of B7
+    and B9 skip the pages of a group that fails
+    (tests/test_torch_streamed_walk.py holds it on -0, NaN and padding
+    bounds)."""
+    g = pab.reshape(-1, PAGES_A_BOX, PAB_LANES)
+    valid = (g[..., 6] != 0.0)[..., None]
+    inf = torch.tensor(torch.inf, dtype=pab.dtype, device=pab.device)
+    lo, hi = g[..., 0:3], g[..., 3:6]
+    lo = torch.where(valid, torch.where(torch.isnan(lo), -inf, lo), inf)
+    hi = torch.where(valid, torch.where(torch.isnan(hi), inf, hi), -inf)
+    out = torch.zeros((g.shape[0], PAB_LANES), dtype=pab.dtype,
+                      device=pab.device)
+    out[:, 0:3] = lo.amin(dim=1)
+    out[:, 3:6] = hi.amax(dim=1)
+    out[:, 6] = valid[:, :, 0].any(dim=1).to(pab.dtype)
+    return out
+
+
 class PerlaneTables(NamedTuple):
     """The resident regime's tables on one device, in both layouts.
 
     plt_i, plt_s, ab: `upload_perlane_tables` (pages on lanes, the JAX
-    package's layout, which B7 and the plain versions read); rec [NB*128,
-    P, 24] and pab [NB*128, 8]: `page_records` of them (page-major, B4's
-    kernel's layout); extent [NB] int32: each bank's last valid page + 1
-    (the kernel slab-tests no page past it)."""
+    package's layout, which the plain versions read); rec [NB*128, P, 24]
+    and pab [NB*128, 8]: `page_records` of them (page-major, the layout
+    B4's and B7's kernels read); extent [NB] int32: each bank's last valid
+    page + 1 (B4's walk slab-tests no page past it); gab [NB*128 /
+    PAGES_A_BOX, 8]: `group_boxes(pab)`, B7's first level of page
+    culling."""
     plt_i: torch.Tensor
     plt_s: torch.Tensor
     ab: torch.Tensor
     rec: torch.Tensor
     pab: torch.Tensor
     extent: torch.Tensor
+    gab: torch.Tensor
 
 
 def perlane_tables(plt_i, plt_s, ab) -> PerlaneTables:
-    """The per-lane tables with their page-major records and bank extents,
-    built on their device."""
+    """The per-lane tables with their page-major records, bank extents and
+    group boxes, built on their device."""
     valid = ab.reshape(-1, GROUP, ab.shape[-1])[..., 6] != 0.0
     pages = torch.arange(1, GROUP + 1, dtype=torch.int32, device=ab.device)
     extent = torch.where(valid, pages, 0).amax(dim=1).to(torch.int32)
-    return PerlaneTables(plt_i, plt_s, ab, *page_records(plt_i, plt_s, ab),
-                         extent)
+    rec, pab = page_records(plt_i, plt_s, ab)
+    return PerlaneTables(plt_i, plt_s, ab, rec, pab, extent,
+                         group_boxes(pab))
 
 
 def bank_views(plt_i, plt_s, ab, P: int):
@@ -284,7 +318,7 @@ def trace_perlane_plain(o, d, alive, plt_i, plt_s, ab, P: int, excl=None,
     return rows
 
 
-def trace_perlane(ot, dt, alive, plt_i, plt_s, ab, page_size: int,
+def trace_perlane(ot, dt, alive, tables: PerlaneTables, page_size: int,
                   ray_chunk: int, chunk_live=None, excl=None,
                   any_hit: bool = False):
     """Winner rows [16, R] (ops/state.py ROW_* layout) of the per-lane
@@ -293,48 +327,73 @@ def trace_perlane(ot, dt, alive, plt_i, plt_s, ab, page_size: int,
     ot/dt: [3, R] float32 ray origins and directions (rows of a larger
     tensor are fine: the last dim must be dense, one row stride for both);
     alive: [R] float32, rays with alive == 0 are invalid (ROW_T -inf, the
-    rest 0); plt_i/plt_s/ab: `upload_perlane_tables`; chunk_live: optional
-    [R // ray_chunk] int32 flags — a chunk flagged 0 gets all-zero rows;
-    excl: optional [R] float32 triangle id each ray may not hit (0: none);
-    any_hit: the occlusion query, which stops a ray at its first hit and
-    leaves the payload rows 0 (only ROW_ID != 0 is meaningful, ROADMAP C5).
-    Rows 11..15 are 0.
+    rest 0); tables: the resident tables and their records
+    (`perlane_tables`); chunk_live: optional [R // ray_chunk] int32 flags
+    — a chunk flagged 0 gets all-zero rows; excl: optional [R] float32
+    triangle id each ray may not hit (0: none); any_hit: the occlusion
+    query, which stops a ray at its first page with a hit and leaves the
+    payload rows 0 (only ROW_ID != 0 is meaningful, ROADMAP C5).  Rows
+    11..15 are 0.  The kernel reads the records, the plain version the
+    per-lane tables.
     """
     dev = ot.device
     if dev.type == "cpu":
-        return trace_perlane_plain(ot, dt, alive, plt_i, plt_s, ab,
-                                   page_size, excl, any_hit, ray_chunk,
-                                   chunk_live)
+        return trace_perlane_plain(ot, dt, alive, tables.plt_i, tables.plt_s,
+                                   tables.ab, page_size, excl, any_hit,
+                                   ray_chunk, chunk_live)
+    return _trace_perlane_kernel(ot, dt, alive, tables, page_size, ray_chunk,
+                                 chunk_live, excl, any_hit)
+
+
+def _trace_perlane_kernel(ot, dt, alive, tables: PerlaneTables,
+                          page_size: int, ray_chunk: int, chunk_live=None,
+                          excl=None, any_hit: bool = False, lanes: int = 0):
+    """B7's launch on the card; lanes: 0 the kernel's own choice, 1 the
+    per-thread walk, 16 or 32 the lanes a listed ray (chip_smoke.py times
+    each form)."""
+    dev = ot.device
     native.require(dev.type == "cuda",
                    f"trace_perlane: no kernel for device {dev}")
+    native.require(lanes in (0, 1, 16, 32), f"lanes {lanes}")
     R = ot.shape[1]
     P = page_size
-    NB = ab.shape[0] // GROUP
+    NB = tables.ab.shape[0] // GROUP
     native.check_ray_chunk(R, ray_chunk)
     native.check_tensor("ot", ot, dev, (3, R), torch.float32, False)
     native.check_tensor("dt", dt, dev, (3, R), torch.float32, False)
     native.require(ot.stride(0) == dt.stride(0),
                    "ot and dt need one row stride")
     native.check_tensor("alive", alive, dev, (R,), torch.float32)
-    native.check_tensor("plt_i", plt_i, dev, (NB * N_INT * P, GROUP),
-                        torch.float32)
-    native.check_tensor("plt_s", plt_s, dev, (NB * N_SHD * P, GROUP),
-                        torch.float32)
-    native.check_tensor("ab", ab, dev, (NB * GROUP, PACK_LANES),
-                        torch.float32)
+    _check_records(dev, P, NB, tables)
+    native.check_tensor("gab", tables.gab, dev,
+                        (NB * GROUP // PAGES_A_BOX, PAB_LANES), torch.float32)
     if excl is not None:
         native.check_tensor("excl", excl, dev, (R,), torch.float32)
     if chunk_live is not None:
         native.check_tensor("chunk_live", chunk_live, dev,
                             (R // ray_chunk,), torch.int32)
     out = torch.empty((TRACE_ROWS, R), dtype=torch.float32, device=dev)
+    # the live list and its two counters (the list's length, the trace
+    # grid's claims): scratch that must outlive the launch's enqueueing
+    scratch = torch.empty(R, dtype=torch.int32, device=dev)
+    count = torch.zeros(2, dtype=torch.int32, device=dev)
     native.TRACE_PERLANE(
         ot.data_ptr(), dt.data_ptr(), ot.stride(0), alive.data_ptr(), R,
         0 if excl is None else excl.data_ptr(), int(any_hit),
-        plt_i.data_ptr(), plt_s.data_ptr(), ab.data_ptr(), P, NB, ray_chunk,
-        0 if chunk_live is None else chunk_live.data_ptr(), out.data_ptr(),
+        tables.rec.data_ptr(), tables.pab.data_ptr(), tables.gab.data_ptr(),
+        tables.extent.data_ptr(), P, NB, ray_chunk,
+        0 if chunk_live is None else chunk_live.data_ptr(),
+        scratch.data_ptr(), count.data_ptr(), lanes, out.data_ptr(),
         native.stream(dev))
     return out
+
+
+def _check_records(dev, P: int, NB: int, tables: PerlaneTables) -> None:
+    native.check_tensor("rec", tables.rec, dev, (NB * GROUP, P, REC_LANES),
+                        torch.float32)
+    native.check_tensor("pab", tables.pab, dev, (NB * GROUP, PAB_LANES),
+                        torch.float32)
+    native.check_tensor("extent", tables.extent, dev, (NB,), torch.int32)
 
 
 def shadow_feeler_plain(st, rows, seed, rays, ray_chunk: int,
@@ -419,11 +478,7 @@ def trace_shade_perlane(state, tables: PerlaneTables, seed, page_size: int,
     NB = tables.ab.shape[0] // GROUP
     native.check_ray_chunk(R, ray_chunk)
     native.check_tensor("state", state, dev, (STATE_ROWS, R), torch.float32)
-    native.check_tensor("rec", tables.rec, dev, (NB * GROUP, P, REC_LANES),
-                        torch.float32)
-    native.check_tensor("pab", tables.pab, dev, (NB * GROUP, PAB_LANES),
-                        torch.float32)
-    native.check_tensor("extent", tables.extent, dev, (NB,), torch.int32)
+    _check_records(dev, P, NB, tables)
     native.check_tensor("chunk_live", chunk_live, dev, (R // ray_chunk,),
                         torch.int32)
     out = torch.empty_like(state)

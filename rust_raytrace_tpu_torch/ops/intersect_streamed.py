@@ -53,8 +53,9 @@ import torch
 
 from ..utils import native, xla_rsqrt
 from .cull import slab, slab_inv
-from .intersect_perlane import (GROUP, N_INT, N_SHD, PAB_LANES, REC_LANES,
-                                bank_pass, bank_views, build_perlane_tables,
+from .intersect_perlane import (GROUP, N_INT, N_SHD, PAB_LANES, PAGES_A_BOX,
+                                REC_LANES, bank_pass, bank_views,
+                                build_perlane_tables, group_boxes,
                                 page_records, winner_init, winner_rows)
 from .pages import PACK_LANES, PageTables
 from .intersect import packed_hit_predicate, payload_features, PAYLOAD_ROWS
@@ -117,35 +118,6 @@ class StreamedTables(NamedTuple):
     rec: torch.Tensor
     pab: torch.Tensor
     gab: torch.Tensor
-
-
-#: pages a group box holds (consecutive pages of one bank)
-PAGES_A_BOX = 8
-
-
-def group_boxes(pab):
-    """The group boxes of the page boxes pab [NB*128, 8] (lanes 0..2 lo,
-    3..5 hi, 6 valid), on their device: [NB*128 / PAGES_A_BOX, 8], box g
-    the exact float minimum of the lo lanes and maximum of the hi lanes of
-    pages g * PAGES_A_BOX ... over the valid ones (a NaN bound counts as
-    unbounded), lane 6 1.0 when one is valid (else lo +inf, hi -inf and
-    lane 6 0), lane 7 0.  Slab arithmetic is monotone in the bounds under
-    round to nearest, so a page (lo <= hi, as every page of the tables)
-    whose slab test passes passes its group box's: B9 skips the pages of a
-    group that fails (tests/test_torch_streamed_walk.py holds it on -0,
-    NaN and padding bounds)."""
-    g = pab.reshape(-1, PAGES_A_BOX, PAB_LANES)
-    valid = (g[..., 6] != 0.0)[..., None]
-    inf = torch.tensor(torch.inf, dtype=pab.dtype, device=pab.device)
-    lo, hi = g[..., 0:3], g[..., 3:6]
-    lo = torch.where(valid, torch.where(torch.isnan(lo), -inf, lo), inf)
-    hi = torch.where(valid, torch.where(torch.isnan(hi), inf, hi), -inf)
-    out = torch.zeros((g.shape[0], PAB_LANES), dtype=pab.dtype,
-                      device=pab.device)
-    out[:, 0:3] = lo.amin(dim=1)
-    out[:, 3:6] = hi.amax(dim=1)
-    out[:, 6] = valid[:, :, 0].any(dim=1).to(pab.dtype)
-    return out
 
 
 def upload_streamed_tables(pages: PageTables, device) -> StreamedTables:

@@ -379,37 +379,88 @@ def _sphere_state(eng, vp, dev):
                       torch.zeros((8, R), device=dev)])
 
 
+#: B7's forms: the kernel's own choice, the per-thread walk, 16 and 32
+#: lanes a listed ray
+B7_LANES = [0, 1, 16, 32]
+
+
+def _b7(o, d, alive, tabs, page, lanes, ray_chunk=RB, **kw):
+    return intersect_perlane._trace_perlane_kernel(
+        o, d, alive, tabs, page, ray_chunk, lanes=lanes, **kw)
+
+
+@pytest.mark.parametrize("lanes", B7_LANES)
 @pytest.mark.parametrize("fixed", [True, False])
-def test_trace_perlane_matches_plain(dev, fixed):
-    """B7 on the resident tables of 4 banks (page size 8): nearest rows,
-    with self-exclusion, with a dead chunk, bitwise; the any-hit occlusion
-    bit of the lit wave's shadow rays, and the per-lane shadow pass, against
-    the plain versions."""
+def test_trace_perlane_matches_plain(dev, fixed, lanes):
+    """B7 on the resident tables of 4 banks (page size 8), in each form:
+    nearest rows, with self-exclusion, with a dead chunk, bitwise; the
+    any-hit occlusion bit of the lit wave's shadow rays (all rows bitwise
+    for the group forms, which keep the plain version's any-hit order),
+    and the per-lane shadow pass, against the plain versions."""
     scene, vp = _sphere_scene(False)
     eng = Engine(scene, page_size=8, ray_chunk=RB, device=dev)
     assert not eng.streamed and eng.ptables.ab.shape[0] == 4 * 128
-    tabs = eng.ptables[:3]
+    tabs = eng.ptables
     st = _sphere_state(eng, vp, dev)
     o, d, alive = st[0:3], st[3:6], st[7]
-    rows = intersect_perlane.trace_perlane(o, d, alive, *tabs, 8, RB)
+    rows = intersect_perlane.trace_perlane(o, d, alive, tabs, 8, RB)
     dead = torch.ones(st.shape[1] // RB, dtype=torch.int32, device=dev)
     dead[1::3] = 0
     for kw in ({}, {"excl": rows[1].contiguous()}, {"chunk_live": dead}):
         native.reset_launch_counts()
-        got = intersect_perlane.trace_perlane(o, d, alive, *tabs, 8, RB, **kw)
+        got = _b7(o, d, alive, tabs, 8, lanes, **kw)
         assert native.TRACE_PERLANE.launches == 1
         _bitwise(got, intersect_perlane.trace_perlane_plain(
-            o, d, alive, *tabs, 8, ray_chunk=RB, **kw))
+            o, d, alive, *tabs[:3], 8, ray_chunk=RB, **kw))
     key = prng_key(3)
     so, sd, hit, excl = shadow_rays(st, rows, key, 1, fixed, LIGHT)
-    args = (so, sd, hit.float(), *tabs, 8, RB)
-    occ = intersect_perlane.trace_perlane(*args, excl=excl, any_hit=True)
+    occ = _b7(so, sd, hit.float(), tabs, 8, lanes, excl=excl, any_hit=True)
     occ_p = intersect_perlane.trace_perlane_plain(
-        so, sd, hit.float(), *tabs, 8, excl=excl, any_hit=True)
+        so, sd, hit.float(), *tabs[:3], 8, excl=excl, any_hit=True)
     assert torch.equal(occ[1] != 0, occ_p[1] != 0)
+    if lanes != 1:
+        _bitwise(occ, occ_p)
     assert 0 < int((occ[1] != 0).sum()) < int(hit.sum())
-    shd = shadow_mask_perlane(st, rows, key, 1, fixed, LIGHT, *tabs, 8, RB)
-    assert torch.equal(shd != 0, hit & (occ[1] != 0))
+    shd = shadow_mask_perlane(st, rows, key, 1, fixed, LIGHT, tabs, 8, RB)
+    assert torch.equal(shd != 0, hit & (intersect_perlane.trace_perlane(
+        so, sd, hit.float(), tabs, 8, RB, excl=excl, any_hit=True)[1] != 0))
+
+
+@pytest.mark.parametrize("lanes", B7_LANES)
+@pytest.mark.parametrize("mode", ["nearest", "excl", "dead_chunk",
+                                  "any_hit"])
+def test_trace_perlane_walk_case_matches_plain(dev, lanes, mode):
+    """B7 on tests/streamed_walk_cases.py's scene as resident tables (4
+    banks of pages of 8; a triangle and its copy in two banks, zero-normal
+    slots mid-page) and state (camera rays, a chunk with no live ray, rays
+    from inside the sphere, dead lanes), in each form, bitwise against its
+    plain version (any-hit: the occlusion bit; all rows for the group
+    forms)."""
+    import streamed_walk_cases as W
+    from rust_raytrace_tpu_torch.ops.intersect_perlane import (
+        build_perlane_tables, perlane_tables)
+
+    pages, _, targets = W.scene()
+    tabs = perlane_tables(*(torch.from_numpy(x).to(dev)
+                            for x in build_perlane_tables(pages)))
+    st = torch.from_numpy(W.state(targets)).to(dev)
+    o, d, alive = st[0:3], st[3:6], st[7]
+    kw = {}
+    if mode in ("excl", "any_hit"):
+        kw["excl"] = intersect_perlane.trace_perlane_plain(
+            o, d, alive, *tabs[:3], W.P)[1].contiguous()
+    if mode == "dead_chunk":
+        kw["chunk_live"] = torch.ones(W.NC, dtype=torch.int32, device=dev)
+        kw["chunk_live"][W.INSIDE_CHUNK] = 0
+    kw["any_hit"] = mode == "any_hit"
+    got = _b7(o, d, alive, tabs, W.P, lanes, W.RB, **kw)
+    want = intersect_perlane.trace_perlane_plain(o, d, alive, *tabs[:3], W.P,
+                                                 ray_chunk=W.RB, **kw)
+    if mode == "any_hit" and lanes == 1:
+        assert torch.equal(got[1] != 0, want[1] != 0)
+    else:
+        _bitwise(got, want)
+    assert bool((got[1] != 0).any())
 
 
 @pytest.mark.parametrize("fixed", [True, False])
@@ -566,6 +617,24 @@ def test_cull_sorted_matches_plain(dev, rc):
     assert torch.equal(plist[:, :NP].long(),
                        torch.argsort(tmin, dim=1, stable=True))
     assert int(counts.max()) > 0
+
+
+def test_cull_sorted_branch_case_matches_plain(dev):
+    """B13 on tests/cull_sorted_cases.py: a chunk on the fast path, a chunk
+    whose hit keys reach BIGT and beyond (the all-pairs branch), a dead
+    chunk and one with no valid ray, bitwise against its plain version."""
+    import cull_sorted_cases as C
+
+    o, d, valid, blo, bhi, live = (torch.from_numpy(x).to(dev)
+                                   for x in C.case())
+    args = (o, d, valid, blo, bhi, C.RB)
+    native.reset_launch_counts()
+    got = cull.cull_sorted(*args, chunk_live=live)
+    assert native.CULL_SORTED.launches == 1
+    want = cull.cull_sorted_plain(*args, chunk_live=live)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _bitwise(got[2], want[2])
+    assert float(want[2][C.ALL_PAIRS_CHUNK].max()) > cull.BIGT
 
 
 def _bucket_state(dev, R, cb, n_oct, seed):

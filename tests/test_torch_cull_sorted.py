@@ -104,3 +104,46 @@ def test_cull_sorted_agrees_with_the_split_form(NP, RB):
         assert torch.equal(ptmin[c, :n], s[c, :n])
         assert torch.isfinite(s[c, :n]).all()
         assert (ptmin[c, n:] == cull.BIGT).all()
+
+
+def test_cull_sorted_branch_case_equals_jax_interpret():
+    """tests/cull_sorted_cases.py: a chunk whose hit keys all lie below
+    BIGT (the kernel's fast path: the plain plist is the fast rank), a
+    chunk with a hit key equal to BIGT and one beyond it (the all-pairs
+    branch: the fast rank would differ), a dead chunk and one with no
+    valid ray, bitwise against the JAX package in interpret mode."""
+    import cull_sorted_cases as C
+
+    o, d, valid, blo, bhi, live = C.case()
+    jc, jp, jt = cull_sorted_pallas(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(valid), jnp.asarray(blo),
+        jnp.asarray(bhi), C.RB, jnp.asarray(live), interpret=True)
+    args = (torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(valid),
+            torch.from_numpy(blo), torch.from_numpy(bhi), C.RB)
+    tc, tp, tt = cull.cull_sorted(*args, torch.from_numpy(live))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tt.numpy().view(np.int32),
+                                  np.asarray(jt).view(np.int32))
+    mask, _ = cull.cull_mask_exact_plain(*args)
+    NPpad = tp.shape[1]
+    for c in (C.FAST_CHUNK, C.ALL_PAIRS_CHUNK):
+        key = np.empty(NPpad, np.float32)
+        key[tp[c].numpy()] = tt[c].numpy()
+        m = np.zeros(NPpad, bool)
+        m[:C.NP] = mask[c].numpy()
+        hit_keys = key[m]
+        fast = C.fast_rank(m, key)
+        if c == C.FAST_CHUNK:
+            assert (hit_keys < cull.BIGT).all() and (hit_keys == 0).any()
+            np.testing.assert_array_equal(tp[c].numpy(), fast)
+        else:
+            assert key[C.PAGE_A] == np.float32(cull.BIGT) and m[C.PAGE_A]
+            assert key[C.PAGE_B] > np.float32(cull.BIGT) and m[C.PAGE_B]
+            assert key[C.PAGE_C] == 0.0 and m[C.PAGE_C]
+            assert not np.array_equal(tp[c].numpy(), fast)
+    assert int(tc[C.DEAD_CHUNK]) == 0 and not tp[C.DEAD_CHUNK].any()
+    assert int(tc[C.EMPTY_CHUNK]) == 0
+    np.testing.assert_array_equal(tp[C.EMPTY_CHUNK].numpy(),
+                                  np.arange(NPpad))
+    assert (tt[[C.DEAD_CHUNK, C.EMPTY_CHUNK]] == cull.BIGT).all()

@@ -117,7 +117,7 @@ def test_banded_bank_major_and_perlane_shadow_run_without_the_jax_package():
         "from rust_raytrace_tpu_torch import engine\n"
         "from rust_raytrace_tpu_torch.models import circles\n"
         "from rust_raytrace_tpu_torch.ops.intersect_perlane import "
-        "upload_perlane_tables\n"
+        "perlane_tables, upload_perlane_tables\n"
         "from rust_raytrace_tpu_torch.utils.rng import prng_key\n"
         "scene, vp = circles.build(resolution=(16, 16), maxdepth=3)\n"
         "e = engine.Engine(scene, ray_chunk=128, device='cpu')\n"
@@ -130,7 +130,8 @@ def test_banded_bank_major_and_perlane_shadow_run_without_the_jax_package():
         "st[5] = st[7] = 1.0\n"
         "rows = torch.zeros((16, 128))\n"
         "m = engine.shadow_mask_perlane(st, rows, prng_key(0), 1, True, "
-        "(0.0, 5.0, 0.0, 0.1), *upload_perlane_tables(e.pages, 'cpu'), "
+        "(0.0, 5.0, 0.0, 0.1), "
+        "perlane_tables(*upload_perlane_tables(e.pages, 'cpu')), "
         "e.page_size, 128)\n"
         "assert m.shape == (128,) and not m.any()\n",
         blocked=("jax", "rust_raytrace_tpu"))

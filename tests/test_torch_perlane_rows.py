@@ -17,7 +17,8 @@ import torch
 from rust_raytrace_tpu import engine as jeng
 from rust_raytrace_tpu.ops.intersect_perlane import trace_perlane_pallas
 from rust_raytrace_tpu_torch.engine import shadow_mask_perlane, shadow_rays
-from rust_raytrace_tpu_torch.ops.intersect_perlane import (trace_perlane,
+from rust_raytrace_tpu_torch.ops.intersect_perlane import (perlane_tables,
+                                                          trace_perlane,
                                                           trace_perlane_plain)
 from rust_raytrace_tpu_torch.utils import native
 from rust_raytrace_tpu_torch.utils.rng import prng_key
@@ -58,8 +59,8 @@ def test_trace_perlane_equals_jax(banks, mode):
     if mode == "dead_chunk":
         chunk_live = torch.tensor([1, 0], dtype=torch.int32)
     native.reset_launch_counts()
-    mine = trace_perlane(o, d, alive, plt_i, plt_s, ab, page, RB,
-                         chunk_live=chunk_live, excl=excl,
+    mine = trace_perlane(o, d, alive, perlane_tables(plt_i, plt_s, ab), page,
+                         RB, chunk_live=chunk_live, excl=excl,
                          any_hit=mode == "any_hit").numpy()
     assert native.TRACE_PERLANE.launches == 0       # CPU: plain version
     ref = np.asarray(trace_perlane_pallas(
@@ -114,7 +115,8 @@ def test_shadow_mask_perlane_equals_jax(banks, fixed_rng):
                                page)
     native.reset_launch_counts()
     mine = shadow_mask_perlane(st, rows, prng_key(4), 1, fixed_rng, LIGHT,
-                               plt_i, plt_s, ab, page, RB).numpy()
+                               perlane_tables(plt_i, plt_s, ab), page,
+                               RB).numpy()
     assert native.TRACE_PERLANE.launches == 0
     alive = st[7] != 0
     o_m = torch.where(alive[None], st[0:3], 0.0)
