@@ -3527,7 +3527,7 @@ def ca0d7908_cases(dev, key, old):
     def b7_case(args, kw):
         fns = {"new": lambda: intersect_perlane.trace_perlane(*args, **kw),
                "earlier": lambda: old["trace_perlane"](*args, **kw)}
-        for lanes in (1, 16, 32):
+        for lanes in (1, 2, 8, 16, 32):
             fns[f"lanes {lanes}"] = (
                 lambda n=lanes: intersect_perlane._trace_perlane_kernel(
                     *args, **kw, lanes=n))

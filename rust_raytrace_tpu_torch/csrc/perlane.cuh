@@ -75,6 +75,10 @@ constexpr int PRED4 = 5;
 constexpr int PAB4 = 2;
 // candidate pages a walk keeps sorted at once
 constexpr int CAND = 4;
+// pages a group box holds (ops/intersect_perlane.py PAGES_A_BOX), and
+// group boxes a bank
+constexpr int BOX_PAGES = 8;
+constexpr int BANK_BOXES = GROUP / BOX_PAGES;
 
 // Slab interval of the page box b (two float4): returns tlo, writes thi
 // and whether the page is valid.
@@ -88,6 +92,17 @@ __device__ __forceinline__ float box_tlo(const float4* b, const float o[3],
   float tlo;
   slab(lo, hi, o, inv, tlo, thi);
   return tlo;
+}
+
+// Whether a box (PAB4 float4) counts for the walk: slab-hit, valid and
+// entered no later than t_max; tlo its entry.
+__device__ __forceinline__ bool box_entered(const float4* b, const float o[3],
+                                            const float inv[3], float t_max,
+                                            float& tlo) {
+  float thi;
+  bool valid;
+  tlo = box_tlo(b, o, inv, thi, valid);
+  return valid & (tlo <= thi) & (thi >= 0.0f) & (tlo <= t_max);
 }
 
 // The walk's candidate pages: the n (<= CAND) least (tlo, page) keys not
@@ -168,7 +183,7 @@ __device__ __forceinline__ void cand_fill(Cands& c, uint32_t hit[4],
 // pages than that were entered is the mask re-tested once the list runs
 // dry.  A popped page entered beyond w.t ends the bank: every page left,
 // listed or not, enters no nearer.
-template <bool ANY_HIT, bool EXCL, bool SLOT = false>
+template <bool ANY_HIT, bool EXCL, bool SLOT = false, bool GBOX = false>
 __device__ __forceinline__ void bank_walk(const float4* __restrict__ box,
                                           const float4* __restrict__ rec,
                                           int P, const float o[3],
@@ -176,7 +191,9 @@ __device__ __forceinline__ void bank_walk(const float4* __restrict__ box,
                                           const float inv[3], float ex,
                                           Winner& w, int slot_base = 0,
                                           int* slot = nullptr,
-                                          int n_pages = GROUP) {
+                                          int n_pages = GROUP,
+                                          const float4* __restrict__ gbox =
+                                              nullptr) {
   uint32_t hit[4];
   Cands c;
 #pragma unroll
@@ -186,11 +203,22 @@ __device__ __forceinline__ void bank_walk(const float4* __restrict__ box,
   }
   c.n = 0;
   c.over = false;
+  // GBOX: the bank's group boxes first; a page whose group box fails
+  // fails its own slab test
+  uint32_t pass = 0xffffu;
+  if (GBOX) {
+    pass = 0u;
+    for (int k = 0; k < BANK_BOXES && k * BOX_PAGES < n_pages; ++k) {
+      float tlo;
+      if (box_entered(gbox + k * PAB4, o, inv, w.t, tlo)) pass |= 1u << k;
+    }
+  }
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     uint32_t bits = 0;
     for (int j = 0; j < 32 && q * 32 + j < n_pages; ++j) {
       const int p = q * 32 + j;
+      if (GBOX && !((pass >> (p / BOX_PAGES)) & 1u)) continue;
       float thi;
       bool valid;
       const float tlo = box_tlo(box + p * PAB4, o, inv, thi, valid);
@@ -283,10 +311,6 @@ __device__ __forceinline__ void bank_walk(const float4* __restrict__ box,
 // prune it, so pages go in the plain (entry, page) order exactly.
 
 constexpr int NO_KEY = 0x7fffffff;
-// pages a group box holds (ops/intersect_perlane.py PAGES_A_BOX), and
-// group boxes a bank
-constexpr int BOX_PAGES = 8;
-constexpr int BANK_BOXES = GROUP / BOX_PAGES;
 
 // Work counters of one ray, kept by B9's counting instance (a diagnostic;
 // chip_smoke.py's counting phase; trace_streamed.cu stores them).
@@ -335,17 +359,6 @@ __device__ __forceinline__ int group_sum(unsigned gm, int v) {
 #pragma unroll
   for (int m = G / 2; m >= 1; m /= 2) v += __shfl_xor_sync(gm, v, m);
   return v;
-}
-
-// Whether a box (PAB4 float4) counts for the walk: slab-hit, valid and
-// entered no later than t_max; tlo its entry.
-__device__ __forceinline__ bool box_entered(const float4* b, const float o[3],
-                                            const float inv[3], float t_max,
-                                            float& tlo) {
-  float thi;
-  bool valid;
-  tlo = box_tlo(b, o, inv, thi, valid);
-  return valid & (tlo <= thi) & (thi >= 0.0f) & (tlo <= t_max);
 }
 
 // One page of P triangles for the group's ray: lane gl tests slots gl, gl

@@ -63,7 +63,7 @@ constexpr int DEFAULT_LANES = 32;
 
 // ---- the per-thread walk ----
 
-template <bool ANY_HIT, bool EXCL>
+template <bool ANY_HIT, bool EXCL, bool GBOX>
 __global__ void __launch_bounds__(WALK_THREADS)
 perlane_walk_kernel(const float* __restrict__ o_rows,
                     const float* __restrict__ d_rows, long long row_stride,
@@ -71,6 +71,7 @@ perlane_walk_kernel(const float* __restrict__ o_rows,
                     const float* __restrict__ excl,
                     const float4* __restrict__ rec,
                     const float4* __restrict__ pab,
+                    const float4* __restrict__ gab,
                     const int* __restrict__ extent, int P, int NB,
                     int ray_chunk, const int* __restrict__ chunk_live,
                     float* __restrict__ out) {
@@ -92,9 +93,10 @@ perlane_walk_kernel(const float* __restrict__ o_rows,
   const float ex = EXCL ? excl[r] : 0.0f;
   rt::Winner w = rt::winner_init(valid);
   for (int b = 0; valid && b < NB; ++b) {
-    rt::bank_walk<ANY_HIT, EXCL>(pab + (long long)b * GROUP * PAB4,
-                                 rec + (long long)b * GROUP * P * REC4, P, o,
-                                 d, inv, ex, w, 0, nullptr, extent[b]);
+    rt::bank_walk<ANY_HIT, EXCL, false, GBOX>(
+        pab + (long long)b * GROUP * PAB4,
+        rec + (long long)b * GROUP * P * REC4, P, o, d, inv, ex, w, 0,
+        nullptr, extent[b], gab + (long long)b * BANK_BOXES * PAB4);
     if (ANY_HIT && w.id != 0.0f) break;
   }
   rt::store_winner(w, out, R, r);
@@ -259,23 +261,30 @@ int launch(const float* ot, const float* dt, long long row_stride,
            const int* chunk_live, int* list, int* count, int lanes,
            float* out, cudaStream_t stream) {
   if (lanes == 0) lanes = DEFAULT_LANES;
-  if (lanes == 1) {
+  if (lanes == 1 || lanes == 2) {
     const long long blocks = (R + WALK_THREADS - 1) / WALK_THREADS;
-    perlane_walk_kernel<ANY_HIT, EXCL><<<(unsigned)blocks, WALK_THREADS, 0,
-                                         stream>>>(
+    auto walk = lanes == 1 ? perlane_walk_kernel<ANY_HIT, EXCL, true>
+                           : perlane_walk_kernel<ANY_HIT, EXCL, false>;
+    walk<<<(unsigned)blocks, WALK_THREADS, 0, stream>>>(
         ot, dt, row_stride, alive, R, excl,
         reinterpret_cast<const float4*>(rec),
-        reinterpret_cast<const float4*>(pab), extent, P, NB, ray_chunk,
+        reinterpret_cast<const float4*>(pab),
+        reinterpret_cast<const float4*>(gab), extent, P, NB, ray_chunk,
         chunk_live, out);
     return (int)cudaGetLastError();
   }
-  if (lanes != 16 && lanes != 32) return (int)cudaErrorInvalidValue;
+  if (lanes != 8 && lanes != 16 && lanes != 32)
+    return (int)cudaErrorInvalidValue;
   const long long blocks = (R + LIST_BLOCK - 1) / LIST_BLOCK;
   perlane_list_kernel<<<(unsigned)blocks, LIST_BLOCK, 0, stream>>>(
       dt, row_stride, alive, R, ray_chunk, chunk_live, out, list, count);
   cudaError_t e = cudaGetLastError();
   if (e == cudaSuccess)
-    e = lanes == 16
+    e = lanes == 8
+            ? launch_trace<8, ANY_HIT, EXCL>(ot, dt, row_stride, R, excl,
+                                             rec, pab, gab, P, NB, list,
+                                             count, out, stream)
+        : lanes == 16
             ? launch_trace<16, ANY_HIT, EXCL>(ot, dt, row_stride, R, excl,
                                               rec, pab, gab, P, NB, list,
                                               count, out, stream)

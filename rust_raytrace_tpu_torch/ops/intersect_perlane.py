@@ -354,7 +354,7 @@ def _trace_perlane_kernel(ot, dt, alive, tables: PerlaneTables,
     dev = ot.device
     native.require(dev.type == "cuda",
                    f"trace_perlane: no kernel for device {dev}")
-    native.require(lanes in (0, 1, 16, 32), f"lanes {lanes}")
+    native.require(lanes in (0, 1, 2, 8, 16, 32), f"lanes {lanes}")
     R = ot.shape[1]
     P = page_size
     NB = tables.ab.shape[0] // GROUP

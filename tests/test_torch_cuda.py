@@ -381,7 +381,7 @@ def _sphere_state(eng, vp, dev):
 
 #: B7's forms: the kernel's own choice, the per-thread walk, 16 and 32
 #: lanes a listed ray
-B7_LANES = [0, 1, 16, 32]
+B7_LANES = [0, 1, 2, 8, 16, 32]
 
 
 def _b7(o, d, alive, tabs, page, lanes, ray_chunk=RB, **kw):
