@@ -2251,8 +2251,7 @@ PORT_KERNELS = ("cull_kernel", "trace_union_kernel", "compact_kernel",
                 "trace_shade_perlane_kernel", "expand_kernel",
                 "shade_kernel", "trace_streamed_kernel", "stream_list_kernel",
                 "stream_trace_kernel", "live_list_kernel",
-                "nearest_hit_kernel", "perlane_walk_kernel", "perlane_list_kernel",
-                "perlane_trace_kernel", "bm_prep_kernel",
+                "nearest_hit_kernel", "trace_perlane_kernel", "bm_prep_kernel",
                 "bm_sweep_kernel", "bm_finish_kernel", "cull_sorted_kernel",
                 "compact_buckets_kernel", "expand_buckets_kernel")
 
@@ -3478,9 +3477,7 @@ def ca0d7908_cases(dev, key, old):
     any-hit by the occlusion bit: the lit circles_2k wave-1 rows (B1, B6,
     the B1/B6 shadow pass and B8 on the camera wave), their shadow rays
     (any-hit with self-exclusion), the camera rays of the 4-bank sphere
-    of `perlane_banks` and its wave-1 rays; each also in the new build's
-    three forms (the per-thread walk, 16 and 32 lanes a listed ray); the
-    per-lane shadow pass (`shadow_mask_perlane`, B7's path) beside the
+    of `perlane_banks` and its wave-1 rays; the per-lane shadow pass (`shadow_mask_perlane`, B7's path) beside the
     B1/B6 one on the circles rows; B13 on the circles_2k and sphere camera
     waves beside the split form (B1, then `page_lists`) and B1 alone; and
     the default circles_2k render, whose path neither kernel is on.
@@ -3525,14 +3522,11 @@ def ca0d7908_cases(dev, key, old):
     b_w1 = (b_st1[0:3], b_st1[3:6], b_st1[7], b_eng.ptables, bP, RB)
 
     def b7_case(args, kw):
-        fns = {"new": lambda: intersect_perlane.trace_perlane(*args, **kw),
-               "earlier": lambda: old["trace_perlane"](*args, **kw)}
-        for lanes in (1, 2, 8, 16, 32):
-            fns[f"lanes {lanes}"] = (
-                lambda n=lanes: intersect_perlane._trace_perlane_kernel(
-                    *args, **kw, lanes=n))
-        return {"fns": fns, "same": tuple(fns)[1:],
-                "key": _occlusion if kw.get("any_hit") else None}
+        return {"fns": {
+            "new": lambda: intersect_perlane.trace_perlane(*args, **kw),
+            "earlier": lambda: old["trace_perlane"](*args, **kw)},
+            "same": ("earlier",),
+            "key": _occlusion if kw.get("any_hit") else None}
 
     cases = {
         "B7 nearest, lit circles_2k wave-1 rows": b7_case(ray1, {}),
@@ -3591,9 +3585,7 @@ TURNS_AGAINST = SimpleNamespace(
              "rt_cull_sorted": native.CULL_SORTED.argtypes},
     wrap=ca0d7908_wrappers,
     patches=((eng_mod, "trace_perlane"), (cull, "cull_sorted")),
-    kernels=("trace_perlane_kernel", "perlane_walk_kernel",
-             "perlane_list_kernel", "perlane_trace_kernel",
-             "cull_sorted_kernel"),
+    kernels=("trace_perlane_kernel", "cull_sorted_kernel"),
     cases=ca0d7908_cases)
 
 

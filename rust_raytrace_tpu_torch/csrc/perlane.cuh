@@ -1,12 +1,11 @@
-// The per-bank traversals of <= 128 pages, over page-major records.
+// The per-bank traversal of <= 128 pages over page-major records.
 //
 // rt::bank_walk is one thread's walk of a bank: the resident regime's for
-// B4 (trace_shade_perlane.cu), banks in index order, and the streamed
-// regime's for B10 (trace_streamed.cu), banks on a per-ray worklist, and
-// B12's sweep (trace_bankmajor.cu), one bank per item.  The group walk
-// below (rt::group_bank, rt::group_bank_any) is a group of G lanes' walk of
-// one ray: B9's (trace_streamed.cu), banks on the same worklist, and B7's
-// (trace_perlane.cu), banks in index order.
+// B4 (trace_shade_perlane.cu) and B7 (trace_perlane.cu), banks in index
+// order, and the streamed regime's for B10 (trace_streamed.cu), banks on a
+// per-ray worklist, and B12's sweep (trace_bankmajor.cu), one bank per
+// item.  (B9 walks the same records in the same order with a group of
+// lanes a ray, trace_streamed.cu.)
 //
 // Counterpart: rust_raytrace_tpu/ops/intersect_perlane.py:_group and
 // ops/intersect_streamed.py:_bank_group_pass — each ray slab-tests the bank's
@@ -21,21 +20,19 @@
 // the JAX package's per-lane tables, which the plain versions and B12's
 // finish still read) suit the TPU's 128-lane vectors: one vector load
 // reads one feature of 128 pages.  A CUDA thread tests one page at a time,
-// so there a triangle costs 17 scalar loads one feature row (P * 512 B,
+// so there a triangle cost 17 scalar loads one feature row (P * 512 B,
 // 114,688 B at P = 224) apart, each in its own 32-byte sector, and each
 // selection step re-ran the slab test of every remaining page (the last
-// such walk, B7's, left it in PR 13: PERF.md).  At 1M triangles the 68 MB
-// of plt_i do not fit the 50 MB L2, so those sectors come from device
-// memory.  The walks here read a triangle as one 96-byte record of six
-// float4 (the predicate's 17 lanes in the first five; the sixth only for a
-// winner's payload).  bank_walk slab-tests a bank's pages once per visit
-// and keeps its candidates in a short sorted list; what bounds it is the
-// hit predicate's arithmetic (an IEEE division a triangle) on the pages a
-// ray visits, and divergence, each thread walking its own number of pages.
-// The group walk takes that divergence away: a ray's lanes test its group
-// boxes and page boxes side by side, pick its next page by shuffles, and
-// stride the page's triangles over the lanes, reading its records as one
-// contiguous stream.
+// walk over that layout, B7's, left it in PR 13: PERF.md).  At 1M
+// triangles the 68 MB of plt_i do not fit the 50 MB L2, so those sectors
+// come from device memory.  bank_walk reads a triangle as one 96-byte
+// record of six float4 (the predicate's 17 lanes in the first five; the
+// sixth only for a winner's payload); it slab-tests the bank's pages once
+// per visit, optionally behind the bank's 16 group boxes of 8 pages (B7),
+// and keeps its candidates in a short sorted list.  What bounds it now:
+// the hit predicate's arithmetic (an IEEE division a triangle) on the
+// pages a ray visits, and divergence, each thread walking its own number
+// of pages.
 #pragma once
 
 #include "common.cuh"
@@ -65,7 +62,7 @@ __device__ __forceinline__ void winner_payload(const float* __restrict__ f,
   w.scat = g[6 * fs];
 }
 
-// ---- the streamed regime's page-major walk ----
+// ---- the page-major walk ----
 
 // A triangle's record: the packed lanes 0..23 (ops/pages.py), six float4;
 // the predicate reads lanes 0..16, the first five.  A page's AABB: two
@@ -170,11 +167,14 @@ __device__ __forceinline__ void cand_fill(Cands& c, uint32_t hit[4],
 // float4).  Updates the winner w in place.  EXCL: the triangle ex may not
 // win (a shadow ray's own).  ANY_HIT: return at the first triangle that
 // hits, with t and id only (the occlusion query: only id != 0 is
-// meaningful, ROADMAP C5).  SLOT:
-// record the winner's slot (slot_base + page * P + triangle) in *slot
-// instead of its payload (B12's sweep extracts the payload once, at the
-// end).  n_pages: the bank's pages past it are padding (invalid), so
-// their slab tests are skipped.
+// meaningful, ROADMAP C5).  SLOT: record the winner's slot (slot_base +
+// page * P + triangle) in *slot instead of its payload (B12's sweep
+// extracts the payload once, at the end).  n_pages: the bank's pages past
+// it are padding (invalid), so their slab tests are skipped.  GBOX: gbox
+// holds the bank's BANK_BOXES group boxes (ops/intersect_perlane.py
+// group_boxes), slab-tested first; the pages of a group box that the ray
+// does not enter by w.t are not tested (a page that passes passes its
+// group's, so the walk is the same).
 //
 // The visit order is the per-lane traversal's (the TPU kernel's
 // one-page-per-step loop): the least (tlo, page) of the slab-hit pages not
@@ -203,9 +203,7 @@ __device__ __forceinline__ void bank_walk(const float4* __restrict__ box,
   }
   c.n = 0;
   c.over = false;
-  // GBOX: the bank's group boxes first; a page whose group box fails
-  // fails its own slab test
-  uint32_t pass = 0xffffu;
+  uint32_t pass = 0xffffu;             // bit k: group box k entered
   if (GBOX) {
     pass = 0u;
     for (int k = 0; k < BANK_BOXES && k * BOX_PAGES < n_pages; ++k) {
@@ -285,287 +283,6 @@ __device__ __forceinline__ void bank_walk(const float4* __restrict__ box,
       }
     }
   }
-}
-
-// ---- the group walk: G lanes a ray ----
-//
-// Lane gl (0..G-1) of a group of G lanes (G = 16 or 32; the group's lanes
-// gm of its warp, group grp = lane / G) walks one ray with the others.
-// Banks: the caller's order.  In a bank the group first slab-tests the
-// BANK_BOXES group boxes of BOX_PAGES pages (ops/intersect_perlane.py
-// group_boxes: a page whose slab test passes passes its group's), then the
-// page boxes of the groups that pass, GROUP / G a lane, and keeps each
-// page's entry in registers; each step takes the least (entry, page) by
-// shuffles.  A page's P triangles are strided over the lanes, so a group
-// reads a page's records as one contiguous stream; each lane first
-// computes the plane's t from two float4, and only a t that could win goes
-// on to the plane distances (two more float4) and the id (a fifth), the
-// predicate's own arithmetic (the hit test needs all three distances
-// <= 1, so the order of the tests changes nothing).  The page's winner is
-// the lexicographic (t, id) minimum of the lanes' by shuffles (a copy of a
-// triangle within a page: the lower slot, as a scan in slot order keeps),
-// and the walk prunes with it after each page.  The winner's page and slot
-// are kept; `record_payload` re-tests that triangle for its payload.  That
-// order matters for the bits: a page box whose entry rounds past an
-// equal-t copy's hit is pruned, as the plain versions and the TPU kernels
-// prune it, so pages go in the plain (entry, page) order exactly.
-
-constexpr int NO_KEY = 0x7fffffff;
-
-// Work counters of one ray, kept by B9's counting instance (a diagnostic;
-// chip_smoke.py's counting phase; trace_streamed.cu stores them).
-// bank_steps: bank selection steps (the last, which finds none, included);
-// bank_tests: bank-box slab tests; bank_visits; group_tests: group-box slab
-// tests; page_tests: page-box slab tests; pages: pages whose triangles were
-// tested; tris: triangles tested (P a page); led: the triangle-loop
-// iterations that the ray's lanes led (the lowest active lane of a warp's
-// converged set, so summed over rays the iterations the warps issued);
-// lane_iters: the triangle-loop iterations the ray's lanes ran.
-// lane_iters / (32 * led) over a wave is the triangle loop's active-lane
-// share.
-constexpr int N_COUNT = 9;
-struct Count {
-  int bank_steps, bank_tests, bank_visits, group_tests, page_tests, pages,
-      tris, led, lane_iters;
-};
-
-// The n <= 32 low bits set.
-__device__ __forceinline__ constexpr uint32_t low_bits(int n) {
-  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
-}
-
-// The lexicographic (t, id) order of rt::lex_better on bare values.
-__device__ __forceinline__ bool lex_less(float t, float id, float bt,
-                                         float bid) {
-  return (t < bt) | ((t == bt) & !isinf(t) & (id < bid));
-}
-
-// The least (key, index) over a group of G lanes (mask gm), in every lane.
-template <int G>
-__device__ __forceinline__ void group_min(unsigned gm, float& k, int& i) {
-#pragma unroll
-  for (int m = G / 2; m >= 1; m /= 2) {
-    const float ok = __shfl_xor_sync(gm, k, m);
-    const int oi = __shfl_xor_sync(gm, i, m);
-    if ((ok < k) | ((ok == k) & (oi < i))) {
-      k = ok;
-      i = oi;
-    }
-  }
-}
-
-template <int G>
-__device__ __forceinline__ int group_sum(unsigned gm, int v) {
-#pragma unroll
-  for (int m = G / 2; m >= 1; m /= 2) v += __shfl_xor_sync(gm, v, m);
-  return v;
-}
-
-// One page of P triangles for the group's ray: lane gl tests slots gl, gl
-// + G, ...; returns, in every lane, whether the group's least (t, id)
-// beats (wt, wid), and then sets wt, wid and the winning slot wj.  EXCL:
-// the triangle ex may not win.
-template <int G, bool COUNT, bool EXCL>
-__device__ __forceinline__ bool group_page(const float4* __restrict__ page,
-                                           int P, int gl, unsigned gm,
-                                           const float o[3], const float d[3],
-                                           float ex, float& wt, float& wid,
-                                           int& wj, Count& c) {
-  float lt = wt, lid = wid;
-  int lj = NO_KEY;
-  for (int j = gl; j < P; j += G) {
-    if (COUNT) {
-      const unsigned am = __activemask();
-      c.lane_iters += 1;
-      if ((int)(threadIdx.x & 31) == __ffs(am) - 1) c.led += 1;
-    }
-    const float4* r4 = page + j * REC4;
-    // lanes 0..3 (n, s0.x) and 12..15 (nc, s0c, s1c, s2c)
-    const float4 a = __ldg(r4), e = __ldg(r4 + 3);
-    // rt::hit_predicate's t: (nc - n.o) / (n.d)
-    const float md_n = fmaf(a.z, d[2], fmaf(a.x, d[0], a.y * d[1]));
-    const float t =
-        (e.x - fmaf(a.z, o[2], fmaf(a.x, o[0], a.y * o[1]))) / md_n;
-    if (!((t >= 0.0f) & ((t < lt) | ((t == lt) & !isinf(t))))) continue;
-    // lanes 4..11: the rest of s0, s1, s2
-    const float4 b = __ldg(r4 + 1), q = __ldg(r4 + 2);
-    const float dv0 =
-        fmaf(t, fmaf(b.y, d[2], fmaf(a.w, d[0], b.x * d[1])),
-             fmaf(b.y, o[2], fmaf(a.w, o[0], b.x * o[1]))) - e.y;
-    const float dv1 =
-        fmaf(t, fmaf(q.x, d[2], fmaf(b.z, d[0], b.w * d[1])),
-             fmaf(q.x, o[2], fmaf(b.z, o[0], b.w * o[1]))) - e.z;
-    const float dv2 =
-        fmaf(t, fmaf(q.w, d[2], fmaf(q.y, d[0], q.z * d[1])),
-             fmaf(q.w, o[2], fmaf(q.y, o[0], q.z * o[1]))) - e.w;
-    if (!((dv0 <= 1.0f) & (dv1 <= 1.0f) & (dv2 <= 1.0f))) continue;
-    const float id = __ldg(r4 + 4).x;         // lane 16
-    if (EXCL && id == ex) continue;
-    if (lex_less(t, id, lt, lid)) {
-      lt = t;
-      lid = id;
-      lj = j;
-    }
-  }
-#pragma unroll
-  for (int m = G / 2; m >= 1; m /= 2) {
-    const float ot = __shfl_xor_sync(gm, lt, m);
-    const float oid = __shfl_xor_sync(gm, lid, m);
-    const int oj = __shfl_xor_sync(gm, lj, m);
-    if (lex_less(ot, oid, lt, lid) |
-        ((ot == lt) & (oid == lid) & (oj < lj))) {
-      lt = ot;
-      lid = oid;
-      lj = oj;
-    }
-  }
-  if (lj == NO_KEY) return false;
-  wt = lt;
-  wid = lid;
-  wj = lj;
-  return true;
-}
-
-// The bits, over the group's lanes, of a bank's group boxes that the ray
-// (o, inv) enters no later than t_max: bit k for box k.
-template <int G>
-__device__ __forceinline__ uint32_t group_pass(const float4* __restrict__ gbox,
-                                               int gl, int grp, unsigned gm,
-                                               const float o[3],
-                                               const float inv[3],
-                                               float t_max) {
-  uint32_t pass = 0u;
-#pragma unroll
-  for (int k0 = 0; k0 < BANK_BOXES; k0 += G) {
-    float tlo;
-    const bool in = k0 + gl < BANK_BOXES &&
-                    box_entered(gbox + (k0 + gl) * PAB4, o, inv, t_max, tlo);
-    const uint32_t bal = __ballot_sync(gm, in);
-    pass |= ((bal >> (grp * G)) & low_bits(G)) << k0;
-  }
-  return pass;
-}
-
-// One bank for the group's ray (nearest hit): its BANK_BOXES group boxes
-// slab-tested, then the page boxes of the groups that pass, GROUP / G a
-// lane, then the pages in (entry, page) order while the nearest is entered
-// no later than wt.  box, gbox, rec: the bank's page boxes, group boxes and
-// records; page_base: its first page over all banks; wpage: the winner's
-// page over all banks.
-template <int G, bool COUNT, bool EXCL>
-__device__ __forceinline__ void group_bank(
-    const float4* __restrict__ box, const float4* __restrict__ gbox,
-    const float4* __restrict__ rec, int P, int page_base, int gl, int grp,
-    unsigned gm, const float o[3], const float d[3], const float inv[3],
-    float ex, float& wt, float& wid, int& wpage, int& wj, Count& c) {
-  constexpr int PPL = GROUP / G;
-  const uint32_t pass = group_pass<G>(gbox, gl, grp, gm, o, inv, wt);
-  if (COUNT) {
-    c.group_tests += BANK_BOXES;
-    c.page_tests += BOX_PAGES * __popc(pass);
-  }
-  float ptl[PPL];
-#pragma unroll
-  for (int q = 0; q < PPL; ++q) {
-    const int p = gl + G * q;
-    float tlo;
-    ptl[q] = ((pass >> (p / BOX_PAGES)) & 1u) &&
-                     box_entered(box + p * PAB4, o, inv, wt, tlo)
-        ? tlo : inf_f();
-  }
-  while (true) {
-    float kt = inf_f();
-    int kp = NO_KEY;
-#pragma unroll
-    for (int q = 0; q < PPL; ++q)
-      if (ptl[q] < kt) {
-        kt = ptl[q];
-        kp = gl + G * q;
-      }
-    group_min<G>(gm, kt, kp);
-    if ((kp == NO_KEY) | (kt > wt)) return;
-#pragma unroll
-    for (int q = 0; q < PPL; ++q)
-      if (gl + G * q == kp) ptl[q] = inf_f();
-    if (COUNT) {
-      c.pages += 1;
-      c.tris += P;
-    }
-    if (group_page<G, COUNT, EXCL>(rec + (long long)kp * P * REC4, P, gl, gm,
-                                   o, d, ex, wt, wid, wj, c))
-      wpage = page_base + kp;
-  }
-}
-
-// One bank for the group's ray (any hit), with the same arguments:
-// every page that the ray's slab test enters, in index order, until one
-// holds a hit; returns whether one did, with wt, wid, wpage and wj its
-// least (t, id).  That is the plain version's any-hit order (the lowest
-// slab-hit page first), so the t and id are its too.
-template <int G, bool EXCL>
-__device__ __forceinline__ bool group_bank_any(
-    const float4* __restrict__ box, const float4* __restrict__ gbox,
-    const float4* __restrict__ rec, int P, int page_base, int gl, int grp,
-    unsigned gm, const float o[3], const float d[3], const float inv[3],
-    float ex, float& wt, float& wid, int& wpage, int& wj) {
-  constexpr int PPL = GROUP / G;
-  const uint32_t pass = group_pass<G>(gbox, gl, grp, gm, o, inv, inf_f());
-  if (pass == 0u) return false;
-  uint32_t hit[4] = {0u, 0u, 0u, 0u};      // bit p & 31 of word p >> 5
-#pragma unroll
-  for (int q = 0; q < PPL; ++q) {
-    const int p = gl + G * q;
-    float tlo;
-    const bool in = ((pass >> (p / BOX_PAGES)) & 1u) &&
-                    box_entered(box + p * PAB4, o, inv, inf_f(), tlo);
-    const uint32_t bal = (__ballot_sync(gm, in) >> (grp * G)) & low_bits(G);
-    hit[(G * q) >> 5] |= bal << ((G * q) & 31);
-  }
-  Count c = {};
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    uint32_t m = hit[w];
-    while (m) {
-      const int p = 32 * w + __ffs(m) - 1;
-      m &= m - 1;
-      if (group_page<G, false, EXCL>(rec + (long long)p * P * REC4, P, gl,
-                                     gm, o, d, ex, wt, wid, wj, c)) {
-        wpage = page_base + p;
-        return true;
-      }
-    }
-  }
-  return false;
-}
-
-// The winner w's payload from its record (slot wj of page wpage of rec):
-// the triangle re-tested for its hit terms, hence the face bits of its
-// win, and its lanes as rt::bank_walk stores them.
-__device__ __forceinline__ void record_payload(const float4* __restrict__ rec,
-                                               int wpage, int wj, int P,
-                                               const float o[3],
-                                               const float d[3], Winner& w) {
-  const float4* r4 = rec + ((long long)wpage * P + wj) * REC4;
-  float f[4 * REC4];
-#pragma unroll
-  for (int q = 0; q < REC4; ++q) {
-    const float4 v = __ldg(r4 + q);
-    f[4 * q] = v.x;
-    f[4 * q + 1] = v.y;
-    f[4 * q + 2] = v.z;
-    f[4 * q + 3] = v.w;
-  }
-  auto col = [&f](int lane_f) { return f[lane_f]; };
-  const HitTerms h = hit_predicate<false>(col, o, d);
-  w.n0 = f[LANE_N];
-  w.n1 = f[LANE_N + 1];
-  w.n2 = f[LANE_N + 2];
-  w.enc = encode_face(h, f[LANE_ET], f[LANE_KIND]);
-  w.c0 = f[LANE_COLOR];
-  w.c1 = f[LANE_COLOR + 1];
-  w.c2 = f[LANE_COLOR + 2];
-  w.alpha = f[LANE_ALPHA];
-  w.scat = f[LANE_SCAT];
 }
 
 }  // namespace rt

@@ -12,40 +12,27 @@
 // rows, as the TPU kernel zeroes its output block.
 //
 // Bound on this card: the hit predicate's arithmetic (~40 flops and an
-// IEEE division a triangle) on the pages each ray visits, and the reads of
-// their records; the resident records (at most 25 MB) stay in L2.
+// IEEE division a triangle) on the pages each ray visits, the slab tests
+// of the boxes it meets, and divergence, each thread walking its own
+// pages; the resident records (at most 25 MB) stay in L2.
 //
-// Design.  The tables are read page-major (ops/intersect_perlane.py
-// PerlaneTables: the records rec, the page boxes pab, the group boxes gab
-// of 8 pages, each bank's extent), as B4 reads them.  Two forms:
-//   the list grid, then a group of G lanes a listed ray (lanes = 16 or
-//     32): one thread a lane of the list grid writes the rows of a dead
-//     chunk (zeros) and of an invalid lane (rt::winner_init(false): t
-//     -inf, the rest 0) at once, and lists the valid lanes, a block's by
-//     direction octant and in lane order within one (warp ballots), at
-//     positions claimed with one atomic add a block: rays leaving nearby
-//     points in like directions sit side by side.  The trace grid is
-//     persistent; a warp claims CLAIM rays a group at a time from a
-//     counter, and the group walks the banks in index order (the plain
-//     version's order: the resident tables carry no bank boxes) with the
-//     group walk of perlane.cuh: rt::group_bank for the nearest hit,
-//     which keeps the (entry, page) visit order and its pruning exactly,
-//     so the winner and its payload (re-tested by rt::record_payload) are
-//     the plain version's bit for bit; rt::group_bank_any for any-hit,
-//     which visits a bank's slab-hit pages in index order and stops at
-//     the first page with a hit, taking its least (t, id): the plain
-//     version's any-hit order, so its rows are the plain version's too
-//     (only the occlusion bit is contractual, ROADMAP C5).  The group's
-//     first lane writes the ray's 16 rows.
-//   the per-thread walk (lanes = 1): one thread a lane of the whole
-//     wave, rt::bank_walk over each bank in index order (B4's walk); its
-//     any-hit stops at the first hit in (entry, page) order.
-// Which form and width run is the wrapper's lanes argument; 0 picks
-// DEFAULT_LANES.  Each form's template is instanced over ANY_HIT and EXCL.
-// The payload is stored as B4/B10 store it (a -0 as +0, as the TPU
-// kernel's one-hot masked sum does).  The TPU kernel's in-chunk lane sort,
+// Design: one thread per lane, blocks of 128, banks in index order, each
+// through rt::bank_walk (perlane.cuh) over the resident page-major records
+// (ops/intersect_perlane.py PerlaneTables: rec, pab, extent, as B4 reads
+// them) behind the bank's 16 group boxes of 8 pages (gab): a ray slab-tests
+// the group boxes, then only the pages of the groups it enters, once a
+// bank visit, and reads a triangle as one record.  The walk visits the
+// per-lane traversal's pages in its (entry, page) order with its pruning,
+// so the nearest winner is the plain version's and the TPU kernel's bit for
+// bit; any-hit stops at the first hit in that order (only ROW_ID != 0 is
+// meaningful, ROADMAP C5) and leaves the payload rows 0.  The payload is
+// stored as B4/B10 store it (a -0 as +0, as the TPU kernel's one-hot
+// masked sum does).  Timed in turns against a group of 8, 16 or 32 lanes
+// a listed ray (B9's form) on four whole waves, this walk was the fastest
+// on two of them, within 7% on the other two, and took 8% less time over
+// the four (PERF.md, PR 13).  The TPU kernel's in-chunk lane sort,
 // permuted gathers and page-count classes balanced its 128-lane vector
-// groups; they are not carried.
+// groups; they are not carried.  One template over ANY_HIT and EXCL.
 #include "perlane.cuh"
 
 namespace {
@@ -55,26 +42,20 @@ using rt::GROUP;
 using rt::PAB4;
 using rt::REC4;
 
-constexpr int WALK_THREADS = 128;   // the per-thread walk's block
-constexpr int LIST_BLOCK = 1024;    // lanes a block of the list grid
-constexpr int TRACE_THREADS = 128;  // threads a block of the trace grid
-constexpr int CLAIM = 4;            // rays a group takes a claim
-constexpr int DEFAULT_LANES = 32;
+constexpr int THREADS = 128;
 
-// ---- the per-thread walk ----
-
-template <bool ANY_HIT, bool EXCL, bool GBOX>
-__global__ void __launch_bounds__(WALK_THREADS)
-perlane_walk_kernel(const float* __restrict__ o_rows,
-                    const float* __restrict__ d_rows, long long row_stride,
-                    const float* __restrict__ alive, long long R,
-                    const float* __restrict__ excl,
-                    const float4* __restrict__ rec,
-                    const float4* __restrict__ pab,
-                    const float4* __restrict__ gab,
-                    const int* __restrict__ extent, int P, int NB,
-                    int ray_chunk, const int* __restrict__ chunk_live,
-                    float* __restrict__ out) {
+template <bool ANY_HIT, bool EXCL>
+__global__ void __launch_bounds__(THREADS)
+trace_perlane_kernel(const float* __restrict__ o_rows,
+                     const float* __restrict__ d_rows, long long row_stride,
+                     const float* __restrict__ alive, long long R,
+                     const float* __restrict__ excl,
+                     const float4* __restrict__ rec,
+                     const float4* __restrict__ pab,
+                     const float4* __restrict__ gab,
+                     const int* __restrict__ extent, int P, int NB,
+                     int ray_chunk, const int* __restrict__ chunk_live,
+                     float* __restrict__ out) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   if (chunk_live != nullptr && chunk_live[r / ray_chunk] == 0) {
@@ -93,7 +74,7 @@ perlane_walk_kernel(const float* __restrict__ o_rows,
   const float ex = EXCL ? excl[r] : 0.0f;
   rt::Winner w = rt::winner_init(valid);
   for (int b = 0; valid && b < NB; ++b) {
-    rt::bank_walk<ANY_HIT, EXCL, false, GBOX>(
+    rt::bank_walk<ANY_HIT, EXCL, false, true>(
         pab + (long long)b * GROUP * PAB4,
         rec + (long long)b * GROUP * P * REC4, P, o, d, inv, ex, w, 0,
         nullptr, extent[b], gab + (long long)b * BANK_BOXES * PAB4);
@@ -102,213 +83,34 @@ perlane_walk_kernel(const float* __restrict__ o_rows,
   rt::store_winner(w, out, R, r);
 }
 
-// ---- the list grid, then a group of lanes a ray ----
-
-// count[0]: the list's length; count[1]: the trace grid's claims (zeros at
-// launch).
-__global__ void __launch_bounds__(LIST_BLOCK)
-perlane_list_kernel(const float* __restrict__ d_rows, long long row_stride,
-                    const float* __restrict__ alive, long long R,
-                    int ray_chunk, const int* __restrict__ chunk_live,
-                    float* __restrict__ out, int* __restrict__ list,
-                    int* __restrict__ count) {
-  __shared__ int s_warp[8][LIST_BLOCK / 32];
-  __shared__ int s_base;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long r = (long long)blockIdx.x * LIST_BLOCK + tid;
-  bool queued = false;
-  int oct = 0;
-  if (r < R) {
-    if (chunk_live != nullptr && chunk_live[r / ray_chunk] == 0) {
-#pragma unroll
-      for (int i = 0; i < rt::TRACE_ROWS; ++i) out[i * R + r] = 0.0f;
-    } else if (alive[r] == 0.0f) {
-      rt::store_winner(rt::winner_init(false), out, R, r);
-    } else {
-      queued = true;
-      oct = (d_rows[r] < 0.0f) * 4 + (d_rows[row_stride + r] < 0.0f) * 2 +
-            (d_rows[2 * row_stride + r] < 0.0f);
-    }
-  }
-  uint32_t mine = 0u;
-  for (int q = 0; q < 8; ++q) {
-    const uint32_t m = __ballot_sync(0xffffffffu, queued && oct == q);
-    if (lane == 0) s_warp[q][warp] = __popc(m);
-    if (queued && oct == q) mine = m;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int total = 0;
-    for (int q = 0; q < 8; ++q)
-      for (int w = 0; w < LIST_BLOCK / 32; ++w) {
-        const int c = s_warp[q][w];
-        s_warp[q][w] = total;
-        total += c;
-      }
-    s_base = total ? atomicAdd(count, total) : 0;
-  }
-  __syncthreads();
-  if (queued)
-    list[s_base + s_warp[oct][warp] + __popc(mine & ((1u << lane) - 1u))] =
-        (int)r;
-}
-
-// One listed ray r for the group: the banks in index order, then the
-// group's first lane writes its rows.
-template <int G, bool ANY_HIT, bool EXCL>
-__device__ __forceinline__ void group_ray(
-    long long r, const float* __restrict__ o_rows,
-    const float* __restrict__ d_rows, long long row_stride, long long R,
-    const float* __restrict__ excl, const float4* __restrict__ rec,
-    const float4* __restrict__ pab, const float4* __restrict__ gab, int P,
-    int NB, int gl, int grp, unsigned gm, float* __restrict__ out) {
-  float o[3], d[3], inv[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    o[k] = o_rows[k * row_stride + r];
-    d[k] = d_rows[k * row_stride + r];
-    inv[k] = rt::slab_inv(d[k]);
-  }
-  const float ex = EXCL ? excl[r] : 0.0f;
-  float wt = rt::inf_f(), wid = 0.0f;
-  int wpage = -1, wj = 0;
-  rt::Count c = {};
-  for (int b = 0; b < NB; ++b) {
-    const float4* box = pab + (long long)b * GROUP * PAB4;
-    const float4* gbox = gab + (long long)b * BANK_BOXES * PAB4;
-    const float4* brec = rec + (long long)b * GROUP * P * REC4;
-    if (ANY_HIT) {
-      if (rt::group_bank_any<G, EXCL>(box, gbox, brec, P, b * GROUP, gl, grp,
-                                      gm, o, d, inv, ex, wt, wid, wpage, wj))
-        break;
-    } else {
-      rt::group_bank<G, false, EXCL>(box, gbox, brec, P, b * GROUP, gl, grp,
-                                     gm, o, d, inv, ex, wt, wid, wpage, wj,
-                                     c);
-    }
-  }
-  if (gl != 0) return;
-  rt::Winner w = rt::winner_init(true);
-  w.t = wt;
-  w.id = wid;
-  if (!ANY_HIT && wpage >= 0) rt::record_payload(rec, wpage, wj, P, o, d, w);
-  rt::store_winner(w, out, R, r);
-}
-
-// The trace grid: persistent; a warp claims CLAIM * (32 / G) entries of
-// the list at a time from count[1] and its groups take them in turn.
-template <int G, bool ANY_HIT, bool EXCL>
-__global__ void __launch_bounds__(TRACE_THREADS)
-perlane_trace_kernel(const float* __restrict__ o_rows,
-                     const float* __restrict__ d_rows, long long row_stride,
-                     long long R, const float* __restrict__ excl,
-                     const float4* __restrict__ rec,
-                     const float4* __restrict__ pab,
-                     const float4* __restrict__ gab, int P, int NB,
-                     const int* __restrict__ list, int* count,
-                     float* __restrict__ out) {
-  const int n = count[0];
-  constexpr int GPW = 32 / G;
-  const int lane = threadIdx.x & 31;
-  const int gl = lane % G;
-  const int grp = lane / G;
-  const unsigned gm = rt::low_bits(G) << (grp * G);
-  while (true) {
-    int base = 0;
-    if (lane == 0) base = atomicAdd(count + 1, CLAIM * GPW);
-    base = __shfl_sync(0xffffffffu, base, 0);
-    if (base >= n) return;
-    for (int k = 0; k < CLAIM; ++k) {
-      const int e = base + k * GPW + grp;
-      if (e < n)
-        group_ray<G, ANY_HIT, EXCL>(list[e], o_rows, d_rows, row_stride, R,
-                                    excl, rec, pab, gab, P, NB, gl, grp, gm,
-                                    out);
-    }
-    __syncwarp();
-  }
-}
-
-// Occupancy-sized persistent launch of one trace grid instance.
-template <int G, bool ANY_HIT, bool EXCL>
-cudaError_t launch_trace(const float* ot, const float* dt,
-                         long long row_stride, long long R,
-                         const float* excl, const float* rec,
-                         const float* pab, const float* gab, int P, int NB,
-                         const int* list, int* count, float* out,
-                         cudaStream_t stream) {
-  auto trace = perlane_trace_kernel<G, ANY_HIT, EXCL>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, trace,
-                                                      TRACE_THREADS, 0);
-  if (e != cudaSuccess) return e;
-  trace<<<sms * per_sm, TRACE_THREADS, 0, stream>>>(
-      ot, dt, row_stride, R, excl, reinterpret_cast<const float4*>(rec),
-      reinterpret_cast<const float4*>(pab),
-      reinterpret_cast<const float4*>(gab), P, NB, list, count, out);
-  return cudaGetLastError();
-}
-
 template <bool ANY_HIT, bool EXCL>
 int launch(const float* ot, const float* dt, long long row_stride,
            const float* alive, long long R, const float* excl,
            const float* rec, const float* pab, const float* gab,
            const int* extent, int P, int NB, int ray_chunk,
-           const int* chunk_live, int* list, int* count, int lanes,
-           float* out, cudaStream_t stream) {
-  if (lanes == 0) lanes = DEFAULT_LANES;
-  if (lanes == 1 || lanes == 2) {
-    const long long blocks = (R + WALK_THREADS - 1) / WALK_THREADS;
-    auto walk = lanes == 1 ? perlane_walk_kernel<ANY_HIT, EXCL, true>
-                           : perlane_walk_kernel<ANY_HIT, EXCL, false>;
-    walk<<<(unsigned)blocks, WALK_THREADS, 0, stream>>>(
-        ot, dt, row_stride, alive, R, excl,
-        reinterpret_cast<const float4*>(rec),
-        reinterpret_cast<const float4*>(pab),
-        reinterpret_cast<const float4*>(gab), extent, P, NB, ray_chunk,
-        chunk_live, out);
-    return (int)cudaGetLastError();
-  }
-  if (lanes != 8 && lanes != 16 && lanes != 32)
-    return (int)cudaErrorInvalidValue;
-  const long long blocks = (R + LIST_BLOCK - 1) / LIST_BLOCK;
-  perlane_list_kernel<<<(unsigned)blocks, LIST_BLOCK, 0, stream>>>(
-      dt, row_stride, alive, R, ray_chunk, chunk_live, out, list, count);
-  cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess)
-    e = lanes == 8
-            ? launch_trace<8, ANY_HIT, EXCL>(ot, dt, row_stride, R, excl,
-                                             rec, pab, gab, P, NB, list,
-                                             count, out, stream)
-        : lanes == 16
-            ? launch_trace<16, ANY_HIT, EXCL>(ot, dt, row_stride, R, excl,
-                                              rec, pab, gab, P, NB, list,
-                                              count, out, stream)
-            : launch_trace<32, ANY_HIT, EXCL>(ot, dt, row_stride, R, excl,
-                                              rec, pab, gab, P, NB, list,
-                                              count, out, stream);
-  return (int)e;
+           const int* chunk_live, float* out, cudaStream_t stream) {
+  const long long blocks = (R + THREADS - 1) / THREADS;
+  trace_perlane_kernel<ANY_HIT, EXCL><<<(unsigned)blocks, THREADS, 0,
+                                        stream>>>(
+      ot, dt, row_stride, alive, R, excl,
+      reinterpret_cast<const float4*>(rec),
+      reinterpret_cast<const float4*>(pab),
+      reinterpret_cast<const float4*>(gab), extent, P, NB, ray_chunk,
+      chunk_live, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// lanes: 1 the per-thread walk, 16 or 32 the lanes a listed ray, 0
-// DEFAULT_LANES.  list: [R] int32 scratch; count: two int32 zeros.
 extern "C" int rt_trace_perlane(const float* ot, const float* dt,
                                 long long row_stride, const float* alive,
                                 long long R, const float* excl, int any_hit,
                                 const float* rec, const float* pab,
                                 const float* gab, const int* extent, int P,
                                 int NB, int ray_chunk, const int* chunk_live,
-                                int* list, int* count, int lanes, float* out,
-                                void* stream) {
+                                float* out, void* stream) {
   auto fn = any_hit ? (excl ? launch<true, true> : launch<true, false>)
                     : (excl ? launch<false, true> : launch<false, false>);
   return fn(ot, dt, row_stride, alive, R, excl, rec, pab, gab, extent, P, NB,
-            ray_chunk, chunk_live, list, count, lanes, out,
-            (cudaStream_t)stream);
+            ray_chunk, chunk_live, out, (cudaStream_t)stream);
 }

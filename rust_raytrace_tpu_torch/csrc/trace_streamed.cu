@@ -42,27 +42,35 @@
 //     16 where more than half the listed rays start outside every bank box
 //     they enter, else LANES = 32 (a warp); both widths are launched and
 //     the other returns at once.  A warp claims CLAIM rays a group at a
-//     time from a counter.  The group slab-tests the NB bank boxes
-//     (staged in shared memory) once, a lane keeping its banks' entries
-//     as bits in registers (lane l owns banks l, l + G, ...; MW words
-//     cover MAX_BANKS), and each step takes the least (entry, bank) of
-//     the set bits by a shuffle reduction, pruning the banks entered
-//     beyond the best hit: the visit order of the per-step rescan,
-//     without it.  That order matters for the bits: a page box whose
-//     entry rounds past an equal-t copy's hit is pruned, as the plain
-//     version and the TPU kernel prune it.  In a bank the group walks as
-//     rt::group_bank does (perlane.cuh: the 16 group boxes of 8 pages,
-//     then the page boxes of the groups that pass, 4 a lane, read
-//     coalesced from L1/L2; the least (entry, page) by shuffles; a page's
-//     triangles strided over the lanes, the plane's t first; the page's
-//     (t, id, slot) winner by shuffles).  At the end the group's first
-//     lane re-tests the winner (rt::record_payload: the same hit terms,
-//     hence the same face bits), reads its payload as the per-thread walk
-//     stored it, shades the ray and writes its state at its own lane.
-//     The winner is the lexicographic (t, id) minimum in the plain
-//     version's visit order, and the scatter hash is keyed on the ray's
-//     (chunk, lane), so neither the list's order nor the lanes' split of a
-//     page changes a bit.
+//     time from a counter.  The group slab-tests the NB bank boxes (staged in shared memory)
+//     once, a lane keeping its banks' entries as bits in registers (lane
+//     l owns banks l, l + G, ...; MW words cover MAX_BANKS), and each
+//     step takes the least (entry, bank) of the set bits by a shuffle
+//     reduction, pruning the banks entered beyond the best hit: the visit
+//     order of the per-step rescan, without it.  That order matters for
+//     the bits: a page box whose entry rounds past an equal-t copy's hit is
+//     pruned, as the plain version and the TPU kernel prune it.  In a bank
+//     the group first slab-tests the 16 group boxes of 8 pages
+//     (ops/intersect_perlane.py:group_boxes; a page that passes passes
+//     its group's), then the page boxes of the groups that pass, 4 a lane,
+//     read coalesced from L1/L2, and keeps each page's entry in registers;
+//     each step takes the least (entry, page) by shuffles.  A page's P
+//     triangles are strided over the lanes, so a group reads a page's
+//     records as one contiguous stream; each lane first computes the
+//     plane's t from two float4, and only a t that could win goes on to
+//     the plane distances (two more float4) and the id (a fifth), the
+//     predicate's own arithmetic (the hit test needs all three distances
+//     <= 1, so the order of the tests changes nothing).  The page's winner
+//     is the lexicographic (t, id) minimum of the lanes' by shuffles (a
+//     copy of a triangle within a page: the lower slot, as a scan in slot
+//     order keeps), and the walk prunes with it after each page.  The
+//     winner's page and slot are kept; at the end the group's first lane
+//     re-tests that triangle (the same hit terms, hence the same face
+//     bits), reads its payload as the per-thread walk stored it, shades
+//     the ray and writes its state at its own lane.  The winner is the
+//     lexicographic (t, id) minimum in the plain version's visit order,
+//     and the scatter hash is keyed on the ray's (chunk, lane), so neither
+//     the list's order nor the lanes' split of a page changes a bit.
 //   Why these widths and the group boxes: 8, 16 and 32 lanes a ray, with
 //     and without the group boxes, timed in turns on whole waves 0 / 1 /
 //     2, ms (one H100 call): 32 lanes 5.05 / 2.69 / 2.42 with the group
@@ -90,10 +98,11 @@ namespace {
 
 using rt::AB_LANES;
 using rt::BANK_BOXES;
+using rt::BOX_PAGES;
 using rt::GROUP;
-using rt::NO_KEY;
 using rt::PAB4;
 using rt::REC4;
+using rt::box_entered;
 
 // floats of a staged bank AABB (lanes 0..2 lo, 3..5 hi, 6 valid, 7 zero)
 constexpr int BOX = 8;
@@ -219,6 +228,24 @@ constexpr int LANES = 32;
 constexpr int CLAIM = 4;            // rays a group takes a claim
 // the most banks the wrapper takes (utils/native.py MAX_STREAMED_BANKS)
 constexpr int MAX_BANKS = 4096;
+constexpr int NO_KEY = 0x7fffffff;
+
+// Work counters of one ray, kept by B9's counting instance (a diagnostic;
+// chip_smoke.py's counting phase): rows of cnt [N_COUNT, R] int32 at the
+// ray's lane.  bank_steps: bank selection steps (the last, which finds
+// none, included); bank_tests: bank-box slab tests; bank_visits;
+// group_tests: group-box slab tests; page_tests: page-box slab tests;
+// pages: pages whose triangles were tested; tris: triangles tested (P a
+// page); led: the triangle-loop iterations that the ray's lanes led (the
+// lowest active lane of a warp's converged set, so summed over rays the
+// iterations the warps issued); lane_iters: the triangle-loop iterations
+// the ray's lanes ran.  lane_iters / (32 * led) over a wave is the
+// triangle loop's active-lane share.
+constexpr int N_COUNT = 9;
+struct Count {
+  int bank_steps, bank_tests, bank_visits, group_tests, page_tests, pages,
+      tris, led, lane_iters;
+};
 
 // Whether a bank box counts for the walk: slab-hit, valid, entered no later
 // than t_max, and at a finite entry (the per-step rescan selects a bank
@@ -319,6 +346,158 @@ stream_list_kernel(const float* __restrict__ st, float* __restrict__ out,
         (int)r;
 }
 
+// The n <= 32 low bits set.
+__device__ __forceinline__ constexpr uint32_t low_bits(int n) {
+  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
+}
+
+// The lexicographic (t, id) order of rt::lex_better on bare values.
+__device__ __forceinline__ bool lex_less(float t, float id, float bt,
+                                         float bid) {
+  return (t < bt) | ((t == bt) & !isinf(t) & (id < bid));
+}
+
+// The least (key, index) over a group of G lanes (mask gm), in every lane.
+template <int G>
+__device__ __forceinline__ void group_min(unsigned gm, float& k, int& i) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) {
+    const float ok = __shfl_xor_sync(gm, k, m);
+    const int oi = __shfl_xor_sync(gm, i, m);
+    if ((ok < k) | ((ok == k) & (oi < i))) {
+      k = ok;
+      i = oi;
+    }
+  }
+}
+
+template <int G>
+__device__ __forceinline__ int group_sum(unsigned gm, int v) {
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) v += __shfl_xor_sync(gm, v, m);
+  return v;
+}
+
+// One page of P triangles for the group's ray: lane gl tests slots gl, gl
+// + G, ...; returns, in every lane, whether the group's least (t, id)
+// beats (wt, wid), and then sets wt, wid and the winning slot wj.
+template <int G, bool COUNT>
+__device__ __forceinline__ bool group_page(const float4* __restrict__ page,
+                                           int P, int gl, unsigned gm,
+                                           const float o[3], const float d[3],
+                                           float& wt, float& wid, int& wj,
+                                           Count& c) {
+  float lt = wt, lid = wid;
+  int lj = NO_KEY;
+  for (int j = gl; j < P; j += G) {
+    if (COUNT) {
+      const unsigned am = __activemask();
+      c.lane_iters += 1;
+      if ((int)(threadIdx.x & 31) == __ffs(am) - 1) c.led += 1;
+    }
+    const float4* r4 = page + j * REC4;
+    // lanes 0..3 (n, s0.x) and 12..15 (nc, s0c, s1c, s2c)
+    const float4 a = __ldg(r4), e = __ldg(r4 + 3);
+    // rt::hit_predicate's t: (nc - n.o) / (n.d)
+    const float md_n = fmaf(a.z, d[2], fmaf(a.x, d[0], a.y * d[1]));
+    const float t =
+        (e.x - fmaf(a.z, o[2], fmaf(a.x, o[0], a.y * o[1]))) / md_n;
+    if (!((t >= 0.0f) & ((t < lt) | ((t == lt) & !isinf(t))))) continue;
+    // lanes 4..11: the rest of s0, s1, s2
+    const float4 b = __ldg(r4 + 1), q = __ldg(r4 + 2);
+    const float dv0 =
+        fmaf(t, fmaf(b.y, d[2], fmaf(a.w, d[0], b.x * d[1])),
+             fmaf(b.y, o[2], fmaf(a.w, o[0], b.x * o[1]))) - e.y;
+    const float dv1 =
+        fmaf(t, fmaf(q.x, d[2], fmaf(b.z, d[0], b.w * d[1])),
+             fmaf(q.x, o[2], fmaf(b.z, o[0], b.w * o[1]))) - e.z;
+    const float dv2 =
+        fmaf(t, fmaf(q.w, d[2], fmaf(q.y, d[0], q.z * d[1])),
+             fmaf(q.w, o[2], fmaf(q.y, o[0], q.z * o[1]))) - e.w;
+    if (!((dv0 <= 1.0f) & (dv1 <= 1.0f) & (dv2 <= 1.0f))) continue;
+    const float id = __ldg(r4 + 4).x;         // lane 16
+    if (lex_less(t, id, lt, lid)) {
+      lt = t;
+      lid = id;
+      lj = j;
+    }
+  }
+#pragma unroll
+  for (int m = G / 2; m >= 1; m /= 2) {
+    const float ot = __shfl_xor_sync(gm, lt, m);
+    const float oid = __shfl_xor_sync(gm, lid, m);
+    const int oj = __shfl_xor_sync(gm, lj, m);
+    if (lex_less(ot, oid, lt, lid) |
+        ((ot == lt) & (oid == lid) & (oj < lj))) {
+      lt = ot;
+      lid = oid;
+      lj = oj;
+    }
+  }
+  if (lj == NO_KEY) return false;
+  wt = lt;
+  wid = lid;
+  wj = lj;
+  return true;
+}
+
+// One bank for the group's ray: its BANK_BOXES group boxes slab-tested,
+// then the page boxes of the groups that pass, PPL a lane, then the pages
+// in (entry, page) order while the nearest is entered no later than wt.
+// wpage: the winner's page over all banks.
+template <int G, bool COUNT>
+__device__ __forceinline__ void group_bank(
+    const float4* __restrict__ box, const float4* __restrict__ gbox,
+    const float4* __restrict__ rec, int P, int page_base, int gl, int grp,
+    unsigned gm, const float o[3], const float d[3], const float inv[3],
+    float& wt, float& wid, int& wpage, int& wj, Count& c) {
+  constexpr int PPL = GROUP / G;
+  uint32_t pass = 0u;               // bit k: group box k passes
+#pragma unroll
+  for (int k0 = 0; k0 < BANK_BOXES; k0 += G) {
+    float tlo;
+    const bool in = k0 + gl < BANK_BOXES &&
+                    box_entered(gbox + (k0 + gl) * PAB4, o, inv, wt, tlo);
+    const uint32_t bal = __ballot_sync(gm, in);
+    pass |= ((bal >> (grp * G)) & low_bits(G)) << k0;
+  }
+  if (COUNT) {
+    c.group_tests += BANK_BOXES;
+    c.page_tests += BOX_PAGES * __popc(pass);
+  }
+  float ptl[PPL];
+#pragma unroll
+  for (int q = 0; q < PPL; ++q) {
+    const int p = gl + G * q;
+    float tlo;
+    ptl[q] = ((pass >> (p / BOX_PAGES)) & 1u) &&
+                     box_entered(box + p * PAB4, o, inv, wt, tlo)
+        ? tlo : rt::inf_f();
+  }
+  while (true) {
+    float kt = rt::inf_f();
+    int kp = NO_KEY;
+#pragma unroll
+    for (int q = 0; q < PPL; ++q)
+      if (ptl[q] < kt) {
+        kt = ptl[q];
+        kp = gl + G * q;
+      }
+    group_min<G>(gm, kt, kp);
+    if ((kp == NO_KEY) | (kt > wt)) return;
+#pragma unroll
+    for (int q = 0; q < PPL; ++q)
+      if (gl + G * q == kp) ptl[q] = rt::inf_f();
+    if (COUNT) {
+      c.pages += 1;
+      c.tris += P;
+    }
+    if (group_page<G, COUNT>(rec + (long long)kp * P * REC4, P, gl, gm, o,
+                             d, wt, wid, wj, c))
+      wpage = page_base + kp;
+  }
+}
+
 // One ray r of the list for the group: the bank worklist, then (the
 // group's first lane) the payload, the shade and the state's store.
 template <int G, bool COUNT>
@@ -339,7 +518,7 @@ __device__ __forceinline__ void group_ray(
   }
   float wt = rt::inf_f(), wid = 0.0f;
   int wpage = -1, wj = 0;
-  rt::Count c = {0, 0, 0, 0, 0, 0, 0, 0, 0};
+  Count c = {0, 0, 0, 0, 0, 0, 0, 0, 0};
   // lane gl owns banks gl, gl + G, ...: bit j of word i is bank gl + G *
   // (32 * i + j), MW words for every bank the wrapper takes
   constexpr int MW = MAX_BANKS / (32 * G);
@@ -376,7 +555,7 @@ __device__ __forceinline__ void group_ray(
         }
       }
     }
-    rt::group_min<G>(gm, kt, kb);
+    group_min<G>(gm, kt, kb);
     if (kb == NO_KEY) break;
     if (kb % G == gl) {
       const int k = kb / G;
@@ -385,23 +564,23 @@ __device__ __forceinline__ void group_ray(
         if (i == (k >> 5)) bm[i] &= ~(1u << (k & 31));
     }
     if (COUNT) c.bank_visits += 1;
-    rt::group_bank<G, COUNT, false>(
+    group_bank<G, COUNT>(
         pab + (long long)kb * GROUP * PAB4,
         gab + (long long)kb * BANK_BOXES * PAB4,
         rec + (long long)kb * GROUP * P * REC4, P, kb * GROUP, gl, grp, gm,
-        o, d, inv, 0.0f, wt, wid, wpage, wj, c);
+        o, d, inv, wt, wid, wpage, wj, c);
   }
   if (COUNT) {
-    c.led = rt::group_sum<G>(gm, c.led);
-    c.lane_iters = rt::group_sum<G>(gm, c.lane_iters);
+    c.led = group_sum<G>(gm, c.led);
+    c.lane_iters = group_sum<G>(gm, c.lane_iters);
   }
   if (gl != 0) return;
   if (COUNT) {
-    const int v[rt::N_COUNT] = {c.bank_steps, c.bank_tests,
-                                c.bank_visits, c.group_tests, c.page_tests,
-                                c.pages, c.tris, c.led, c.lane_iters};
+    const int v[N_COUNT] = {c.bank_steps, c.bank_tests, c.bank_visits,
+                            c.group_tests, c.page_tests, c.pages, c.tris,
+                            c.led, c.lane_iters};
 #pragma unroll
-    for (int i = 0; i < rt::N_COUNT; ++i) cnt[i * R + r] = v[i];
+    for (int i = 0; i < N_COUNT; ++i) cnt[i * R + r] = v[i];
   }
   float s[rt::STATE_ROWS];
 #pragma unroll
@@ -409,9 +588,31 @@ __device__ __forceinline__ void group_ray(
   rt::Winner w = rt::winner_init(true);
   w.t = wt;
   w.id = wid;
-  // the winner re-tested: the hit terms of its win, and its payload as
-  // rt::bank_walk stores it
-  if (wpage >= 0) rt::record_payload(rec, wpage, wj, P, o, d, w);
+  if (wpage >= 0) {
+    // the winner re-tested: the hit terms of its win, and its payload as
+    // rt::bank_walk stores it
+    const float4* r4 = rec + ((long long)wpage * P + wj) * REC4;
+    float f[4 * REC4];
+#pragma unroll
+    for (int q = 0; q < REC4; ++q) {
+      const float4 v = __ldg(r4 + q);
+      f[4 * q] = v.x;
+      f[4 * q + 1] = v.y;
+      f[4 * q + 2] = v.z;
+      f[4 * q + 3] = v.w;
+    }
+    auto col = [&f](int lane_f) { return f[lane_f]; };
+    const rt::HitTerms h = rt::hit_predicate<false>(col, o, d);
+    w.n0 = f[rt::LANE_N];
+    w.n1 = f[rt::LANE_N + 1];
+    w.n2 = f[rt::LANE_N + 2];
+    w.enc = rt::encode_face(h, f[rt::LANE_ET], f[rt::LANE_KIND]);
+    w.c0 = f[rt::LANE_COLOR];
+    w.c1 = f[rt::LANE_COLOR + 1];
+    w.c2 = f[rt::LANE_COLOR + 2];
+    w.alpha = f[rt::LANE_ALPHA];
+    w.scat = f[rt::LANE_SCAT];
+  }
   const long long chunk = r / ray_chunk;
   float v[3], vinv;
   rt::scatter_rv(s0, s1, (uint32_t)chunk, (uint32_t)(r - chunk * ray_chunk),
@@ -447,7 +648,7 @@ stream_trace_kernel(const float* __restrict__ st, float* __restrict__ out,
   const int lane = threadIdx.x & 31;
   const int gl = lane % G;
   const int grp = lane / G;
-  const unsigned gm = rt::low_bits(G) << (grp * G);
+  const unsigned gm = low_bits(G) << (grp * G);
   while (true) {
     int base = 0;
     if (lane == 0) base = atomicAdd(count + 1, CLAIM * GPW);
@@ -496,8 +697,7 @@ cudaError_t launch_trace(const float* st, float* out, long long R,
 
 // B9: the list grid, then the trace grid at LANES_OUTSIDE or LANES lanes a
 // ray, as the list says.  list: [R] int32 scratch; count: three int32
-// zeros; cnt: the counting instance's [rt::N_COUNT, R] int32 zeros, or
-// null.
+// zeros; cnt: the counting instance's [N_COUNT, R] int32 zeros, or null.
 template <bool COUNT>
 int launch_b9(const float* st, float* out, long long R, const float* rec,
               const float* pab, const float* gab, const float* bank_ab,
@@ -543,7 +743,7 @@ extern "C" int rt_trace_shade_streamed(
 }
 
 // B9's counting instance (never on a render path): the same result, and
-// cnt [rt::N_COUNT, R] (zeros at launch) filled as rt::Count says.
+// cnt [N_COUNT, R] (zeros at launch) filled as Count says.
 extern "C" int rt_trace_shade_streamed_counts(
     const float* st, float* out, long long R, const float* rec,
     const float* pab, const float* gab, const float* bank_ab, int P, int NB,

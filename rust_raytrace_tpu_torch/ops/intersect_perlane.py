@@ -331,9 +331,9 @@ def trace_perlane(ot, dt, alive, tables: PerlaneTables, page_size: int,
     (`perlane_tables`); chunk_live: optional [R // ray_chunk] int32 flags
     — a chunk flagged 0 gets all-zero rows; excl: optional [R] float32
     triangle id each ray may not hit (0: none); any_hit: the occlusion
-    query, which stops a ray at its first page with a hit and leaves the
-    payload rows 0 (only ROW_ID != 0 is meaningful, ROADMAP C5).  Rows
-    11..15 are 0.  The kernel reads the records, the plain version the
+    query, which stops a ray at its first hit and leaves the payload rows
+    0 (only ROW_ID != 0 is meaningful, ROADMAP C5).  Rows 11..15 are 0.
+    The kernel reads the records and group boxes, the plain version the
     per-lane tables.
     """
     dev = ot.device
@@ -341,20 +341,8 @@ def trace_perlane(ot, dt, alive, tables: PerlaneTables, page_size: int,
         return trace_perlane_plain(ot, dt, alive, tables.plt_i, tables.plt_s,
                                    tables.ab, page_size, excl, any_hit,
                                    ray_chunk, chunk_live)
-    return _trace_perlane_kernel(ot, dt, alive, tables, page_size, ray_chunk,
-                                 chunk_live, excl, any_hit)
-
-
-def _trace_perlane_kernel(ot, dt, alive, tables: PerlaneTables,
-                          page_size: int, ray_chunk: int, chunk_live=None,
-                          excl=None, any_hit: bool = False, lanes: int = 0):
-    """B7's launch on the card; lanes: 0 the kernel's own choice, 1 the
-    per-thread walk, 16 or 32 the lanes a listed ray (chip_smoke.py times
-    each form)."""
-    dev = ot.device
     native.require(dev.type == "cuda",
                    f"trace_perlane: no kernel for device {dev}")
-    native.require(lanes in (0, 1, 2, 8, 16, 32), f"lanes {lanes}")
     R = ot.shape[1]
     P = page_size
     NB = tables.ab.shape[0] // GROUP
@@ -373,17 +361,12 @@ def _trace_perlane_kernel(ot, dt, alive, tables: PerlaneTables,
         native.check_tensor("chunk_live", chunk_live, dev,
                             (R // ray_chunk,), torch.int32)
     out = torch.empty((TRACE_ROWS, R), dtype=torch.float32, device=dev)
-    # the live list and its two counters (the list's length, the trace
-    # grid's claims): scratch that must outlive the launch's enqueueing
-    scratch = torch.empty(R, dtype=torch.int32, device=dev)
-    count = torch.zeros(2, dtype=torch.int32, device=dev)
     native.TRACE_PERLANE(
         ot.data_ptr(), dt.data_ptr(), ot.stride(0), alive.data_ptr(), R,
         0 if excl is None else excl.data_ptr(), int(any_hit),
         tables.rec.data_ptr(), tables.pab.data_ptr(), tables.gab.data_ptr(),
         tables.extent.data_ptr(), P, NB, ray_chunk,
-        0 if chunk_live is None else chunk_live.data_ptr(),
-        scratch.data_ptr(), count.data_ptr(), lanes, out.data_ptr(),
+        0 if chunk_live is None else chunk_live.data_ptr(), out.data_ptr(),
         native.stream(dev))
     return out
 

@@ -213,8 +213,7 @@ NEAREST_HIT = Kernel(
 
 TRACE_PERLANE = Kernel(
     "trace_perlane", "rt_trace_perlane",
-    [P, P, I64, P, I64, P, I32, P, P, P, P, I32, I32, I32, P, P, P, I32, P,
-     P],
+    [P, P, I64, P, I64, P, I32, P, P, P, P, I32, I32, I32, P, P, P],
     "rust_raytrace_tpu_torch/csrc/trace_perlane.cu",
     "rust_raytrace_tpu/ops/intersect_perlane.py:679")
 

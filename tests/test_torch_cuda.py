@@ -379,24 +379,12 @@ def _sphere_state(eng, vp, dev):
                       torch.zeros((8, R), device=dev)])
 
 
-#: B7's forms: the kernel's own choice, the per-thread walk, 16 and 32
-#: lanes a listed ray
-B7_LANES = [0, 1, 2, 8, 16, 32]
-
-
-def _b7(o, d, alive, tabs, page, lanes, ray_chunk=RB, **kw):
-    return intersect_perlane._trace_perlane_kernel(
-        o, d, alive, tabs, page, ray_chunk, lanes=lanes, **kw)
-
-
-@pytest.mark.parametrize("lanes", B7_LANES)
 @pytest.mark.parametrize("fixed", [True, False])
-def test_trace_perlane_matches_plain(dev, fixed, lanes):
-    """B7 on the resident tables of 4 banks (page size 8), in each form:
-    nearest rows, with self-exclusion, with a dead chunk, bitwise; the
-    any-hit occlusion bit of the lit wave's shadow rays (all rows bitwise
-    for the group forms, which keep the plain version's any-hit order),
-    and the per-lane shadow pass, against the plain versions."""
+def test_trace_perlane_matches_plain(dev, fixed):
+    """B7 on the resident tables of 4 banks (page size 8): nearest rows,
+    with self-exclusion, with a dead chunk, bitwise; the any-hit occlusion
+    bit of the lit wave's shadow rays, and the per-lane shadow pass,
+    against the plain versions."""
     scene, vp = _sphere_scene(False)
     eng = Engine(scene, page_size=8, ray_chunk=RB, device=dev)
     assert not eng.streamed and eng.ptables.ab.shape[0] == 4 * 128
@@ -408,34 +396,30 @@ def test_trace_perlane_matches_plain(dev, fixed, lanes):
     dead[1::3] = 0
     for kw in ({}, {"excl": rows[1].contiguous()}, {"chunk_live": dead}):
         native.reset_launch_counts()
-        got = _b7(o, d, alive, tabs, 8, lanes, **kw)
+        got = intersect_perlane.trace_perlane(o, d, alive, tabs, 8, RB, **kw)
         assert native.TRACE_PERLANE.launches == 1
         _bitwise(got, intersect_perlane.trace_perlane_plain(
             o, d, alive, *tabs[:3], 8, ray_chunk=RB, **kw))
     key = prng_key(3)
     so, sd, hit, excl = shadow_rays(st, rows, key, 1, fixed, LIGHT)
-    occ = _b7(so, sd, hit.float(), tabs, 8, lanes, excl=excl, any_hit=True)
+    args = (so, sd, hit.float(), tabs, 8, RB)
+    occ = intersect_perlane.trace_perlane(*args, excl=excl, any_hit=True)
     occ_p = intersect_perlane.trace_perlane_plain(
         so, sd, hit.float(), *tabs[:3], 8, excl=excl, any_hit=True)
     assert torch.equal(occ[1] != 0, occ_p[1] != 0)
-    if lanes != 1:
-        _bitwise(occ, occ_p)
     assert 0 < int((occ[1] != 0).sum()) < int(hit.sum())
     shd = shadow_mask_perlane(st, rows, key, 1, fixed, LIGHT, tabs, 8, RB)
-    assert torch.equal(shd != 0, hit & (intersect_perlane.trace_perlane(
-        so, sd, hit.float(), tabs, 8, RB, excl=excl, any_hit=True)[1] != 0))
+    assert torch.equal(shd != 0, hit & (occ[1] != 0))
 
 
-@pytest.mark.parametrize("lanes", B7_LANES)
 @pytest.mark.parametrize("mode", ["nearest", "excl", "dead_chunk",
                                   "any_hit"])
-def test_trace_perlane_walk_case_matches_plain(dev, lanes, mode):
+def test_trace_perlane_walk_case_matches_plain(dev, mode):
     """B7 on tests/streamed_walk_cases.py's scene as resident tables (4
-    banks of pages of 8; a triangle and its copy in two banks, zero-normal
-    slots mid-page) and state (camera rays, a chunk with no live ray, rays
-    from inside the sphere, dead lanes), in each form, bitwise against its
-    plain version (any-hit: the occlusion bit; all rows for the group
-    forms)."""
+    banks of pages of 8, the last mostly padding; a triangle and its copy
+    in two banks, zero-normal slots mid-page) and state (camera rays, a
+    chunk with no live ray, rays from inside the sphere, dead lanes),
+    bitwise against its plain version (any-hit: the occlusion bit)."""
     import streamed_walk_cases as W
     from rust_raytrace_tpu_torch.ops.intersect_perlane import (
         build_perlane_tables, perlane_tables)
@@ -453,10 +437,12 @@ def test_trace_perlane_walk_case_matches_plain(dev, lanes, mode):
         kw["chunk_live"] = torch.ones(W.NC, dtype=torch.int32, device=dev)
         kw["chunk_live"][W.INSIDE_CHUNK] = 0
     kw["any_hit"] = mode == "any_hit"
-    got = _b7(o, d, alive, tabs, W.P, lanes, W.RB, **kw)
+    native.reset_launch_counts()
+    got = intersect_perlane.trace_perlane(o, d, alive, tabs, W.P, W.RB, **kw)
+    assert native.TRACE_PERLANE.launches == 1
     want = intersect_perlane.trace_perlane_plain(o, d, alive, *tabs[:3], W.P,
                                                  ray_chunk=W.RB, **kw)
-    if mode == "any_hit" and lanes == 1:
+    if mode == "any_hit":
         assert torch.equal(got[1] != 0, want[1] != 0)
     else:
         _bitwise(got, want)

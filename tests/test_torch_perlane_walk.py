@@ -8,9 +8,9 @@ the port's `trace_perlane` (its plain version on the CPU) against the JAX
 package's `trace_perlane_pallas` in interpret mode, nearest (all rows
 bitwise on the valid lanes), with each ray's own nearest triangle
 excluded, with a live chunk flagged dead, and any-hit with exclusion (the
-occlusion bit, ROADMAP C5); and the group boxes that the kernel's group
-walk reads, `perlane_tables(...).gab`, equal to `group_boxes(pab)` and
-holding their pages."""
+occlusion bit, ROADMAP C5); and the group boxes that the kernel's walk
+reads, `perlane_tables(...).gab`, equal to `group_boxes(pab)` and holding
+their pages."""
 
 import jax.numpy as jnp
 import numpy as np
