@@ -10,12 +10,12 @@ The second form runs no smoke phase: it times kernels and the renders
 that run them in turns against a build of CSRC, the
 `rust_raytrace_tpu_torch/csrc/` of an earlier commit (`git archive COMMIT
 rust_raytrace_tpu_torch/csrc`).  TURNS_AGAINST names the commit, binds its
-C entry points and says what is timed: now commit bc44eef's B9 (the
-per-thread walk), B12a and B10, B9 on the whole waves 0, 1 and 2 of
-synthetic_1m_2k, B12a on its wave-2 state and B10 on its camera and
-shadow rays, and the unlit
-synthetic_1m_2k render (default and bank-major) and the default
-circles_2k render.
+C entry points and says what is timed: now commit a0d7908's B7 (one
+thread a lane over the per-lane tables) and B13 (the all-pairs rank): B7
+on the lit circles_2k wave-1 rows (nearest), their shadow rays (any-hit)
+and the 4-bank sphere's camera and wave-1 rays, the per-lane shadow pass
+beside the B1/B6 one, B13 on the circles_2k and sphere camera waves
+beside the split form and B1 alone, and the default circles_2k render.
 
 The third form times synthetic_1m_2k's host build alone (the scene and
 its Engine's pages and tables) and says whether the native scene pipeline
@@ -107,11 +107,13 @@ Phases, each fatal on failure:
      whole wave 1 (masked), bitwise, timed on full waves beside its bound
      (what the exact function needs, counted from the winners: every live
      pair's t, a plane distance of each pair whose t could beat the
-     winner, the winner's three), with its ptxas report; B7 (nearest, all 16 rows) on
-     the lit circles_2k chunks' wave-1 rays and any-hit with
+     winner, the winner's three), with its ptxas report; B7 (nearest, all
+     16 rows) on the lit circles_2k chunks' wave-1 rays and any-hit with
      self-exclusion on their shadow rays (the occlusion bit), again on a
-     resident sphere of 4 banks (camera rays, wave-1 rays, shadow rays),
-     timed on the full lit wave 1 beside its bound, and the per-lane
+     resident sphere of 4 banks (camera rays, with every fifth chunk dead
+     too, wave-1 rays, shadow rays), on the whole lit wave 1 and its
+     shadow rays (nearest bitwise, the occlusion bits), timed there
+     beside its bound, and the per-lane
      shadow pass against the B1/B6 one there (lanes that differ, times in
      turns, its launches); B12 on synthetic_1m_2k's wave-2 state (after B9
      waves 0-1 and their compactions), under fixed and live RNG, on
@@ -125,7 +127,10 @@ Phases, each fatal on failure:
      on circles_2k's camera rays (37 pages, NPpad 128) and on the 4-bank
      sphere's (510 pages, NPpad 512): bitwise against its plain version on
      the check chunks with dead chunks, equal to B1 + stable sort on the
-     whole wave, timed there beside that split form in turns; B14a/B14b on
+     whole wave, timed there beside that split form in turns (and B1
+     alone), and on a branch case (a chunk on the fast path, one whose
+     hit keys reach BIGT and beyond, which takes the all-pairs rank, a
+     dead chunk, one with no valid ray) bitwise; B14a/B14b on
      circles_2k's state after wave 0 with octant codes (total_a / R and
      the overflow flag printed; bitwise against the plain versions even
      when it overflows), then with two buckets: bitwise, the round trip
@@ -1019,9 +1024,10 @@ def bankmajor_kernels(eng, page_of, full0, card, key, results, build_log):
 def perlane_banks(dev, key):
     """B7 on a resident scene of several banks: a 120x120 lat/lon sphere
     (28,560 triangles) before synthetic_1m_2k's camera; on N_CHECK_CHUNKS
-    chunks of camera rays that hit it, nearest rows, then the wave-1
-    bounce rays' nearest rows and their shadow rays' any-hit occlusion
-    bits with self-exclusion, against the plain version.  Returns the
+    chunks of camera rays that hit it, nearest rows (and with every fifth
+    chunk dead), then the wave-1 bounce rays' nearest rows and their
+    shadow rays' any-hit occlusion bits with self-exclusion, against the
+    plain version.  Returns the
     sphere's Engine, its whole camera wave (o, d, valid) and the check
     lanes, which B13 takes too."""
     scene = assemble([make_sphere((0.0, 0.0, 10.0), 4.0, (120, 120),
@@ -1751,6 +1757,7 @@ def cull_sorted_branches(dev, results):
     _require_bitwise("B13 branch case ptmin", got[2], want[2])
     mask = cull.cull_mask_exact_plain(*args)[0]
     NPpad = want[1].shape[1]
+    hit_keys = {}
     for c, fast_expected in ((0, True), (1, False)):
         key = torch.empty(NPpad, device=dev)
         key[want[1][c].long()] = want[2][c]
@@ -1759,20 +1766,16 @@ def cull_sorted_branches(dev, results):
         pages = torch.arange(NPpad, device=dev)
         order = sorted(pages[m].tolist(), key=lambda p: (float(key[p]), p))
         fast = torch.tensor(order + pages[~m].tolist(), device=dev)
-        hit_keys = key[m]
-        if fast_expected != bool((hit_keys < cull.BIGT).all()) or (
+        hit_keys[c] = key[m].tolist()
+        if fast_expected != all(k < cull.BIGT for k in hit_keys[c]) or (
                 fast_expected != torch.equal(fast, want[1][c].long())):
             raise AssertionError(f"B13 branch case: chunk {c} does not "
                                  f"take the path it is built for")
     results[native.CULL_SORTED.name]["branches"] = dict(
-        chunks=4, max_abs_err=0.0,
-        all_pairs_keys=[float(k) for k in want[2][1][:int(want[0][1])]
-                        if k >= cull.BIGT])
-    print(f"B13 branch case: the fast-path chunk ({int(want[0][0])} hit "
-          f"pages) and the all-pairs chunk ({int(want[0][1])} hit pages, "
-          f"hit keys {float(cull.BIGT):g} and "
-          f"{float(want[2][1][:int(want[0][1])].max()):g} among them), a "
-          f"dead chunk and one with no valid ray: bitwise equal")
+        chunks=4, max_abs_err=0.0, all_pairs_hit_keys=hit_keys[1])
+    print(f"B13 branch case: the fast-path chunk ({len(hit_keys[0])} hit "
+          f"pages) and the all-pairs chunk (hit keys {hit_keys[1]}), a dead "
+          f"chunk and one with no valid ray: bitwise equal")
 
 
 def bucket_kernels(full1, card, results):
