@@ -236,7 +236,7 @@ from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
 from rust_raytrace_tpu_torch.ops.pages import LANE_ID, LANE_N, LANE_NC
 from rust_raytrace_tpu_torch.render import WavefrontRenderer
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
-from rust_raytrace_tpu_torch.utils import host_native, native, png, xla_rsqrt
+from rust_raytrace_tpu_torch.utils import host_native, native, png
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key, uniform
 
 DEVICE = "cuda"
@@ -2316,7 +2316,7 @@ def main() -> int:
     tb = eng.ptables
     print(f"circles_2k: {len(scene.tris) - 1} triangles, {NP} pages of {P}, "
           f"{tb.ab.shape[0] // 128} bank(s); page-major records "
-          f"{sum(t.numel() * 4 for t in (tb.rec, tb.pab)) / 1e6:.6f} MB beside "
+          f"{(tb.rec.numel() + tb.pab.numel()) * 4 / 1e6:.6f} MB beside "
           f"{sum(t.numel() * 4 for t in tb[:3]) / 1e6:.6f} MB of per-lane "
           f"tables on the card")
     tile = eng_mod.pick_tile(vp.width, vp.height)
@@ -3480,10 +3480,11 @@ def ca0d7908_cases(dev, key, old):
     any-hit by the occlusion bit: the lit circles_2k wave-1 rows (B1, B6,
     the B1/B6 shadow pass and B8 on the camera wave), their shadow rays
     (any-hit with self-exclusion), the camera rays of the 4-bank sphere
-    of `perlane_banks` and its wave-1 rays; the per-lane shadow pass (`shadow_mask_perlane`, B7's path) beside the
-    B1/B6 one on the circles rows; B13 on the circles_2k and sphere camera
-    waves beside the split form (B1, then `page_lists`) and B1 alone; and
-    the default circles_2k render, whose path neither kernel is on.
+    of `perlane_banks` and its wave-1 rays; the per-lane shadow pass
+    (`shadow_mask_perlane`, B7's path) beside the B1/B6 one on the circles
+    rows; B13 on the circles_2k and sphere camera waves beside the split
+    form (B1, then `page_lists`) and B1 alone; and the default circles_2k
+    render, whose path neither kernel is on.
     Returns (kernel cases: label -> {"fns": build -> fn, "same": the
     builds whose outputs must equal "new"'s, "key": what is compared},
     renderers: label -> (renderer, viewport), the live rays of each
@@ -3659,11 +3660,11 @@ def turns(csrc: Path, out: Path) -> int:
     Kernels: each case first checks the outputs of the builds it names
     equal to the new build's, bit for bit or by the case's key (any-hit
     rows by the occlusion bit), then times every function of the case
-    (the two builds and the case's other forms) with CUDA events,
+    (the two builds and the case's other functions) with CUDA events,
     TURNS_REPS launches after a warm-up, in turns, two rounds, and each
-    one's device time a call (`_device_ms`).  Renders (live RNG, key 0): best of
-    three after a warm-up each round, the earlier build's kernels patched
-    in; images byte-equal.  Prints the card, both builds' ptxas reports and
+    one's device time a call (`_device_ms`).  Renders (live RNG, key 0):
+    best of three after a warm-up each round, the earlier build's kernels
+    patched in; images byte-equal.  Prints the card, both builds' ptxas reports and
     every number, and writes them as JSON to `out`."""
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)

@@ -47,17 +47,17 @@
 // ballot a tile, no atomics) go to shared memory; a warp scan of the
 // bits' popcounts gives the hit count h and each page's hit or missed
 // pages before it.  Where every hit key is below BIGT (a hit key is the
-// least max(tlo, 0) with a missing ray's BIGT in the min, so it exceeds
-// BIGT only where every ray of the chunk hits beyond it), a missed or
-// padding page takes rank h + the missed pages before it, with no
-// comparison, and the hit pages, compacted in page order, rank among the
-// h hit keys only: what the all-pairs (key, page) rank gives there.  A
+// least max(tlo, 0) with a missing ray's BIGT in the min, so it reaches
+// BIGT only where the rays that hit the page all enter it beyond), a
+// missed or padding page takes rank h + the missed pages before it, with
+// no comparison, and the hit pages, compacted in page order, rank among
+// the h hit keys only: what the all-pairs (key, page) rank gives there.  A
 // chunk whose vote finds a hit key not below BIGT (equal to it, beyond
 // it, or NaN) takes the all-pairs rank over all NPpad keys instead, in
 // the same kernel.  Both compare floats, not their bits, so that -0 and
-// +0 tie as in the TPU kernel, and write plist and ptmin once each.
-// The TPU's bank pre-slab and 128-page padding only saved vector
-// work on that chip and are not carried over: every page is tested.
+// +0 tie as in the TPU kernel, and write plist and ptmin once each.  The
+// TPU's bank pre-slab and 128-page padding only saved vector work on that
+// chip and are not carried over: every page is tested.
 #include "common.cuh"
 
 namespace {

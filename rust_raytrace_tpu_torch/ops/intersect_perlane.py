@@ -127,8 +127,8 @@ def group_boxes(pab):
     unbounded), lane 6 1.0 when one is valid (else lo +inf, hi -inf and
     lane 6 0), lane 7 0.  Slab arithmetic is monotone in the bounds under
     round to nearest, so a page (lo <= hi, as every page of the tables)
-    whose slab test passes passes its group box's: the group walks of B7
-    and B9 skip the pages of a group that fails
+    whose slab test passes passes its group box's: B9's group walk and
+    B7's walk skip the pages of a group that fails
     (tests/test_torch_streamed_walk.py holds it on -0, NaN and padding
     bounds)."""
     g = pab.reshape(-1, PAGES_A_BOX, PAB_LANES)
