@@ -194,6 +194,24 @@ Phases, each fatal on failure:
      each render's ms and Mrays/s printed; every kernel of each path must
      have launched in its renders and no kernel of another path (counts
      set to 0 just before each render);
+     6m. the measurement and parity utilities: the card's fp32 FMA rate
+     (utils/roofline's probe rt_fma_peak, swept over the chains a thread
+     and the blocks an SM, then the kept shape) and stream bandwidth, each
+     within [0.5, 1.05] of the published peak, with nvidia-smi's clocks
+     and power sampled beside the window and a {"roofline": ...} line;
+     utils/devbench's device-only Mrays/s (ND renders back to back, no
+     image copy, no un-permute) of the default and lit circles_2k Engines
+     and of synthetic_1m_2k's, beside their phase-6 render Mrays/s, and
+     one ND loop of the default Engine under sync-debug mode (its
+     synchronizing calls printed; B1-B5 must launch); one default
+     circles_2k render inside utils/profiling's `trace` and `annotate`
+     (the Chrome trace must hold the span and B4's kernel, and
+     `phase_timers` read at least the render's CUDA-event time); B11 on
+     circles' camera rays at 320x180, page size 64, against
+     ops/intersect_ref's numpy model (tie "lex": hit/miss sets equal, ids
+     on at least 99.9% of rays, t within rtol 1e-5, atol 1e-6); and
+     utils/parity on the card's 96x54 circles image against the golden
+     (rmse, mae and sky diff 0, IoU 1);
   7. profile: one default, one ncompact=0, one lit, one WavefrontRenderer,
      one legacy and one union-bounce circles_2k render and one unlit, one bank-major and one
      lit synthetic_1m_2k render under torch.profiler (the card's time per
@@ -216,6 +234,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -233,19 +252,20 @@ from rust_raytrace_tpu_torch.models import circles
 from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
                                         intersect_perlane, intersect_streamed,
                                         shade)
-from rust_raytrace_tpu_torch.ops.pages import LANE_ID, LANE_N, LANE_NC
+from rust_raytrace_tpu_torch.ops.intersect_ref import nearest_hit_model
+from rust_raytrace_tpu_torch.ops.pages import (LANE_ID, LANE_N, LANE_NC,
+                                              build_pages)
 from rust_raytrace_tpu_torch.render import WavefrontRenderer
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
-from rust_raytrace_tpu_torch.utils import host_native, native, png
+from rust_raytrace_tpu_torch.utils import (devbench, host_native, native,
+                                          parity, png, roofline)
+from rust_raytrace_tpu_torch.utils.profiling import (annotate, phase_timers,
+                                                     trace)
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key, uniform
 
 DEVICE = "cuda"
 RB = 1024
 N_CHECK_CHUNKS = 64
-#: NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
-#: tensor cores, at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 #: float32 operations of one ray/page slab test (cull and per-lane
 #: traversal: per axis 2 sub, 2 mul, min, max; the folds, the hit test and
 #: the entry clamp) and of one ray/triangle hit test (four 3-term dot
@@ -405,9 +425,10 @@ def _time_plain_ms(fn) -> float:
 
 def _bound(n_bytes: float, flops: float) -> dict:
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the float32 rate."""
-    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / FP32_FLOP_PER_S * 1e3
+    memory rate and operations over the float32 rate (the H100 SXM data
+    sheet's, at 700 W: `utils/roofline.py`'s published peaks)."""
+    t_b = n_bytes / roofline.PUBLISHED_HBM_BYTES_PER_S * 1e3
+    t_o = flops / roofline.PUBLISHED_FP32_FLOP_PER_S * 1e3
     return {"bound_ms": max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
@@ -2279,6 +2300,249 @@ def _groups(per_name) -> dict:
     return out
 
 
+#: the fp32 probe's sweep: chains a thread and blocks an SM, 256 threads a
+#: block; the kept shape is roofline.NCHAINS and roofline.BLOCKS_PER_SM
+PROBE_CHAINS = roofline.CHAINS
+PROBE_BLOCKS_PER_SM = (1, 2, 4, 8)
+#: a reading outside [0.5, 1.05] x the published peak fails: above, the
+#: count is wrong (folded chains); below, the probe is latency-bound
+PEAK_GATE = (0.5, 1.05)
+#: B11 against the numpy oracle: circles' camera rays at this resolution
+#: and page size (tests/test_intersect.py's tolerances)
+ORACLE_RES = (320, 180)
+ORACLE_PAGE = 64
+SMI_QUERY = "clocks.sm,power.draw,power.limit,temperature.gpu"
+
+
+@contextlib.contextmanager
+def _smi_samples(out: list):
+    """nvidia-smi's SMI_QUERY every 100 ms while the block runs, its lines
+    appended to `out`; the sampler is stopped when the block ends."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", f"--query-gpu={SMI_QUERY}", "--format=csv,noheader",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        text, _ = proc.communicate()
+        out.extend(line.strip() for line in text.splitlines()
+                   if line.strip())
+
+
+def _gate_peak(label: str, rate: float, peak: float) -> float:
+    share = rate / peak
+    if not PEAK_GATE[0] <= share <= PEAK_GATE[1]:
+        raise AssertionError(f"{label}: {rate:.6e} is {share:.4f} of the "
+                             f"published {peak:.6e}, outside {PEAK_GATE}")
+    return share
+
+
+def roofline_phase(dev, card) -> dict:
+    """The card's measured fp32 FMA rate (rt_fma_peak: a sweep over the
+    chains a thread and the blocks an SM, then the kept shape) and stream
+    bandwidth, each within PEAK_GATE of the published peak, with the
+    clocks and power sampled beside the window."""
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    sweep = {}
+    for nch in PROBE_CHAINS:
+        for bps in PROBE_BLOCKS_PER_SM:
+            sweep[nch, bps] = roofline.measure_fp32_peak(
+                nchains=nch, blocks_per_sm=bps, device=dev)
+    best = max(sweep.values())
+    print(f"roofline: fp32 FMA probe sweep, TFLOP/s by chains a thread "
+          f"(rows) and blocks of {roofline.THREADS} threads an SM "
+          f"(columns {PROBE_BLOCKS_PER_SM}), {sm} SMs [{card}]")
+    for nch in PROBE_CHAINS:
+        print(f"  chains {nch:2d}: " + "  ".join(
+            f"{sweep[nch, b] / 1e12:8.3f}" for b in PROBE_BLOCKS_PER_SM))
+    knee = min((k for k, r in sweep.items() if r >= 0.97 * best),
+               key=lambda k: (k[0] * k[1], k))
+    print(f"roofline: the knee (fewest chains x blocks within 3% of the "
+          f"sweep's best {best / 1e12:.3f} TFLOP/s): chains {knee[0]}, "
+          f"{knee[1]} blocks an SM; kept shape chains {roofline.NCHAINS}, "
+          f"{roofline.BLOCKS_PER_SM} blocks an SM")
+    smi = []
+    n0 = native.FMA_PEAK.launches
+    with _smi_samples(smi):
+        time.sleep(0.3)
+        # ~1.6 s of probe launches, so the sampler sees the load's clock
+        fp32 = roofline.measure_fp32_peak(nruns=400, device=dev)
+        fp32_launches = native.FMA_PEAK.launches - n0
+        hbm = roofline.measure_hbm_bw(nruns=20, device=dev)
+    fp32_share = _gate_peak("fp32 FMA rate", fp32,
+                            roofline.PUBLISHED_FP32_FLOP_PER_S)
+    hbm_share = _gate_peak("stream bandwidth", hbm,
+                           roofline.PUBLISHED_HBM_BYTES_PER_S)
+    print(f"roofline: fp32 FMA rate {fp32 / 1e12:.3f} TFLOP/s "
+          f"({fp32_share:.4f} of the published 67 TFLOP/s; chains "
+          f"{roofline.NCHAINS}, {roofline.BLOCKS_PER_SM} blocks of "
+          f"{roofline.THREADS} threads an SM, {fp32_launches} launches); "
+          f"stream bandwidth {hbm / 1e12:.4f} TB/s ({hbm_share:.4f} of the "
+          f"published 3.35 TB/s; x.add_(y) over 2 x 256 MB) [{card}]")
+    print(f"roofline: nvidia-smi {SMI_QUERY} beside the window "
+          f"({len(smi)} samples): {smi[0] if smi else 'none'} .. "
+          f"{smi[-1] if smi else 'none'}")
+    for line in smi[::max(1, len(smi) // 8)]:
+        print(f"  smi: {line}")
+    out = {"name": native.FMA_PEAK.name, "route": "cuda",
+           "source": native.FMA_PEAK.source,
+           "replaces": native.FMA_PEAK.replaces,
+           "fp32_flop_per_s": fp32, "fp32_share_of_published": fp32_share,
+           "nchains": roofline.NCHAINS,
+           "blocks_per_sm": roofline.BLOCKS_PER_SM,
+           "threads": roofline.THREADS, "knee": list(knee),
+           "sweep_tflop_per_s": {f"{c}x{b}": r / 1e12
+                                 for (c, b), r in sweep.items()},
+           "hbm_bytes_per_s": hbm, "hbm_share_of_published": hbm_share,
+           "smi": smi, "card": card}
+    print(json.dumps({"roofline": out}))
+    return out
+
+
+def _count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): returns (its
+    value, the synchronizing calls it made, their distinct sites)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            value = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return value, len(syncs), sorted(set(syncs))
+
+
+def device_metric_phase(card, cases) -> dict:
+    """devbench.device_metric on each (label, engine, viewport, the
+    phase-6 best render) of `cases`, beside that render's Mrays/s; then one
+    ND loop of the first case's Engine under sync-debug mode, which must
+    launch its path's kernels."""
+    out = {}
+    for label, e, v, render in cases:
+        runs = []
+        mr, sec, rays = devbench.device_metric(e, v, runs_out=runs)
+        R0 = v.width * v.height
+        if not (mr > 0 and sec > 0 and rays >= R0 and len(runs) == 2):
+            raise AssertionError(f"device metric {label}: {mr} Mrays/s, "
+                                 f"{sec} s, {rays} rays, runs {runs}")
+        host = 1 - sec / render.seconds
+        print(f"device metric {label}: {mr:.3f} Mrays/s, {sec * 1e3:.3f} ms "
+              f"a render, {rays} rays a render (ND 8, best of "
+              f"{[(round(m, 3), round(s * 1e3, 3)) for m, s in runs]} as "
+              f"(Mrays/s, ms)); the render (phase 6): "
+              f"{render.mrays_per_sec:.3f} Mrays/s, {render.seconds * 1e3:.3f}"
+              f" ms; device-only / render Mrays/s "
+              f"{mr / render.mrays_per_sec:.4f}, the host's share of a "
+              f"render {host:.4f} [{card}]")
+        out[label] = {"mrays_per_sec": mr, "seconds": sec, "rays": rays,
+                      "runs": runs, "render_mrays_per_sec":
+                      render.mrays_per_sec, "render_seconds": render.seconds}
+    label, e, v, _ = cases[0]
+    rays = devbench.primary_rays(e, v)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    total, n_sync, msgs = _count_syncs(
+        lambda: devbench.device_loop(e, v, 8, prng_key(200), rays=rays))
+    torch.cuda.synchronize()
+    missing = [k for k in UNLIT_PATH if _counts()[k] == 0]
+    if missing:
+        raise AssertionError(f"device_loop {label}: never launched "
+                             f"{missing}")
+    print(f"device_loop {label} under sync-debug mode: {n_sync} "
+          f"synchronizing calls in 8 renders ({int(total)} rays); launches "
+          f"{_counts()}")
+    for m in msgs[:8]:
+        print(f"  synchronizing call at {m}")
+    out["sync_calls"] = n_sync
+    return out
+
+
+def profiling_phase(dev, card, eng, vp) -> None:
+    """One default circles_2k render inside `trace` and `annotate`: the
+    exported trace holds the span and B4's kernel on the device, and
+    `phase_timers` times the render at no less than its CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    on_card = torch.empty(1, device=dev)
+    logdir = Path(__file__).resolve().parent / "build" / "profile"
+    torch.cuda.synchronize()
+    with phase_timers() as pt:
+        with trace(str(logdir)) as prof:
+            with pt.phase("render", sync_value=on_card):
+                with annotate("render"):
+                    start.record()
+                    eng.render(vp)
+                    end.record()
+    event_ms = start.elapsed_time(end)
+    timer_ms = pt.report()["render"] * 1e3
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == "render"]
+    b4 = [e for e in events if e.get("cat") == "kernel"
+          and "trace_shade_perlane_kernel" in e.get("name", "")]
+    n_dev = sum(e.get("cat") == "kernel" for e in events)
+    print(f"profiling: trace {prof.trace_path} ({len(events)} events, "
+          f"{n_dev} device kernels, {len(b4)} of B4, {len(spans)} 'render' "
+          f"span(s)); phase_timers {timer_ms:.3f} ms against CUDA events "
+          f"{event_ms:.3f} ms [{card}]")
+    if not spans or not b4 or timer_ms < event_ms:
+        raise AssertionError("profiling: the trace lacks the span or B4, or "
+                             "the phase timer read less than the events")
+
+
+def oracle_phase(dev) -> None:
+    """B11 on circles' camera rays at ORACLE_RES, page size ORACLE_PAGE,
+    against intersect_ref.nearest_hit_model(tie="lex"): hit/miss sets
+    equal, ids on at least 99.9% of rays, t within rtol 1e-5 and atol 1e-6
+    where both hit."""
+    o_scene, o_vp = circles.build(resolution=ORACLE_RES, maxdepth=5)
+    pages = build_pages(o_scene.tris, page_size=ORACLE_PAGE)
+    O, D = render_mod.camera_rays(o_vp, prng_key(0), dev)
+    O, D = O.contiguous(), D.contiguous()
+    n0 = native.NEAREST_HIT.launches
+    t, i = intersect.nearest_hit(O, D, torch.from_numpy(pages.PK).to(dev),
+                                 ORACLE_PAGE)
+    torch.cuda.synchronize()
+    launched = native.NEAREST_HIT.launches - n0
+    t, i = t.cpu().numpy(), i.cpu().numpy()
+    t0 = time.perf_counter()
+    t_m, id_m = nearest_hit_model(O.cpu().numpy(), D.cpu().numpy(), pages,
+                                  tie="lex")
+    model_s = time.perf_counter() - t0
+    same_hits = bool(((i == 0) == (id_m == 0)).all())
+    id_share = float((i == id_m).mean())
+    both = np.isfinite(t_m) & np.isfinite(t)
+    rel = (np.abs(t[both] - t_m[both]) / np.maximum(np.abs(t_m[both]), 1e-30))
+    close = bool(np.allclose(t[both], t_m[both], rtol=1e-5, atol=1e-6))
+    print(f"oracle: B11 ({launched} launch) vs nearest_hit_model(tie='lex') "
+          f"on {len(t)} circles camera rays at {ORACLE_RES[0]}x"
+          f"{ORACLE_RES[1]}, {pages.num_pages} pages of {ORACLE_PAGE}: "
+          f"hit/miss sets equal {same_hits} ({int((i != 0).sum())} hits), "
+          f"ids equal on {id_share:.6f}, t max rel diff "
+          f"{float(rel.max()) if rel.size else 0.0:.3e} (within rtol 1e-5, "
+          f"atol 1e-6: {close}); the model took {model_s:.2f} s")
+    if not (launched == 1 and same_hits and id_share >= 0.999 and close
+            and (i != 0).any()):
+        raise AssertionError("oracle: B11 disagrees with the numpy model")
+
+
+def parity_phase(dev, golden) -> None:
+    """utils/parity on the card's 96x54 circles render against the golden:
+    exact parity."""
+    g_scene, g_vp = circles.build(resolution=(96, 54), maxdepth=5)
+    img = Engine(g_scene, device=dev).render(g_vp, fixed_rng=True).image
+    stats = parity.parity_stats(img, golden)
+    print(f"parity: circles 96x54 on the card vs the golden: {stats}")
+    if not (stats["rmse"] == 0.0 and stats["mae"] == 0.0
+            and stats["sky_mean_abs_diff"] == 0.0
+            and stats["silhouette_iou"] == 1.0):
+        raise AssertionError("parity: the card's image is not the golden's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3338,6 +3602,18 @@ def main() -> int:
 
     # 6k. the command line on the card
     cli_launches = cli_phase(dev, card, slow_cli)
+
+    _phase("6m utilities")
+    # 6m. the measurement and parity utilities on the card
+    roofline_phase(dev, card)
+    device_metric_phase(card, [
+        ("circles_2k default", eng, vp,
+         min(runs["default"], key=lambda r: r.seconds)),
+        ("circles_2k lit", eng_l, vp, best_l),
+        ("synthetic_1m_2k", eng_s, s_vp, best_s)])
+    profiling_phase(dev, card, eng, vp)
+    oracle_phase(dev)
+    parity_phase(dev, golden)
 
     _phase("7 profile")
     # 7. where the time of one circles_2k and one synthetic_1m_2k render goes

@@ -861,14 +861,8 @@ class Engine(RayCaster):
         dev = self.device
         t0 = time.perf_counter()
 
-        tile = pick_tile(v.width, v.height)
-        R0 = v.height * v.width * spp
-        quantum = self._quantum(spp)
-        R = -(-R0 // quantum) * quantum
         quant = quantize and device_quantizable(spp)
-        o, d = camera_rays_tiled(v, tile, R, dev, key)
-        o, pk0 = self._pinhole_fold(v, o)
-        alive0 = torch.arange(R, device=dev) < R0
+        tile, o, d, alive0, pk0 = self._primary_rays(v, key)
         img, wave_counts, primary, cull0 = self._dispatch(
             v.maxdepth, spp, o, d, alive0, key, fixed_rng, debug, quant, pk0)
         img_h = img.cpu().numpy()
@@ -895,6 +889,20 @@ class Engine(RayCaster):
         if progress is not None:
             progress.update_wavefront(result)
         return result
+
+    def _primary_rays(self, v: Viewport, key):
+        """A render's primary rays on the Engine's device: (tile, o, d,
+        alive0, pk0), the rays [3, R] padded to whole quanta in tile order
+        under `key` (spp > 1 jitters by it), through the pinhole fold,
+        and the live-lane mask [R]."""
+        tile = pick_tile(v.width, v.height)
+        R0 = v.height * v.width * v.samples_per_pixel
+        quantum = self._quantum(v.samples_per_pixel)
+        R = -(-R0 // quantum) * quantum
+        o, d = camera_rays_tiled(v, tile, R, self.device, key)
+        o, pk0 = self._pinhole_fold(v, o)
+        alive0 = torch.arange(R, device=self.device) < R0
+        return tile, o, d, alive0, pk0
 
     def _quantum(self, spp: int) -> int:
         """The ray-count padding quantum: whole chunks, the 128-lane

@@ -254,7 +254,16 @@ EXPAND_BUCKETS = Kernel(
     "rust_raytrace_tpu_torch/csrc/compact_buckets.cu",
     "rust_raytrace_tpu/ops/compact.py:1032")
 
-KERNELS = (CULL, TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND,
+#: the fp32 FMA-rate probe of `utils/roofline.measure_fp32_peak`, a
+#: measurement of the card: no render path launches it, so it is not in
+#: KERNELS
+FMA_PEAK = Kernel(
+    "fma_peak", "rt_fma_peak",
+    [P, F32, F32, I32, I32, I32, I32, P],
+    "rust_raytrace_tpu_torch/csrc/roofline.cu",
+    "rust_raytrace_tpu/utils/roofline.py:39")
+
+KERNELS = (CULL,TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND,
            TRACE_UNION_ROWS, SHADE, TRACE_SHADE_STREAMED, TRACE_STREAMED,
            NEAREST_HIT, TRACE_PERLANE, BM_PREP, BM_SWEEP, BM_FINISH,
            CULL_SORTED, COMPACT_BUCKETS, EXPAND_BUCKETS)

@@ -957,3 +957,53 @@ def test_bankmajor_prep_walk_case_matches_plain(dev, rc):
         win_p, gm_p = intersect_streamed.bankmajor_prep_plain(*args)
         _bitwise(win, win_p)
         assert torch.equal(gm, gm_p) and bool((gm != 0).any())
+
+
+def test_fma_peak_probe_reads_the_card(dev):
+    """rt_fma_peak at the kept probe shape reads within [0.5, 1.05] of the
+    H100 SXM data sheet's 67 TFLOP/s: above, the count is wrong (folded
+    chains); below, the probe is latency-bound."""
+    from rust_raytrace_tpu_torch.utils import roofline
+
+    n = native.FMA_PEAK.launches
+    rate = roofline.measure_fp32_peak(device=dev)
+    assert native.FMA_PEAK.launches > n
+    peak = roofline.PUBLISHED_FP32_FLOP_PER_S
+    assert 0.5 * peak <= rate <= 1.05 * peak, rate
+
+
+def test_device_metric_counts_the_loops_rays(dev):
+    """device_metric on a small sphere Engine: positive numbers, its rays
+    a render those of device_loop under the run's key."""
+    from rust_raytrace_tpu_torch.utils import devbench
+
+    scene, vp = _sphere_scene(lit=False)
+    eng = Engine(scene, page_size=8, ray_chunk=RB, device=dev)
+    runs = []
+    mr, sec, rays = devbench.device_metric(eng, vp, ND=2, nruns=1,
+                                           runs_out=runs)
+    assert mr > 0 and sec > 0 and rays >= vp.width * vp.height
+    assert len(runs) == 1 and runs[0] == (mr, sec)
+    total = devbench.device_loop(eng, vp, 2, prng_key(100))
+    assert total.is_cuda and int(total) // 2 == rays
+
+
+def test_nearest_hit_matches_the_oracle(dev):
+    """B11 on circles' camera rays at 160x90, page size 64, against the
+    numpy model of its contract (least t, then least id: tie "lex"), at
+    tests/test_intersect.py's tolerances."""
+    from rust_raytrace_tpu_torch.ops.intersect_ref import nearest_hit_model
+    from rust_raytrace_tpu_torch.ops.pages import build_pages
+
+    scene, vp = circles.build(resolution=(160, 90), maxdepth=5)
+    pages = build_pages(scene.tris, page_size=64)
+    o, d = camera_rays(vp, prng_key(0), dev)
+    t, i = intersect.nearest_hit(o.contiguous(), d.contiguous(),
+                                 torch.from_numpy(pages.PK).to(dev), 64)
+    t, i = t.cpu().numpy(), i.cpu().numpy()
+    t_m, id_m = nearest_hit_model(o.cpu().numpy(), d.cpu().numpy(), pages,
+                                  tie="lex")
+    assert ((i == 0) == (id_m == 0)).all() and (i != 0).any()
+    assert (i == id_m).mean() >= 0.999
+    both = np.isfinite(t_m) & np.isfinite(t)
+    np.testing.assert_allclose(t[both], t_m[both], rtol=1e-5, atol=1e-6)
