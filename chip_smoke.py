@@ -5,6 +5,7 @@
     python3 chip_smoke.py --turns CSRC [--out FILE]
     python3 chip_smoke.py --scene-build
     python3 chip_smoke.py --counts [--out FILE]
+    python3 chip_smoke.py --distributed
 
 The second form runs no smoke phase: it times kernels and the renders
 that run them in turns against a build of CSRC, the
@@ -24,6 +25,10 @@ took it; run it with RUST_RAYTRACE_NO_NATIVE=1 for the numpy build.
 The fourth runs only B9's whole-wave checks and its counting phase (see
 phase 3) on synthetic_1m_2k, its numbers also as JSON to `--out`
 (default `build/counts.json`).
+
+The fifth runs only phase 6n, the render across processes, after the
+builds of phase 2: on a machine of several cards, its nccl ranks one a
+card.
 
 The main paths: the unlit circles_2k render (B1, B2, B3, B4, B5); the lit
 one, circles_2k with the teapot preset's light (B1 twice at wave 0, B6
@@ -46,7 +51,10 @@ chunk_live and B2 with chunk_live and grid_live on every bounce wave, B3,
 B5; no per-lane tables), through Engine(bounce_chunk=512) (the unlit
 path's kernels, the bounce waves at 512-ray chunks) and through
 render_sharded over 2 shards of the card (the unlit path's kernels, once
-a shard); and the command line
+a shard); circles_2k across processes (`parallel.distributed`: 2 gloo
+ranks sharing the card, each launching the unlit path's kernels, B1 and B2
+once, in its render, and B11 alone in `trace_rays_distributed`); and the
+command line
 (`python -m rust_raytrace_tpu_torch.cli`, run in process, its slow runs
 each in a process of its own): render circles_2k (the unlit path), with
 --band-rows, with --backend simple (B11) and with --debug-csv (the debug
@@ -212,6 +220,20 @@ Phases, each fatal on failure:
      on at least 99.9% of rays, t within rtol 1e-5, atol 1e-6); and
      utils/parity on the card's 96x54 circles image against the golden
      (rmse, mae and sky diff 0, IoU 1);
+     6n. the render across processes (`parallel.distributed.spawn`: 2
+     ranks under gloo sharing the card, each with its own Engine of
+     circles_2k, the kernel library built in phase 2 and only loaded by
+     the ranks): under live key 0 a warm-up and one timed
+     `engine_render_distributed`, rank 0's image byte-equal to
+     `render_sharded(n_devices=2)`'s (timed beside it) and under fixed_rng
+     to render()'s; `trace_rays_distributed(backend="kernel")` on the
+     first 2^20 camera rays, its colors and wave counts bitwise equal to
+     `trace_rays_sharded` over 2 shards of the card; each rank's launches
+     the unlit path's (B1 and B2 once) in its render and B11 alone in its
+     trace; where torch sees 2 or more cards, the same with nccl ranks,
+     one a card, 2 of them and then one on every card, else 2 nccl ranks
+     on the one card must each raise before any collective (NCCL refuses
+     a duplicate GPU);
   7. profile: one default, one ncompact=0, one lit, one WavefrontRenderer,
      one legacy and one union-bounce circles_2k render and one unlit, one bank-major and one
      lit synthetic_1m_2k render under torch.profiler (the card's time per
@@ -240,6 +262,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rust_raytrace_tpu_torch import engine as eng_mod
 from rust_raytrace_tpu_torch import math3d as m3
@@ -255,6 +278,9 @@ from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
 from rust_raytrace_tpu_torch.ops.intersect_ref import nearest_hit_model
 from rust_raytrace_tpu_torch.ops.pages import (LANE_ID, LANE_N, LANE_NC,
                                               build_pages)
+from rust_raytrace_tpu_torch.parallel import distributed
+from rust_raytrace_tpu_torch.parallel.sharding import (make_mesh,
+                                                       trace_rays_sharded)
 from rust_raytrace_tpu_torch.render import WavefrontRenderer
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
 from rust_raytrace_tpu_torch.utils import (devbench, host_native, native,
@@ -2543,6 +2569,206 @@ def parity_phase(dev, golden) -> None:
         raise AssertionError("parity: the card's image is not the golden's")
 
 
+#: phase 6n: the render across processes, DIST_RANKS ranks, each with its
+#: own Engine of circles_2k; trace_rays_distributed on one slab of camera
+#: rays; a spawn's deadline (rendezvous, builds and renders), seconds
+DIST_RANKS = 2
+DIST_SLAB = 1 << 20
+DIST_DEADLINE = 300.0
+
+
+def distributed_rank(rank: int, out: str, device=None,
+                     resolution="2k") -> None:
+    """Phase 6n's program of one rank (`distributed.spawn` starts it; the
+    new process imports this script as a module): circles at `resolution`
+    (maxdepth 5) through `engine_render_distributed`, under live key 0 a
+    warm-up and then one render with the launch counts set to 0 just before
+    it, then one under fixed_rng; then `trace_rays_distributed(backend=
+    "kernel")` on the first DIST_SLAB camera rays, counts set to 0 before
+    it.  Rank 0 then renders the references on its own Engine, which has
+    the ranks' schedule: render_sharded(n_devices=n) under key 0 (a
+    warm-up, then one timed), trace_rays_sharded over make_mesh(n) (the
+    shards on the card, or one a card) and render() under fixed_rng; n is
+    the world size.  Writes its numbers, counts and verdicts to
+    OUT/rank<r>.json.  device: None for `rank_device()`'s card; device
+    and resolution are for a rehearsal on the CPU."""
+    dev = distributed.rank_device(device)
+    n = dist.get_world_size()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    scene, vp = circles.build(resolution=resolution, maxdepth=5)
+    eng = Engine(scene, device=dev)
+    key = prng_key(0)
+    distributed.engine_render_distributed(eng, vp, key=key)
+    sync()
+    dist.barrier()
+    native.reset_launch_counts()
+    live = distributed.engine_render_distributed(eng, vp, key=key)
+    sync()
+    rec = {"backend": str(dist.get_backend()), "device": str(dev),
+           "render_launches": _counts(), "ms": live.seconds * 1e3,
+           "rays_traced": live.rays_traced,
+           "wave_rays": live.wave_rays.tolist()}
+    fixed = distributed.engine_render_distributed(eng, vp, key=key,
+                                                  fixed_rng=True)
+    o, d = render_mod.camera_rays(vp, key, dev)
+    o, d = o[:DIST_SLAB], d[:DIST_SLAB]
+    st = render_mod.upload_scene(scene, page_size=256, device=dev)
+    trace_kw = dict(maxdepth=vp.maxdepth, backend="kernel", ray_chunk=1024)
+    distributed.trace_rays_distributed(st, o, d, key, **trace_kw)
+    sync()
+    dist.barrier()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    colors, waves = distributed.trace_rays_distributed(st, o, d, key,
+                                                       **trace_kw)
+    sync()
+    rec.update(trace_ms=(time.perf_counter() - t0) * 1e3,
+               trace_launches=_counts(), trace_rays=int(o.shape[0]),
+               trace_waves=waves.cpu().tolist())
+    dist.barrier()
+    if rank == 0:
+        eng.render_sharded(vp, n_devices=n, key=key)
+        sync()
+        ref = eng.render_sharded(vp, n_devices=n, key=key)
+        mesh = make_mesh(n)
+        trace_rays_sharded(st, o, d, key, mesh, **trace_kw)
+        sync()
+        t0 = time.perf_counter()
+        ref_c, ref_w = trace_rays_sharded(st, o, d, key, mesh, **trace_kw)
+        sync()
+        ref_trace_ms = (time.perf_counter() - t0) * 1e3
+        full_f = eng.render(vp, fixed_rng=True)
+        img = live.image
+        rec.update(
+            image_ok=bool(img.shape == (vp.height, vp.width, 3)
+                          and img.dtype == np.uint8 and img.max() > 0
+                          and live.wave_rays[0] == vp.width * vp.height),
+            live_equal=bool(np.array_equal(img, ref.image) and np.array_equal(
+                live.wave_rays, ref.wave_rays)),
+            fixed_equal=bool(np.array_equal(fixed.image, full_f.image)
+                             and np.array_equal(fixed.wave_rays,
+                                                full_f.wave_rays)),
+            trace_equal=bool(torch.equal(colors.view(torch.int32),
+                                         ref_c.view(torch.int32))
+                             and torch.equal(waves, ref_w)),
+            sharded_ms=ref.seconds * 1e3,
+            sharded_rays_traced=ref.rays_traced, sharded_trace_ms=ref_trace_ms,
+            mesh=[str(m) for m in mesh])
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def shared_card_rank(rank: int, out: str) -> None:
+    """A rank of an nccl group whose ranks share the one card: its render
+    must raise before any collective.  Writes the message (or null)."""
+    scene, vp = circles.build(resolution=(64, 36), maxdepth=2)
+    eng = Engine(scene, device=distributed.rank_device())
+    msg = None
+    try:
+        distributed.engine_render_distributed(eng, vp)
+    except RuntimeError as e:
+        msg = str(e)
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(msg))
+
+
+def _spawn_ranks(backend: str, fn=distributed_rank,
+                 n: int = DIST_RANKS) -> list:
+    """fn's n ranks under `backend`, within DIST_DEADLINE; each rank's
+    record.  A rank that fails fails the phase."""
+    out = Path(tempfile.mkdtemp(prefix="chip-smoke-ranks-"))
+    _SCRATCH.append(out)
+    distributed.spawn(fn, n, args=(str(out),), backend=backend,
+                      timeout=DIST_DEADLINE)
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def _gate_ranks(label: str, recs: list, card) -> None:
+    """Rank 0's images equal the single controller's, the trace's colors
+    and counts too; each rank launched the unlit path's kernels (B1 and B2
+    once) in its render and B11 alone in its trace."""
+    r0 = recs[0]
+    print(f"{label}: rank 0 render {r0['ms']:.3f} ms "
+          f"({r0['rays_traced'] / r0['ms'] / 1e3:.3f} Mrays/s), rank 1 "
+          f"{recs[1]['ms']:.3f} ms; render_sharded(n_devices={len(recs)}) "
+          f"{r0['sharded_ms']:.3f} ms "
+          f"({r0['sharded_rays_traced'] / r0['sharded_ms'] / 1e3:.3f} "
+          f"Mrays/s); wave_rays {r0['wave_rays']} [{card}]")
+    print(f"{label}: trace_rays_distributed(backend='kernel') on "
+          f"{r0['trace_rays']} camera rays {r0['trace_ms']:.3f} ms, "
+          f"trace_rays_sharded over {r0['mesh']} {r0['sharded_trace_ms']:.3f}"
+          f" ms; wave_rays {r0['trace_waves']} [{card}]")
+    print(f"{label}: live key 0 image byte-equal to render_sharded: "
+          f"{r0['live_equal']}; fixed_rng image byte-equal to render(): "
+          f"{r0['fixed_equal']}; trace colors and counts bitwise equal to "
+          f"trace_rays_sharded: {r0['trace_equal']}")
+    if not (r0["image_ok"] and r0["live_equal"] and r0["fixed_equal"]
+            and r0["trace_equal"]):
+        raise AssertionError(f"{label}: rank 0's results differ from the "
+                             f"single controller's")
+    for r, rec in enumerate(recs):
+        rl, tl = rec["render_launches"], rec["trace_launches"]
+        print(f"{label}: rank {r} on {rec['device']}: render launches {rl}; "
+              f"trace launches {tl}")
+        bad = ([k for k in UNLIT_PATH if rl[k] == 0]
+               + [k for k in ("cull_mask_exact", "trace_shade_chunks")
+                  if rl[k] != 1]
+               + [k for k, c in rl.items() if c and k not in UNLIT_PATH]
+               + [k for k, c in tl.items() if bool(c) != (k == "nearest_hit")])
+        if bad:
+            raise AssertionError(f"{label}: rank {r}'s launches of {bad} are "
+                                 f"not its path's")
+
+
+def distributed_phase(card) -> dict:
+    """Phase 6n: the render across processes.  DIST_RANKS gloo ranks on
+    cuda:(rank % cards), so sharing the card where there is one (their
+    collectives on the host); where torch sees DIST_RANKS or more cards,
+    nccl ranks one a card too, DIST_RANKS of them and then one on every
+    card, else DIST_RANKS nccl ranks on the one card must each raise
+    before any collective.  Returns the gloo ranks' launch counts summed,
+    by path ("distributed" the render, "distributed_trace" the trace)."""
+    recs = _spawn_ranks("gloo")
+    _gate_ranks(f"circles_2k across processes ({DIST_RANKS} gloo ranks, "
+                f"{recs[0]['device']})", recs, card)
+    cards = torch.cuda.device_count()
+    if cards >= DIST_RANKS:
+        for n in sorted({DIST_RANKS, cards}):
+            _gate_ranks(f"circles_2k across processes ({n} nccl ranks, one "
+                        f"a card)", _spawn_ranks("nccl", n=n), card)
+    else:
+        print(f"across processes under nccl, one rank a card: not run "
+              f"(torch sees {cards} card(s))")
+        msgs = _spawn_ranks("nccl", shared_card_rank)
+        print(f"{DIST_RANKS} nccl ranks on one card: {msgs}")
+        if not all(m and "NCCL refuses" in m for m in msgs):
+            raise AssertionError("nccl ranks sharing a card did not all "
+                                 "raise")
+    return {p: {k: sum(r[f"{p}_launches"][k] for r in recs)
+                for k in recs[0][f"{p}_launches"]}
+            for p in ("render", "trace")}
+
+
+def distributed_only() -> int:
+    """Phase 6n alone, after the card's line and phase 2's builds."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    card = _card()
+    print(card)
+    print(f"build: {native.build()['seconds']:.1f} s; host build: "
+          f"{host_native.build()['seconds']:.1f} s")
+    native.library()
+    distributed_phase(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3615,6 +3841,11 @@ def main() -> int:
     oracle_phase(dev)
     parity_phase(dev, golden)
 
+    _phase("6n across processes")
+    # 6n. the render across processes: ranks of torch.distributed, one a
+    # shard, the kernels built above (each rank loads the library)
+    dist_launches = distributed_phase(card)
+
     _phase("7 profile")
     # 7. where the time of one circles_2k and one synthetic_1m_2k render goes
     for name, e, pvp in (("default", eng, vp), ("ncompact=0", eng0, vp),
@@ -3674,7 +3905,9 @@ def main() -> int:
              "ray_chunk_4096": rc_launches, "cli": cli_launches,
              "union_bounce": last_launches["union"],
              "bounce_chunk": last_launches["bounce_chunk"],
-             "sharded": last_launches["sharded"]}
+             "sharded": last_launches["sharded"],
+             "distributed": dist_launches["render"],
+             "distributed_trace": dist_launches["trace"]}
     main_path = {"trace_shade_streamed": "streamed",
                  "trace_streamed": "streamed_lit",
                  "nearest_hit": "wavefront",
@@ -4033,6 +4266,9 @@ if __name__ == "__main__":
                     help="instead of the smoke run, run B9's whole-wave "
                          "checks and its counting phase alone, on "
                          "synthetic_1m_2k")
+    ap.add_argument("--distributed", action="store_true",
+                    help="instead of the smoke run, run phase 6n alone: "
+                         "the render across processes")
     ap.add_argument("--cli", nargs=argparse.REMAINDER, metavar="ARGV",
                     help="run the command line's main(ARGV) and print, as "
                          "the last line, what run_cli returns as JSON (the "
@@ -4046,6 +4282,8 @@ if __name__ == "__main__":
             rc = scene_build()
         elif args.counts:
             rc = counts_only(args.out or Path("build/counts.json"))
+        elif args.distributed:
+            rc = distributed_only()
         else:
             rc = main() if args.turns is None else turns(
                 args.turns, args.out or Path("build/turns.json"))

@@ -18,8 +18,9 @@ assembled image equals the unsharded render's bit for bit; under live RNG
 each shard's scatter hash keys on its own compacted layout (ROADMAP C3),
 as on the JAX mesh.
 
-A render across processes (`torch.distributed`, the JAX package's
-multi-host claim) is not built here: ROADMAP A11.
+The render across processes (`torch.distributed`, the JAX package's
+multi-host claim), one rank a shard of this very split, is
+`parallel/distributed.py`.
 """
 
 import contextlib

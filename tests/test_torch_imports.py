@@ -59,6 +59,7 @@ PORT_MODULES = [
     "rust_raytrace_tpu_torch.utils.host_native",
     "rust_raytrace_tpu_torch.parallel",
     "rust_raytrace_tpu_torch.parallel.sharding",
+    "rust_raytrace_tpu_torch.parallel.distributed",
     "rust_raytrace_tpu_torch.ops.intersect_ref",
     "rust_raytrace_tpu_torch.utils.parity",
     "rust_raytrace_tpu_torch.utils.profiling",
