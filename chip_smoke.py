@@ -42,7 +42,12 @@ circles_2k (Engine(compact=False): B1 and B6 every wave); spp 4 on circles
 B6 and B8); synthetic_1m_2k through Engine(bank_major=True) (B9 on waves
 0-1, the bank-major sweep's prep, sweep and finish, B12a-c, on the later
 waves, B3, B5); circles_2k through render_banded (the unlit path's
-kernels, band by band); the per-lane shadow pass
+kernels, band by band); the fused lit wave 0 (lit circles_2k through
+`_dispatch(wave0_fused_lights=True)`: B4 on every wave, B3, B5),
+circles_2k through Engine(ncompact=-1, gate_frac=0.7) (the unlit path's
+kernels, B3 and B5 at every boundary) and through `_dispatch` with
+wave0_skippable and with cb=256 (the unlit path's); the per-lane shadow
+pass
 (engine.shadow_mask_perlane, B7 any-hit) on lit circles_2k's wave-1 rows;
 circles_2k through Engine(ray_chunk=4096) (the unlit path's kernels, the
 chunk-block ones B1 and B2 at 4 rays a thread); circles_2k past a lowered
@@ -234,6 +239,24 @@ Phases, each fatal on failure:
      one a card, 2 of them and then one on every card, else 2 nccl ranks
      on the one card must each raise before any collective (NCCL refuses
      a duplicate GPU);
+     6o. the JAX package's last paths, at 2560x1440: B4 with its shadow
+     feeler on the circles_2k camera wave (the fused lit wave 0), bitwise
+     against its plain version on the check chunks (live and fixed RNG),
+     timed on the whole wave beside its bound, with its launch shape and
+     the occupancy its registers allow; lit circles_2k through
+     `_dispatch(wave0_fused_lights=True)` (B4 on every wave, B3 and B5 at
+     each planned boundary, no B1, B2, B6 or B8), its fixed_rng image
+     byte-equal to the unfused render's, and `devbench.device_metric`
+     with and without the flag in turns; circles_2k through
+     `Engine(ncompact=-1, gate_frac=0.7)` (B3 and B5 at every boundary;
+     the boundaries that went identity read once after the render), its
+     fixed_rng image byte-equal to the default Engine's, its render and
+     device metric beside the default's; `wave0_skippable` and `cb=256`
+     (fixed_rng images byte-equal, device metrics); B3/B5 at the first
+     boundary of circles_2k equal to `compact_oracle`/`expand_oracle`;
+     every page `ray_aabb_hits` finds for a ray in its chunk's B1 mask, on
+     the check chunks of the circles_2k camera wave and on 8 chunks of
+     synthetic_1m_2k's that hit the sphere;
   7. profile: one default, one ncompact=0, one lit, one WavefrontRenderer,
      one legacy and one union-bounce circles_2k render and one unlit, one bank-major and one
      lit synthetic_1m_2k render under torch.profiler (the card's time per
@@ -248,6 +271,7 @@ CUDA is missing or any phase fails.
 import argparse
 import contextlib
 import ctypes
+import functools
 import io
 import json
 import os
@@ -732,8 +756,8 @@ def _wave2_state(eng, full0, key, fixed: bool):
 
 
 def _synthetic_wave0(eng, vp, dev):
-    """synthetic_1m_2k's wave-0 state [16, R] (tile-order camera rays, the
-    pinhole origin folded)."""
+    """An Engine's wave-0 state [16, R] of `vp` (synthetic_1m_2k's, or
+    circles_2k's: tile-order camera rays, the pinhole origin folded)."""
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
     o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
@@ -2755,6 +2779,309 @@ def distributed_phase(card) -> dict:
             for p in ("render", "trace")}
 
 
+#: phase 6o's self-gating fraction and compaction chunk
+GATE_FRAC = 0.7
+CB_KNOB = 256
+#: the chunks of synthetic_1m_2k's camera wave held against the exact test
+N_SPHERE_CHUNKS = 8
+
+
+def _b4_bound(eng, page_of, state, lit_: bool = False) -> dict:
+    """What B4's rays in `state` need at least: bytes, the state in and
+    out, the page boxes and the records of every page that holds a found
+    triangle; operations as `_perlane_bound` counts a trace (every valid
+    ray's slab test of every page, the hit tests of its found triangle's
+    page), each valid ray's shade, and, lit, every hit ray's feeler (a slab
+    test of every page and one hit test)."""
+    NP, P = eng.pages.num_pages, eng.page_size
+    valid = state[7] != 0
+    ids = intersect_perlane.trace_perlane(state[0:3], state[3:6], state[7],
+                                          eng.ptables, P, RB)[1]
+    hit = valid & (ids != 0)
+    hits = int(hit.sum())
+    pages = torch.unique(page_of[ids[hit].long()])
+    return _bound(state.shape[1] * 128 + NP * 32 + pages.numel() * P * 96,
+                  int(valid.sum()) * (NP * SLAB_FLOPS + SHADE_FLOPS)
+                  + hits * P * HIT_FLOPS
+                  + (hits * (NP * SLAB_FLOPS + HIT_FLOPS) if lit_ else 0))
+
+
+def _occupancy(build_log: str, name: str, threads: int) -> dict:
+    """The registers ptxas gave kernel `name` (a mangled-name fragment) and
+    the blocks of `threads` an H100 SM holds at that count (65,536
+    registers an SM, allocated 8 a thread, at most 2,048 threads and 32
+    blocks; the kernel takes no shared memory)."""
+    lines = build_log.splitlines()
+    regs = None
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and name in line:
+            for rep in lines[i:i + 4]:
+                if "registers" in rep:
+                    regs = int(rep.split("Used ")[1].split(" registers")[0])
+            break
+    if regs is None:
+        raise AssertionError(f"ptxas reported no registers for {name}")
+    per_block = -(-regs // 8) * 8 * threads
+    blocks = min(32, 2048 // threads, 65536 // per_block)
+    return {"registers": regs, "blocks_per_sm": blocks,
+            "occupancy": blocks * threads / 2048}
+
+
+@contextlib.contextmanager
+def _knobs(eng, **knobs):
+    """The Engine's renders with the wave loop's knobs (`_dispatch`)."""
+    eng._dispatch = functools.partial(type(eng)._dispatch, eng, **knobs)
+    try:
+        yield eng
+    finally:
+        del eng._dispatch
+
+
+def _metric_turns(card, label, cases: dict, rounds: int = 2) -> dict:
+    """devbench.device_metric of each (engine, knobs) of `cases` in turns,
+    `rounds` times; prints each case's best and its runs.  Returns {case:
+    (Mrays/s, ms a render, rays a render) of the best run}."""
+    runs = {k: [] for k in cases}
+    for _ in range(rounds):
+        for k, (e, v, kw) in cases.items():
+            runs[k].append(devbench.device_metric(e, v, **kw))
+    best = {k: max(r, key=lambda x: x[0]) for k, r in runs.items()}
+    print(f"device metric, {label}, in turns ({rounds} rounds of ND 8, "
+          f"best of 2 runs each) [{card}]:")
+    for k, (mr, sec, rays) in best.items():
+        print(f"  {k}: {mr:.3f} Mrays/s, {sec * 1e3:.3f} ms a render, "
+              f"{rays} rays a render; each round "
+              f"{[round(r[1] * 1e3, 3) for r in runs[k]]} ms")
+    return {k: {"mrays_per_sec": b[0], "ms": b[1] * 1e3, "rays": b[2],
+                "rounds_ms": [r[1] * 1e3 for r in runs[k]]}
+            for k, b in best.items()}
+
+
+def _fixed_equal(label, got, want) -> None:
+    n_px = int((got.image != want.image).any(axis=-1).sum())
+    print(f"{label} fixed_rng vs the default path: {n_px} pixels differ; "
+          f"wave_rays {got.wave_rays.tolist()}")
+    if n_px or not np.array_equal(got.wave_rays, want.wave_rays):
+        raise AssertionError(f"{label}: not byte-equal to the default path "
+                             f"under fixed_rng")
+
+
+def jax_last_paths(dev, card, key, eng, eng_l, eng_s, vp, s_vp, st0, mask0,
+                   default_best, results, build_log) -> dict:
+    """Phase 6o, the JAX package's last paths on the card at 2560x1440:
+    the fused lit wave 0 (B4 with its feeler on the camera wave), the
+    self-gating compaction (gate_frac), wave0_skippable and cb, and the
+    reference helpers (A12) against the kernels.  eng, eng_l: the default
+    unlit and lit circles_2k Engines (autotuned); eng_s: synthetic_1m_2k's;
+    st0, mask0: phase 3's check chunks of the circles_2k camera wave and
+    their B1 mask;
+    default_best: phase 6's best default render.  Returns each new path's
+    launch counts."""
+    launches = {}
+    P, NP = eng.page_size, eng.pages.num_pages
+    R = st0.shape[1]
+    page_of = _page_of(eng, len(eng.scene.tris) - 1, dev)
+    n_bound = sum(eng_l._compacts_after(w, vp.maxdepth)
+                  for w in range(vp.maxdepth))
+
+    # the fused lit wave 0: B4 with its feeler on the camera wave
+    ones = torch.ones(R // RB, dtype=torch.int32, device=dev)
+    b4 = results[native.TRACE_SHADE_PERLANE.name]
+    cam = {}
+    for fixed in (False, True):
+        args = (st0, eng.ptables, fold_in(key, 0), P, RB, fixed, 1 / 512,
+                ones, LIGHT)
+        got = intersect_perlane.trace_shade_perlane(*args)
+        _require_bitwise(f"B4 lit on the camera wave (fixed_rng {fixed})",
+                         got, intersect_perlane.trace_shade_perlane_plain(
+                             *args))
+        if not fixed:
+            cam.update(
+                ms=_time_ms(lambda: intersect_perlane.trace_shade_perlane(
+                    *args)),
+                plain_ms=_time_plain_ms(
+                    lambda: intersect_perlane.trace_shade_perlane_plain(
+                        *args)),
+                check_bound_ms=_b4_bound(eng, page_of, st0, True)[
+                    "bound_ms"])
+    full0 = _synthetic_wave0(eng, vp, dev)
+    nc = full0.shape[1] // RB
+    fargs = (full0, eng.ptables, fold_in(key, 0), P, RB, False, 1 / 512,
+             torch.ones(nc, dtype=torch.int32, device=dev), LIGHT)
+    cam["ms_full"] = _time_ms(
+        lambda: intersect_perlane.trace_shade_perlane(*fargs))
+    fb = _b4_bound(eng, page_of, full0, True)
+    cam.update(bound_ms_full=fb["bound_ms"], bound_by_full=fb["bound_by"])
+    occ = _occupancy(build_log, "trace_shade_perlane_kernelILb1", 128)
+    cam.update(launch={"blocks": -(-full0.shape[1] // 128), "threads": 128,
+                       **occ})
+    print(f"B4 with the feeler on {N_CHECK_CHUNKS} chunks of the circles_2k "
+          f"camera wave: bitwise equal (live and fixed RNG); kernel "
+          f"{cam['ms']:.4f} ms, plain {cam['plain_ms']:.4f} ms, bound "
+          f"{cam['check_bound_ms']:.4f} ms [{card}]")
+    print(f"time trace_shade_perlane B4 lit, the whole camera wave "
+          f"({full0.shape[1]} rays, all live): {cam['ms_full']:.4f} ms, "
+          f"bound {cam['bound_ms_full']:.4f} ms ({cam['bound_by_full']}); "
+          f"launch {cam['launch']['blocks']} blocks of 128 threads, "
+          f"{occ['registers']} registers a thread, {occ['blocks_per_sm']} "
+          f"blocks an SM, occupancy {occ['occupancy']:.3f} [{card}]")
+    b4["camera_wave"] = cam
+
+    with _knobs(eng_l, wave0_fused_lights=True):
+        fused_fixed = eng_l.render(vp, fixed_rng=True)
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        fused = eng_l.render(vp)
+        torch.cuda.synchronize()
+        launches["fused_lit_wave0"] = counts = _counts()
+    _fixed_equal("circles_2k lit, fused wave 0,", fused_fixed,
+                 eng_l.render(vp, fixed_rng=True))
+    print(f"circles_2k lit through _dispatch(wave0_fused_lights=True): "
+          f"{fused.seconds * 1e3:.3f} ms, {fused.mrays_per_sec:.3f} Mrays/s, "
+          f"wave_rays {fused.wave_rays.tolist()}; launches {counts} [{card}]")
+    want = {"trace_shade_perlane": vp.maxdepth, "compact": n_bound,
+            "expand": n_bound, "cull_mask_exact": 0, "trace_chunks": 0,
+            "shade": 0, "trace_shade_chunks": 0}
+    bad = {k: counts[k] for k, n in want.items() if counts[k] != n}
+    if bad or int(fused.wave_rays[0]) != vp.width * vp.height:
+        raise AssertionError(f"fused lit wave 0: launches {bad}, not "
+                             f"{want}")
+    b4["camera_wave"]["launches"] = counts["trace_shade_perlane"]
+    fused_dm = _metric_turns(card, "circles_2k lit", {
+        "unfused wave 0": (eng_l, vp, {}),
+        "wave0_fused_lights": (eng_l, vp, {"wave0_fused_lights": True})})
+
+    # gate_frac: every boundary eligible, each gated on the device
+    eng_g = Engine(eng.scene, ncompact=-1, gate_frac=GATE_FRAC, device=dev)
+    skips = []
+    meta_fn = eng_mod.compact_meta
+
+    def recording_meta(*args, **kw):
+        out = meta_fn(*args, **kw)
+        skips.append(out[2])
+        return out
+
+    eng_mod.compact_meta = recording_meta
+    try:
+        torch.cuda.synchronize()
+        native.reset_launch_counts()
+        gated = eng_g.render(vp)
+        torch.cuda.synchronize()
+        launches["gate_frac"] = counts = _counts()
+        identity = [bool(s) for s in skips]          # read once, after
+        skips.clear()
+        _fixed_equal(f"circles_2k Engine(ncompact=-1, gate_frac="
+                     f"{GATE_FRAC})", eng_g.render(vp, fixed_rng=True),
+                     eng.render(vp, fixed_rng=True))
+    finally:
+        eng_mod.compact_meta = meta_fn
+    print(f"circles_2k Engine(ncompact=-1, gate_frac={GATE_FRAC}): boundaries "
+          f"that went identity {identity}; {gated.seconds * 1e3:.3f} ms, "
+          f"{gated.mrays_per_sec:.3f} Mrays/s (one render) against the "
+          f"default's best {default_best.seconds * 1e3:.3f} ms, "
+          f"{default_best.mrays_per_sec:.3f} Mrays/s (schedule "
+          f"{eng.ncompact}); launches {counts} [{card}]")
+    nb = vp.maxdepth - 1
+    if counts["compact"] != nb or counts["expand"] != nb \
+            or len(identity) != nb:
+        raise AssertionError(f"gate_frac: {counts['compact']} B3 and "
+                             f"{counts['expand']} B5 launches, not {nb}")
+    gate_dm = _metric_turns(card, "circles_2k unlit, self-gating", {
+        "default (planned schedule)": (eng, vp, {}),
+        f"ncompact=-1, gate_frac={GATE_FRAC}": (eng_g, vp, {})})
+
+    # wave0_skippable and cb on the default Engine
+    base_fixed = eng.render(vp, fixed_rng=True)
+    for label, kw in (("wave0_skippable", {"wave0_skippable": True}),
+                      (f"cb={CB_KNOB}", {"cb": CB_KNOB})):
+        with _knobs(eng, **kw):
+            torch.cuda.synchronize()
+            native.reset_launch_counts()
+            got = eng.render(vp, fixed_rng=True)
+            torch.cuda.synchronize()
+            launches[label] = counts = _counts()
+        _fixed_equal(f"circles_2k {label},", got, base_fixed)
+        missing = [k for k in UNLIT_PATH if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: never launched {missing}")
+    knob_dm = _metric_turns(card, "circles_2k unlit, the wave-0 knobs", {
+        "default": (eng, vp, {}),
+        "wave0_skippable": (eng, vp, {"wave0_skippable": True}),
+        f"cb={CB_KNOB}": (eng, vp, {"cb": CB_KNOB})}, rounds=1)
+
+    # A12: B3/B5 against the numpy oracles at the first boundary (the
+    # unlit render's state after wave 0)
+    pk0 = eng._pinhole_fold(vp, full0[0:3])[1]
+    full1 = eng._union_wave(full0, key, 0, fold_in(key, 0), False,
+                            eng.weight_cutoff, pk0, None, None, RB,
+                            False)[0]
+    Rf = full1.shape[1]
+    cb = compact.pick_cb(Rf)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    meta, total_a, skip, _ = compact.compact_meta(full1[7], full1[11], cb,
+                                                  zero, Rf)
+    dead = compact.make_dead_array(Rf, dev, 1, cb)
+    st_h = full1.cpu().numpy()
+    o_state, o_dead, o_meta, o_total, o_flow, _ = compact.compact_oracle(
+        st_h, dead.cpu().numpy(), cb, 0)
+    out, dead = compact.compact(full1, dead, meta, cb)
+    alive_h, dead_h = st_h[7] != 0, st_h[11] != 0
+    y = compact.expand(out[8:12].contiguous(), dead,
+                       torch.stack([full1[7], full1[11]]), meta, cb)
+    o_y = compact.expand_oracle(o_state[8:16], o_dead, st_h[7], st_h[11],
+                                o_meta, cb)
+    torch.cuda.synchronize()
+    lanes = alive_h | dead_h
+    ok = (np.array_equal(meta.cpu().numpy(), o_meta)
+          and int(total_a) == o_total and bool(skip) == o_flow
+          and np.array_equal(out.cpu().numpy().view(np.uint32),
+                             o_state.view(np.uint32))
+          and np.array_equal(dead.cpu().numpy().view(np.uint32),
+                             o_dead.view(np.uint32))
+          and np.array_equal(y.cpu().numpy().view(np.uint32)[:, lanes],
+                             o_y[:4].view(np.uint32)[:, lanes]))
+    print(f"B3/B5 at the first boundary of circles_2k ({int(alive_h.sum())} "
+          f"live, {int(dead_h.sum())} retired of {Rf} lanes, cb {cb}, "
+          f"total_a {int(total_a)}): equal to compact_oracle/expand_oracle "
+          f"{ok}")
+    if not ok:
+        raise AssertionError("B3/B5 differ from the numpy oracles")
+
+    # A12: every page the exact slab test finds for a ray is in its chunk's
+    # B1 mask, on circles_2k's and synthetic_1m_2k's camera waves
+    def misses(ot, dt, valid, blo, bhi, mask):
+        hits = cull.ray_aabb_hits(ot.T.contiguous(), dt.T.contiguous(),
+                                  blo, bhi) & valid[:, None]
+        miss = hits.reshape(-1, RB, hits.shape[1]) & ~mask[:, None, :]
+        return int(hits.sum()), int(miss.sum())
+
+    n_hit, n_miss = misses(st0[0:3], st0[3:6], st0[7] != 0, eng.aabb_lo,
+                           eng.aabb_hi, mask0)
+    s0 = _synthetic_wave0(eng_s, s_vp, dev)
+    s_lo = torch.from_numpy(eng_s.pages.aabb_lo).to(dev)
+    s_hi = torch.from_numpy(eng_s.pages.aabb_hi).to(dev)
+    s_valid = s0[7] != 0
+    s_mask, _ = cull.cull_mask_exact(s0[0:3], s0[3:6], s_valid, s_lo, s_hi,
+                                     RB)
+    hit_chunks = torch.nonzero(s_mask.any(dim=1)).squeeze(1)
+    pick = hit_chunks[torch.linspace(0, hit_chunks.numel() - 1,
+                                     N_SPHERE_CHUNKS,
+                                     device=dev).round().long()]
+    srays = (pick[:, None] * RB + torch.arange(RB, device=dev)).reshape(-1)
+    s_hit, s_miss = misses(s0[0:3, srays], s0[3:6, srays], s_valid[srays],
+                           s_lo, s_hi, s_mask[pick])
+    print(f"ray_aabb_hits within B1's masks: circles_2k {N_CHECK_CHUNKS} "
+          f"chunks, {n_hit} ray-page hits, {n_miss} missing from the mask; "
+          f"synthetic_1m_2k {N_SPHERE_CHUNKS} chunks ({s_lo.shape[0]} "
+          f"pages), {s_hit} hits, {s_miss} missing")
+    if n_miss or s_miss or not (n_hit and s_hit):
+        raise AssertionError("B1 dropped a page that a ray hits")
+    results[native.CULL.name]["exact_hits"] = {
+        "circles_2k": [n_hit, n_miss], "synthetic_1m_2k": [s_hit, s_miss]}
+    return {"launches": launches, "fused": fused_dm, "gate": gate_dm,
+            "knobs": knob_dm, "identity": identity}
+
+
 def distributed_only() -> int:
     """Phase 6n alone, after the card's line and phase 2's builds."""
     if not torch.cuda.is_available():
@@ -2839,24 +3166,6 @@ def main() -> int:
         return _bound(n * 128 + need["page_bytes"],
                       need["flops"] + need["valid"] * SHADE_FLOPS)
 
-    def b4_bound(n, state, lit_=False):
-        # what B4's rays need at least: bytes, the state in and out, the
-        # page boxes and the records of every page that holds a found
-        # triangle; operations, every valid ray's slab test of every page,
-        # the hit tests of its found triangle's page and its shade, and,
-        # lit, every hit ray's feeler: a slab test of every page and one
-        # hit test
-        valid = state[7] != 0
-        ids = intersect_perlane.trace_perlane(state[0:3], state[3:6],
-                                              state[7], tb, P, RB)[1]
-        hits = int((valid & (ids != 0)).sum())
-        pages = torch.unique(page_of_c[ids[valid & (ids != 0)].long()])
-        return _bound(n * 128 + NP * 32 + pages.numel() * P * 96,
-                      int(valid.sum()) * (NP * SLAB_FLOPS + SHADE_FLOPS)
-                      + hits * P * HIT_FLOPS
-                      + (hits * (NP * SLAB_FLOPS + HIT_FLOPS) if lit_
-                         else 0))
-
     alive = st0[7] != 0.0
     args1 = (st0[0:3], st0[3:6], alive, eng.aabb_lo, eng.aabb_hi, RB)
     mask_k, tmin_k = cull.cull_mask_exact(*args1)
@@ -2907,7 +3216,7 @@ def main() -> int:
         ms=_time_ms(lambda: intersect_perlane.trace_shade_perlane(*args4)),
         plain_ms=_time_plain_ms(
             lambda: intersect_perlane.trace_shade_perlane_plain(*args4)),
-        **b4_bound(st0.shape[1], st1_k))
+        **_b4_bound(eng, page_of_c, st1_k))
     print(f"B4 on {N_CHECK_CHUNKS} chunks: max |diff| {err}; "
           f"{int((st2_k[7] != 0).sum())} rays live after wave 1")
     union_flags(eng, st1_k, key, results)
@@ -2986,7 +3295,7 @@ def main() -> int:
         ms=_time_ms(lambda: intersect_perlane.trace_shade_perlane(*args4l)),
         plain_ms=_time_plain_ms(
             lambda: intersect_perlane.trace_shade_perlane_plain(*args4l)),
-        **b4_bound(st0.shape[1], st1l_k, lit_=True),
+        **_b4_bound(eng, page_of_c, st1l_k, lit_=True),
         feeler=True, unlit=unlit4)
     print(f"B4 with the shadow feeler on {N_CHECK_CHUNKS} chunks: bitwise "
           f"equal; {hits1} hit rays ran the feeler")
@@ -3068,7 +3377,7 @@ def main() -> int:
                 1 / 512, zero_origin=True)), b2_bound(R, need_f)),
         native.TRACE_SHADE_PERLANE.name: (_time_ms(
             lambda: intersect_perlane.trace_shade_perlane(*fargs4)),
-            b4_bound(R, full1)),
+            _b4_bound(eng, page_of_c, full1)),
     }
     for name, (ms, bound) in full_ms.items():
         results[name].update(ms_full=ms, bound_ms_full=bound["bound_ms"],
@@ -3112,7 +3421,7 @@ def main() -> int:
         "B4 with light": (results[native.TRACE_SHADE_PERLANE.name],
                           _time_ms(lambda: intersect_perlane
                                    .trace_shade_perlane(*fargs4l)),
-                          b4_bound(R, full1l, lit_=True)),
+                          _b4_bound(eng, page_of_c, full1l, lit_=True)),
     }
     for name, (res, ms, bound) in lit_full.items():
         res.update(ms_full=ms, bound_ms_full=bound["bound_ms"],
@@ -3846,6 +4155,13 @@ def main() -> int:
     # shard, the kernels built above (each rank loads the library)
     dist_launches = distributed_phase(card)
 
+    _phase("6o the JAX package's last paths")
+    # 6o. the fused lit wave 0, gate_frac, wave0_skippable, cb and the
+    # reference helpers against the kernels
+    last_jax = jax_last_paths(
+        dev, card, key, eng, eng_l, eng_s, vp, s_vp, st0, mask_k,
+        min(runs["default"], key=lambda r: r.seconds), results, built["log"])
+
     _phase("7 profile")
     # 7. where the time of one circles_2k and one synthetic_1m_2k render goes
     for name, e, pvp in (("default", eng, vp), ("ncompact=0", eng0, vp),
@@ -3907,7 +4223,8 @@ def main() -> int:
              "bounce_chunk": last_launches["bounce_chunk"],
              "sharded": last_launches["sharded"],
              "distributed": dist_launches["render"],
-             "distributed_trace": dist_launches["trace"]}
+             "distributed_trace": dist_launches["trace"],
+             **last_jax["launches"]}
     main_path = {"trace_shade_streamed": "streamed",
                  "trace_streamed": "streamed_lit",
                  "nearest_hit": "wavefront",

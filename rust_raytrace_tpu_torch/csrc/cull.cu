@@ -39,25 +39,25 @@
 // over the warp in 16 + 15 shuffles for 16 pages (the warp's OR of the hit
 // bits is one __reduce_or_sync a tile), and after one barrier the first
 // warp folds the block's warps, a page a lane.  The min of the entries
-// does not depend on order (up to the sign of a zero entry, which B13
-// writes as +0 as the TPU kernel's one-hot sum does), so the result is
-// deterministic.  B13 runs B1's instance (FULL where B1 takes it) and B1's
-// vote that skips a chunk with no valid ray (its keys all BIGT: count 0,
-// plist in page order, ptmin BIGT).  Its keys and hit bits (one warp
-// ballot a tile, no atomics) go to shared memory; a warp scan of the
-// bits' popcounts gives the hit count h and each page's hit or missed
-// pages before it.  Where every hit key is below BIGT (a hit key is the
-// least max(tlo, 0) with a missing ray's BIGT in the min, so it reaches
-// BIGT only where the rays that hit the page all enter it beyond), a
-// missed or padding page takes rank h + the missed pages before it, with
-// no comparison, and the hit pages, compacted in page order, rank among
-// the h hit keys only: what the all-pairs (key, page) rank gives there.  A
-// chunk whose vote finds a hit key not below BIGT (equal to it, beyond
-// it, or NaN) takes the all-pairs rank over all NPpad keys instead, in
-// the same kernel.  Both compare floats, not their bits, so that -0 and
-// +0 tie as in the TPU kernel, and write plist and ptmin once each.  The
-// TPU's bank pre-slab and 128-page padding only saved vector work on that
-// chip and are not carried over: every page is tested.
+// does not depend on order (up to the sign of a zero entry, which B1 and
+// B13 write as +0, as the TPU kernel's max(tlo, 0) and one-hot sum do),
+// so the result is deterministic.  B13 runs B1's instance (FULL where B1
+// takes it) and B1's vote that skips a chunk with no valid ray (its keys all
+// BIGT: count 0, plist in page order, ptmin BIGT).  Its keys and hit bits
+// (one warp ballot a tile, no atomics) go to shared memory; a warp scan of
+// the bits' popcounts gives the hit count h and each page's hit or missed
+// pages before it.  Where every hit key is below BIGT (a hit key is the least
+// max(tlo, 0) with a missing ray's BIGT in the min, so it reaches BIGT only
+// where the rays that hit the page all enter it beyond), a missed or padding
+// page takes rank h + the missed pages before it, with no comparison, and
+// the hit pages, compacted in page order, rank among the h hit keys only:
+// what the all-pairs (key, page) rank gives there.  A chunk whose vote finds
+// a hit key not below BIGT (equal to it, beyond it, or NaN) takes the
+// all-pairs rank over all NPpad keys instead, in the same kernel.  Both
+// compare floats, not their bits, so that -0 and +0 tie as in the TPU
+// kernel, and write plist and ptmin once each.  The TPU's bank pre-slab and
+// 128-page padding only saved vector work on that chip and are not carried
+// over: every page is tested.
 #include "common.cuh"
 
 namespace {
@@ -234,7 +234,9 @@ cull_kernel(const float* __restrict__ ot, const float* __restrict__ dt,
     if ((int)threadIdx.x < nt) {
       const long long out = (long long)chunk * np + p0 + threadIdx.x;
       mask[out] = any ? 1 : 0;
-      tmin[out] = any ? m : rt::inf_f();
+      // a ray entering at -0 (its origin on the box's face) enters at +0,
+      // as XLA's max(tlo, 0) gives it: once a page, after the fold
+      tmin[out] = any ? (m == 0.0f ? 0.0f : m) : rt::inf_f();
     }
   }
 }

@@ -22,7 +22,12 @@ scene with a light (`scene.lights`), or a debug render, runs wave 0
 unfused: cull (B1) -> sort -> union trace to winner rows (B6) -> (lit:
 `shadow_mask`, the shadow rays through B1, a sort and B6 with
 self-exclusion) -> shade (B8); a lit scene's bounce waves run B4 with the
-shadow feeler fused.
+shadow feeler fused.  The JAX loop's wave-0 knobs, which `utils.devbench`
+passes to `_dispatch`: `wave0_fused_lights` runs a lit wave 0 through B4
+with its feeler too, `wave0_skippable` gives B2 chunk_live flags, and `cb`
+sets the compaction chunk.  With `Engine(gate_frac=)` a boundary that the
+schedule allows compacts only when its survivors are at most that share of
+the state's content (`compact_meta`), decided on the device.
 
 A scene past the resident tables' cap (`table_slot_cap` triangle slots)
 takes the streamed regime by default: no cull and no pinhole fold; every wave, wave 0
@@ -477,10 +482,9 @@ class Engine(RayCaster):
     from every hit; see `shadow_mask`); device: where the scene and the
     rays live ("cuda" runs the kernels; "cpu" their plain versions).  The
     other arguments mean what they mean for the JAX Engine, with its
-    defaults.  The JAX Engine's `nbuf`, `interpret`, `gate_frac`,
-    `wave0_fused_lights`, `wave0_skippable` and `profile_skip` are TPU
-    means or were measured out on the TPU; this Engine takes none of them
-    (README, "The PyTorch/CUDA port").
+    defaults.  The JAX Engine's `nbuf`, `interpret` and `profile_skip` are
+    TPU means; this Engine takes none of them (README, "The PyTorch/CUDA
+    port"), and neither Engine takes the wave-0 knobs of `_dispatch`.
 
     weight_cutoff: a ray whose throughput falls to it retires (0.0 under
     fixed_rng).  auto_pages: the page size adapts to the scene
@@ -504,7 +508,11 @@ class Engine(RayCaster):
     decay (`plan_boundaries`), as the JAX Engine does on the TPU; an int n
     compacts after the first n waves (negative: after every wave but the
     last); a sequence of bools says per boundary.  Every schedule renders
-    the same image bits.
+    the same image bits.  gate_frac: None (the default), or a boundary that
+    the schedule lets compact compacts only when its padded survivors are
+    at most that share of the state's current content (`compact_meta`),
+    decided on the device with no host sync; the autotune still plans the
+    schedule.  The same image bits either way.
 
     bank_major: in the streamed regime, the unlit waves from 2 on run the
     bank-major sweep (B12) instead of the bank-worklist kernel (B9); the
@@ -520,7 +528,7 @@ class Engine(RayCaster):
 
     def __init__(self, scene: Scene, page_size: int = 56,
                  ray_chunk: int = 1024, bounce_chunk: int = 0,
-                 ncompact=None, streamed=None,
+                 ncompact=None, gate_frac=None, streamed=None,
                  table_slot_cap: int = TABLE_SLOT_CAP,
                  bank_major: bool = False, compact: bool = True,
                  exact_cull: bool = True, weight_cutoff: float = 1 / 512,
@@ -538,6 +546,7 @@ class Engine(RayCaster):
         elif isinstance(ncompact, (list, tuple)):
             ncompact = tuple(bool(b) for b in ncompact)
         self.ncompact = ncompact
+        self.gate_frac = gate_frac
         n_tris = max(len(scene.tris) - 1, 1)
         if auto_pages and n_tris <= table_slot_cap:
             page_size = auto_page_size(n_tris, page_size)
@@ -645,7 +654,10 @@ class Engine(RayCaster):
 
     def _render_waves(self, state, key, maxdepth: int, fixed_rng: bool, pk0,
                       ray_chunk=None, bounce_chunk=None, ncompact=None,
-                      want_primary: bool = False):
+                      want_primary: bool = False,
+                      wave0_fused_lights: bool = False,
+                      wave0_skippable: bool = False, cb=None,
+                      gate_frac=None):
         """The wave loop of _render_device_compact.  Returns (accumulated
         color [3, R] in the original lane order, per-wave live counts as
         tensors, primary [2, R] rows (t, id) of wave 0 or None, cull0 =
@@ -654,13 +666,26 @@ class Engine(RayCaster):
         the resident regime, its page lists.  ray_chunk and bounce_chunk
         default to the Engine's.  No host sync: counts, offsets and
         prefixes stay on the device (the plain versions on the CPU do
-        sync)."""
+        sync).
+
+        The JAX loop's wave-0 knobs: wave0_fused_lights runs a lit wave 0
+        of the resident regime (no primary rows wanted) through B4 with
+        its shadow feeler, at the wave-0 ray chunk, in place of B1, the
+        sort, B6, the shadow pass and B8 (its shadow jitter is B4's hash,
+        not jax.random's draw, so live bits differ from the unfused
+        wave's; fixed_rng bits do not); wave0_skippable gives B2 all-ones
+        chunk_live flags on wave 0.  cb: the compaction chunk before
+        `pick_cb` fits it to the rays (None: DEFAULT_CB).  gate_frac: the
+        self-gating of each boundary (`compact_meta`; `_dispatch` passes
+        the Engine's, walk_one_ray none, as in JAX)."""
         R = state.shape[1]
         RB = self.ray_chunk if ray_chunk is None else ray_chunk
         rb_bounce = (self.bounce_chunk if bounce_chunk is None
                      else bounce_chunk) or RB
         _check_chunks(R, RB, rb_bounce)
-        cb = pick_cb(R)
+        cb = pick_cb(R) if cb is None else pick_cb(R, cb)
+        fused0 = (wave0_fused_lights and self.light is not None
+                  and self.ptables is not None and not want_primary)
         wc = 0.0 if fixed_rng else self.weight_cutoff
         dev = state.device
         dead_arr = dead_base = None
@@ -682,12 +707,13 @@ class Engine(RayCaster):
                 state, rows = self._streamed_wave(
                     state, key, wave, seed, fixed_rng, wc, chunk_live, rb_w,
                     want_primary and wave == 0)
-            elif wave == 0 or self.ptables is None:
+            elif (wave == 0 and not fused0) or self.ptables is None:
                 state, rows, cull = self._union_wave(
                     state, key, wave, seed, fixed_rng, wc, pk0,
                     chunk_live if wave else None,
                     grid_live if wave else None, rb_w,
-                    want_primary and wave == 0)
+                    want_primary and wave == 0,
+                    skippable=wave0_skippable and wave == 0)
                 if want_primary and wave == 0:
                     cull0 = cull
             else:
@@ -705,7 +731,8 @@ class Engine(RayCaster):
                 dead_arr = make_dead_array(R, dev, n_bound, cb)
                 dead_base = torch.zeros((), dtype=torch.int32, device=dev)
             meta, total_a, skip, dead_end = compact_meta(
-                state[ROW_ALIVE], state[ROW_DEAD], cb, dead_base, R)
+                state[ROW_ALIVE], state[ROW_DEAD], cb, dead_base, R,
+                prefix=prefix, gate_frac=gate_frac)
             masks = torch.stack([state[ROW_ALIVE], state[ROW_DEAD]])
             state, dead_arr = compact(state, dead_arr, meta, cb,
                                       grid_live=prefix)
@@ -732,15 +759,16 @@ class Engine(RayCaster):
 
     def _union_wave(self, state, key, wave: int, seed, fixed_rng: bool,
                     wc: float, pk0, chunk_live, grid_live, RB: int,
-                    want_rows: bool):
+                    want_rows: bool, skippable: bool = False):
         """One wave over the union tables: the resident regime's wave 0, and
         every wave of a scene past the cap with streamed=False.  Cull (B1),
         a stable sort, then B2, or with a light, or when the rows are wanted
         (debug), B6 to winner rows, the shadow pass (lit) and B8.  Wave 0
         runs on the folded pages when pk0 is given, and takes no skip flags
-        (chunk_live and grid_live None: B1 and B2 without them); a bounce
-        wave's retired chunks and those past the survivor prefix pass
-        through.  Returns (state, rows or None, (counts, plist))."""
+        (chunk_live and grid_live None: B1 and B2 without them; skippable
+        gives B2 all-ones flags); a bounce wave's retired chunks and those
+        past the survivor prefix pass through.  Returns (state, rows or
+        None, (counts, plist))."""
         P = self.page_size
         alive = state[ROW_ALIVE] != 0.0
         mask, tmin = cull_mask_exact(state[0:3], state[3:6], alive,
@@ -750,10 +778,13 @@ class Engine(RayCaster):
         zo = wave == 0 and pk0 is not None
         pk = pk0 if zo else self.PK
         if self.light is None and not want_rows:
+            live = chunk_live
+            if skippable and live is None:
+                live = torch.ones(state.shape[1] // RB, dtype=torch.int32,
+                                  device=state.device)
             state = trace_shade_chunks(state, pk, counts, plist, ptmin, seed,
                                        P, RB, fixed_rng, wc, zero_origin=zo,
-                                       chunk_live=chunk_live,
-                                       grid_live=grid_live)
+                                       chunk_live=live, grid_live=grid_live)
             return state, None, (counts, plist)
         # unfused: the shadow pass (lit) runs between trace and shade, and
         # debug keeps the rows
@@ -912,13 +943,18 @@ class Engine(RayCaster):
         return quantum * spp // math.gcd(quantum, spp)
 
     def _dispatch(self, maxdepth: int, spp: int, o, d, alive0, key,
-                  fixed_rng: bool, debug: bool, quant: bool, pk0):
+                  fixed_rng: bool, debug: bool, quant: bool, pk0,
+                  wave0_fused_lights: bool = False,
+                  wave0_skippable: bool = False, cb=None):
         """The device render of prepared rays (JAX: `_dispatch_device`),
         shared by render(), render_banded() and each shard of
         render_sharded(): the compacted or the legacy wave loop, then on
         the device the box filter and u8 quantization where quant.  Returns
         (image [3, R] float32 or [3, R // spp] u8, per-wave live counts as
-        tensors, primary rows or None, cull0)."""
+        tensors, primary rows or None, cull0).  wave0_fused_lights,
+        wave0_skippable and cb go to the compacted loop (`_render_waves`),
+        as `utils.devbench` passes them to the JAX loop; the legacy loop
+        takes none of them."""
         cull0 = None
         if self._use_compact():
             R = o.shape[1]
@@ -928,7 +964,10 @@ class Engine(RayCaster):
                  torch.zeros((STATE_ROWS - ROW_ACC, R), dtype=torch.float32,
                              device=o.device)], dim=0)
             img, wave_counts, primary, cull0 = self._render_waves(
-                state, key, maxdepth, fixed_rng, pk0, want_primary=debug)
+                state, key, maxdepth, fixed_rng, pk0, want_primary=debug,
+                wave0_fused_lights=wave0_fused_lights,
+                wave0_skippable=wave0_skippable, cb=cb,
+                gate_frac=self.gate_frac)
         else:
             img, wave_counts, primary = self._render_legacy(
                 o, d, alive0, key, maxdepth, fixed_rng, pk0, debug)

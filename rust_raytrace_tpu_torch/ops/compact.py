@@ -7,8 +7,9 @@ device, with no host sync), `compact_pallas` (B3) and `expand_pallas` (B5).
 tensors and `compact_plain` / `expand_plain` on CPU tensors.  The bucketed
 variants (B14: `compact_meta_buckets`, `compact_buckets` and
 `expand_buckets`, kernels in `csrc/compact_buckets.cu`) are here too; no
-render path calls them, as in the JAX package.  The JAX module's
-`gate_frac` self-gating (measured out there) is not carried.
+render path calls them, as in the JAX package.  So are the JAX module's
+numpy oracles, `compact_oracle`, `expand_oracle`, `compact_oracle_buckets`
+and `expand_oracle_buckets`: the port keeps its own copies.
 
 After a wave, compaction moves each chunk's surviving rays (alive row set)
 to a dense prefix of a fresh state array, in chunk order and lane order
@@ -20,9 +21,14 @@ and lane, sees the JAX package's layout exactly (ROADMAP C3).  At the end,
 `expand` walks the boundaries backward and puts every ray's payload back at
 its original lane.  When the padded survivors would not fit in R lanes, the
 boundary becomes an identity pass-through (column M_IDENT) and harvests
-nothing; the retired flag is cumulative, so no ray is lost.
+nothing; the retired flag is cumulative, so no ray is lost.  With
+`gate_frac` a boundary also becomes the identity when its padded survivors
+exceed that share of the state's current content (`compact_meta`): the
+wave loop decides on the device, with no host sync, whether a boundary
+pays.
 """
 
+import numpy as np
 import torch
 
 from ..utils import native
@@ -66,15 +72,23 @@ def pick_cb(R: int, cb: int = DEFAULT_CB) -> int:
     return max(cb, ALIGN)
 
 
-def compact_meta(alive, dead, cb: int, dead_base, R: int):
+def compact_meta(alive, dead, cb: int, dead_base, R: int, prefix=None,
+                 gate_frac=None):
     """Per-chunk counts and offsets of one boundary.
 
     alive, dead: [R] (nonzero = set); dead_base: int32 scalar tensor, the
     dead array's first free lane.  Returns (meta [R // cb, META_COLS] int32,
     total_a, skip, dead_end): total_a the lanes of the padded survivor
-    prefix, skip whether the boundary overflows (total_a > R) and becomes
-    an identity pass-through (column M_IDENT), dead_end = dead_base + this
-    boundary's padded dead lanes.  All tensors stay on alive's device.
+    prefix, skip whether the boundary becomes an identity pass-through
+    (column M_IDENT), dead_end = dead_base + this boundary's padded dead
+    lanes.  All tensors stay on alive's device.
+
+    The boundary skips when it overflows (total_a > R) and, with gate_frac
+    set, when it would not pay: total_a > gate_frac * prefix, prefix the
+    int32 scalar tensor of the lanes the state's content spans (None: R).
+    Both sides of that comparison are float32, as in the JAX package:
+    gate_frac rounds to float32 first and the product rounds in float32
+    (a float64 product flips the decision at the edge).
     """
     NC = R // cb
     cnt_a = (alive.reshape(NC, cb) != 0).sum(dim=1, dtype=torch.int32)
@@ -89,6 +103,12 @@ def compact_meta(alive, dead, cb: int, dead_base, R: int):
     total_a = cs_a[-1]
     dead_end = base + cs_d[-1]
     skip = total_a > R
+    if gate_frac is not None:
+        pref_f = (torch.full((), R, dtype=torch.float32, device=alive.device)
+                  if prefix is None else prefix.to(torch.float32))
+        frac = torch.full((), float(np.float32(gate_frac)),
+                          dtype=torch.float32, device=alive.device)
+        skip = skip | (total_a.to(torch.float32) > frac * pref_f)
     ident = skip.to(torch.int32).expand(NC)
     meta = torch.stack([cnt_a, pad_a // ALIGN, off_a, cnt_d, pad_d // ALIGN,
                         off_d, ident, torch.zeros_like(cnt_a)], dim=1)
@@ -224,6 +244,72 @@ def _check(dev, R, cb, meta, grid_live):
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+# numpy oracles of one boundary (the JAX module's, copied): a chunk at a
+# time, in the order the layout is defined, for differential tests.
+
+def compact_oracle(state, dead_arr, cb: int, dead_base: int):
+    """numpy reference of one forward compaction.  state: [16, R];
+    dead_arr: [8, RD], the payload rows 8..15 of retired rays.  Returns
+    (new_state, new_dead, meta, total_a, overflow, dead_end).
+
+    On an overflowing (identity) boundary it copies the whole state, where
+    `compact` copies only the chunks that hold a live or retired ray and
+    leaves the others zero: the two agree on every live and retired lane,
+    not on an identity boundary's empty chunks."""
+    state = np.asarray(state)
+    R = state.shape[1]
+    NC = R // cb
+    alive = state[ROW_ALIVE] != 0
+    dead = state[ROW_DEAD] != 0
+    new_state = np.zeros_like(state)
+    new_dead = np.array(dead_arr, copy=True)
+    meta = np.zeros((NC, META_COLS), np.int32)
+    off_a = 0
+    off_d = int(dead_base)
+    for c in range(NC):
+        sl = slice(c * cb, (c + 1) * cb)
+        ia = np.nonzero(alive[sl])[0] + c * cb
+        idd = np.nonzero(dead[sl])[0] + c * cb
+        cnt_a, cnt_d = len(ia), len(idd)
+        pad_a = -(-cnt_a // ALIGN) * ALIGN
+        pad_d = -(-cnt_d // ALIGN) * ALIGN
+        meta[c] = [cnt_a, pad_a // ALIGN, off_a,
+                   cnt_d, pad_d // ALIGN, off_d, 0, 0]
+        if off_a + cnt_a <= R:
+            new_state[:, off_a:off_a + cnt_a] = state[:, ia]
+            # survivors do not carry the spare rows 12..15
+            new_state[ROW_CODE:, off_a:off_a + cnt_a] = 0.0
+        new_dead[:, off_d:off_d + cnt_d] = state[ROW_ACC:ROW_ACC
+                                                 + PAYLOAD_ROWS, idd]
+        off_a += pad_a
+        off_d += pad_d
+    overflow = off_a > R
+    if overflow:
+        # identity pass-through (M_IDENT): nothing moves, nothing harvested
+        meta[:, M_IDENT] = 1
+        new_state = state.copy()
+        new_dead = np.array(dead_arr, copy=True)
+    return new_state, new_dead, meta, off_a, overflow, off_d
+
+
+def expand_oracle(y, dead_arr, alive, dead, meta, cb: int):
+    """numpy reference of one boundary's inverse for the 8-row payload:
+    y [8, R] in post-compaction order, alive and dead [R] the masks before
+    the boundary.  Returns [8, R], zero on the lanes that are neither."""
+    y = np.asarray(y)
+    R = y.shape[1]
+    out = np.zeros((PAYLOAD_ROWS, R), y.dtype)
+    for c in range(R // cb):
+        sl = slice(c * cb, (c + 1) * cb)
+        ia = np.nonzero(np.asarray(alive[sl]) != 0)[0] + c * cb
+        idd = np.nonzero(np.asarray(dead[sl]) != 0)[0] + c * cb
+        off_a = meta[c, M_OFF_A]
+        off_d = meta[c, M_OFF_D]
+        out[:, ia] = y[:, off_a:off_a + len(ia)]
+        out[:, idd] = np.asarray(dead_arr)[:, off_d:off_d + len(idd)]
+    return out
 
 
 # The bucketed ("ray sorting") variant, B14: survivors grouped bucket-major
@@ -396,3 +482,71 @@ def _check_buckets(dev, R, cb, meta):
                    f"dividing R = {R}")
     native.check_tensor("meta", meta, dev, (R // cb, META9_COLS),
                         torch.int32)
+
+
+def compact_oracle_buckets(state, dead_arr, cb: int, dead_base: int):
+    """numpy reference of one bucketed forward compaction.  Returns
+    (new_state, new_dead, meta, total_a, overflow, dead_end); a segment
+    that would end past R is not written."""
+    state = np.asarray(state)
+    R = state.shape[1]
+    NC = R // cb
+    code = state[ROW_CODE]
+    new_state = np.zeros_like(state)
+    new_dead = np.array(dead_arr, copy=True)
+    meta = np.zeros((NC, META9_COLS), np.int32)
+    # the bucket-major bases
+    pad_q = np.zeros((NC, NB), np.int64)
+    for c in range(NC):
+        sl = code[c * cb:(c + 1) * cb]
+        for q in range(NB):
+            cnt = int((sl == 2 + q).sum())
+            pad_q[c, q] = -(-cnt // ALIGN) * ALIGN
+    base = np.concatenate([[0], np.cumsum(pad_q.sum(axis=0))])[:NB]
+    off_d = int(dead_base)
+    offs = base.copy().astype(np.int64)
+    for c in range(NC):
+        sl = slice(c * cb, (c + 1) * cb)
+        codes_c = code[sl]
+        busy = 0
+        for q in range(NB):
+            idx = np.nonzero(codes_c == 2 + q)[0] + c * cb
+            cnt = len(idx)
+            pad = -(-cnt // ALIGN) * ALIGN
+            meta[c, 3 * q:3 * q + 3] = [cnt, pad // ALIGN, offs[q]]
+            if offs[q] + cnt <= R:
+                new_state[:, offs[q]:offs[q] + cnt] = state[:, idx]
+            offs[q] += pad
+            busy += cnt
+        idd = np.nonzero(codes_c == 1)[0] + c * cb
+        cnt_d = len(idd)
+        pad_d = -(-cnt_d // ALIGN) * ALIGN
+        meta[c, M9_DEAD:M9_DEAD + 3] = [cnt_d, pad_d // ALIGN, off_d]
+        new_dead[:, off_d:off_d + cnt_d] = state[ROW_ACC:ROW_ACC
+                                                 + PAYLOAD_ROWS, idd]
+        off_d += pad_d
+        busy += cnt_d
+        meta[c, M9_BUSY] = 1 if busy else 0
+    total_a = int(base[NB - 1] + pad_q[:, NB - 1].sum())
+    overflow = total_a > R
+    return new_state, new_dead, meta, total_a, overflow, off_d
+
+
+def expand_oracle_buckets(y, dead_arr, code, meta, cb: int):
+    """numpy reference of one bucketed boundary's inverse: y [8, R] in
+    post-compaction order, code the [R] (or [1, R]) codes before the
+    boundary.  Returns [8, R], zero on gap lanes."""
+    y = np.asarray(y)
+    code = np.asarray(code).reshape(-1)
+    R = y.shape[1]
+    out = np.zeros((PAYLOAD_ROWS, R), y.dtype)
+    for c in range(R // cb):
+        codes_c = code[c * cb:(c + 1) * cb]
+        for q in range(NB):
+            idx = np.nonzero(codes_c == 2 + q)[0] + c * cb
+            off = meta[c, 3 * q + 2]
+            out[:, idx] = y[:, off:off + len(idx)]
+        idd = np.nonzero(codes_c == 1)[0] + c * cb
+        off_d = meta[c, M9_DEAD + 2]
+        out[:, idd] = np.asarray(dead_arr)[:, off_d:off_d + len(idd)]
+    return out

@@ -7,8 +7,10 @@ Counterpart: `rust_raytrace_tpu/ops/cull_pallas.py:cull_mask_exact_pallas`
 `cull_mask_exact` and `cull_sorted` run the CUDA kernels of `csrc/cull.cu`
 on CUDA tensors and `cull_mask_exact_plain` / `cull_sorted_plain` on CPU
 tensors; chip_smoke.py holds each pair equal on the card.
-`chunk_bounds`, `cull_mask_tmin` and their octant forms are the JAX
-package's `ops/cull.py` functions of the same names, in torch ops.
+`chunk_bounds`, `cull_mask`, `cull_mask_tmin` and their octant forms are
+the JAX package's `ops/cull.py` functions of the same names, in torch ops,
+and so is `ray_aabb_hits`, the exact per-ray slab test that is the oracle
+for the culls' conservativeness.
 """
 
 import torch
@@ -77,6 +79,8 @@ def cull_mask_exact_plain(ot, dt, valid, blo, bhi, ray_chunk: int,
                                     torch.inf)
     if chunk_live is not None:
         mask = mask & (chunk_live != 0)[:, None]
+    # a -0 entry (an origin on the box's face) is +0, as XLA's max(tlo, 0)
+    emin = torch.where(emin == 0.0, 0.0, emin)
     return mask, torch.where(mask, emin, torch.inf)
 
 
@@ -213,6 +217,12 @@ def chunk_bounds(ot, dt, valid, ray_chunk: int):
             torch.where(v, d, -torch.inf).amax(dim=-1).T)
 
 
+def cull_mask(olo, ohi, dlo, dhi, blo, bhi):
+    """[NC, NP] bool: whether some ray of a chunk's bounds can enter a page
+    (the mask half of `cull_mask_tmin`)."""
+    return cull_mask_tmin(olo, ohi, dlo, dhi, blo, bhi)[0]
+
+
 def cull_mask_tmin(olo, ohi, dlo, dhi, blo, bhi):
     """([NC, NP] bool, [NC, NP] float32): whether some ray of a chunk's
     bounds can enter a page, and a lower bound of its entry distance (+inf
@@ -274,3 +284,37 @@ def cull_mask_tmin_octants(olo8, ohi8, dlo8, dhi8, blo, bhi):
     hit = hit8.any(dim=0)
     tmin = torch.where(hit8, tmin8, torch.inf).amin(dim=0)
     return hit, torch.where(hit, tmin, torch.inf)
+
+
+def ray_aabb_hits(o, d, blo, bhi):
+    """[R, NP] bool: the exact slab test of each ray against each box (the
+    test oracle for the culls' conservativeness; the reference's slab test
+    is BoundingBox::collides, raytrace.rs:861-907).  o, d: [R, 3]; blo,
+    bhi: [NP, 3].
+
+    In the JAX package's order of operations: inv = 1/d, +-inf where d is
+    0 (+inf for -0); per axis t = (b - o) * inv, two roundings, no fused
+    multiply-add; an axis with d == 0 admits every t when o lies in the
+    slab (its faces included) and none otherwise; the max of the entries
+    and the min of the exits.  A hit: tmin <= tmax and tmax >= 0.  Runs in
+    blocks of rays, which changes no bit."""
+    R = o.shape[0]
+    NP = blo.shape[0]
+    out = torch.empty((R, NP), dtype=torch.bool, device=o.device)
+    step = max(1, _PLAIN_BLOCK // max(NP, 1))
+    for r0 in range(0, R, step):
+        ob, db = o[r0:r0 + step, None, :], d[r0:r0 + step, None, :]
+        inv = torch.where(db != 0, torch.reciprocal(db),
+                          torch.where(db >= 0, torch.inf, -torch.inf))
+        t1 = (blo[None] - ob) * inv                       # [n, NP, 3]
+        t2 = (bhi[None] - ob) * inv
+        zero = db == 0
+        inside = (ob >= blo[None]) & (ob <= bhi[None])
+        tlo = torch.where(zero, torch.where(inside, -torch.inf, torch.inf),
+                          torch.minimum(t1, t2))
+        thi = torch.where(zero, torch.where(inside, torch.inf, -torch.inf),
+                          torch.maximum(t1, t2))
+        tmin = tlo.amax(dim=-1)
+        tmax = thi.amin(dim=-1)
+        out[r0:r0 + step] = (tmin <= tmax) & (tmax >= 0)
+    return out

@@ -1,10 +1,12 @@
 """The portable nearest hit: a scan over triangle pages with a running
-minimum, in torch ops on any device.
+minimum, in torch ops on any device; and `device_pages`, the packed pages
+on a device.
 
-Counterpart: `rust_raytrace_tpu/ops/intersect_xla.py:nearest_hit_xla`, the
-JAX package's portable path (`WavefrontRenderer` backend "xla").  It is not
-a kernel port: the port's "portable" backend keeps it as the JAX package
-keeps it, a second implementation beside the brute-force kernel (B11,
+Counterpart: `rust_raytrace_tpu/ops/intersect_xla.py` (`device_pages`,
+`nearest_hit_xla`).  `nearest_hit_xla` is the JAX package's portable path
+(`WavefrontRenderer` backend "xla").  It is not a kernel port: the port's
+"portable" backend keeps it as the JAX package keeps it, a second
+implementation beside the brute-force kernel (B11,
 `ops.intersect.nearest_hit`).  Its update rule is its own: a page's least t
 replaces a ray's best only when it is smaller, with no cross-page tie rule,
 so a tie across pages keeps the earlier page's winner.
@@ -23,6 +25,13 @@ from .intersect import PLAIN_PAIRS
 from .pages import (LANE_ID, LANE_N, LANE_NC, LANE_S0, LANE_S0C, LANE_S1,
                     LANE_S1C, LANE_S2, LANE_S2C)
 from .shade import fma, sum3
+
+
+def device_pages(pages, device="cuda"):
+    """The packed pages `pages.PK` ([NP, P, 128] float32) as a tensor on
+    `device`, once a scene: on the card by default, on the CPU only when
+    the caller asks."""
+    return torch.from_numpy(pages.PK).to(device)
 
 
 def _dot(pk, lane: int, v):

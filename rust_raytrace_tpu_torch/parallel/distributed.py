@@ -173,7 +173,7 @@ def engine_fingerprint(engine) -> dict:
             "bounce_chunk": engine.bounce_chunk,
             "page_size": engine.page_size, "streamed": engine.streamed,
             "compact": engine.compact, "exact_cull": engine.exact_cull,
-            "bank_major": engine.bank_major,
+            "bank_major": engine.bank_major, "gate_frac": engine.gate_frac,
             "pinhole_origin": engine.pinhole_origin,
             "weight_cutoff": engine.weight_cutoff, "light": engine.light,
             "tables": _TABLE_DIGESTS[engine]}

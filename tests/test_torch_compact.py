@@ -98,6 +98,28 @@ def test_compact_and_expand_equal_oracles(R, cb, pa, pd, base):
                                   _bits(st[8:16, dead]))
 
 
+@pytest.mark.parametrize("R,cb,pa,pd,base", CASES)
+def test_compact_and_expand_equal_port_oracles(R, cb, pa, pd, base):
+    """The plain versions against the port's own numpy oracles (its copies
+    of the JAX ones), as above."""
+    st = _state(R, pa, pd, 7 * R + cb)
+    dead0 = np.zeros((8, tc.dead_capacity(R)), F32)
+    dead0[:, :base] = 3.0
+    meta, *_ = _meta(st, cb, base)
+    ns, nd = tc.compact_plain(torch.from_numpy(st),
+                              torch.from_numpy(dead0.copy()), meta, cb)
+    os_, od, om, ot, oflow, oend = tc.compact_oracle(st, dead0, cb, base)
+    assert not oflow
+    np.testing.assert_array_equal(meta.numpy(), om)
+    np.testing.assert_array_equal(_bits(ns.numpy()), _bits(os_))
+    np.testing.assert_array_equal(_bits(nd.numpy()), _bits(od))
+    masks = torch.from_numpy(np.stack([st[7], st[11]]))
+    back = tc.expand_plain(ns[8:16].clone(), nd, masks, meta, cb)
+    ref = tc.expand_oracle(ns[8:16].numpy(), nd.numpy(), st[7], st[11],
+                           meta.numpy(), cb)
+    np.testing.assert_array_equal(_bits(back.numpy()), _bits(ref))
+
+
 @pytest.mark.parametrize("R,cb,pa,pd,base,ident", [
     (1024, 128, 0.3, 0.3, 0, False),
     (2048, 512, 0.3, 0.3, 128, False),

@@ -133,6 +133,50 @@ def test_bucketed_overflow(cb, R):
     assert not bits(out)[:, ~keep].any()
 
 
+@pytest.mark.parametrize("cb,R", [(256, 256 * 6), (512, 512 * 3)])
+def test_bucketed_overflow_equals_port_oracle(cb, R):
+    """The overflowing layout of `test_bucketed_overflow` against the port's
+    own numpy oracle (its copy of the JAX one)."""
+    rng = np.random.default_rng(5)
+    st, alive, dead, code = make_state(rng, R, cb, n_oct=8)
+    tm, tta, tov, tde = compact.compact_meta_buckets(
+        torch.from_numpy(code), cb, torch.tensor(0, dtype=torch.int32), R)
+    dead_arr = np.zeros((8, 2 * R), F32)
+    exp_state, exp_dead, exp_meta, exp_ta, exp_ov, exp_de = \
+        compact.compact_oracle_buckets(st, dead_arr, cb, 0)
+    np.testing.assert_array_equal(tm.numpy(), exp_meta)
+    assert (int(tta), bool(tov), int(tde)) == (exp_ta, exp_ov, exp_de)
+    ts, td = compact.compact_buckets(torch.from_numpy(st.copy()),
+                                     torch.from_numpy(dead_arr.copy()), tm, cb)
+    np.testing.assert_array_equal(bits(ts), bits(exp_state))
+    np.testing.assert_array_equal(bits(td), bits(exp_dead))
+
+
+@pytest.mark.parametrize("cb,R,dead_base", CASES)
+def test_bucketed_round_trip_equals_port_oracles(cb, R, dead_base):
+    """The plain versions against the port's numpy oracles on the states of
+    `test_bucketed_round_trip_equals_jax_interpret`, with a zero dead array:
+    the kernel zeroes a dead segment's padding lanes, which the oracle
+    leaves as they were."""
+    rng = np.random.default_rng(cb + R + dead_base)
+    st, alive, dead, code = make_state(rng, R, cb)
+    dead_arr = np.zeros((8, 2 * R), F32)
+    tm, *_ = compact.compact_meta_buckets(
+        torch.from_numpy(code), cb, torch.tensor(dead_base, dtype=torch.int32),
+        R)
+    ts, td = compact.compact_buckets(torch.from_numpy(st.copy()),
+                                     torch.from_numpy(dead_arr.copy()), tm, cb)
+    os_, od, om, *_ = compact.compact_oracle_buckets(st, dead_arr, cb,
+                                                     dead_base)
+    np.testing.assert_array_equal(tm.numpy(), om)
+    np.testing.assert_array_equal(bits(ts), bits(os_))
+    np.testing.assert_array_equal(bits(td), bits(od))
+    y = ts[compact.ROW_ACC:].contiguous()
+    out = compact.expand_buckets(y, td, torch.from_numpy(code)[None], tm, cb)
+    ref = compact.expand_oracle_buckets(y.numpy(), td.numpy(), code, om, cb)
+    np.testing.assert_array_equal(bits(out), bits(ref))
+
+
 @pytest.mark.parametrize("name", ["NB", "META9_COLS", "M9_DEAD", "M9_BUSY"])
 def test_bucket_constants_equal_jax(name):
     assert getattr(compact, name) == getattr(jcompact, name)

@@ -1007,3 +1007,58 @@ def test_nearest_hit_matches_the_oracle(dev):
     assert (i == id_m).mean() >= 0.999
     both = np.isfinite(t_m) & np.isfinite(t)
     np.testing.assert_allclose(t[both], t_m[both], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("fixed", [True, False])
+def test_fused_lit_camera_wave_matches_plain(wave0, fixed):
+    """B4 with its feeler on the camera wave (the fused lit wave 0): the
+    pinhole-folded state's true origins, every chunk live, the wave-0 ray
+    chunk; bitwise against its plain version."""
+    eng, st, _ = wave0
+    live = torch.ones(st.shape[1] // RB, dtype=torch.int32, device=st.device)
+    args = (st, eng.ptables, fold_in(prng_key(3), 0), eng.page_size, RB,
+            fixed, 1 / 512, live, LIGHT)
+    _bitwise(intersect_perlane.trace_shade_perlane(*args),
+             intersect_perlane.trace_shade_perlane_plain(*args))
+
+
+def test_fused_lit_render_on_card_equals_cpu(dev):
+    """circles 96x54 with the light through `_dispatch(wave0_fused_lights=
+    True)`: B4 on every wave (5), no B1, B6 or B8; the card's render equals
+    the CPU's bitwise under a live key, and the unfused render under
+    fixed_rng."""
+    import functools
+
+    scene, vp = circles.build(resolution=(96, 54), maxdepth=5)
+    scene.lights = LightSource(orig=np.asarray(LIGHT[:3], np.float32),
+                               len2=LIGHT[3])
+    out = {}
+    for where in (dev, "cpu"):
+        eng = Engine(scene, device=where)
+        eng._dispatch = functools.partial(Engine._dispatch, eng,
+                                          wave0_fused_lights=True)
+        native.reset_launch_counts()
+        out[str(where)] = eng.render(vp, key=prng_key(1)).image
+        if where == dev:
+            launches = {k.name: k.launches for k in native.KERNELS}
+            assert launches["trace_shade_perlane"] == vp.maxdepth
+            assert not any(launches[k] for k in ("cull_mask_exact",
+                                                 "trace_chunks", "shade"))
+            fused_fixed = eng.render(vp, fixed_rng=True).image
+            del eng._dispatch
+            np.testing.assert_array_equal(
+                fused_fixed, eng.render(vp, fixed_rng=True).image)
+    np.testing.assert_array_equal(out[str(dev)], out["cpu"])
+
+
+def test_exact_hits_lie_in_the_b1_mask(wave0):
+    """Conservativeness on the card: every page `ray_aabb_hits` finds for
+    a camera ray is in its chunk's B1 mask."""
+    eng, st, _ = wave0
+    valid = st[7] != 0
+    mask, _ = cull.cull_mask_exact(st[0:3], st[3:6], valid, eng.aabb_lo,
+                                   eng.aabb_hi, RB)
+    hits = cull.ray_aabb_hits(st[0:3].T.contiguous(), st[3:6].T.contiguous(),
+                              eng.aabb_lo, eng.aabb_hi) & valid[:, None]
+    miss = hits.reshape(-1, RB, hits.shape[1]) & ~mask[:, None, :]
+    assert hits.any() and not miss.any()

@@ -119,10 +119,12 @@ def test_bounce_chunk_must_divide_the_rays():
 
 
 def test_tpu_only_arguments_are_not_accepted():
-    """nbuf, interpret, gate_frac, wave0_fused_lights, wave0_skippable and
-    profile_skip are TPU means: the port's Engine takes none of them."""
+    """nbuf, interpret and profile_skip are TPU means, and neither Engine
+    takes wave0_fused_lights or wave0_skippable (the wave loop's knobs,
+    `_dispatch`): the port's Engine takes none of them.  It takes
+    gate_frac (tests/test_torch_wave0_paths.py)."""
     _, scene, _ = circles_pair(False)
-    for kw in (dict(nbuf=4), dict(interpret=True), dict(gate_frac=0.5),
+    for kw in (dict(nbuf=4), dict(interpret=True),
                dict(wave0_fused_lights=True), dict(wave0_skippable=True),
                dict(profile_skip=("trace",))):
         with pytest.raises(TypeError):
