@@ -218,8 +218,10 @@ Phases, each fatal on failure:
      one ND loop of the default Engine under sync-debug mode (its
      synchronizing calls printed; B1-B5 must launch); one default
      circles_2k render inside utils/profiling's `trace` and `annotate`
-     (the Chrome trace must hold the span and B4's kernel, and
-     `phase_timers` read at least the render's CUDA-event time); B11 on
+     (the Chrome trace must hold the render's four engine.* spans once
+     each, in order, on its thread, B4's kernel launched inside
+     `engine.dispatch`, and the spans' sum at least 99% of the render's
+     CUDA-event time); B11 on
      circles' camera rays at 320x180, page size 64, against
      ops/intersect_ref's numpy model (tie "lex": hit/miss sets equal, ids
      on at least 99.9% of rays, t within rtol 1e-5, atol 1e-6); and
@@ -309,8 +311,7 @@ from rust_raytrace_tpu_torch.render import WavefrontRenderer
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
 from rust_raytrace_tpu_torch.utils import (devbench, host_native, native,
                                           parity, png, roofline)
-from rust_raytrace_tpu_torch.utils.profiling import (annotate, phase_timers,
-                                                     trace)
+from rust_raytrace_tpu_torch.utils.profiling import annotate, trace
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key, uniform
 
 DEVICE = "cuda"
@@ -2511,37 +2512,71 @@ def device_metric_phase(card, cases) -> dict:
     return out
 
 
+ENGINE_SPANS = ("engine.prep", "engine.dispatch", "engine.readback",
+                "engine.unpermute")
+
+
 def profiling_phase(dev, card, eng, vp) -> None:
-    """One default circles_2k render inside `trace` and `annotate`: the
-    exported trace holds the span and B4's kernel on the device, and
-    `phase_timers` times the render at no less than its CUDA events."""
+    """One default circles_2k render inside `trace` and an `annotate`
+    span: the exported trace holds the render's four engine.* spans once
+    each, inside that span, in order and on its thread; B4's kernels, each
+    launched inside `engine.dispatch` (the runtime call of the kernel's
+    correlation id); and the spans' sum at least 99% of the render's
+    CUDA-event time (outside the spans the render takes its key and makes
+    its result, and the profiler enters the first span: 0.5 ms of a
+    99 ms circles_2k render on the H100)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    on_card = torch.empty(1, device=dev)
     logdir = Path(__file__).resolve().parent / "build" / "profile"
     torch.cuda.synchronize()
-    with phase_timers() as pt:
-        with trace(str(logdir)) as prof:
-            with pt.phase("render", sync_value=on_card):
-                with annotate("render"):
-                    start.record()
-                    eng.render(vp)
-                    end.record()
+    with trace(str(logdir)) as prof:
+        with annotate("render"):
+            start.record()
+            eng.render(vp)
+            end.record()
     event_ms = start.elapsed_time(end)
-    timer_ms = pt.report()["render"] * 1e3
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
-    spans = [e for e in events if e.get("name") == "render"]
+
+    def host(e, names):
+        return (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e.get("name") in names)
+
+    outer = [e for e in events if host(e, ("render",))]
+    spans = sorted((e for e in events if host(e, ENGINE_SPANS)),
+                   key=lambda e: e["ts"])
+    ok = len(outer) == 1
+    if ok:
+        lo, hi, tid = outer[0]["ts"], outer[0]["ts"] + outer[0]["dur"], \
+            outer[0]["tid"]
+        ok = (tuple(e["name"] for e in spans) == ENGINE_SPANS
+              and all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi
+                      and e["tid"] == tid for e in spans)
+              and all(a["ts"] + a["dur"] <= b["ts"]
+                      for a, b in zip(spans, spans[1:])))
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
     b4 = [e for e in events if e.get("cat") == "kernel"
           and "trace_shade_perlane_kernel" in e.get("name", "")]
+    dispatch = [e for e in spans if e["name"] == "engine.dispatch"]
+    in_dispatch = [e for e in b4 if dispatch and dispatch[0]["ts"]
+                   <= launch_ts.get(e["args"].get("correlation"), -1)
+                   <= dispatch[0]["ts"] + dispatch[0]["dur"]]
+    span_ms = sum(e["dur"] for e in spans) * 1e-3
     n_dev = sum(e.get("cat") == "kernel" for e in events)
     print(f"profiling: trace {prof.trace_path} ({len(events)} events, "
-          f"{n_dev} device kernels, {len(b4)} of B4, {len(spans)} 'render' "
-          f"span(s)); phase_timers {timer_ms:.3f} ms against CUDA events "
+          f"{n_dev} device kernels, {len(b4)} of B4, {len(in_dispatch)} "
+          f"launched in engine.dispatch); spans " + ", ".join(
+              f"{e['name']} {e['dur'] * 1e-3:.3f}" for e in spans)
+          + f" ms, sum {span_ms:.3f} ms against CUDA events "
           f"{event_ms:.3f} ms [{card}]")
-    if not spans or not b4 or timer_ms < event_ms:
-        raise AssertionError("profiling: the trace lacks the span or B4, or "
-                             "the phase timer read less than the events")
+    if (not ok or not b4 or len(in_dispatch) != len(b4)
+            or span_ms < 0.99 * event_ms):
+        raise AssertionError("profiling: the trace lacks the render's four "
+                             "engine spans in order or B4 launched in "
+                             "engine.dispatch, or the spans cover less than "
+                             "99% of the CUDA-event time")
 
 
 def oracle_phase(dev) -> None:

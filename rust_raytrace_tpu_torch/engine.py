@@ -62,6 +62,12 @@ running this wave loop under its own key.  `shadow_mask_perlane` is the
 per-lane branch of the shadow pass (B7 any-hit with self-exclusion), which
 the JAX wave loop takes only under its probe arguments; no Engine path
 calls it.
+
+Under a running `torch.profiler`, `render` records four spans a frame
+(`utils.profiling.annotate`): `engine.prep` (`_primary_rays`),
+`engine.dispatch` (`_dispatch`, on every render path), `engine.readback`
+(the image's and the wave counts' copies to the host) and
+`engine.unpermute` (`_assemble_host_image`).
 """
 
 import copy
@@ -94,6 +100,7 @@ from .materials import KIND_MATTE, KIND_REFLECTIVE
 from .render import RayCaster, RenderResult
 from .scene import Scene
 from .utils.png import quantize_u8 as host_quantize_u8
+from .utils.profiling import annotate
 from .utils.rng import fold_in, prng_key, threefry2x32, uniform
 
 F32 = np.float32
@@ -893,14 +900,17 @@ class Engine(RayCaster):
         t0 = time.perf_counter()
 
         quant = quantize and device_quantizable(spp)
-        tile, o, d, alive0, pk0 = self._primary_rays(v, key)
+        with annotate("engine.prep"):
+            tile, o, d, alive0, pk0 = self._primary_rays(v, key)
         img, wave_counts, primary, cull0 = self._dispatch(
             v.maxdepth, spp, o, d, alive0, key, fixed_rng, debug, quant, pk0)
-        img_h = img.cpu().numpy()
-        wave_counts = torch.stack(wave_counts).cpu().numpy()
-        perm = self._perm(v, tile)
-        img = _assemble_host_image(img_h, v, perm, spp, quant,
-                                   want_u8=quantize and not quant)
+        with annotate("engine.readback"):
+            img_h = img.cpu().numpy()
+            wave_counts = torch.stack(wave_counts).cpu().numpy()
+        with annotate("engine.unpermute"):
+            perm = self._perm(v, tile)
+            img = _assemble_host_image(img_h, v, perm, spp, quant,
+                                       want_u8=quantize and not quant)
         pt = pid = primary_chunk = chunk_tris = None
         if debug:
             pt, pid, primary_chunk, chunk_tris = self._debug_buffers(
@@ -954,28 +964,31 @@ class Engine(RayCaster):
         tensors, primary rows or None, cull0).  wave0_fused_lights,
         wave0_skippable and cb go to the compacted loop (`_render_waves`),
         as `utils.devbench` passes them to the JAX loop; the legacy loop
-        takes none of them."""
-        cull0 = None
-        if self._use_compact():
-            R = o.shape[1]
-            a0 = alive0.to(torch.float32)[None]
-            state = torch.cat(
-                [o, d, a0, a0,
-                 torch.zeros((STATE_ROWS - ROW_ACC, R), dtype=torch.float32,
-                             device=o.device)], dim=0)
-            img, wave_counts, primary, cull0 = self._render_waves(
-                state, key, maxdepth, fixed_rng, pk0, want_primary=debug,
-                wave0_fused_lights=wave0_fused_lights,
-                wave0_skippable=wave0_skippable, cb=cb,
-                gate_frac=self.gate_frac)
-        else:
-            img, wave_counts, primary = self._render_legacy(
-                o, d, alive0, key, maxdepth, fixed_rng, pk0, debug)
-        if quant:
-            if spp > 1:
-                img = box_filter(img, spp)
-            img = quantize_u8(img)
-        return img, wave_counts, primary, cull0
+        takes none of them.  The span `engine.dispatch` covers it: the
+        host's enqueue of the waves."""
+        with annotate("engine.dispatch"):
+            cull0 = None
+            if self._use_compact():
+                R = o.shape[1]
+                a0 = alive0.to(torch.float32)[None]
+                state = torch.cat(
+                    [o, d, a0, a0,
+                     torch.zeros((STATE_ROWS - ROW_ACC, R),
+                                 dtype=torch.float32, device=o.device)],
+                    dim=0)
+                img, wave_counts, primary, cull0 = self._render_waves(
+                    state, key, maxdepth, fixed_rng, pk0, want_primary=debug,
+                    wave0_fused_lights=wave0_fused_lights,
+                    wave0_skippable=wave0_skippable, cb=cb,
+                    gate_frac=self.gate_frac)
+            else:
+                img, wave_counts, primary = self._render_legacy(
+                    o, d, alive0, key, maxdepth, fixed_rng, pk0, debug)
+            if quant:
+                if spp > 1:
+                    img = box_filter(img, spp)
+                img = quantize_u8(img)
+            return img, wave_counts, primary, cull0
 
     def _debug_buffers(self, v: Viewport, perm, primary, cull0, RB: int):
         """The debug buffers of a render, un-permuted on the host: primary

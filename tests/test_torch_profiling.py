@@ -1,29 +1,103 @@
-"""The port's profiling helpers (`rust_raytrace_tpu_torch/utils/profiling.py`),
-tests/test_profiling.py's two tests on torch CPU tensors, and the trace."""
+"""The port's profiling helpers (`rust_raytrace_tpu_torch/utils/profiling.py`):
+tests/test_profiling.py's `sync` test on torch CPU tensors, the trace, and
+the spans `Engine.render` records (`engine.prep`, `engine.dispatch`,
+`engine.readback`, `engine.unpermute`) on the CPU."""
 
+import contextlib
 import glob
 import json
 import os
-import time
 
+import numpy as np
+import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile, record_function
 
-from rust_raytrace_tpu_torch.utils.profiling import (annotate, phase_timers,
-                                                     sync, trace)
+from rust_raytrace_tpu_torch.engine import Engine
+from rust_raytrace_tpu_torch.models import circles
+from rust_raytrace_tpu_torch.utils import profiling
+from rust_raytrace_tpu_torch.utils.profiling import annotate, sync, trace
+
+SPANS = ("engine.prep", "engine.dispatch", "engine.readback",
+         "engine.unpermute")
 
 
-def test_phase_timers():
-    with phase_timers() as pt:
-        with pt.phase("a"):
-            time.sleep(0.01)
-        with pt.phase("b"):
-            time.sleep(0.02)
-        with pt.phase("a", sync_value=torch.ones(2)):
-            time.sleep(0.01)
-    r = pt.report()
-    assert set(r) == {"a", "b"}
-    assert r["a"] >= 0.02
-    assert r["b"] >= 0.02
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def small():
+    """circles at 16x32, spp 2 (tile 16: two bands of 16 rows), 2 waves."""
+    scene, vp = circles.build(resolution=(16, 32), maxdepth=2, samples=2)
+    return Engine(scene, device="cpu", ray_chunk=128), vp
+
+
+def _profiled(fn):
+    """fn() under a CPU torch.profiler; returns (its value, the events:
+    (name, start us, end us, thread) sorted by start)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    events = sorted(((e.name, e.time_range.start, e.time_range.end,
+                      e.thread) for e in prof.events()), key=lambda x: x[1])
+    return out, events
+
+
+def test_render_records_the_four_spans_in_order_each_frame(small):
+    eng, vp = small
+
+    def two_frames():
+        for i in range(2):
+            with record_function(f"test.frame{i}"):
+                eng.render(vp)
+
+    _, events = _profiled(two_frames)
+    for i in range(2):
+        (_, lo, hi, thread), = [e for e in events
+                                if e[0] == f"test.frame{i}"]
+        spans = [e for e in events if e[0].startswith("engine.")
+                 and lo <= e[1] and e[2] <= hi]
+        assert tuple(name for name, *_ in spans) == SPANS
+        assert all(t == thread for *_, t in spans)
+        for (_, _, end, _), (_, start, _, _) in zip(spans, spans[1:]):
+            assert end <= start
+    assert sum(e[0].startswith("engine.") for e in events) == 8
+
+
+def test_spans_off_are_one_null_context_and_leave_the_bits(small):
+    eng, vp = small
+    a, b = annotate("engine.prep"), annotate("other")
+    assert a is b is profiling._OFF
+    assert isinstance(a, contextlib.nullcontext)
+    off = eng.render(vp)
+    on, events = _profiled(lambda: eng.render(vp))
+    assert {name for name, *_ in events} >= set(SPANS)
+    assert off.image.dtype == on.image.dtype == np.uint8
+    np.testing.assert_array_equal(off.image, on.image)
+    np.testing.assert_array_equal(off.wave_rays, on.wave_rays)
+
+
+@pytest.mark.parametrize("path", ["banded", "sharded"])
+def test_every_render_path_records_the_dispatch_span(small, path):
+    """render_banded (two bands) and render_sharded (two shards of the
+    CPU) run `_dispatch` twice a frame, each inside `engine.dispatch`; the
+    other three spans are render()'s own.  Under fixed_rng both images
+    equal render()'s."""
+    eng, vp = small
+    if path == "banded":
+        res, events = _profiled(lambda: eng.render_banded(
+            vp, band_rows=16, fixed_rng=True))
+    else:
+        res, events = _profiled(lambda: eng.render_sharded(
+            vp, n_devices=2, fixed_rng=True))
+    names = [name for name, *_ in events if name.startswith("engine.")]
+    assert names == ["engine.dispatch"] * 2
+    np.testing.assert_array_equal(res.image,
+                                  eng.render(vp, fixed_rng=True).image)
 
 
 def test_sync_forces_completion():
