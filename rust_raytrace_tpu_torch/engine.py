@@ -10,14 +10,16 @@ resident wave-0, per-lane and streamed branches), the legacy loop
 `_camera_rays_tiled` with the spp jitter (`_pos_uniform`, `_threefry2x32`),
 `_unit_rows`, `_box_filter`, `_device_quantizable`, `_quantize_u8`,
 `pick_tile`, `tile_permutation`, `plan_boundaries`, `auto_page_size` and
-`_assemble_host_image`, copied because the JAX module imports jax.
+`_assemble_host_image` (its float branch; the quantized branch is
+`ops.untile`), copied because the JAX module imports jax.
 
 One render: tile-order camera rays (a pixel's spp samples on adjacent
 lanes) -> pinhole fold of the page scalars -> wave 0 = cull (B1) -> stable
 sort of the page lists -> union trace + shade (B2) -> at each compaction
 boundary: `compact_meta` and compaction (B3) -> waves 1.. = per-lane trace +
 shade (B4) -> expansion (B5) backward over the boundaries -> box filter (spp
-2, 4) and u8 quantization on the device -> un-permute on the host.  A
+2, 4), u8 quantization and the un-tiling (`ops.untile`) on the device ->
+copy to the host (a float image: copy, then un-permute on the host).  A
 scene with a light (`scene.lights`), or a debug render, runs wave 0
 unfused: cull (B1) -> sort -> union trace to winner rows (B6) -> (lit:
 `shadow_mask`, the shadow rays through B1, a sort and B6 with
@@ -65,9 +67,11 @@ calls it.
 
 Under a running `torch.profiler`, `render` records four spans a frame
 (`utils.profiling.annotate`): `engine.prep` (`_primary_rays`),
-`engine.dispatch` (`_dispatch`, on every render path), `engine.readback`
-(the image's and the wave counts' copies to the host) and
-`engine.unpermute` (`_assemble_host_image`).
+`engine.dispatch` (`_dispatch`, on every render path), `engine.unpermute`
+(`untile_u8`: on the card, one kernel launch) and `engine.readback` (the
+image's and the wave counts' copies to the host), in that order; a float
+image is un-permuted on the host (`_assemble_host_image`), so there
+`engine.unpermute` follows `engine.readback`.
 """
 
 import copy
@@ -96,6 +100,7 @@ from .ops.shade import FIXED_RV, SKY, fma, rsqrt, shade, sum3
 from .ops.state import (ROW_ACC, ROW_ALIVE, ROW_ALPHA, ROW_COLOR, ROW_DEAD,
                         ROW_ENC, ROW_ID, ROW_NORM, ROW_SCAT, ROW_T, ROW_W,
                         STATE_ROWS)
+from .ops.untile import untile_u8
 from .materials import KIND_MATTE, KIND_REFLECTIVE
 from .render import RayCaster, RenderResult
 from .scene import Scene
@@ -175,19 +180,12 @@ def plan_boundaries(wave_rays, tau_mid: float = 0.65,
 
 
 def _assemble_host_image(img_dev, v: Viewport, perm: np.ndarray, spp: int,
-                         dev_quant: bool, want_u8: bool = False) -> np.ndarray:
-    """Un-permute a tile-order framebuffer ([3, R] or [3, R//spp] numpy)
-    into the [height, width, 3] image.  dev_quant: the input is u8,
-    already quantized (and box-filtered) on the device.  want_u8: the
-    device rendered float where u8 was asked for (an spp that
-    `device_quantizable` rejects): average and quantize here."""
-    if dev_quant:
-        P0 = v.height * v.width
-        data = np.asarray(img_dev).T[:P0]            # [P0, 3] u8
-        pixperm = perm[::spp] // spp if spp > 1 else perm
-        img = np.empty((P0, 3), dtype=np.uint8)
-        img[pixperm] = data
-        return img.reshape(v.height, v.width, 3)
+                         want_u8: bool = False) -> np.ndarray:
+    """Un-permute a tile-order float framebuffer ([3, R] numpy) into the
+    [height, width, 3] image, averaging a pixel's spp samples with np.mean.
+    want_u8: the device rendered float where u8 was asked for (an spp that
+    `device_quantizable` rejects): quantize here.  (A quantized image is
+    un-tiled where it lies, `ops.untile.untile_u8`.)"""
     R0 = v.height * v.width * spp
     data = np.asarray(img_dev, dtype=np.float32).T[:R0]
     img = np.empty((R0, 3), dtype=np.float32)
@@ -904,17 +902,20 @@ class Engine(RayCaster):
             tile, o, d, alive0, pk0 = self._primary_rays(v, key)
         img, wave_counts, primary, cull0 = self._dispatch(
             v.maxdepth, spp, o, d, alive0, key, fixed_rng, debug, quant, pk0)
+        if quant:
+            with annotate("engine.unpermute"):
+                img = untile_u8(img, v.height, v.width, tile)
         with annotate("engine.readback"):
-            img_h = img.cpu().numpy()
+            img = img.cpu().numpy()
             wave_counts = torch.stack(wave_counts).cpu().numpy()
-        with annotate("engine.unpermute"):
-            perm = self._perm(v, tile)
-            img = _assemble_host_image(img_h, v, perm, spp, quant,
-                                       want_u8=quantize and not quant)
+        if not quant:
+            with annotate("engine.unpermute"):
+                img = _assemble_host_image(img, v, self._perm(v, tile), spp,
+                                           want_u8=quantize)
         pt = pid = primary_chunk = chunk_tris = None
         if debug:
             pt, pid, primary_chunk, chunk_tris = self._debug_buffers(
-                v, perm, primary, cull0, self.ray_chunk)
+                v, self._perm(v, tile), primary, cull0, self.ray_chunk)
         if self._auto_schedule and self._use_compact() and dev.type == "cuda":
             # one shot, as the JAX Engine on the TPU: the schedule changes
             # speed only, never bits
@@ -1083,7 +1084,6 @@ class Engine(RayCaster):
         band_rows = min(band_rows, v.height)
         quantum = self._quantum(spp)
         quant = quantize and device_quantizable(spp)
-        perm_full = self._perm(v, tile)
         out = np.empty((v.height, v.width, 3),
                        dtype=np.uint8 if quantize else np.float32)
         wave_counts = None
@@ -1098,10 +1098,16 @@ class Engine(RayCaster):
             img, wc, _, _ = self._dispatch(v.maxdepth, spp, o, d, alive0,
                                            fold_in(key, bi), fixed_rng, False,
                                            quant, pk0)
-            band = SimpleNamespace(height=bh, width=v.width)
-            out[r0:r0 + bh] = _assemble_host_image(
-                img.cpu().numpy(), band, perm_full[q0:q0 + Rb0] - q0, spp,
-                quant, want_u8=quantize and not quant)
+            if quant:
+                # a band is whole tile rows: its image is its own tile order
+                out[r0:r0 + bh] = untile_u8(img, bh, v.width,
+                                            tile).cpu().numpy()
+            else:
+                band = SimpleNamespace(height=bh, width=v.width)
+                out[r0:r0 + bh] = _assemble_host_image(
+                    img.cpu().numpy(), band,
+                    self._perm(v, tile)[q0:q0 + Rb0] - q0, spp,
+                    want_u8=quantize)
             wc = torch.stack(wc).cpu().numpy()
             wave_counts = wc if wave_counts is None else wave_counts + wc
             if progress is not None:
@@ -1154,13 +1160,16 @@ class Engine(RayCaster):
         img, wave_counts, primary = engine_render_sharded(
             self, o, d, alive0, key, mesh, v.maxdepth, fixed_rng=fixed_rng,
             spp=spp, pk0=pk0, quantize=quant, want_primary=debug)
-        perm = self._perm(v, tile)
-        img = _assemble_host_image(img.cpu().numpy(), v, perm, spp, quant,
-                                   want_u8=quantize and not quant)
+        if quant:
+            img = untile_u8(img, v.height, v.width, tile).cpu().numpy()
+        else:
+            img = _assemble_host_image(img.cpu().numpy(), v,
+                                       self._perm(v, tile), spp,
+                                       want_u8=quantize)
         pt = pid = None
         if debug:
-            pt, pid, _, _ = self._debug_buffers(v, perm, primary, None,
-                                                self.ray_chunk)
+            pt, pid, _, _ = self._debug_buffers(v, self._perm(v, tile),
+                                                primary, None, self.ray_chunk)
         wave_counts = wave_counts.cpu().numpy()
         result = RenderResult(image=img, rays_traced=int(wave_counts.sum()),
                               wave_rays=wave_counts, primary_t=pt,

@@ -21,9 +21,10 @@ and raises where torch sees no card: a rank runs on the CPU only where the
 caller asks for it.
 
 Backends.  Under nccl the collectives' tensors go on the rank's card, and
-two ranks on one card raise (NCCL refuses a duplicate GPU).  Under gloo they
-go on the CPU (the image goes to the host for the un-permute anyway), and
-ranks may share a card.  Any other backend raises.
+two ranks on one card raise (NCCL refuses a duplicate GPU), and rank 0
+un-tiles the gathered image on its card before the copy to the host.  Under
+gloo they go on the CPU (rank 0 un-tiles the image on the host), and ranks
+may share a card.  Any other backend raises.
 
 Agreement.  Before any collective of a call, the ranks gather a fingerprint
 of their Engine (its schedule, chunking, regime, options and a digest of
@@ -52,6 +53,7 @@ import torch.distributed as dist
 
 from ..engine import (_assemble_host_image, camera_rays_tiled,
                       device_quantizable, pick_tile)
+from ..ops.untile import untile_u8
 from ..render import RenderResult, trace_rays
 from ..utils.rng import fold_in, prng_key
 from .sharding import on_device
@@ -205,13 +207,14 @@ def shard_rays(engine, v, key, rank: int, n: int):
 
 
 def _gather_on_0(x: torch.Tensor, ranks: _Ranks):
-    """Every rank's x [rows, n_r] (equal shapes) side by side on rank 0's
-    host ([rows, sum n_r]); None on the other ranks."""
+    """Every rank's x [rows, n_r] (equal shapes) side by side on rank 0
+    ([rows, sum n_r], where the collectives' tensors go: the card under
+    nccl, the host under gloo); None on the other ranks."""
     x = x.contiguous().to(ranks.comm)
     parts = ([torch.empty_like(x) for _ in range(ranks.size)]
              if ranks.rank == 0 else None)
     dist.gather(x, parts, dst=0)
-    return torch.cat(parts, dim=1).cpu() if ranks.rank == 0 else None
+    return torch.cat(parts, dim=1) if ranks.rank == 0 else None
 
 
 def engine_render_distributed(engine, v, key=None, fixed_rng: bool = False,
@@ -251,12 +254,18 @@ def engine_render_distributed(engine, v, key=None, fixed_rng: bool = False,
     wave_rays = counts.cpu().numpy()
     image = pt = pid = None
     if ranks.rank == 0:
-        perm = engine._perm(v, pick_tile(v.width, v.height))
-        image = _assemble_host_image(img.numpy(), v, perm, spp, quant,
-                                     want_u8=quantize and not quant)
+        tile = pick_tile(v.width, v.height)
+        if quant:
+            # where the gather put it: on the card under nccl
+            image = untile_u8(img, v.height, v.width, tile).cpu().numpy()
+        else:
+            image = _assemble_host_image(img.cpu().numpy(), v,
+                                         engine._perm(v, tile), spp,
+                                         want_u8=quantize)
         if debug:
-            pt, pid, _, _ = engine._debug_buffers(v, perm, primary, None,
-                                                  engine.ray_chunk)
+            pt, pid, _, _ = engine._debug_buffers(
+                v, engine._perm(v, tile), primary.cpu(), None,
+                engine.ray_chunk)
     return RenderResult(image=image, rays_traced=int(wave_rays.sum()),
                         wave_rays=wave_rays, primary_t=pt, primary_id=pid,
                         seconds=time.perf_counter() - t0)

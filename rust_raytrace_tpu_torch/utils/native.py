@@ -254,6 +254,15 @@ EXPAND_BUCKETS = Kernel(
     "rust_raytrace_tpu_torch/csrc/compact_buckets.cu",
     "rust_raytrace_tpu/ops/compact.py:1032")
 
+#: the quantized image's un-tiling on the card, before the copy to the
+#: host (`ops/untile.py`).  It replaces no TPU kernel: the JAX package
+#: un-permutes on the host with numpy
+UNTILE = Kernel(
+    "untile_u8", "rt_untile_u8",
+    [P, P, I32, I32, I32, I64, P],
+    "rust_raytrace_tpu_torch/csrc/untile.cu",
+    "none (the host un-permute, rust_raytrace_tpu/engine.py:924)")
+
 #: the fp32 FMA-rate probe of `utils/roofline.measure_fp32_peak`, a
 #: measurement of the card: no render path launches it, so it is not in
 #: KERNELS
@@ -266,7 +275,7 @@ FMA_PEAK = Kernel(
 KERNELS = (CULL,TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND,
            TRACE_UNION_ROWS, SHADE, TRACE_SHADE_STREAMED, TRACE_STREAMED,
            NEAREST_HIT, TRACE_PERLANE, BM_PREP, BM_SWEEP, BM_FINISH,
-           CULL_SORTED, COMPACT_BUCKETS, EXPAND_BUCKETS)
+           CULL_SORTED, COMPACT_BUCKETS, EXPAND_BUCKETS, UNTILE)
 
 
 def reset_launch_counts() -> None:

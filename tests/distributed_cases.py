@@ -13,6 +13,7 @@ import torch
 from rust_raytrace_tpu_torch.engine import Engine
 from rust_raytrace_tpu_torch.parallel import distributed
 from rust_raytrace_tpu_torch.render import upload_scene
+from rust_raytrace_tpu_torch.utils import native
 
 
 def _write(out: str, rank: int, obj) -> None:
@@ -53,3 +54,14 @@ def mismatched(rank: int, scene, view, out: str) -> None:
         _write(out, rank, str(e))
     else:
         _write(out, rank, None)
+
+
+def nccl_card(rank: int, scene, view, out: str) -> None:
+    """A rank of an nccl group on its card: one render under fixed_rng
+    with the launch counts set to 0 just before it.  Writes the image, the
+    wave counts and the un-tiling kernel's launches."""
+    eng = Engine(scene, device=distributed.rank_device())
+    native.reset_launch_counts()
+    res = distributed.engine_render_distributed(eng, view, fixed_rng=True)
+    _write(out, rank, {"image": res.image, "wave_rays": res.wave_rays,
+                       "untile_launches": native.UNTILE.launches})

@@ -7,6 +7,7 @@ imports no jax, so it runs on a machine without it:
 """
 
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -14,14 +15,15 @@ import torch
 
 from rust_raytrace_tpu_torch.engine import (Engine, camera_rays_tiled,
                                             page_lists, pick_tile,
-                                            shadow_mask_perlane, shadow_rays)
+                                            shadow_mask_perlane, shadow_rays,
+                                            tile_permutation)
 from rust_raytrace_tpu_torch import math3d as m3
 from rust_raytrace_tpu_torch.camera import create_viewport
 from rust_raytrace_tpu_torch.geometry import make_sphere, make_triangles
 from rust_raytrace_tpu_torch.materials import matte, reflective
 from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
                                         intersect_perlane, intersect_streamed,
-                                        shade)
+                                        shade, untile)
 from rust_raytrace_tpu_torch.models import circles
 from rust_raytrace_tpu_torch.render import WavefrontRenderer, camera_rays
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
@@ -174,7 +176,8 @@ def test_golden_on_card_launches_every_kernel(dev):
                         "nearest_hit": 0, "trace_perlane": 0,
                         "bankmajor_prep": 0, "bankmajor_sweep": 0,
                         "bankmajor_finish": 0, "cull_sorted": 0,
-                        "compact_buckets": 0, "expand_buckets": 0}
+                        "compact_buckets": 0, "expand_buckets": 0,
+                        "untile_u8": 1}
 
 
 def _bitwise(got, want):
@@ -237,7 +240,8 @@ def test_lit_render_on_card_equals_cpu(dev):
                         "nearest_hit": 0, "trace_perlane": 0,
                         "bankmajor_prep": 0, "bankmajor_sweep": 0,
                         "bankmajor_finish": 0, "cull_sorted": 0,
-                        "compact_buckets": 0, "expand_buckets": 0}
+                        "compact_buckets": 0, "expand_buckets": 0,
+                        "untile_u8": 1}
     ref = Engine(scene, device="cpu").render(vp, key=prng_key(1)).image
     np.testing.assert_array_equal(img, ref)
 
@@ -556,7 +560,7 @@ def test_bankmajor_render_on_card_equals_cpu(dev):
     assert launches == {k: {"trace_shade_streamed": 2, "compact": 2,
                             "expand": 2, "bankmajor_prep": n,
                             "bankmajor_sweep": n,
-                            "bankmajor_finish": n}.get(k, 0)
+                            "bankmajor_finish": n, "untile_u8": 1}.get(k, 0)
                         for k in launches}
     ref = Engine(scene, page_size=8, ray_chunk=RB, streamed=True,
                  bank_major=True, device="cpu").render(
@@ -1062,3 +1066,86 @@ def test_exact_hits_lie_in_the_b1_mask(wave0):
                               eng.aabb_lo, eng.aabb_hi) & valid[:, None]
     miss = hits.reshape(-1, RB, hits.shape[1]) & ~mask[:, None, :]
     assert hits.any() and not miss.any()
+
+
+@pytest.mark.parametrize("h,w,tile,pad,offset", [
+    (1440, 2560, 32, 0, 0),    # the 2560x1440 spp 4 image
+    (64, 96, 32, 32, 0),
+    (64, 96, 32, 37, 0),       # Pp not a multiple of 16
+    (48, 80, 16, 0, 0),
+    (24, 48, 8, 0, 0),
+    (24, 40, 8, 5, 0),         # W not a multiple of 16
+    (27, 64, 1, 0, 0),
+    (27, 50, 1, 3, 0),
+    (64, 96, 32, 16, 1)])      # a view one byte in
+def test_untile_matches_plain(dev, h, w, tile, pad, offset):
+    """`untile_u8`'s kernel byte for byte against its plain version on
+    random u8 buffers [3, Pp], Pp = h * w + pad (a view `offset` columns
+    into a wider buffer), one launch a call."""
+    gen = torch.Generator(device="cpu").manual_seed(h * w + pad)
+    full = torch.randint(0, 256, (3, offset + h * w + pad), generator=gen,
+                         dtype=torch.uint8).to(dev)
+    src = full[:, offset:]
+    native.reset_launch_counts()
+    got = untile.untile_u8(src, h, w, tile)
+    assert native.UNTILE.launches == 1
+    want = untile.untile_u8_plain(src, h, w, tile)
+    torch.cuda.synchronize()
+    assert got.shape == (h, w, 3) and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+def _host_untile(img, h, w, spp, tile):
+    """The numpy scatter `Engine.render` ran on the host before the card
+    un-tiled the image: pixel perm[q * spp] // spp of the tile order."""
+    perm = tile_permutation(h, w, spp, tile)
+    out = np.empty((h * w, 3), dtype=np.uint8)
+    out[perm[::spp] // spp] = img.T[:h * w]
+    return out.reshape(h, w, 3)
+
+
+def test_untiled_renders_equal_the_host_path(dev):
+    """circles 96x64 at spp 4 (tile 32) under fixed_rng: render(),
+    render_banded (two bands) and render_sharded (two shards of the card)
+    give the bytes of the host scatter of the same dispatched buffer; each
+    quantized render() launches the kernel once, a float one never."""
+    scene, vp = circles.build(resolution=(96, 64), maxdepth=5, samples=4)
+    eng = Engine(scene, device=dev)
+    eng.render(vp, fixed_rng=True)          # the autotune plans on it
+    key = prng_key(0)
+    tile, o, d, alive0, pk0 = eng._primary_rays(vp, key)
+    img = eng._dispatch(vp.maxdepth, 4, o, d, alive0, key, True, False,
+                        True, pk0)[0]
+    want = _host_untile(img.cpu().numpy(), vp.height, vp.width, 4, tile)
+    for _ in range(2):
+        native.reset_launch_counts()
+        got = eng.render(vp, fixed_rng=True).image
+        assert native.UNTILE.launches == 1
+        np.testing.assert_array_equal(got, want)
+    native.reset_launch_counts()
+    assert eng.render(vp, fixed_rng=True, quantize=False).image.dtype \
+        == np.float32
+    assert native.UNTILE.launches == 0
+    np.testing.assert_array_equal(
+        eng.render_banded(vp, fixed_rng=True, band_rows=32).image, want)
+    np.testing.assert_array_equal(
+        eng.render_sharded(vp, mesh=[dev, dev], fixed_rng=True).image, want)
+
+
+def test_nccl_rank_0_untiles_on_its_card(dev, tmp_path):
+    """One nccl rank on the card: `engine_render_distributed` gathers the
+    image on rank 0's card and un-tiles it there, one kernel launch, with
+    the bytes of render() under fixed_rng (circles 96x64, spp 4)."""
+    import distributed_cases
+    from rust_raytrace_tpu_torch.parallel import distributed
+
+    scene, vp = circles.build(resolution=(96, 64), maxdepth=5, samples=4)
+    distributed.spawn(distributed_cases.nccl_card, 1,
+                      args=(scene, vp, str(tmp_path)), backend="nccl",
+                      timeout=300.0)
+    with open(tmp_path / "rank0.pkl", "rb") as f:
+        got = pickle.load(f)
+    want = Engine(scene, device=dev).render(vp, fixed_rng=True)
+    assert got["untile_launches"] == 1
+    np.testing.assert_array_equal(got["image"], want.image)
+    np.testing.assert_array_equal(got["wave_rays"], want.wave_rays)

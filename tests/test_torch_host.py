@@ -1,5 +1,7 @@
 """The port's host helpers, RNG keys and camera against the JAX package."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +11,8 @@ import torch
 import rust_raytrace_tpu.engine as jeng
 import rust_raytrace_tpu_torch.engine as teng
 from rust_raytrace_tpu.models import circles
+from rust_raytrace_tpu_torch.models import circles as tcircles
+from rust_raytrace_tpu_torch.ops.untile import untile_u8
 from rust_raytrace_tpu.ops.intersect_pallas import (
     fold_pages_origin as j_fold_pages_origin)
 from rust_raytrace_tpu.ops.intersect_perlane import (
@@ -48,15 +52,61 @@ def test_auto_page_size_equal_jax(n_tris):
 
 @pytest.mark.parametrize("quant", [True, False])
 def test_assemble_host_image_equal_jax(quant):
+    """The port's assembly of a quantized image (`untile_u8`, where the
+    image lies) and of a float one (`_assemble_host_image`) against the JAX
+    package's host assembly."""
     rng = np.random.default_rng(3)
     _, vp = circles.build(resolution=(48, 27))
-    perm = teng.tile_permutation(27, 48, 1, teng.pick_tile(48, 27))
+    tile = teng.pick_tile(48, 27)
+    perm = teng.tile_permutation(27, 48, 1, tile)
     R = 1408
     img = (rng.integers(0, 256, (3, R)).astype(np.uint8) if quant
            else rng.uniform(0, 1, (3, R)).astype(F32))
+    got = (untile_u8(torch.from_numpy(img), 27, 48, tile).numpy() if quant
+           else teng._assemble_host_image(img, vp, perm, 1))
     np.testing.assert_array_equal(
-        teng._assemble_host_image(img, vp, perm, 1, quant),
-        jeng._assemble_host_image(img, vp, perm, 1, quant))
+        got, jeng._assemble_host_image(img, vp, perm, 1, quant))
+
+
+@pytest.mark.parametrize("pad", [0, 37])
+@pytest.mark.parametrize("spp", [1, 2, 4])
+@pytest.mark.parametrize("h,w,tile", [(64, 96, 32), (48, 80, 16),
+                                      (24, 40, 8), (27, 50, 1)])
+def test_untile_u8_equal_jax_assembly(h, w, tile, spp, pad):
+    """`untile_u8` on a CPU tensor (the plain version) is byte-equal to the
+    JAX package's host scatter of a device-quantized image, [3, Pp] u8 in
+    tile order with Pp = h * w + pad columns (the padding ignored)."""
+    assert teng.pick_tile(w, h) == tile
+    rng = np.random.default_rng(h * w + spp + pad)
+    img = rng.integers(0, 256, (3, h * w + pad)).astype(np.uint8)
+    perm = jeng.tile_permutation(h, w, spp, tile)
+    vp = SimpleNamespace(height=h, width=w)
+    got = untile_u8(torch.from_numpy(img), h, w, tile)
+    assert got.is_contiguous() and got.dtype == torch.uint8
+    np.testing.assert_array_equal(
+        got.numpy(), jeng._assemble_host_image(img, vp, perm, spp, True))
+
+
+@pytest.mark.parametrize("spp,quantize", [(1, True), (2, True), (4, True),
+                                          (3, True), (2, False)])
+def test_render_image_equals_the_jax_host_assembly(spp, quantize):
+    """`Engine.render` on the CPU returns the bytes the JAX package's host
+    assembly makes of the same dispatched buffer: quantized views (spp 1,
+    2, 4, un-tiled by `untile_u8`) and float ones (spp 3 quantized on the
+    host, a float image)."""
+    scene, vp = tcircles.build(resolution=(32, 16), maxdepth=2, samples=spp)
+    eng = teng.Engine(scene, device="cpu", ray_chunk=128)
+    got = eng.render(vp, fixed_rng=True, quantize=quantize).image
+    key = prng_key(0)
+    quant = quantize and teng.device_quantizable(spp)
+    tile, o, d, alive0, pk0 = eng._primary_rays(vp, key)
+    img = eng._dispatch(vp.maxdepth, spp, o, d, alive0, key, True, False,
+                        quant, pk0)[0]
+    want = jeng._assemble_host_image(
+        img.numpy(), vp, jeng.tile_permutation(16, 32, spp, tile), spp,
+        quant, want_u8=quantize and not quant)
+    assert got.dtype == want.dtype == (np.uint8 if quantize else np.float32)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("res", [(48, 27), (64, 64), (96, 54), (640, 360)])

@@ -1,7 +1,8 @@
 """The port's profiling helpers (`rust_raytrace_tpu_torch/utils/profiling.py`):
 tests/test_profiling.py's `sync` test on torch CPU tensors, the trace, and
 the spans `Engine.render` records (`engine.prep`, `engine.dispatch`,
-`engine.readback`, `engine.unpermute`) on the CPU."""
+`engine.unpermute`, `engine.readback`; a float image's `engine.unpermute`
+after its readback) on the CPU."""
 
 import contextlib
 import glob
@@ -18,8 +19,13 @@ from rust_raytrace_tpu_torch.models import circles
 from rust_raytrace_tpu_torch.utils import profiling
 from rust_raytrace_tpu_torch.utils.profiling import annotate, sync, trace
 
-SPANS = ("engine.prep", "engine.dispatch", "engine.readback",
-         "engine.unpermute")
+#: a quantized render's spans: the image is un-tiled where it lies, before
+#: the copy to the host
+SPANS = ("engine.prep", "engine.dispatch", "engine.unpermute",
+         "engine.readback")
+#: a float render's: the un-permute runs on the host, after the copy
+FLOAT_SPANS = ("engine.prep", "engine.dispatch", "engine.readback",
+               "engine.unpermute")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -47,25 +53,39 @@ def _profiled(fn):
     return out, events
 
 
-def test_render_records_the_four_spans_in_order_each_frame(small):
-    eng, vp = small
-
-    def two_frames():
-        for i in range(2):
-            with record_function(f"test.frame{i}"):
-                eng.render(vp)
-
-    _, events = _profiled(two_frames)
+def _assert_spans_each_frame(events, want):
+    """Each of the two frames holds the four spans once, in the order
+    `want`, one after another, on the frame's thread."""
     for i in range(2):
         (_, lo, hi, thread), = [e for e in events
                                 if e[0] == f"test.frame{i}"]
         spans = [e for e in events if e[0].startswith("engine.")
                  and lo <= e[1] and e[2] <= hi]
-        assert tuple(name for name, *_ in spans) == SPANS
+        assert tuple(name for name, *_ in spans) == want
         assert all(t == thread for *_, t in spans)
         for (_, _, end, _), (_, start, _, _) in zip(spans, spans[1:]):
             assert end <= start
     assert sum(e[0].startswith("engine.") for e in events) == 8
+
+
+def _two_frames(eng, vp, **kw):
+    def run():
+        for i in range(2):
+            with record_function(f"test.frame{i}"):
+                eng.render(vp, **kw)
+    return run
+
+
+def test_render_records_the_four_spans_in_order_each_frame(small):
+    eng, vp = small
+    _, events = _profiled(_two_frames(eng, vp))
+    _assert_spans_each_frame(events, SPANS)
+
+
+def test_a_float_render_unpermutes_after_its_readback(small):
+    eng, vp = small
+    _, events = _profiled(_two_frames(eng, vp, quantize=False))
+    _assert_spans_each_frame(events, FLOAT_SPANS)
 
 
 def test_spans_off_are_one_null_context_and_leave_the_bits(small):
