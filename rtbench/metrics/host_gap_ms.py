@@ -1,6 +1,6 @@
 """The mean over the traced frames of the time within a frame's span in
 which the card runs no kernel and no copy, in ms: the host's share of a
-frame (`Engine.render`'s ray set-up, the copy's wait, the un-permute; in
+frame (`Engine.render`'s ray set-up and launches, the copy to the host; in
 the render across processes rank 0's path)."""
 
 from rtbench.profile import covered

@@ -3,10 +3,9 @@ own parameters.
 
 The benchmark reference's frozen copy of the port's numpy scene build
 (`geometry.py`'s `make_triangles`, `make_disk` and the slot-0
-sentinel, `scene.assemble`, `camera.create_viewport`).  Only the numpy path
-of `make_triangles` is carried: the port takes a C++ path for parts of 1,024
-or more triangles, so a configuration whose parts are that large needs that
-path's bits here before a cell of it can be checked.
+sentinel, `scene.assemble`, `camera.create_viewport`), and of the C++ path
+on which the port builds a part of 1,024 or more triangles
+(`native/scene_pipeline.cc:rt_make_triangles`).
 """
 
 from dataclasses import dataclass
@@ -59,15 +58,21 @@ class TriangleArrays:
 def make_triangles(points, surface: Surface,
                    edge_thickness: float) -> TriangleArrays:
     """The triangle precompute (raytrace.rs:340-383) in float32 numpy:
-    centroid, inward edge perpendiculars and their lengths, plane normal."""
+    centroid, inward edge perpendiculars and their lengths, plane normal.
+
+    A part of 1,024 or more triangles takes the port's C++ path
+    (`rt_make_triangles`, scene_pipeline.cc:51-75, built with
+    -ffp-contract=off): its centroid is (a + b + c) * float32(1/3) where
+    the numpy path divides by 3; the rest of its arithmetic is this
+    function's, in the same order (dot and len2 left to right, pc - po,
+    each side and the normal scaled by 1/sqrt(len2))."""
     points = np.asarray(points, dtype=F32)
     n = points.shape[0]
-    if n >= 1024:
-        raise ValueError(f"a part of {n} triangles: the port builds parts of "
-                         f"1,024 or more on its C++ path, which the "
-                         f"reference does not carry")
     a, b, c = points[:, 0], points[:, 1], points[:, 2]
-    incenter = (a + b + c) / F32(3.0)
+    if n >= 1024:
+        incenter = (a + b + c) * (F32(1.0) / F32(3.0))
+    else:
+        incenter = (a + b + c) / F32(3.0)
     sides = np.empty((n, 3, 3), dtype=F32)
     side_lens = np.empty((n, 3), dtype=F32)
     for idx in range(3):

@@ -2,8 +2,9 @@
 
 The benchmark reference's frozen copy of the port's `ops/pages.py`
 (`pack_features`, `build_pages`, the numpy `kd_order`) with the
-`auto_page_size` of its `engine.py` and the `build_perlane_tables` of its
-`ops/intersect_perlane.py`.  The winner of a trace, the lexicographic
+`auto_page_size` of its `engine.py`, the `build_perlane_tables` of its
+`ops/intersect_perlane.py` and the `build_streamed_tables` of its
+`ops/intersect_streamed.py`.  The winner of a trace, the lexicographic
 (t, id) minimum, does not depend on how triangles fall into pages; the
 pages decide which pages a ray chunk visits, and the reference visits them
 as the program does.
@@ -27,6 +28,8 @@ N_SHD = 7             # shade features
 MAX_BANKS = 16
 #: page-table slots the resident regime holds
 TABLE_SLOT_CAP = 262144
+#: the streamed regime's least page size
+STREAMED_PAGE_SIZE = 224
 
 
 def pack_features(tris, indices) -> np.ndarray:
@@ -131,7 +134,7 @@ def auto_page_size(n_tris: int, page_size: int = 56) -> int:
     return page_size
 
 
-def build_perlane_tables(PK, aabb_lo, aabb_hi):
+def build_perlane_tables(PK, aabb_lo, aabb_hi, max_banks: int = MAX_BANKS):
     """PK [NP, P, 128] as pages-on-lanes tables of NB = ceil(NP/128) banks:
     (PLT_I [NB*17*P, 128], PLT_S [NB*7*P, 128], AB [NB*128, 128]), feature f
     of triangle j of bank-local page p at row b*N*P + f*P + j, column p; AB
@@ -139,9 +142,9 @@ def build_perlane_tables(PK, aabb_lo, aabb_hi):
     page-valid)."""
     NP, P, _ = PK.shape
     NB = -(-NP // GROUP)
-    if NB > MAX_BANKS:
+    if NB > max_banks:
         raise ValueError(f"{NP} pages: past the resident tables' "
-                         f"{MAX_BANKS * GROUP}")
+                         f"{max_banks * GROUP}")
     plt_i = np.zeros((NB * N_INT * P, GROUP), np.float32)
     plt_s = np.zeros((NB * N_SHD * P, GROUP), np.float32)
     ab = np.zeros((NB * GROUP, PACK_LANES), np.float32)
@@ -161,3 +164,27 @@ def build_perlane_tables(PK, aabb_lo, aabb_hi):
         ab[rows, 3:6] = aabb_hi[rows]
         ab[rows, 6] = 1.0
     return plt_i, plt_s, ab
+
+
+def build_streamed_tables(PK, aabb_lo, aabb_hi):
+    """The streamed regime's tables: (PLT_I [NB, 17*P, 128], PLT_S
+    [NB, 7*P, 128], AB [NB*128, 128], BANK_AB [NB8, 128]), the per-lane
+    tables of every bank, the page boxes and each bank's box (the union of
+    its valid pages' boxes, same lanes), NB8 = NB padded to a multiple of 8
+    with zero rows (lane 6 invalid)."""
+    NP, P, _ = PK.shape
+    NB = -(-NP // GROUP)
+    plt_i, plt_s, ab = build_perlane_tables(PK, aabb_lo, aabb_hi,
+                                            max_banks=NB)
+    bank_ab = np.zeros((-(-NB // 8) * 8, PACK_LANES), np.float32)
+    for b in range(NB):
+        lo = aabb_lo[b * GROUP:(b + 1) * GROUP]
+        hi = aabb_hi[b * GROUP:(b + 1) * GROUP]
+        ok = np.isfinite(lo).all(axis=1)
+        if not ok.any():
+            continue
+        bank_ab[b, 0:3] = lo[ok].min(axis=0)
+        bank_ab[b, 3:6] = hi[ok].max(axis=0)
+        bank_ab[b, 6] = 1.0
+    return (plt_i.reshape(NB, N_INT * P, GROUP),
+            plt_s.reshape(NB, N_SHD * P, GROUP), ab, bank_ab)

@@ -1,15 +1,17 @@
 """A frame from its key, in plain torch: the camera, the wave loop, the
 box filter, the u8 quantization and the un-permute.
 
-The benchmark reference's frozen copy of the port's `engine.py` render of
-the resident regime under live RNG (`camera_rays_tiled`, `pos_uniform`,
-the pinhole fold, the wave loop of `_render_waves` with its compaction
-boundaries, the unfused lit wave 0 with `shadow_rays` and `shadow_mask`,
-`box_filter`, `quantize_u8`, `tile_permutation`, `_assemble_host_image`,
-`plan_boundaries`) and of `parallel/distributed.py`'s shards, each under
-fold_in(key, rank).  It takes the scene's triangles from
-`geometry`, builds its own pages and tables, and derives every key, lane
-and schedule from the frame's key as the program does.
+The benchmark reference's frozen copy of the port's `engine.py` render
+under live RNG (`camera_rays_tiled`, `pos_uniform`, the pinhole fold, the
+wave loop of `_render_waves` with its compaction boundaries, the unfused
+lit wave 0 with `shadow_rays` and `shadow_mask`, the streamed regime's
+`_streamed_wave` with `shadow_mask_streamed`, `box_filter`, `quantize_u8`,
+`tile_permutation`, `_assemble_host_image`, `plan_boundaries`) and of
+`parallel/distributed.py`'s shards, each under fold_in(key, rank).  It
+takes the scene's triangles from `geometry`, builds its own pages and
+tables, takes the regime the program's default Engine takes (a scene past
+the resident tables is streamed), and derives every key, lane and schedule
+from the frame's key as the program does.
 """
 
 import math
@@ -20,11 +22,13 @@ import torch
 
 from .arith import fma, fold_in, rsqrt, sum3, threefry2x32, uniform
 from .compact import compact, compact_meta, dead_capacity, expand, pick_cb
-from .pages import (GROUP, MAX_BANKS, TABLE_SLOT_CAP, auto_page_size,
-                    build_pages_kd, build_perlane_tables)
+from .pages import (GROUP, MAX_BANKS, STREAMED_PAGE_SIZE, TABLE_SLOT_CAP,
+                    auto_page_size, build_pages_kd, build_perlane_tables,
+                    build_streamed_tables)
 from .trace import (ROW_ACC, ROW_ALIVE, ROW_DEAD, ROW_ENC, ROW_ID, ROW_NORM,
                     ROW_T, cull, fold_pages_origin, page_lists, shade,
-                    trace_chunks, trace_shade_perlane)
+                    trace_chunks, trace_shade_perlane, trace_shade_streamed,
+                    trace_streamed)
 
 F32 = np.float32
 RAY_CHUNK = 1024
@@ -33,7 +37,9 @@ WEIGHT_CUTOFF = 1 / 512
 
 @dataclass
 class SceneTables:
-    """The reference's own tables of a scene on a device."""
+    """The reference's own tables of a scene on a device: the union pages
+    and the resident tables, or in the streamed regime the streamed tables
+    (PK, aabb_lo, aabb_hi and perlane None)."""
 
     PK: torch.Tensor
     aabb_lo: torch.Tensor
@@ -42,25 +48,31 @@ class SceneTables:
     page_size: int
     light: tuple          # (ox, oy, oz, len2) float32 values, or None
     folded: dict          # camera -> PK with the pinhole folded in
+    streamed: tuple = None    # (plt_i, plt_s, ab, bank_ab)
+
+    @property
+    def device(self):
+        return (self.PK if self.streamed is None else self.streamed[0]).device
 
 
 def scene_tables(tris, light, device) -> SceneTables:
-    """Pages of the program's page size and the resident tables; raises
-    for a scene past the resident tables (the streamed regime is not
-    carried)."""
+    """Pages of the program's page size and the resident tables; past the
+    resident tables, as the program's default Engine decides it, pages of
+    at least STREAMED_PAGE_SIZE and the streamed tables."""
     n_tris = max(len(tris) - 1, 1)
-    if n_tris > TABLE_SLOT_CAP:
-        raise ValueError("the reference carries the resident regime only")
-    page_size = auto_page_size(n_tris)
+    page_size = (auto_page_size(n_tris) if n_tris <= TABLE_SLOT_CAP
+                 else STREAMED_PAGE_SIZE)
     PK, lo, hi = build_pages_kd(tris, page_size)
-    if PK.shape[0] > MAX_BANKS * GROUP or PK.size // 128 > TABLE_SLOT_CAP:
-        raise ValueError("the reference carries the resident regime only")
     dev = torch.device(device)
-    tabs = tuple(torch.from_numpy(x).to(dev)
-                 for x in build_perlane_tables(PK, lo, hi))
     lit = None if light is None else tuple(
         float(np.float32(x)) for x in (*np.asarray(light[:3]).reshape(3),
                                        light[3]))
+    if PK.shape[0] > MAX_BANKS * GROUP or PK.size // 128 > TABLE_SLOT_CAP:
+        tabs = tuple(torch.from_numpy(x).to(dev)
+                     for x in build_streamed_tables(PK, lo, hi))
+        return SceneTables(None, None, None, None, page_size, lit, {}, tabs)
+    tabs = tuple(torch.from_numpy(x).to(dev)
+                 for x in build_perlane_tables(PK, lo, hi))
     return SceneTables(torch.from_numpy(PK).to(dev),
                        torch.from_numpy(lo).to(dev),
                        torch.from_numpy(hi).to(dev), tabs, page_size, lit, {})
@@ -130,10 +142,10 @@ def camera_rays_tiled(v, tile: int, n_pad: int, device, key, q_base: int = 0):
     return torch.where(live, px_u, 0.0), torch.where(live, d, 0.0)
 
 
-def shadow_mask(tabs: SceneTables, state, rows, key, wave: int):
-    """The unfused shadow pass: from each hit a jittered ray to the light
-    (jax.random draws under fold_in(key, 7_000_000 + wave)), the cull, a
-    sort and the union trace with the ray's own triangle excluded."""
+def shadow_rays(tabs: SceneTables, state, rows, key, wave: int):
+    """From each hit a jittered ray to the light (jax.random draws under
+    fold_in(key, 7_000_000 + wave)): (so, sd, hit, excl), zero off the hit
+    mask, excl the id of each ray's own triangle."""
     o, d = state[0:3], state[3:6]
     R = o.shape[1]
     dev = o.device
@@ -150,11 +162,36 @@ def shadow_mask(tabs: SceneTables, state, rows, key, wave: int):
     so = fma(norm_f, 0.005 * (u1 + 1.0), point)
     so = torch.where(hit[None], so, 0.0)
     sd = torch.where(hit[None], sd, 0.0)
-    excl = torch.where(hit, hid, 0.0)
+    return so, sd, hit, torch.where(hit, hid, 0.0)
+
+
+def shadow_mask(tabs: SceneTables, state, rows, key, wave: int):
+    """The unfused shadow pass: the shadow rays, the cull, a sort and the
+    union trace with the ray's own triangle excluded."""
+    so, sd, hit, excl = shadow_rays(tabs, state, rows, key, wave)
     smask, stmin = cull(so, sd, hit, tabs.aabb_lo, tabs.aabb_hi, RAY_CHUNK)
     srows = trace_chunks(so, sd, tabs.PK, *page_lists(smask, stmin),
                          RAY_CHUNK, excl=excl)
     return (hit & (srows[ROW_ID] != 0.0)).float()
+
+
+def streamed_wave(tabs: SceneTables, state, key, wave: int, seed,
+                  chunk_live):
+    """One wave of the streamed regime: unlit, the trace and shade of the
+    live chunks; lit, the trace to winner rows, the shadow rays' any-hit
+    trace with each ray's own triangle excluded, the shade."""
+    P = tabs.page_size
+    if tabs.light is None:
+        return trace_shade_streamed(state, tabs.streamed, seed, P, RAY_CHUNK,
+                                    WEIGHT_CUTOFF, chunk_live)
+    rows = trace_streamed(state[0:3], state[3:6], state[ROW_ALIVE],
+                          tabs.streamed, P, RAY_CHUNK, chunk_live)
+    so, sd, hit, excl = shadow_rays(tabs, state, rows, key, wave)
+    srows = trace_streamed(so, sd, hit.float(), tabs.streamed, P, excl=excl,
+                           any_hit=True)
+    shd = (hit & (srows[ROW_ID] != 0.0)).float()
+    return shade(state, rows, seed, RAY_CHUNK, WEIGHT_CUTOFF, chunk_live,
+                 shd)
 
 
 def waves(tabs: SceneTables, o, d, alive0, key, maxdepth: int, pk0,
@@ -179,7 +216,12 @@ def waves(tabs: SceneTables, o, d, alive0, key, maxdepth: int, pk0,
         alive = state[ROW_ALIVE] != 0.0
         counts.append(int(alive.sum()))
         seed = fold_in(key, wave)
-        if wave == 0:
+        if tabs.streamed is not None:
+            chunk_live = (alive.reshape(R // RB, RB).any(dim=1) if wave
+                          else torch.ones(R // RB, dtype=torch.bool,
+                                          device=dev))
+            state = streamed_wave(tabs, state, key, wave, seed, chunk_live)
+        elif wave == 0:
             mask, tmin = cull(state[0:3], state[3:6], alive, tabs.aabb_lo,
                               tabs.aabb_hi, RB)
             rows = trace_chunks(state[0:3], state[3:6], pk0,
@@ -252,9 +294,9 @@ def render(tabs: SceneTables, v, key, schedule=(True, True), shards: int = 1):
     quantum = RAY_CHUNK * spp // math.gcd(RAY_CHUNK, spp)
     R = -(-R0 // (shards * quantum)) * shards * quantum
     Rs = R // shards
-    dev = tabs.PK.device
+    dev = tabs.device
     tile = pick_tile(v.width, v.height)
-    pk0 = _folded(tabs, v)
+    pk0 = None if tabs.streamed is not None else _folded(tabs, v)
     cam = torch.from_numpy(np.asarray(v.cam, F32).copy()).to(dev)
     parts, counts = [], np.zeros(v.maxdepth, dtype=np.int64)
     for r in range(shards):

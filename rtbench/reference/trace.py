@@ -3,10 +3,12 @@
 The benchmark reference's frozen copy of the port's plain versions: the
 exact packet cull of `ops/cull.py`, the union trace over each chunk's
 sorted page list and the hit predicate of `ops/intersect.py`, the per-lane
-bank walk of `ops/intersect_perlane.py` with its shadow feeler, and the
-shade of `ops/shade.py`.  Only live RNG is carried.  The blocks are larger
-than the port's, so that a whole 2560x1440 wave runs in few steps on a
-card; the order in which a ray meets pages and triangles is the port's.
+bank walk of `ops/intersect_perlane.py` with its shadow feeler, the bank
+worklists of `ops/intersect_streamed.py` (the streamed regime's plain B9
+and B10) and the shade of `ops/shade.py`.  Only live RNG is carried.  The
+blocks are larger than the port's, so that a whole 2560x1440 wave runs in
+few steps on a card; the order in which a ray meets banks, pages and
+triangles is the port's.
 """
 
 import torch
@@ -32,10 +34,12 @@ PAYLOAD_ROWS = (ROW_NORM, ROW_NORM + 1, ROW_NORM + 2, ROW_ENC, ROW_COLOR,
 REFLECT_DOT = ((1, 0), (0, 1), (0, 1))
 
 #: (chunk x page) pairs of one cull block, (ray x slot) pairs of one union
-#: trace step, and rays of one per-lane block
+#: trace step, rays of one per-lane block and of one streamed block (a step
+#: of the streamed walk gathers 24 * P table floats a ray: 21.5 KB at P = 224)
 CULL_PAIRS = 1 << 25
 UNION_PAIRS = 1 << 26
 PERLANE_RAYS = 1 << 17
+STREAMED_RAYS = 1 << 19
 
 
 def slab_inv(d):
@@ -294,18 +298,20 @@ def shade(state, rows, seed, ray_chunk: int, weight_cutoff: float,
     return torch.where(live[None], new, state)
 
 
-def bank_pass(views, bank: int, rays, o, d, inv, win, excl=None,
+def bank_pass(views, bank, rays, o, d, inv, win, excl=None,
               any_hit: bool = False):
     """One bank's per-lane walk for the rays at `rays`, in place on the
     winner: each ray slab-tests the bank's pages, tests its nearest
     remaining page (ties to the lower index) and drops the pages entered
     beyond its winner; any_hit: the lowest page first, a ray stops at its
-    first page with a hit."""
+    first page with a hit.  bank: an int, or in the streamed regime a
+    tensor holding each ray's bank."""
     if rays.numel() == 0:
         return
     tab_i, tab_s, boxes = views
     best_t, best_id, payload = win
-    box = boxes[bank][:, None]
+    per_ray = not isinstance(bank, int)
+    box = boxes[bank].transpose(0, 1) if per_ray else boxes[bank][:, None]
     tlo, thi = slab([box[..., k] for k in range(3)],
                     [box[..., k + 3] for k in range(3)],
                     [o[k, rays][None] for k in range(3)],
@@ -331,8 +337,12 @@ def bank_pass(views, bank: int, rays, o, d, inv, win, excl=None,
             pidx = torch.where(tkey[:, cols] == kmin[cols], pages,
                                float(GROUP)).amin(dim=0).long()
         lanes = rays[cols]
-        gi = tab_i[bank][:, :, pidx]
-        gs = tab_s[bank][:, :, pidx]
+        if per_ray:
+            gi = tab_i[bank[cols], :, :, pidx].permute(1, 2, 0)
+            gs = tab_s[bank[cols], :, :, pidx].permute(1, 2, 0)
+        else:
+            gi = tab_i[bank][:, :, pidx]
+            gs = tab_s[bank][:, :, pidx]
 
         def col(f, gi=gi, gs=gs):
             return gi[f] if f < N_INT else gs[f - N_INT]
@@ -364,16 +374,20 @@ def bank_views(tables, P: int):
             ab.reshape(NB, GROUP, ab.shape[1])[..., :7])
 
 
+def winner_init(valid):
+    return (torch.where(valid, torch.inf, -torch.inf),
+            torch.zeros(valid.shape[0], dtype=torch.float32,
+                        device=valid.device),
+            torch.zeros((len(PAYLOAD_ROWS), valid.shape[0]),
+                        dtype=torch.float32, device=valid.device))
+
+
 def trace_perlane(o, d, alive, tables, P: int, excl=None,
                   any_hit: bool = False):
     """Winner rows [16, n] of the per-lane walk over every bank in index
     order (any_hit: only ROW_ID != 0 means anything, payload rows 0)."""
     valid = alive != 0.0
-    win = (torch.where(valid, torch.inf, -torch.inf),
-           torch.zeros(valid.shape[0], dtype=torch.float32,
-                       device=valid.device),
-           torch.zeros((len(PAYLOAD_ROWS), valid.shape[0]),
-                       dtype=torch.float32, device=valid.device))
+    win = winner_init(valid)
     inv = torch.stack([slab_inv(d[k]) for k in range(3)])
     views = bank_views(tables, P)
     rays = torch.nonzero(valid).squeeze(1)
@@ -424,4 +438,75 @@ def trace_shade_perlane(state, tables, seed, P: int, ray_chunk: int,
                                 tables, P)
         rv = scatter_rv(seed, idx, ray_chunk)
         out[:, idx] = shade_state_rows(st, rows, rv, weight_cutoff, shd)
+    return out
+
+
+def _streamed_block(o, d, valid, views, bank_ab, excl, any_hit: bool):
+    """The bank worklists of one block of rays: each ray walks the banks
+    whose box it enters, the nearest remaining first (ties to the lower
+    index), skips a bank entered beyond its winner (any_hit: stops at its
+    first hit), and runs the per-lane walk inside.  Returns the winner."""
+    win = winner_init(valid)
+    best_t, best_id, _ = win
+    inv = torch.stack([slab_inv(d[k]) for k in range(3)])
+    NB = views[0].shape[0]
+    bb = bank_ab[:NB]
+    btlo, bthi = slab([bb[:, k:k + 1] for k in range(3)],
+                      [bb[:, k + 3:k + 4] for k in range(3)],
+                      [o[k][None] for k in range(3)],
+                      [inv[k][None] for k in range(3)])
+    todo = ((btlo <= bthi) & (bthi >= 0.0) & (bb[:, 6:7] != 0.0)
+            & valid[None])
+    banks = torch.arange(NB, dtype=torch.float32, device=o.device)[:, None]
+    while True:
+        cand = todo & (btlo <= best_t[None])
+        if any_hit:
+            cand &= (best_id == 0.0)[None]
+        tkey = torch.where(cand, btlo, torch.inf)
+        kmin = tkey.amin(dim=0)
+        rays = torch.nonzero(kmin < torch.inf).squeeze(1)
+        if rays.numel() == 0:
+            return win
+        bsel = torch.where(tkey[:, rays] == kmin[rays], banks,
+                           float(NB)).amin(dim=0).long()
+        todo[bsel, rays] = False
+        bank_pass(views, bsel, rays, o, d, inv, win, excl, any_hit)
+
+
+def trace_streamed(ot, dt, alive, tables, P: int, ray_chunk: int = 0,
+                   chunk_live=None, excl=None, any_hit: bool = False):
+    """Winner rows [16, n] of the streamed trace (the plain B10) over the
+    streamed tables (plt_i, plt_s, ab, bank_ab); chunks flagged 0 in
+    chunk_live get all-zero rows (any_hit: only ROW_ID != 0 means
+    anything, payload rows 0)."""
+    n = ot.shape[1]
+    valid = alive != 0.0
+    if chunk_live is not None:
+        live = torch.repeat_interleave(chunk_live != 0, ray_chunk)
+        valid = valid & live
+    views = bank_views(tables[:3], P)
+    rows = torch.empty((16, n), dtype=torch.float32, device=ot.device)
+    for i in range(0, n, STREAMED_RAYS):
+        sl = slice(i, min(n, i + STREAMED_RAYS))
+        rows[:, sl] = winner_rows(*_streamed_block(
+            ot[:, sl], dt[:, sl], valid[sl], views, tables[3],
+            None if excl is None else excl[sl], any_hit))
+    if any_hit:
+        rows[ROW_ID + 1:] = 0.0
+    if chunk_live is not None:
+        rows = torch.where(live[None], rows, 0.0)
+    return rows
+
+
+def trace_shade_streamed(state, tables, seed, P: int, ray_chunk: int,
+                         weight_cutoff: float, chunk_live):
+    """One unlit wave of the streamed regime (the plain B9): the trace of
+    the live chunks' rays and the shade; chunks flagged 0 pass through."""
+    out = state.clone()
+    live = torch.repeat_interleave(chunk_live != 0, ray_chunk)
+    rays = torch.nonzero(live).squeeze(1)
+    st = state[:, rays]
+    rows = trace_streamed(st[0:3], st[3:6], st[ROW_ALIVE], tables, P)
+    rv = scatter_rv(seed, rays, ray_chunk)
+    out[:, rays] = shade_state_rows(st, rows, rv, weight_cutoff)
     return out

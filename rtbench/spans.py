@@ -1,13 +1,14 @@
 """The engine's spans in a traced window, and the card's work tied to the
 span whose host code launched it.
 
-Under a running profiler `Engine.render` records four spans a frame
-(`engine.prep`, `engine.dispatch`, `engine.readback`, `engine.unpermute`;
-`rust_raytrace_tpu_torch/utils/profiling.annotate`), so `profile.reduce`
-keeps them among the rendering thread's host events, on the one clock of
-the card's kernels and copies.  The runtime calls that launch a kernel or
-a copy (`cudaLaunchKernel`, `cudaMemcpyAsync`, ...) are host events of
-that thread too.  The port runs its work on one stream, which runs it in
+Under a running profiler `Engine.render` records four spans a frame, in
+this order (`engine.prep`, `engine.dispatch`, `engine.unpermute`,
+`engine.readback`; a float image: `engine.unpermute` after
+`engine.readback`; `rust_raytrace_tpu_torch/utils/profiling.annotate`),
+so `profile.reduce` keeps them among the rendering thread's host events,
+on the one clock of the card's kernels and copies.  The runtime calls that
+launch a kernel or a copy (`cudaLaunchKernel`, `cudaMemcpyAsync`, ...) are
+host events of that thread too.  The port runs its work on one stream, which runs it in
 the order the host launched it, so the k-th kernel on the card is the one
 the k-th kernel launch enqueued, and likewise for copies: `launched_at`
 pairs them so, where the counts agree.  A program without the spans (or

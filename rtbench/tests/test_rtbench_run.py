@@ -3,6 +3,7 @@ it imports."""
 
 import ast
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -35,10 +36,12 @@ def test_a_tiny_cpu_run_is_correct_and_keyed(tiny, trace):
 
 
 def test_no_card_no_result():
+    # no card visible, also on a machine that has one
     p = subprocess.run(
         [sys.executable, "-m", "rtbench.run", "--workload",
          "disks_2k.spp4", "--seed", "1", "--seconds", "1"],
-        cwd=bench.ROOT, capture_output=True, text=True, timeout=300)
+        cwd=bench.ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert p.returncode != 0 and p.stdout.strip() == ""
 
 

@@ -196,5 +196,10 @@ def test_the_pairing_is_the_profilers_correlation_on_the_card(card):
     assert host >= 0.95 * frame_ms, (host, frame_ms)
     glue = got["camera_ms"] + got["dispatch_glue_ms"]
     assert abs(glue - got["glue_ms"]) <= 0.02 * got["glue_ms"], got
-    top = profile.breakdown(rank)["idle_gaps"][0][0]
-    assert top.startswith("engine."), profile.breakdown(rank)["idle_gaps"]
+    # the image is un-tiled on the card: no idle stretch of the card over
+    # 1 ms lies in `engine.unpermute` (the host's numpy scatter held it
+    # idle for ~90 ms a frame there before)
+    unpermute = spans.spans(rank, (spans.UNPERMUTE,))
+    for a, b in profile.idle_gaps(rank):
+        inside = sum(max(0.0, min(b, e) - max(a, s)) for s, e in unpermute)
+        assert inside <= 1e-3, (a, b, inside)
