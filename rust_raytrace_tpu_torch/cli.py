@@ -28,6 +28,15 @@ Examples:
   python -m rust_raytrace_tpu_torch.cli diff --scene teapot \
       --resolution dev --a engine --b oracle
   python -m rust_raytrace_tpu_torch.cli tune --scene teapot --resolution 2k
+  python -m rust_raytrace_tpu_torch.cli render --scene dog --lights \
+      --resolution 1920x1080 --spp 4 --out dog.png
+
+The `dog` scene is dm_control's dog (DeepMind Control Suite, suite/dog.xml,
+Apache-2.0) posed at qpos0 as MuJoCo draws it by default (the posed skin,
+the claws and the eyes), with its floor, light and camera `y-axis`, read
+from `models/assets/dog_qpos0.npz`; `scripts/bake_dog.py` bakes that file
+again where `mujoco` and `dm_control` are installed.  Its model's own
+offscreen size is 1920x1080.
 """
 
 import argparse
@@ -46,6 +55,8 @@ from .utils.rng import prng_key
 #: the engine's page size it tries
 CHUNK_OPTS = (256, 512, 1024, 2048, 4096)
 PAGE_STEPS = range(-2, 5)
+#: the scenes whose `build` takes a light (`--lights`)
+LIT_SCENES = ("teapot", "dog")
 
 
 def build_scene(args):
@@ -56,8 +67,9 @@ def build_scene(args):
         res = (int(w), int(h))      # explicit WxH, e.g. --resolution 640x480
     kwargs = dict(resolution=res, maxdepth=args.maxdepth, samples=args.spp)
     if getattr(args, "lights", False):
-        if args.scene != "teapot":
-            raise SystemExit("--lights is wired for the teapot scene")
+        if args.scene not in LIT_SCENES:
+            raise SystemExit("--lights is wired for the "
+                             + " and ".join(LIT_SCENES) + " scenes")
         kwargs["with_light"] = True
     if getattr(args, "obj", None):
         if args.scene not in ("obj", "teapot"):
@@ -271,7 +283,8 @@ def main(argv=None):
         sp.add_argument("--page-size", type=int, default=56)
         sp.add_argument("--ray-chunk", type=int, default=1024)
         sp.add_argument("--lights", action="store_true",
-                        help="enable the shadow-ray light (teapot scene)")
+                        help="enable the shadow-ray light (teapot and dog "
+                             "scenes)")
         sp.add_argument("--obj", help="path to a user .obj mesh "
                                       "(--scene obj; auto-framed camera)")
         sp.add_argument("--obj-scale", type=float, default=1.0,

@@ -71,7 +71,13 @@ Under a running `torch.profiler`, `render` records four spans a frame
 (`untile_u8`: on the card, one kernel launch) and `engine.readback` (the
 image's and the wave counts' copies to the host), in that order; a float
 image is un-permuted on the host (`_assemble_host_image`), so there
-`engine.unpermute` follows `engine.readback`.
+`engine.unpermute` follows `engine.readback`.  Inside `engine.dispatch`, a
+wave split into trace, shadow pass and shade records `engine.trace` (B6 or
+B10 to winner rows), `engine.shadow` (lit: `shadow_mask`,
+`shadow_mask_streamed`) and `engine.shade` (B8): the resident regime's lit
+wave 0 and each lit wave of the streamed regime; each unlit streamed wave
+records `engine.trace` around its fused kernel (B9 or B12).  The resident
+regime's fused waves record none.
 """
 
 import copy
@@ -768,7 +774,8 @@ class Engine(RayCaster):
         """One wave over the union tables: the resident regime's wave 0, and
         every wave of a scene past the cap with streamed=False.  Cull (B1),
         a stable sort, then B2, or with a light, or when the rows are wanted
-        (debug), B6 to winner rows, the shadow pass (lit) and B8.  Wave 0
+        (debug), B6 to winner rows, the shadow pass (lit) and B8, in the
+        spans `engine.trace`, `engine.shadow` and `engine.shade`.  Wave 0
         runs on the folded pages when pk0 is given, and takes no skip flags
         (chunk_live and grid_live None: B1 and B2 without them; skippable
         gives B2 all-ones flags); a bounce wave's retired chunks and those
@@ -793,16 +800,21 @@ class Engine(RayCaster):
             return state, None, (counts, plist)
         # unfused: the shadow pass (lit) runs between trace and shade, and
         # debug keeps the rows
-        rows = trace_chunks(state[0:3], state[3:6], pk, counts, plist, ptmin,
-                            P, RB, zero_origin=zo)
+        with annotate("engine.trace"):
+            rows = trace_chunks(state[0:3], state[3:6], pk, counts, plist,
+                                ptmin, P, RB, zero_origin=zo)
         shd = None
         if self.light is not None:
-            shd = shadow_mask(state, rows, key, wave, fixed_rng, self.light,
-                              self.aabb_lo, self.aabb_hi, self.PK, P, RB)
+            with annotate("engine.shadow"):
+                shd = shadow_mask(state, rows, key, wave, fixed_rng,
+                                  self.light, self.aabb_lo, self.aabb_hi,
+                                  self.PK, P, RB)
         if chunk_live is None:
             chunk_live = torch.ones(state.shape[1] // RB, dtype=torch.int32,
                                     device=state.device)
-        state = shade(state, rows, seed, RB, fixed_rng, wc, chunk_live, shd)
+        with annotate("engine.shade"):
+            state = shade(state, rows, seed, RB, fixed_rng, wc, chunk_live,
+                          shd)
         return state, rows, (counts, plist)
 
     def _streamed_wave(self, state, key, wave: int, seed, fixed_rng: bool,
@@ -810,21 +822,26 @@ class Engine(RayCaster):
         """One wave of the streamed regime: B9, or from wave 2 on with
         bank_major the bank-major sweep (B12); or with a light, or when the
         rows are wanted (debug), B10 to winner rows, the streamed shadow
-        pass (lit) and B8.  Returns (state, rows or None)."""
+        pass (lit) and B8, in the spans `engine.trace`, `engine.shadow` and
+        `engine.shade`.  Returns (state, rows or None)."""
         P = self.page_size
         if self.light is None and not want_rows:
             fused = (trace_shade_bankmajor if wave > 1 and self.bank_major
                      else trace_shade_streamed)
-            return fused(state, self.stables, seed, P, RB, fixed_rng, wc,
-                         chunk_live), None
-        rows = trace_streamed(state[0:3], state[3:6], state[ROW_ALIVE],
-                              self.stables, P, RB, chunk_live=chunk_live)
+            with annotate("engine.trace"):
+                return fused(state, self.stables, seed, P, RB, fixed_rng, wc,
+                             chunk_live), None
+        with annotate("engine.trace"):
+            rows = trace_streamed(state[0:3], state[3:6], state[ROW_ALIVE],
+                                  self.stables, P, RB, chunk_live=chunk_live)
         shd = None
         if self.light is not None:
-            shd = shadow_mask_streamed(state, rows, key, wave, fixed_rng,
-                                       self.light, self.stables, P, RB)
-        return shade(state, rows, seed, RB, fixed_rng, wc, chunk_live,
-                     shd), rows
+            with annotate("engine.shadow"):
+                shd = shadow_mask_streamed(state, rows, key, wave, fixed_rng,
+                                           self.light, self.stables, P, RB)
+        with annotate("engine.shade"):
+            return shade(state, rows, seed, RB, fixed_rng, wc, chunk_live,
+                         shd), rows
 
     def _render_legacy(self, o, d, alive0, key, maxdepth: int,
                        fixed_rng: bool, pk0, want_primary: bool):

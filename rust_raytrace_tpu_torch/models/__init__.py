@@ -14,13 +14,17 @@ Each module exposes `build(...) -> (Scene, Viewport)`:
                reflective, multi-bounce) for the BASELINE "multi-object" config.
   - `obj`:     any user .obj mesh with an auto-framed camera (the reference
                can only render assets compiled into main.rs) — CLI `--obj`.
+  - `dog`:     dm_control's dog at qpos0 as MuJoCo draws it (49,548
+               triangles), its floor, light and camera, from the file
+               `scripts/bake_dog.py` bakes.
 """
 
-from . import teapot, circles, multi, objfile  # noqa: F401
+from . import teapot, circles, multi, objfile, dog  # noqa: F401
 
 REGISTRY = {
     "teapot": teapot.build,
     "circles": circles.build,
     "multi": multi.build,
     "obj": objfile.build,       # any user .obj via --obj PATH
+    "dog": dog.build,
 }
