@@ -155,7 +155,10 @@ Phases, each fatal on failure:
      replacing no TPU kernel) on a random 2560x1440 spp 4 image, byte for
      byte against its plain version and the one PyTorch call
      permute(...).contiguous(), timed beside both, the byte bound and the
-     plain version on a host tensor;
+     plain version on a host tensor; the camera (csrc/camera.cu, replacing
+     no TPU kernel) on the 2560x1440 spp 4 ray set, bit for bit against
+     its plain version, timed beside its bound (bytes written, or the
+     threefry's int32 operations) and its ptxas report;
   4. golden: the 96x54 circles render under fixed_rng of the default
      (compacted) Engine, of WavefrontRenderer(backend="kernel") and of
      Engine(compact=False) is byte-equal to tests/goldens/circles_96x54.png;
@@ -224,8 +227,9 @@ Phases, each fatal on failure:
      circles_2k render inside utils/profiling's `trace` and `annotate`
      (the Chrome trace must hold the render's four engine.* spans once
      each, in order (prep, dispatch, unpermute, readback), on its thread,
-     B4's kernel launched inside `engine.dispatch` and the un-tiling's
-     inside `engine.unpermute`, and the spans' sum within
+     B4's kernel launched inside `engine.dispatch`, the un-tiling's
+     inside `engine.unpermute` and the camera's inside `engine.prep`, which
+     makes no synchronizing call, and the spans' sum within
      SPAN_GAP_MS of the render's CUDA-event time); B11 on
      circles' camera rays at 320x180, page size 64, against
      ops/intersect_ref's numpy model (tie "lex": hit/miss sets equal, ids
@@ -302,7 +306,7 @@ from rust_raytrace_tpu_torch.engine import Engine, page_lists
 from rust_raytrace_tpu_torch.geometry import make_sphere
 from rust_raytrace_tpu_torch.materials import matte
 from rust_raytrace_tpu_torch.models import circles
-from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
+from rust_raytrace_tpu_torch.ops import (camera, compact, cull, intersect,
                                         intersect_perlane, intersect_streamed,
                                         shade, untile)
 from rust_raytrace_tpu_torch.ops.intersect_ref import nearest_hit_model
@@ -577,6 +581,7 @@ def _plain_perlane_whole(ot, dt, alive, tables, page_size, excl=None,
 PLAIN["trace_shade_bankmajor"] = intersect_streamed.trace_shade_bankmajor_plain
 PLAIN["trace_perlane"] = _plain_perlane_rows
 PLAIN["untile_u8"] = untile.untile_u8_plain
+PLAIN["camera_rays_tiled"] = camera.camera_rays_tiled_plain
 
 
 def _plain_nearest(O, D, PK, page_size, ray_chunk, alive=None):
@@ -766,10 +771,9 @@ def _synthetic_wave0(eng, vp, dev):
     circles_2k's: tile-order camera rays, the pinhole origin folded)."""
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
-    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
-                                                           vp.height), R, dev)
-    o, _ = eng._pinhole_fold(vp, o)
-    alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
+    o, d, alive0, _ = eng._camera_rays(
+        vp, eng_mod.pick_tile(vp.width, vp.height), R, None)
+    alive0 = alive0.to(torch.float32)[None]
     return torch.cat([o, d, alive0, alive0,
                       torch.zeros((8, R), device=dev)], dim=0)
 
@@ -1119,9 +1123,9 @@ def perlane_banks(dev, key):
     vp = synthetic_view((2560, 1440))
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
-    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
-                                                           vp.height), R, dev)
-    alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)
+    o, d, alive0 = eng_mod.camera_rays_tiled(
+        vp, eng_mod.pick_tile(vp.width, vp.height), R, dev)
+    alive0 = alive0.to(torch.float32)
     frows = intersect_perlane.trace_perlane(o, d, alive0, tabs, P, RB)
     hit_chunks = torch.nonzero((frows[1] != 0).reshape(-1, RB).any(dim=1))
     pick = torch.linspace(0, hit_chunks.numel() - 1, N_CHECK_CHUNKS,
@@ -1198,10 +1202,9 @@ def streamed_kernels(dev, card, key, results, build_log):
     vp = synthetic_view((2560, 1440))
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
-    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
-                                                           vp.height), R, dev)
-    o, _ = eng._pinhole_fold(vp, o)
-    alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
+    o, d, alive0, _ = eng._camera_rays(
+        vp, eng_mod.pick_tile(vp.width, vp.height), R, None)
+    alive0 = alive0.to(torch.float32)[None]
     full0 = torch.cat([o, d, alive0, alive0,
                        torch.zeros((8, R), device=dev)], dim=0)
     ts, tsp = intersect_streamed.trace_streamed, \
@@ -2013,6 +2016,56 @@ def untile_kernel(dev, card, results, build_log) -> None:
           f"{bound['bound_ms']:.4f} ms (bytes) [{card}]")
 
 
+def camera_kernel(dev, card, results, build_log) -> None:
+    """The camera (csrc/camera.cu), which replaces no TPU kernel (the JAX
+    package computes it in XLA, rust_raytrace_tpu/engine.py:159-198), on
+    the ray set of a 2560x1440 spp 4 render (circles_2k's camera, padded as
+    the default Engine pads) under a live key, with the pinhole.  Gates:
+    one launch, o, d and the live mask bit for bit its plain version's.
+    Timed by CUDA events and its device time, the plain version once; the
+    bound is its bytes: o, d and the live byte written, 25 B a lane, and
+    nothing read but the rsqrt table."""
+    _, vp = circles.build(resolution=(2560, 1440), samples=4)
+    eng = Engine(circles.build(resolution=(64, 36))[0], device=dev)
+    tile = eng_mod.pick_tile(vp.width, vp.height)
+    R0 = vp.width * vp.height * 4
+    R = -(-R0 // eng._quantum(4)) * eng._quantum(4)
+    key = prng_key(2 ** 31 + 5)
+
+    def kernel():
+        return camera.camera_rays_tiled(vp, tile, R, dev, key, pinhole=True)
+
+    def plain():
+        return camera.camera_rays_tiled_plain(vp, tile, R, dev, key,
+                                              pinhole=True)
+
+    n0 = native.CAMERA.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    launched = native.CAMERA.launches - n0
+    want = plain()
+    same = all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+               for g, w in zip(got, want))
+    if launched != 1 or not same:
+        raise AssertionError(f"camera at {vp.width}x{vp.height} spp 4 "
+                             f"({launched} launches) differs from its plain "
+                             f"version")
+    del got, want
+    bound = _bound(25 * R, 0)
+    results[native.CAMERA.name] = dict(
+        rays=R, max_abs_err=0.0, ms=_time_ms(kernel, reps=20),
+        device_ms=_device_ms(kernel), plain_ms=_time_plain_ms(plain),
+        **bound,
+        ptxas=_print_ptxas(build_log, "camera", ("camera_kernel",)))
+    r = results[native.CAMERA.name]
+    print(f"camera at {vp.width}x{vp.height} spp 4 ({R} lanes, "
+          f"{launched} launch): bit for bit its plain version's; kernel "
+          f"{r['ms']:.4f} ms by events, device time {r['device_ms']:.4f} "
+          f"ms; plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+          f"(bytes, 25 a lane): {100 * r['bound_ms'] / r['device_ms']:.1f}% "
+          f"of the device time [{card}]")
+
+
 def ray_chunk_kernels(eng, full0, pk0, s_eng, card, key, results):
     """Phase 3 for ray_chunk 2048 and 4096 (B1, B2 and B6 blocks of 512 or
     1024 threads, each owning 2 or 4 rays of the chunk; B12a's 1024
@@ -2027,9 +2080,9 @@ def ray_chunk_kernels(eng, full0, pk0, s_eng, card, key, results):
     R = full0.shape[1]
     P = eng.page_size
     svp = synthetic_view((2560, 1440))
-    so_, sd_ = eng_mod.camera_rays_tiled(
+    so_, sd_, sa = eng_mod.camera_rays_tiled(
         svp, eng_mod.pick_tile(svp.width, svp.height), R, dev)
-    sa = (torch.arange(R, device=dev) < svp.width * svp.height).float()[None]
+    sa = sa.float()[None]
     s_full = torch.cat([so_, sd_, sa, sa, torch.zeros((8, R), device=dev)])
     stabs = s_eng.stables
     NB = stabs[0].shape[0]
@@ -2590,8 +2643,11 @@ def profiling_phase(dev, card, eng, vp) -> None:
     span: the exported trace holds the render's four engine.* spans once
     each, inside that span, in order and on its thread; B4's kernels, each
     launched inside `engine.dispatch` (the runtime call of the kernel's
-    correlation id), and the un-tiling's one kernel inside
-    `engine.unpermute`; and the spans' sum within SPAN_GAP_MS of the
+    correlation id), the un-tiling's one kernel inside `engine.unpermute`,
+    one launch call inside `engine.prep`, the camera's (its launch count
+    rises by one, and where the trace holds that call's kernel it is the
+    camera kernel), with no synchronizing call there; and the spans' sum
+    within SPAN_GAP_MS of the
     render's CUDA-event time (outside the spans the render takes its key
     and makes its result, and the profiler enters the first span: a fixed
     0.4-0.7 ms on the H100, whatever the render's length: of a 99 ms
@@ -2601,12 +2657,14 @@ def profiling_phase(dev, card, eng, vp) -> None:
     end = torch.cuda.Event(enable_timing=True)
     logdir = Path(__file__).resolve().parent / "build" / "profile"
     torch.cuda.synchronize()
+    n_cam = native.CAMERA.launches
     with trace(str(logdir)) as prof:
         with annotate("render"):
             start.record()
             eng.render(vp)
             end.record()
     event_ms = start.elapsed_time(end)
+    n_cam = native.CAMERA.launches - n_cam
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
 
@@ -2643,24 +2701,52 @@ def profiling_phase(dev, card, eng, vp) -> None:
     in_dispatch = launched_in(b4, "engine.dispatch")
     unt = kernels("untile_kernel")
     in_unpermute = launched_in(unt, "engine.unpermute")
+    # the camera: gated on its launch call, which the host records.  In a
+    # process that has run for a while the trace can hold no kernel for
+    # the window's first launch calls (on the H100 this render lost its
+    # first six to nine, the camera's among them, while the calls and the
+    # launch counter were there; in a fresh process none; PERF.md §6)
+    prep = [e for e in spans if e["name"] == "engine.prep"]
+    in_prep = [e for e in events if e.get("cat") == "cuda_runtime" and prep
+               and prep[0]["ts"] <= e["ts"] <= prep[0]["ts"] + prep[0]["dur"]]
+    prep_launches = [e for e in in_prep if "Launch" in e.get("name", "")]
+    prep_syncs = [e for e in in_prep if "Synchronize" in e.get("name", "")]
+    kernel_of = {e["args"].get("correlation"): e["name"] for e in events
+                 if e.get("cat") == "kernel"}
+    prep_kernels = [kernel_of.get(e["args"].get("correlation"))
+                    for e in prep_launches]
+    cam = [k for k in prep_kernels if k and "camera_kernel" in k]
+    unrecorded = sum(e.get("cat") == "cuda_runtime"
+                     and "LaunchKernel" in e.get("name", "")
+                     and e["args"].get("correlation") not in kernel_of
+                     for e in events)
     span_ms = sum(e["dur"] for e in spans) * 1e-3
     n_dev = sum(e.get("cat") == "kernel" for e in events)
     print(f"profiling: trace {prof.trace_path} ({len(events)} events, "
           f"{n_dev} device kernels, {len(b4)} of B4, {len(in_dispatch)} "
           f"launched in engine.dispatch, {len(unt)} un-tiling, "
-          f"{len(in_unpermute)} launched in engine.unpermute); spans "
+          f"{len(in_unpermute)} launched in engine.unpermute; "
+          f"engine.prep: {len(prep_launches)} launch call, the camera's "
+          f"count +{n_cam}, its kernel {'recorded' if cam else 'not recorded'}"
+          f", {len(prep_syncs)} synchronizing calls; {unrecorded} kernel "
+          f"launch calls of the window with no kernel in the trace); spans "
           + ", ".join(f"{e['name']} {e['dur'] * 1e-3:.3f}" for e in spans)
           + f" ms, sum {span_ms:.3f} ms against CUDA events "
           f"{event_ms:.3f} ms [{card}]")
     if (not ok or not b4 or len(in_dispatch) != len(b4)
             or len(unt) != 1 or len(in_unpermute) != 1
+            or len(prep_launches) != 1 or n_cam != 1
+            or any(k and "camera_kernel" not in k for k in prep_kernels)
+            or prep_syncs
             or event_ms - span_ms > SPAN_GAP_MS):
         raise AssertionError("profiling: the trace lacks the render's four "
                              "engine spans in order, B4 launched in "
-                             "engine.dispatch or the one un-tiling kernel "
-                             "launched in engine.unpermute, or the spans "
-                             f"leave more than {SPAN_GAP_MS} ms of the "
-                             f"CUDA-event time uncovered")
+                             "engine.dispatch, the one un-tiling kernel "
+                             "launched in engine.unpermute or the one "
+                             "camera launch in engine.prep, engine.prep "
+                             "synchronizes, or the spans leave more than "
+                             f"{SPAN_GAP_MS} ms of the CUDA-event time "
+                             f"uncovered")
 
 
 def oracle_phase(dev) -> None:
@@ -2834,10 +2920,10 @@ def _spawn_ranks(backend: str, fn=distributed_rank,
 
 def _gate_ranks(label: str, recs: list, card) -> None:
     """Rank 0's images equal the single controller's, the trace's colors
-    and counts too; each rank launched the unlit path's kernels (B1 and B2
-    once) in its render and B11 alone in its trace, and under nccl rank 0
-    the un-tiling once (on its card, after the gather; under gloo the
-    image is un-tiled on the host)."""
+    and counts too; each rank launched the unlit path's kernels (B1, B2
+    and the camera once) in its render and B11 alone in its trace, and
+    under nccl rank 0 the un-tiling once (on its card, after the gather;
+    under gloo the image is un-tiled on the host)."""
     r0 = recs[0]
     print(f"{label}: rank 0 render {r0['ms']:.3f} ms "
           f"({r0['rays_traced'] / r0['ms'] / 1e3:.3f} Mrays/s), other ranks "
@@ -2864,11 +2950,11 @@ def _gate_ranks(label: str, recs: list, card) -> None:
               f"trace launches {tl}")
         untiles = int(r == 0 and rec["backend"] == "nccl")
         bad = ([k for k in UNLIT_PATH if rl[k] == 0]
-               + [k for k in ("cull_mask_exact", "trace_shade_chunks")
-                  if rl[k] != 1]
+               + [k for k in ("cull_mask_exact", "trace_shade_chunks",
+                              "camera_rays_tiled") if rl[k] != 1]
                + ["untile_u8"] * (rl["untile_u8"] != untiles)
-               + [k for k, c in rl.items()
-                  if c and k not in UNLIT_PATH + ("untile_u8",)]
+               + [k for k, c in rl.items() if c and k not in UNLIT_PATH
+                  + ("untile_u8", "camera_rays_tiled")]
                + [k for k, c in tl.items() if bool(c) != (k == "nearest_hit")])
         if bad:
             raise AssertionError(f"{label}: rank {r}'s launches of {bad} are "
@@ -3139,7 +3225,7 @@ def jax_last_paths(dev, card, key, eng, eng_l, eng_s, vp, s_vp, st0, mask0,
 
     # A12: B3/B5 against the numpy oracles at the first boundary (the
     # unlit render's state after wave 0)
-    pk0 = eng._pinhole_fold(vp, full0[0:3])[1]
+    pk0 = eng._pinhole_fold(vp)
     full1 = eng._union_wave(full0, key, 0, fold_in(key, 0), False,
                             eng.weight_cutoff, pk0, None, None, RB,
                             False)[0]
@@ -3267,9 +3353,8 @@ def main() -> int:
     tile = eng_mod.pick_tile(vp.width, vp.height)
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
-    o, d = eng_mod.camera_rays_tiled(vp, tile, R, dev)
-    o, pk0 = eng._pinhole_fold(vp, o)
-    alive0 = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
+    o, d, alive0, pk0 = eng._camera_rays(vp, tile, R, None)
+    alive0 = alive0.to(torch.float32)[None]
     full0 = torch.cat([o, d, alive0, alive0,
                        torch.zeros((8, R), device=dev)], dim=0)
     # chunks spread over the whole image
@@ -3733,6 +3818,7 @@ def main() -> int:
     bucket_kernels(full1, card, results)
     ray_chunk_kernels(eng, full0, pk0, eng_s, card, key, results)
     untile_kernel(dev, card, results, built["log"])
+    camera_kernel(dev, card, results, built["log"])
     _print_ptxas(built["log"], "B13", ("cull_sorted_kernel",))
     _print_ptxas(built["log"], "B14", ("compact_buckets_kernel",
                                        "expand_buckets_kernel"))
@@ -3870,10 +3956,9 @@ def main() -> int:
     cP = ec.page_size
     cR0 = c_vp.width * c_vp.height
     cR = -(-cR0 // RB) * RB
-    co, cd = eng_mod.camera_rays_tiled(
-        c_vp, eng_mod.pick_tile(c_vp.width, c_vp.height), cR, dev)
-    co, cpk0 = ec._pinhole_fold(c_vp, co)
-    ca = (torch.arange(cR, device=dev) < cR0).to(torch.float32)[None]
+    co, cd, ca, cpk0 = ec._camera_rays(
+        c_vp, eng_mod.pick_tile(c_vp.width, c_vp.height), cR, None)
+    ca = ca.to(torch.float32)[None]
     cst0 = torch.cat([co, cd, ca, ca, torch.zeros((8, cR), device=dev)])
     ckey = prng_key(5)
     cm, ct = cull.cull_mask_exact(cst0[0:3], cst0[3:6], cst0[7] != 0,
@@ -4440,10 +4525,9 @@ def ca0d7908_cases(dev, key, old):
     P = eng.page_size
     R0 = vp.width * vp.height
     R = -(-R0 // RB) * RB
-    o, d = eng_mod.camera_rays_tiled(vp, eng_mod.pick_tile(vp.width,
-                                                           vp.height), R, dev)
-    o, pk0 = eng._pinhole_fold(vp, o)
-    alive = (torch.arange(R, device=dev) < R0).to(torch.float32)[None]
+    o, d, alive, pk0 = eng._camera_rays(
+        vp, eng_mod.pick_tile(vp.width, vp.height), R, None)
+    alive = alive.to(torch.float32)[None]
     full0 = torch.cat([o, d, alive, alive, torch.zeros((8, R), device=dev)])
     lists = page_lists(*cull.cull_mask_exact(
         full0[0:3], full0[3:6], full0[7] != 0, eng.aabb_lo, eng.aabb_hi, RB))

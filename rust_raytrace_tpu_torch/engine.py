@@ -7,29 +7,31 @@ of `_render_device_compact` and its shadow pass `_shadow_mask` (the
 resident wave-0, per-lane and streamed branches), the legacy loop
 `_render_device` with its inline shadow pass and `_shade_rows`,
 `walk_one_ray`, `render_banded` and `_dispatch_device`; plus
-`_camera_rays_tiled` with the spp jitter (`_pos_uniform`, `_threefry2x32`),
-`_unit_rows`, `_box_filter`, `_device_quantizable`, `_quantize_u8`,
-`pick_tile`, `tile_permutation`, `plan_boundaries`, `auto_page_size` and
+`_box_filter`, `_device_quantizable`, `_quantize_u8`, `pick_tile`,
+`tile_permutation`, `plan_boundaries`, `auto_page_size` and
 `_assemble_host_image` (its float branch; the quantized branch is
-`ops.untile`), copied because the JAX module imports jax.
+`ops.untile`), copied because the JAX module imports jax.  The JAX
+`_camera_rays_tiled` with its spp jitter is `ops.camera.camera_rays_tiled`.
 
 One render: tile-order camera rays (a pixel's spp samples on adjacent
-lanes) -> pinhole fold of the page scalars -> wave 0 = cull (B1) -> stable
-sort of the page lists -> union trace + shade (B2) -> at each compaction
-boundary: `compact_meta` and compaction (B3) -> waves 1.. = per-lane trace +
-shade (B4) -> expansion (B5) backward over the boundaries -> box filter (spp
-2, 4), u8 quantization and the un-tiling (`ops.untile`) on the device ->
-copy to the host (a float image: copy, then un-permute on the host).  A
-scene with a light (`scene.lights`), or a debug render, runs wave 0
-unfused: cull (B1) -> sort -> union trace to winner rows (B6) -> (lit:
-`shadow_mask`, the shadow rays through B1, a sort and B6 with
-self-exclusion) -> shade (B8); a lit scene's bounce waves run B4 with the
-shadow feeler fused.  The JAX loop's wave-0 knobs, which `utils.devbench`
-passes to `_dispatch`: `wave0_fused_lights` runs a lit wave 0 through B4
-with its feeler too, `wave0_skippable` gives B2 chunk_live flags, and `cb`
-sets the compaction chunk.  With `Engine(gate_frac=)` a boundary that the
-schedule allows compacts only when its survivors are at most that share of
-the state's content (`compact_meta`), decided on the device.
+lanes; on the card one launch of `csrc/camera.cu`, which also writes the
+pinhole origin and the live mask) -> pinhole fold of the page scalars ->
+wave 0 = cull (B1) -> stable sort of the page lists -> union trace + shade
+(B2) -> at each compaction boundary: `compact_meta` and compaction (B3) ->
+waves 1.. = per-lane trace + shade (B4) -> expansion (B5) backward over the
+boundaries -> box filter (spp 2, 4), u8 quantization and the un-tiling
+(`ops.untile`) on the device -> copy to the host (a float image: copy, then
+un-permute on the host).  A scene with a light (`scene.lights`), or a debug
+render, runs wave 0 unfused: cull (B1) -> sort -> union trace to winner
+rows (B6) -> (lit: `shadow_mask`, the shadow rays through B1, a sort and B6
+with self-exclusion) -> shade (B8); a lit scene's bounce waves run B4 with
+the shadow feeler fused.  The JAX loop's wave-0 knobs, which
+`utils.devbench` passes to `_dispatch`: `wave0_fused_lights` runs a lit
+wave 0 through B4 with its feeler too, `wave0_skippable` gives B2
+chunk_live flags, and `cb` sets the compaction chunk.  With
+`Engine(gate_frac=)` a boundary that the schedule allows compacts only when
+its survivors are at most that share of the state's content
+(`compact_meta`), decided on the device.
 
 A scene past the resident tables' cap (`table_slot_cap` triangle slots)
 takes the streamed regime by default: no cull and no pinhole fold; every wave, wave 0
@@ -102,7 +104,8 @@ from .ops.intersect_streamed import (trace_shade_bankmajor,
                                      trace_shade_streamed, trace_streamed,
                                      upload_streamed_tables)
 from .ops.pages import LANE_ID, build_pages_kd
-from .ops.shade import FIXED_RV, SKY, fma, rsqrt, shade, sum3
+from .ops.camera import camera_rays_tiled
+from .ops.shade import FIXED_RV, SKY, fma, rsqrt, shade, sum3, unit_rows
 from .ops.state import (ROW_ACC, ROW_ALIVE, ROW_ALPHA, ROW_COLOR, ROW_DEAD,
                         ROW_ENC, ROW_ID, ROW_NORM, ROW_SCAT, ROW_T, ROW_W,
                         STATE_ROWS)
@@ -112,7 +115,7 @@ from .render import RayCaster, RenderResult
 from .scene import Scene
 from .utils.png import quantize_u8 as host_quantize_u8
 from .utils.profiling import annotate
-from .utils.rng import fold_in, prng_key, threefry2x32, uniform
+from .utils.rng import fold_in, prng_key, uniform
 
 F32 = np.float32
 
@@ -222,67 +225,6 @@ def box_filter(img: torch.Tensor, spp: int) -> torch.Tensor:
     for i in range(1, spp):
         acc = acc + s[..., i]
     return acc / float(spp)
-
-
-def pos_uniform(key, q: torch.Tensor, salt: int) -> torch.Tensor:
-    """Uniform [0, 1) float32 keyed by the absolute stream position q (the
-    JAX `_pos_uniform`): the first word of Threefry-2x32 under the key
-    fold_in(key, salt) of the counter (q, 0), its top 24 bits times 2^-24.
-    A pure function of (key, salt, q), so any window of the stream draws
-    the full render's values."""
-    k0, k1 = (int(w) for w in fold_in(key, salt))
-    bits, _ = threefry2x32(k0, k1, q.to(torch.int64) & 0xFFFFFFFF, 0)
-    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
-
-
-def unit_rows(v: torch.Tensor, wide: bool = False) -> torch.Tensor:
-    """Normalize [3, R] column vectors (`jnp.sum(v * v, axis=0)` is XLA's
-    `sum3`, measured against the jitted camera).  wide: the rsqrt of a
-    fusion XLA vectorizes 16 floats wide (C7)."""
-    return v * rsqrt(sum3(v, v), wide)[None]
-
-
-def camera_rays_tiled(v: Viewport, tile: int, n_pad: int, device,
-                      key=None, q_base: int = 0):
-    """Primary rays in tile-major order (`pixel_ray`): (o, d) as [3, n_pad]
-    float32 on `device` for the stream positions q_base .. q_base + n_pad
-    of the whole image (a band of `Engine.render_banded` gets the very rays
-    the full render emits there); positions past the image have o = d = 0
-    (invalid lanes).  A pixel's spp samples sit on adjacent lanes (q // spp
-    is the pixel); spp 1 shoots through the pixel centre, spp > 1 jitters
-    sample q by `pos_uniform(key, q, 1_000_001)` across and 1_000_002 down.
-
-    The image-plane point is orig + vu*(col + 0.5) + vv*(row + 0.5) with
-    both multiply-adds fused, as XLA on the CPU compiles the JAX version
-    (ROADMAP C2): unfused, a ray 1 ulp off flips a pixel of the 48x27
-    circles render.  The normalization is `unit_rows`, with XLA-CPU's rsqrt
-    (C1)."""
-    spp = v.samples_per_pixel
-    R0 = v.height * v.width * spp
-    q = torch.arange(n_pad, device=device) + q_base
-    pix = q // spp if spp > 1 else q
-    T = tile
-    tpr = v.width // T
-    tile_id = pix // (T * T)
-    within = pix % (T * T)
-    row = ((tile_id // tpr) * T + within // T).to(torch.float32)
-    col = ((tile_id % tpr) * T + within % T).to(torch.float32)
-    if spp == 1:
-        u_off = v_off = 0.5
-    else:
-        u_off = pos_uniform(key, q, 1_000_001)
-        v_off = pos_uniform(key, q, 1_000_002)
-
-    def column(a):
-        return torch.from_numpy(np.asarray(a, F32).copy()).to(device)[:, None]
-
-    vu_delta = column(np.asarray(v.vu, F32) * (F32(1.0) / F32(v.width)))
-    vv_delta = column(np.asarray(v.vv, F32) * (F32(1.0) / F32(v.height)))
-    px_u = fma(vv_delta, (row + v_off)[None],
-               fma(vu_delta, (col + u_off)[None], column(v.orig)))
-    d = unit_rows(px_u - column(v.cam))
-    live = (q < R0)[None]
-    return torch.where(live, px_u, 0.0), torch.where(live, d, 0.0)
 
 
 def page_lists(mask: torch.Tensor, tmin: torch.Tensor):
@@ -646,22 +588,29 @@ class Engine(RayCaster):
                 v.height, v.width, v.samples_per_pixel, tile)
         return self._perm_cache[key]
 
-    def _pinhole_fold(self, v: Viewport, o: torch.Tensor):
-        """Re-anchor primary rays at the pinhole and fold it into the page
-        scalars (cached per camera).  Returns (o, pk0); pk0 is None when
-        the render reads no union pages at wave 0 (the streamed regime's
-        compacted loop: its kernels take the true origins), and (o, None)
-        as given with pinhole_origin=False."""
-        if not self.pinhole_origin:
-            return o, None
-        cam = torch.from_numpy(np.asarray(v.cam, F32).copy()).to(self.device)
-        o = cam[:, None].expand(o.shape).contiguous()
-        if self.PK is None:
-            return o, None
+    def _camera_rays(self, v: Viewport, tile: int, n_pad: int, key,
+                     q_base: int = 0, n_live=None):
+        """The primary rays of stream positions q_base .. q_base + n_pad on
+        the Engine's device (`ops.camera.camera_rays_tiled`: on the card one
+        kernel launch): (o, d, alive0, pk0), o the pinhole on every lane
+        with pinhole_origin, alive0 the lanes below n_live (default: the
+        lanes inside the image), pk0 from `_pinhole_fold`."""
+        o, d, alive0 = camera_rays_tiled(v, tile, n_pad, self.device, key,
+                                         q_base, self.pinhole_origin, n_live)
+        return o, d, alive0, self._pinhole_fold(v)
+
+    def _pinhole_fold(self, v: Viewport):
+        """The page scalars with the pinhole folded in (cached per camera),
+        for primary rays that start at the pinhole; None when the render
+        reads no union pages at wave 0 (the streamed regime's compacted
+        loop: its kernels take the true origins) and with
+        pinhole_origin=False."""
+        if not self.pinhole_origin or self.PK is None:
+            return None
         cam_key = tuple(np.asarray(v.cam, dtype=np.float32).tolist())
         if cam_key not in self._pk0_cache:
             self._pk0_cache[cam_key] = fold_pages_origin(self.PK, cam_key)
-        return o, self._pk0_cache[cam_key]
+        return self._pk0_cache[cam_key]
 
     def _render_waves(self, state, key, maxdepth: int, fixed_rng: bool, pk0,
                       ray_chunk=None, bounce_chunk=None, ncompact=None,
@@ -958,9 +907,7 @@ class Engine(RayCaster):
         R0 = v.height * v.width * v.samples_per_pixel
         quantum = self._quantum(v.samples_per_pixel)
         R = -(-R0 // quantum) * quantum
-        o, d = camera_rays_tiled(v, tile, R, self.device, key)
-        o, pk0 = self._pinhole_fold(v, o)
-        alive0 = torch.arange(R, device=self.device) < R0
+        o, d, alive0, pk0 = self._camera_rays(v, tile, R, key)
         return tile, o, d, alive0, pk0
 
     def _quantum(self, spp: int) -> int:
@@ -1087,7 +1034,6 @@ class Engine(RayCaster):
         progress gets one `update` per band and the per-wave totals."""
         key = prng_key(0) if key is None else np.asarray(key, np.uint32)
         spp = v.samples_per_pixel
-        dev = self.device
         t0 = time.perf_counter()
 
         tile = pick_tile(v.width, v.height)
@@ -1109,9 +1055,8 @@ class Engine(RayCaster):
             q0 = r0 * rays_per_row
             Rb0 = bh * rays_per_row
             Rpad = -(-Rb0 // quantum) * quantum
-            o, d = camera_rays_tiled(v, tile, Rpad, dev, key, q_base=q0)
-            o, pk0 = self._pinhole_fold(v, o)
-            alive0 = torch.arange(Rpad, device=dev) < Rb0
+            o, d, alive0, pk0 = self._camera_rays(v, tile, Rpad, key, q0,
+                                                  n_live=Rb0)
             img, wc, _, _ = self._dispatch(v.maxdepth, spp, o, d, alive0,
                                            fold_in(key, bi), fixed_rng, False,
                                            quant, pk0)
@@ -1171,9 +1116,7 @@ class Engine(RayCaster):
         quantum = n * self._quantum(spp)
         R = -(-R0 // quantum) * quantum
         quant = quantize and device_quantizable(spp)
-        o, d = camera_rays_tiled(v, tile, R, self.device, key)
-        o, pk0 = self._pinhole_fold(v, o)
-        alive0 = torch.arange(R, device=self.device) < R0
+        o, d, alive0, pk0 = self._camera_rays(v, tile, R, key)
         img, wave_counts, primary = engine_render_sharded(
             self, o, d, alive0, key, mesh, v.maxdepth, fixed_rng=fixed_rng,
             spp=spp, pk0=pk0, quantize=quant, want_primary=debug)

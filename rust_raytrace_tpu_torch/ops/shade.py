@@ -98,6 +98,13 @@ def sum3(a, b):
     return fma(a[2], b[2], fma(a[1], b[1], a[0] * b[0] + 0.0))
 
 
+def unit_rows(v: torch.Tensor, wide: bool = False) -> torch.Tensor:
+    """Normalize [3, R] column vectors (`jnp.sum(v * v, axis=0)` is XLA's
+    `sum3`, measured against the jitted camera).  wide: the rsqrt of a
+    fusion XLA vectorizes 16 floats wide (C7)."""
+    return v * rsqrt(sum3(v, v), wide)[None]
+
+
 def unit3(v0, v1, v2):
     """Normalize a 3-vector given as three equal-shape tensors."""
     inv = rsqrt(norm2(v0, v1, v2))

@@ -51,8 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..engine import (_assemble_host_image, camera_rays_tiled,
-                      device_quantizable, pick_tile)
+from ..engine import _assemble_host_image, device_quantizable, pick_tile
 from ..ops.untile import untile_u8
 from ..render import RenderResult, trace_rays
 from ..utils.rng import fold_in, prng_key
@@ -198,11 +197,8 @@ def shard_rays(engine, v, key, rank: int, n: int):
     quantum = n * engine._quantum(spp)
     R = -(-R0 // quantum) * quantum
     Rs = R // n
-    dev = engine.device
-    o, d = camera_rays_tiled(v, pick_tile(v.width, v.height), Rs, dev, key,
-                             q_base=rank * Rs)
-    o, pk0 = engine._pinhole_fold(v, o)
-    alive0 = torch.arange(Rs, device=dev) + rank * Rs < R0
+    o, d, alive0, pk0 = engine._camera_rays(v, pick_tile(v.width, v.height),
+                                            Rs, key, q_base=rank * Rs)
     return R, o, d, alive0, pk0
 
 
@@ -242,8 +238,9 @@ def engine_render_distributed(engine, v, key=None, fixed_rng: bool = False,
            "engine_render_distributed")
     spp = v.samples_per_pixel
     quant = quantize and device_quantizable(spp)
-    _, o, d, alive0, pk0 = shard_rays(engine, v, key, ranks.rank, ranks.size)
     with on_device(dev):
+        _, o, d, alive0, pk0 = shard_rays(engine, v, key, ranks.rank,
+                                          ranks.size)
         img, wc, primary, _ = engine._dispatch(
             v.maxdepth, spp, o, d, alive0, fold_in(key, ranks.rank),
             fixed_rng, debug, quant, pk0)

@@ -263,6 +263,15 @@ UNTILE = Kernel(
     "rust_raytrace_tpu_torch/csrc/untile.cu",
     "none (the host un-permute, rust_raytrace_tpu/engine.py:924)")
 
+#: the camera's primary rays, one launch a render (`ops/camera.py`).  It
+#: replaces no TPU kernel: the JAX package computes the camera in XLA
+CAMERA = Kernel(
+    "camera_rays_tiled", "rt_camera",
+    [P, P, P, I64, I64, I64, I64, I32, I32, I32, P, U32, U32, U32, U32, P,
+     I32, P],
+    "rust_raytrace_tpu_torch/csrc/camera.cu",
+    "none (the camera in XLA, rust_raytrace_tpu/engine.py:159)")
+
 #: the fp32 FMA-rate probe of `utils/roofline.measure_fp32_peak`, a
 #: measurement of the card: no render path launches it, so it is not in
 #: KERNELS
@@ -275,7 +284,7 @@ FMA_PEAK = Kernel(
 KERNELS = (CULL,TRACE_SHADE_UNION, COMPACT, TRACE_SHADE_PERLANE, EXPAND,
            TRACE_UNION_ROWS, SHADE, TRACE_SHADE_STREAMED, TRACE_STREAMED,
            NEAREST_HIT, TRACE_PERLANE, BM_PREP, BM_SWEEP, BM_FINISH,
-           CULL_SORTED, COMPACT_BUCKETS, EXPAND_BUCKETS, UNTILE)
+           CULL_SORTED, COMPACT_BUCKETS, EXPAND_BUCKETS, UNTILE, CAMERA)
 
 
 def reset_launch_counts() -> None:

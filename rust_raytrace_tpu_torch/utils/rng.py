@@ -14,7 +14,7 @@ the bulk draws, which `uniform` reproduces, are the shadow jitter
 (`engine.shadow_rays_od`), the legacy loop's and the portable renderer's
 scatter vectors (`engine.legacy_rv`, `render._random_unit_vec`) and the
 portable renderer's spp jitter (`render.camera_rays`); the Engine's spp
-jitter hashes absolute positions (`engine.pos_uniform`).
+jitter hashes absolute positions (`ops.camera.pos_uniform`).
 
 Keys are host numpy `[2]` uint32 arrays: they seed kernels as two scalars and
 never need the device.

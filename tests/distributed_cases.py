@@ -59,9 +59,10 @@ def mismatched(rank: int, scene, view, out: str) -> None:
 def nccl_card(rank: int, scene, view, out: str) -> None:
     """A rank of an nccl group on its card: one render under fixed_rng
     with the launch counts set to 0 just before it.  Writes the image, the
-    wave counts and the un-tiling kernel's launches."""
+    wave counts and the un-tiling and camera kernels' launches."""
     eng = Engine(scene, device=distributed.rank_device())
     native.reset_launch_counts()
     res = distributed.engine_render_distributed(eng, view, fixed_rng=True)
     _write(out, rank, {"image": res.image, "wave_rays": res.wave_rays,
-                       "untile_launches": native.UNTILE.launches})
+                       "untile_launches": native.UNTILE.launches,
+                       "camera_launches": native.CAMERA.launches})

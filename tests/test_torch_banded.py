@@ -101,9 +101,9 @@ def test_band_rays_are_the_full_streams():
     tile = pick_tile(vp.width, vp.height)
     R = 64 * 48 * 4
     key = prng_key(6)
-    o, d = camera_rays_tiled(vp, tile, R, "cpu", key)
+    o, d, _ = camera_rays_tiled(vp, tile, R, "cpu", key)
     q0, n = 16 * 64 * 4, 2048
-    ob, db = camera_rays_tiled(vp, tile, n, "cpu", key, q_base=q0)
+    ob, db, _ = camera_rays_tiled(vp, tile, n, "cpu", key, q_base=q0)
     np.testing.assert_array_equal(bits(ob), bits(o[:, q0:q0 + n]))
     np.testing.assert_array_equal(bits(db), bits(d[:, q0:q0 + n]))
 

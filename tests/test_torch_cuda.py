@@ -13,18 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from rust_raytrace_tpu_torch.engine import (Engine, camera_rays_tiled,
-                                            page_lists, pick_tile,
+from rust_raytrace_tpu_torch.engine import (Engine, page_lists, pick_tile,
                                             shadow_mask_perlane, shadow_rays,
                                             tile_permutation)
 from rust_raytrace_tpu_torch import math3d as m3
 from rust_raytrace_tpu_torch.camera import create_viewport
 from rust_raytrace_tpu_torch.geometry import make_sphere, make_triangles
 from rust_raytrace_tpu_torch.materials import matte, reflective
-from rust_raytrace_tpu_torch.ops import (compact, cull, intersect,
+from rust_raytrace_tpu_torch.ops import (camera, compact, cull, intersect,
                                         intersect_perlane, intersect_streamed,
                                         shade, untile)
-from rust_raytrace_tpu_torch.models import circles
+from rust_raytrace_tpu_torch.models import circles, dog
 from rust_raytrace_tpu_torch.render import WavefrontRenderer, camera_rays
 from rust_raytrace_tpu_torch.scene import LightSource, assemble
 from rust_raytrace_tpu_torch.utils import native, png
@@ -52,11 +51,7 @@ def wave0(dev):
     scene, vp = circles.build(resolution=(96, 54), maxdepth=5)
     eng = Engine(scene, ray_chunk=RB, device=dev)
     R = -(-vp.width * vp.height // RB) * RB
-    o, d = camera_rays_tiled(vp, pick_tile(vp.width, vp.height), R, dev)
-    o, pk0 = eng._pinhole_fold(vp, o)
-    alive = (torch.arange(R, device=dev) < vp.width * vp.height).float()
-    st = torch.cat([o, d, alive[None], alive[None],
-                    torch.zeros((8, R), device=dev)])
+    st, pk0 = _camera_state(eng, vp, R, dev)
     return eng, st, pk0
 
 
@@ -177,7 +172,7 @@ def test_golden_on_card_launches_every_kernel(dev):
                         "bankmajor_prep": 0, "bankmajor_sweep": 0,
                         "bankmajor_finish": 0, "cull_sorted": 0,
                         "compact_buckets": 0, "expand_buckets": 0,
-                        "untile_u8": 1}
+                        "untile_u8": 1, "camera_rays_tiled": 1}
 
 
 def _bitwise(got, want):
@@ -241,7 +236,7 @@ def test_lit_render_on_card_equals_cpu(dev):
                         "bankmajor_prep": 0, "bankmajor_sweep": 0,
                         "bankmajor_finish": 0, "cull_sorted": 0,
                         "compact_buckets": 0, "expand_buckets": 0,
-                        "untile_u8": 1}
+                        "untile_u8": 1, "camera_rays_tiled": 1}
     ref = Engine(scene, device="cpu").render(vp, key=prng_key(1)).image
     np.testing.assert_array_equal(img, ref)
 
@@ -273,11 +268,8 @@ def test_streamed_kernels_match_plain(dev, fixed):
     eng = Engine(scene, page_size=8, ray_chunk=RB, streamed=True, device=dev)
     tabs = eng.stables
     R = -(-vp.width * vp.height // RB) * RB
-    o, d = camera_rays_tiled(vp, pick_tile(vp.width, vp.height), R, dev)
-    o, _ = eng._pinhole_fold(vp, o)
-    alive = (torch.arange(R, device=dev) < vp.width * vp.height).float()
-    st = torch.cat([o, d, alive[None], alive[None],
-                    torch.zeros((8, R), device=dev)])
+    st = _camera_state(eng, vp, R, dev)[0]
+    o, d, alive = st[0:3], st[3:6], st[6]
     nc = R // RB
     dead = torch.ones(nc, dtype=torch.int32, device=dev)
     dead[1::3] = 0
@@ -376,11 +368,7 @@ def test_wavefront_render_on_card_equals_cpu(dev, backend):
 
 def _sphere_state(eng, vp, dev):
     R = -(-vp.width * vp.height // RB) * RB
-    o, d = camera_rays_tiled(vp, pick_tile(vp.width, vp.height), R, dev)
-    o, _ = eng._pinhole_fold(vp, o)
-    alive = (torch.arange(R, device=dev) < vp.width * vp.height).float()
-    return torch.cat([o, d, alive[None], alive[None],
-                      torch.zeros((8, R), device=dev)])
+    return _camera_state(eng, vp, R, dev)[0]
 
 
 @pytest.mark.parametrize("fixed", [True, False])
@@ -560,7 +548,8 @@ def test_bankmajor_render_on_card_equals_cpu(dev):
     assert launches == {k: {"trace_shade_streamed": 2, "compact": 2,
                             "expand": 2, "bankmajor_prep": n,
                             "bankmajor_sweep": n,
-                            "bankmajor_finish": n, "untile_u8": 1}.get(k, 0)
+                            "bankmajor_finish": n, "untile_u8": 1,
+                            "camera_rays_tiled": 1}.get(k, 0)
                         for k in launches}
     ref = Engine(scene, page_size=8, ray_chunk=RB, streamed=True,
                  bank_major=True, device="cpu").render(
@@ -574,11 +563,10 @@ def test_bankmajor_render_on_card_equals_cpu(dev):
 def _camera_state(eng, vp, R, dev):
     """The wave-0 state of vp's camera rays padded to R lanes, and the
     folded pages (None in the streamed regime)."""
-    o, d = camera_rays_tiled(vp, pick_tile(vp.width, vp.height), R, dev)
-    o, pk0 = eng._pinhole_fold(vp, o)
-    alive = (torch.arange(R, device=dev) < vp.width * vp.height).float()
-    return torch.cat([o, d, alive[None], alive[None],
-                      torch.zeros((8, R), device=dev)]), pk0
+    o, d, alive, pk0 = eng._camera_rays(
+        vp, pick_tile(vp.width, vp.height), R, None)
+    a = alive.float()[None]
+    return torch.cat([o, d, a, a, torch.zeros((8, R), device=dev)]), pk0
 
 
 @pytest.mark.parametrize("rc", [128, 1024, 2048])
@@ -1135,7 +1123,8 @@ def test_untiled_renders_equal_the_host_path(dev):
 def test_nccl_rank_0_untiles_on_its_card(dev, tmp_path):
     """One nccl rank on the card: `engine_render_distributed` gathers the
     image on rank 0's card and un-tiles it there, one kernel launch, with
-    the bytes of render() under fixed_rng (circles 96x64, spp 4)."""
+    the bytes of render() under fixed_rng (circles 96x64, spp 4); the rank's
+    shard of camera rays is one launch of the camera kernel."""
     import distributed_cases
     from rust_raytrace_tpu_torch.parallel import distributed
 
@@ -1146,6 +1135,96 @@ def test_nccl_rank_0_untiles_on_its_card(dev, tmp_path):
     with open(tmp_path / "rank0.pkl", "rb") as f:
         got = pickle.load(f)
     want = Engine(scene, device=dev).render(vp, fixed_rng=True)
-    assert got["untile_launches"] == 1
+    assert got["untile_launches"] == 1 and got["camera_launches"] == 1
     np.testing.assert_array_equal(got["image"], want.image)
     np.testing.assert_array_equal(got["wave_rays"], want.wave_rays)
+
+
+def _camera_equal(vp, tile, n_pad, key, q_base=0, pinhole=False,
+                  n_live=None):
+    """The camera kernel's (o, d, alive) bit for bit against its plain
+    version on the card, one launch."""
+    dev = torch.device("cuda")
+    n0 = native.CAMERA.launches
+    got = camera.camera_rays_tiled(vp, tile, n_pad, dev, key, q_base,
+                                   pinhole, n_live)
+    assert native.CAMERA.launches == n0 + 1
+    want = camera.camera_rays_tiled_plain(vp, tile, n_pad, dev, key, q_base,
+                                          pinhole, n_live)
+    torch.cuda.synchronize()
+    for name, g, w in zip("o d alive".split(), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype and g.is_contiguous()
+        bad = g.view(torch.uint8) != w.view(torch.uint8)
+        assert not bad.any(), (f"{name}: {int(bad.sum())} bytes differ at "
+                               f"q_base {q_base}, n_pad {n_pad}")
+
+
+@pytest.mark.parametrize("res", [(96, 64), (50, 27)])
+@pytest.mark.parametrize("pinhole", [False, True])
+@pytest.mark.parametrize("seed", [0, 77, 2 ** 31 + 5])
+@pytest.mark.parametrize("spp", [1, 2, 4, 3])
+def test_camera_kernel_matches_plain(dev, spp, seed, pinhole, res):
+    """`csrc/camera.cu` bit for bit against `camera_rays_tiled_plain`:
+    spp 1, 2, 4 (template instances) and 3 (the generic path), three keys,
+    tiles 32 and 1, with and without the pinhole; the whole ray set padded
+    past the image, a band's window (from one tile row on, its live count
+    the band's) and each shard of three (q_base = r * R / 3)."""
+    _, vp = circles.build(resolution=res, maxdepth=2, samples=spp)
+    tile = pick_tile(vp.width, vp.height)
+    key = prng_key(seed)
+    R0 = vp.width * vp.height * spp
+    R = -(-R0 // 384) * 384 + 384
+    _camera_equal(vp, tile, R, key, pinhole=pinhole)
+    q0 = tile * vp.width * spp
+    _camera_equal(vp, tile, 2048, key, q_base=q0, pinhole=pinhole,
+                  n_live=min(R0 - q0, 2000))
+    for r in range(3):
+        _camera_equal(vp, tile, R // 3, key, q_base=r * (R // 3),
+                      pinhole=pinhole)
+
+
+@pytest.mark.parametrize("scene", ["circles_2k", "dog_1080"])
+def test_camera_kernel_matches_plain_full_size(dev, scene):
+    """The full ray sets of the benchmark's sizes at spp 4: 2560x1440
+    (14,745,600 rays) and the dog's 1920x1080 camera (8,294,400), padded as
+    the default Engine pads, under live keys, with the pinhole."""
+    if scene == "circles_2k":
+        _, vp = circles.build(resolution=(2560, 1440), samples=4)
+    else:
+        vp = dog.build(samples=4, with_light=True)[1]
+        assert (vp.width, vp.height) == (1920, 1080)
+    R0 = vp.width * vp.height * 4
+    R = -(-R0 // 4096) * 4096
+    for seed in (5, 2 ** 31 + 5):
+        _camera_equal(vp, pick_tile(vp.width, vp.height), R, prng_key(seed),
+                      pinhole=True)
+
+
+def test_camera_launches_once_a_render(dev):
+    """One launch of the camera kernel a render(), a band of
+    render_banded and a render_sharded (its shards slice one ray set), and
+    none for a CPU Engine, which runs the plain version."""
+    scene, vp = circles.build(resolution=(96, 64), maxdepth=2, samples=4)
+    eng = Engine(scene, device=dev)
+    for call, n in ((lambda: eng.render(vp), 1),
+                    (lambda: eng.render_banded(vp, band_rows=32), 2),
+                    (lambda: eng.render_sharded(vp, mesh=[dev, dev]), 1)):
+        call()
+        native.reset_launch_counts()
+        call()
+        assert native.CAMERA.launches == n
+    scene, vp = circles.build(resolution=(32, 16), maxdepth=2, samples=4)
+    native.reset_launch_counts()
+    Engine(scene, device="cpu", ray_chunk=128).render(vp)
+    assert native.CAMERA.launches == 0
+
+
+def test_camera_kernel_refuses(dev):
+    """What the kernel does not take raises before a launch: a jittered
+    camera without a key, positions past 2^31 - 1."""
+    _, vp = circles.build(resolution=(96, 64), samples=4)
+    with pytest.raises(ValueError, match="key"):
+        camera.camera_rays_tiled(vp, 32, 1024, dev)
+    with pytest.raises(ValueError, match="positions"):
+        camera.camera_rays_tiled(vp, 32, 1024, dev, prng_key(0),
+                                 q_base=2 ** 31 - 512)

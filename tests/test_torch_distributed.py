@@ -24,7 +24,7 @@ from rust_raytrace_tpu.engine import Engine as JEngine
 from rust_raytrace_tpu.models import circles as jcircles
 from rust_raytrace_tpu.parallel import sharding as jsharding
 from rust_raytrace_tpu.render import upload_scene as jupload_scene
-from rust_raytrace_tpu_torch.engine import Engine, camera_rays_tiled, pick_tile
+from rust_raytrace_tpu_torch.engine import Engine, pick_tile
 from rust_raytrace_tpu_torch.parallel import distributed
 from rust_raytrace_tpu_torch.parallel.sharding import (make_mesh,
                                                        trace_rays_sharded)
@@ -219,9 +219,8 @@ def test_shard_rays_equal_the_slice_of_the_full_rays(spp, n):
     for r in range(n):
         R, o, d, alive0, pk0 = distributed.shard_rays(eng, vp, key, r, n)
         if r == 0:
-            fo, fd = camera_rays_tiled(vp, pick_tile(vp.width, vp.height), R,
-                                       "cpu", key)
-            fo, fpk0 = eng._pinhole_fold(vp, fo)
+            fo, fd, _, fpk0 = eng._camera_rays(
+                vp, pick_tile(vp.width, vp.height), R, key)
             R0 = vp.width * vp.height * spp
         Rs = R // n
         sl = slice(r * Rs, (r + 1) * Rs)

@@ -12,6 +12,7 @@ import rust_raytrace_tpu.engine as jeng
 import rust_raytrace_tpu_torch.engine as teng
 from rust_raytrace_tpu.models import circles
 from rust_raytrace_tpu_torch.models import circles as tcircles
+from rust_raytrace_tpu_torch.ops.camera import camera_rays_tiled_plain
 from rust_raytrace_tpu_torch.ops.untile import untile_u8
 from rust_raytrace_tpu.ops.intersect_pallas import (
     fold_pages_origin as j_fold_pages_origin)
@@ -20,6 +21,7 @@ from rust_raytrace_tpu.ops.intersect_perlane import (
 from rust_raytrace_tpu.ops.pages import build_pages_kd
 from rust_raytrace_tpu_torch.ops.intersect import fold_pages_origin
 from rust_raytrace_tpu_torch.ops.intersect_perlane import build_perlane_tables
+from rust_raytrace_tpu_torch.utils import native
 from rust_raytrace_tpu_torch.utils.rng import fold_in, prng_key
 
 F32 = np.float32
@@ -120,9 +122,63 @@ def test_camera_rays_tiled_equal_jax(res):
         jnp.asarray(vp.orig), jnp.asarray(vp.cam), jnp.asarray(vp.vu),
         jnp.asarray(vp.vv), jax.random.PRNGKey(0), width=vp.width,
         height=vp.height, spp=1, tile=tile, n_pad=R)
-    to, td = teng.camera_rays_tiled(vp, tile, R, "cpu")
+    to, td, _ = teng.camera_rays_tiled(vp, tile, R, "cpu")
     np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("tile_rows", [0, 1])
+@pytest.mark.parametrize("seed", [3, 2 ** 31 + 5])
+@pytest.mark.parametrize("spp", [2, 4])
+def test_camera_rays_tiled_jitter_equal_jax(spp, seed, tile_rows):
+    """Bitwise at spp > 1, the oracle of the camera kernel: the jitter
+    keyed by stream position (`pos_uniform` under fold_in(key, 1_000_001)
+    and 1_000_002) under two keys, from the image's first position and
+    from one tile row on (a band's window), padded past the image; and
+    the live mask."""
+    _, vp = circles.build(resolution=(64, 48), samples=spp)
+    tile = teng.pick_tile(vp.width, vp.height)
+    R0 = vp.width * vp.height * spp
+    q_base = tile_rows * tile * vp.width * spp
+    R = -(-(R0 - q_base) // 128) * 128 + 128
+    jo, jd = jeng._camera_rays_tiled(
+        jnp.asarray(vp.orig), jnp.asarray(vp.cam), jnp.asarray(vp.vu),
+        jnp.asarray(vp.vv), jax.random.PRNGKey(seed), width=vp.width,
+        height=vp.height, spp=spp, tile=tile, n_pad=R, q_base=q_base)
+    to, td, alive = teng.camera_rays_tiled(vp, tile, R, "cpu",
+                                           prng_key(seed), q_base=q_base)
+    np.testing.assert_array_equal(to.numpy().view(np.uint32),
+                                  np.asarray(jo).view(np.uint32))
+    np.testing.assert_array_equal(td.numpy().view(np.uint32),
+                                  np.asarray(jd).view(np.uint32))
+    np.testing.assert_array_equal(alive.numpy(),
+                                  np.arange(R) + q_base < R0)
+
+
+@pytest.mark.parametrize("pinhole,n_live", [(False, None), (True, None),
+                                            (True, 1000)])
+def test_camera_rays_tiled_cpu_is_the_plain_version(pinhole, n_live):
+    """On the CPU the camera's wrapper returns its plain version's tensors
+    and launches nothing; with the pinhole, o is the JAX pinhole fold's
+    (the camera's position on every lane, padding included)."""
+    _, vp = circles.build(resolution=(64, 48), samples=4)
+    tile = teng.pick_tile(vp.width, vp.height)
+    R, key = 64 * 48 * 4 + 256, prng_key(11)
+    n0 = native.CAMERA.launches
+    got = teng.camera_rays_tiled(vp, tile, R, "cpu", key, q_base=512,
+                                 pinhole=pinhole, n_live=n_live)
+    want = camera_rays_tiled_plain(vp, tile, R, "cpu", key, q_base=512,
+                                   pinhole=pinhole, n_live=n_live)
+    assert native.CAMERA.launches == n0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.device.type == "cpu"
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+    live = 64 * 48 * 4 - 512 if n_live is None else n_live
+    np.testing.assert_array_equal(got[2].numpy(), np.arange(R) < live)
+    if pinhole:
+        np.testing.assert_array_equal(
+            got[0].numpy(), np.broadcast_to(
+                np.asarray(vp.cam, np.float32)[:, None], (3, R)))
 
 
 def test_build_perlane_tables_equal_jax():

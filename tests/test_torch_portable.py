@@ -24,8 +24,8 @@ from rust_raytrace_tpu.ops.intersect_xla import nearest_hit_xla as jscan
 from rust_raytrace_tpu.ops.pages import build_pages as jbuild_pages
 from rust_raytrace_tpu.render import WavefrontRenderer as JRenderer
 from rust_raytrace_tpu.scene import assemble
-from rust_raytrace_tpu_torch import engine
 from rust_raytrace_tpu_torch.models import circles
+from rust_raytrace_tpu_torch.ops import camera
 from rust_raytrace_tpu_torch.ops.intersect import nearest_hit, nearest_hit_plain
 from rust_raytrace_tpu_torch.ops.intersect_xla import nearest_hit_xla
 from rust_raytrace_tpu_torch.render import WavefrontRenderer
@@ -285,6 +285,6 @@ def test_pos_uniform_equals_jax():
     """The Engine's position-keyed spp jitter on 1,048,576 positions."""
     q = np.arange(1 << 20, dtype=np.int32) + 12345
     ref = jeng._pos_uniform(jax.random.PRNGKey(9), jnp.asarray(q), 1_000_002)
-    got = engine.pos_uniform(prng_key(9), torch.from_numpy(q), 1_000_002)
+    got = camera.pos_uniform(prng_key(9), torch.from_numpy(q), 1_000_002)
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   np.asarray(ref).view(np.uint32))
